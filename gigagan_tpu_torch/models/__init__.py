@@ -1,0 +1,5 @@
+from gigagan_tpu_torch.models import layers
+from gigagan_tpu_torch.models.conditioning import StyleNetwork
+from gigagan_tpu_torch.models.generator import Generator
+
+__all__ = ["Generator", "StyleNetwork", "layers"]

@@ -1,0 +1,241 @@
+"""Core layer modules, channels-last throughout (counterpart of the parts
+of gigagan_tpu/models/layers.py on the generator's sampling path).
+
+- 1x1 convs are ``Dense`` on the trailing channel axis, exactly like flax
+  ``nn.Dense``: weights are stored fp32 and cast, with the input, to the
+  module's compute ``dtype``.
+- Parameters are created empty; ``init_parameters(module, generator)``
+  draws every one from an explicit ``torch.Generator`` with the JAX
+  package's distributions, in module-registration order.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gigagan_tpu_torch import ops
+from gigagan_tpu_torch.utils import exists
+from gigagan_tpu_torch.utils.init import kaiming_normal_leaky_
+
+
+def init_parameters(module: nn.Module, generator=None) -> None:
+    """Draw every parameter of ``module`` from ``generator``."""
+    for m in module.modules():
+        reset = getattr(m, "reset_own_parameters", None)
+        if reset is not None:
+            reset(generator)
+
+
+def leaky_relu(x, neg_slope: float = 0.2):
+    return F.leaky_relu(x, negative_slope=neg_slope)
+
+
+def l2norm(x, dim: int = -1, eps: float = 1e-12):
+    """x / max(||x||₂, eps) with the clamp INSIDE the sqrt (so an all-zero
+    row has a finite gradient), sums in fp32."""
+    sum_sq = x.float().square().sum(dim=dim, keepdim=True)
+    norm = torch.sqrt(torch.clamp(sum_sq, min=eps * eps))
+    return (x / norm.to(x.dtype)).to(x.dtype)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: y = x·W (+ b) in ``dtype``; weight stored as a
+    torch Linear weight (out, in), kaiming-normal (leaky) on fan_in."""
+
+    def __init__(self, dim_in: int, dim_out: int, bias: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(dim_out, dim_in))
+        self.bias = nn.Parameter(torch.empty(dim_out)) if bias else None
+
+    def reset_own_parameters(self, generator=None):
+        kaiming_normal_leaky_(self.weight, "linear", generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        bias = self.bias.to(self.dtype) if self.bias is not None else None
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+def conv1x1(dim_in: int, dim_out: int, bias: bool = True,
+            dtype=torch.float32):
+    return Dense(dim_in, dim_out, bias=bias, dtype=dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm over the channel (last) axis."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+        self.gamma = nn.Parameter(torch.empty(dim))
+
+    def reset_own_parameters(self, generator=None):
+        nn.init.ones_(self.gamma)
+
+    def forward(self, x):
+        scale = self.dim ** 0.5
+        return l2norm(x) * (scale * self.gamma).to(x.dtype)
+
+
+class Upsample(nn.Module):
+    """Bilinear 2x + binomial blur.  Parameter-free."""
+
+    def forward(self, x):
+        return ops.resample.upsample_2x_blur(x)
+
+
+class SqueezeExcite(nn.Module):
+    """Global pool → MLP → sigmoid gate; returns the (b, 1, 1, dim_out)
+    gate that the caller multiplies into a deeper layer."""
+
+    def __init__(self, dim_in: int, dim_out: int, reduction: int = 4,
+                 dim_min: int = 32, dtype=torch.float32):
+        super().__init__()
+        dim_hidden = max(dim_out // reduction, dim_min)
+        self.fc1 = conv1x1(dim_in, dim_hidden, dtype=dtype)
+        self.fc2 = conv1x1(dim_hidden, dim_out, dtype=dtype)
+
+    def forward(self, x):
+        g = x.mean(dim=(1, 2))
+        g = torch.sigmoid(self.fc2(F.silu(self.fc1(g))))
+        return g[:, None, None, :]
+
+
+class Noise(nn.Module):
+    """Per-pixel noise with a learned per-channel weight.  An explicit
+    ``noise`` wins; otherwise it is drawn from ``generator``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dim))
+
+    def reset_own_parameters(self, generator=None):
+        nn.init.zeros_(self.weight)
+
+    def forward(self, x, noise=None, generator=None):
+        if not exists(noise):
+            noise = torch.randn((*x.shape[:-1], 1), generator=generator,
+                                device=x.device, dtype=x.dtype)
+        return x + self.weight.to(x.dtype) * noise
+
+
+class EqualLinear(nn.Module):
+    """StyleGAN equalized linear: weight ~ N(0, 1) stored (out, in), lr_mul
+    folded in at run time."""
+
+    def __init__(self, dim_in: int, dim_out: int, lr_mul: float = 1.0,
+                 bias: bool = True):
+        super().__init__()
+        self.lr_mul = lr_mul
+        self.weight = nn.Parameter(torch.empty(dim_out, dim_in))
+        self.bias = nn.Parameter(torch.empty(dim_out)) if bias else None
+
+    def reset_own_parameters(self, generator=None):
+        self.weight.data.normal_(0.0, 1.0, generator=generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        w = (self.weight * self.lr_mul).to(x.dtype)
+        b = (self.bias * self.lr_mul).to(x.dtype) if exists(self.bias) else None
+        return F.linear(x, w, b)
+
+
+class AdaptiveConv(nn.Module):
+    """Style-modulated, sample-adaptive 2-D conv over
+    ``ops.adaptive_conv``; banks ``(n, k, k, dim_in, dim_out)``."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel: int = 3,
+                 demod: bool = True, num_conv_kernels: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.demod = demod
+        n = max(num_conv_kernels, 1)
+        self.weights = nn.Parameter(
+            torch.empty(n, kernel, kernel, dim_in, dim_out)
+        )
+
+    def reset_own_parameters(self, generator=None):
+        kaiming_normal_leaky_(self.weights, "bank", generator)
+
+    @property
+    def adaptive(self):
+        return self.weights.shape[0] > 1
+
+    def forward(self, fmap, mod, kernel_mod=None):
+        if not self.adaptive:
+            kernel_mod = None
+        return ops.adaptive_conv(fmap.to(self.dtype), self.weights, mod,
+                                 kernel_mod, demod=self.demod)
+
+
+class SelfAttention(nn.Module):
+    """Self-attention on feature maps with a learned null key/value:
+    L2-distance similarity with shared q/k, or dot product with its own
+    to_k."""
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
+                 dot_product: bool = False, dtype=torch.float32):
+        super().__init__()
+        inner = dim_head * heads
+        self.heads = heads
+        self.dim_head = dim_head
+        self.dot_product = dot_product
+        self.norm = RMSNorm(dim)
+        self.to_q = conv1x1(dim, inner, bias=False, dtype=dtype)
+        self.to_k = (conv1x1(dim, inner, bias=False, dtype=dtype)
+                     if dot_product else None)
+        self.to_v = conv1x1(dim, inner, bias=False, dtype=dtype)
+        self.to_out = conv1x1(inner, dim, bias=False, dtype=dtype)
+        self.null_kv = nn.Parameter(torch.empty(2, heads, dim_head))
+
+    def reset_own_parameters(self, generator=None):
+        self.null_kv.data.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, fmap):
+        b, h, w, _ = fmap.shape
+        inner = self.dim_head * self.heads
+        fmap = self.norm(fmap)
+        q = self.to_q(fmap)
+        v = self.to_v(fmap)
+        k = self.to_k(fmap) if self.dot_product else q  # shared q/k space
+        q, k, v = (t.reshape(b, h * w, inner) for t in (q, k, v))
+        out = ops.attend_fused(
+            q, k, v, heads=self.heads, null_kv=self.null_kv,
+            l2_dist=not self.dot_product, scale=self.dim_head ** -0.5,
+        )
+        return self.to_out(out.reshape(b, h, w, inner))
+
+
+class FeedForward(nn.Module):
+    """RMSNorm → proj → GELU (exact) → proj."""
+
+    def __init__(self, dim: int, mult: int = 4, dtype=torch.float32):
+        super().__init__()
+        dim_hidden = int(dim * mult)
+        self.norm = RMSNorm(dim)
+        self.proj_in = conv1x1(dim, dim_hidden, dtype=dtype)
+        self.proj_out = conv1x1(dim_hidden, dim, dtype=dtype)
+
+    def forward(self, x):
+        return self.proj_out(F.gelu(self.proj_in(self.norm(x))))
+
+
+class SelfAttentionBlock(nn.Module):
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
+                 ff_mult: int = 4, dot_product: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        self.attn = SelfAttention(dim, dim_head=dim_head, heads=heads,
+                                  dot_product=dot_product, dtype=dtype)
+        self.ff = FeedForward(dim, mult=ff_mult, dtype=dtype)
+
+    def forward(self, x):
+        x = self.attn(x) + x
+        return self.ff(x) + x

@@ -1,0 +1,166 @@
+"""Sample-adaptive modulated convolution (counterpart of
+gigagan_tpu/ops/adaptive_conv.py).
+
+The same exact factoring as the JAX package, with no per-sample weight in
+device memory:
+
+1. input-channel modulation folds into the activations:
+   ``conv(x, W * (1+mod)[i]) == conv(x * (1+mod), W)``;
+2. kernel-bank selection commutes with the conv:
+   ``conv(x, Σₙ aₙ Wₙ) == Σₙ aₙ conv(x, Wₙ)``;
+3. demodulation is a per-sample output-channel scale from the kernel-bank
+   Gram matrix ``G[n,m,i,o] = Σ_k Wₙ[k,i,o]·Wₘ[k,i,o]``:
+   ``d²[b,o] = Σ_{n,m} a[b,n]·a[b,m] · Σᵢ G[n,m,i,o]·(1+mod[b,i])²``.
+
+On a CUDA tensor every 2-D 3x3 stride-1 conv runs kernel K1
+(``ops/kernels/adaptive_conv.py``), which mixes the banks per sample on
+chip.  Elsewhere — on the CPU, and for the 1x1 ``to_rgb`` conv on every
+device, as in JAX — the plain path runs steps (2)+(3) as one conv with n·o
+output channels and a per-sample mix.
+
+Feature maps are channels-last ``(b, h, w, c)``; banks are
+``(n, kh, kw, in, out)``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from gigagan_tpu_torch.ops.kernels import use_kernels
+from gigagan_tpu_torch.ops.kernels.adaptive_conv import adaptive_conv_fwd
+from gigagan_tpu_torch.utils import exists
+
+
+def expand_batch(t, batch: int):
+    """Repeat each row to match an expanded batch (batch-MAJOR group order:
+    row ``i*s + g`` is sample ``i``, group ``g``)."""
+    if t.shape[0] == batch:
+        return t
+    s, rem = divmod(batch, t.shape[0])
+    assert rem == 0, f"cannot expand batch {t.shape[0]} to {batch}"
+    return torch.repeat_interleave(t, s, dim=0)
+
+
+def kernel_gram(weights):
+    """Gram matrix of the kernel banks over their spatial taps:
+    (n, *k_spatial, i, o) → (n, n, i, o)."""
+    n = weights.shape[0]
+    flat = weights.reshape(n, -1, weights.shape[-2], weights.shape[-1])
+    return torch.einsum("nkio,mkio->nmio", flat, flat)
+
+
+def demod_scale(weights, scale_in, attn=None, eps: float = 1e-8):
+    """Per-sample output-channel demodulation scale (b, o) in fp32."""
+    n = weights.shape[0]
+    b = scale_in.shape[0]
+    gram = kernel_gram(weights.float())  # (n, n, i, o)
+    s2 = scale_in * scale_in  # (b, i)
+    if n > 1:
+        gram_flat = gram.reshape(n * n, *gram.shape[2:])
+        t = torch.einsum("pio,bi->bpo", gram_flat, s2)
+        pair = torch.einsum("bn,bm->bnm", attn, attn).reshape(b, n * n)
+        d_sq = torch.einsum("bp,bpo->bo", pair, t)
+    else:
+        d_sq = torch.einsum("io,bi->bo", gram[0, 0], s2)
+    return torch.rsqrt(torch.clamp(d_sq, min=eps))
+
+
+def _conv2d(x, w, *, stride: int, dilation: int):
+    """SAME-padded conv on channels-last x (b,h,w,i) with HWIO w."""
+    pad = dilation * (w.shape[0] - 1) // 2
+    out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                   stride=stride, padding=pad, dilation=dilation)
+    return out.permute(0, 2, 3, 1)
+
+
+def adaptive_conv(x, weights, mod, kernel_mod=None, *, demod: bool = True,
+                  stride: int = 1, dilation: int = 1, eps: float = 1e-8):
+    """Adaptive modulated 2-D conv.
+
+    x:          (b, h, w, i) feature map, channels last
+    weights:    (n, kh, kw, i, o) kernel banks
+    mod:        (b or b/s, i) style modulation of input channels
+    kernel_mod: (b or b/s, n) kernel-selection logits (None if n == 1)
+    """
+    assert x.dim() == 4 and weights.dim() == 5, "2-D adaptive conv only"
+    b = x.shape[0]
+    n, kh, kw = weights.shape[:3]
+    adaptive = n > 1
+    assert adaptive == exists(kernel_mod), (
+        "kernel_mod must be given iff num_conv_kernels > 1"
+    )
+
+    compute_dtype = x.dtype
+    mod = expand_batch(mod, b)
+    scale_in = (mod + 1.0).float()  # (b, i)
+
+    # (1) fold input-channel modulation into the activations
+    x = x * scale_in[:, None, None, :].to(compute_dtype)
+
+    if adaptive:
+        kernel_mod = expand_batch(kernel_mod, b)
+        attn = torch.softmax(kernel_mod.float(), dim=-1)  # (b, n)
+    else:
+        attn = None
+
+    if use_kernels(x) and (kh, kw) == (3, 3):
+        if stride != 1 or dilation != 1:
+            raise NotImplementedError(
+                "adaptive_conv: the CUDA kernel K1 takes stride-1, "
+                "dilation-1 3x3 convs only"
+            )
+        a = attn if adaptive else torch.ones(
+            (b, 1), dtype=torch.float32, device=x.device
+        )
+        if demod:
+            d = demod_scale(weights, scale_in, attn, eps)
+        else:
+            d = torch.ones((b, weights.shape[-1]), dtype=torch.float32,
+                           device=x.device)
+        return adaptive_conv_fwd(x.contiguous(), weights.contiguous(),
+                                 a.contiguous(), d.contiguous())
+
+    # (2) one conv with n·o output channels, then per-sample bank mixing
+    o = weights.shape[-1]
+    w_flat = weights.permute(1, 2, 3, 0, 4).reshape(kh, kw, -1, n * o)
+    w_c = w_flat.to(compute_dtype)
+    if adaptive:
+        # fp32 per-bank outputs: bf16 rounding of the per-bank outputs
+        # would blow up the relative error of the mix (see JAX notes)
+        out = _conv2d(x.float(), w_c.float(), stride=stride,
+                      dilation=dilation)
+        out = out.reshape(*out.shape[:-1], n, o)
+        out = torch.einsum("bn,bhwno->bhwo", attn, out).to(compute_dtype)
+    else:
+        out = _conv2d(x, w_c, stride=stride, dilation=dilation)
+
+    # (3) demodulation as an output-channel scale from the Gram matrix
+    if demod:
+        d = demod_scale(weights, scale_in, attn, eps)
+        out = out * d[:, None, None, :].to(compute_dtype)
+    return out
+
+
+def adaptive_conv_reference(x, weights, mod, kernel_mod=None, *,
+                            demod: bool = True, stride: int = 1,
+                            dilation: int = 1, eps: float = 1e-8):
+    """Direct transcription of the reference semantics — per-sample weights,
+    one conv per sample.  A numerics oracle for `adaptive_conv`."""
+    b = x.shape[0]
+    n = weights.shape[0]
+    mod = expand_batch(mod, b)
+    if n > 1:
+        kernel_mod = expand_batch(kernel_mod, b)
+        attn = torch.softmax(kernel_mod, dim=-1)
+        w = torch.einsum("bn,n...->b...", attn, weights)  # (b, kh, kw, i, o)
+    else:
+        w = weights[0].expand(b, *weights.shape[1:])
+    w = w * (mod + 1.0)[:, None, None, :, None]
+    if demod:
+        sq = (w * w).sum(dim=(1, 2, 3), keepdim=True)
+        w = w * torch.rsqrt(torch.clamp(sq, min=eps))
+    return torch.cat([
+        _conv2d(x[i : i + 1], w[i], stride=stride, dilation=dilation)
+        for i in range(b)
+    ])

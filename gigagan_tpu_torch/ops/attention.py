@@ -1,0 +1,89 @@
+"""Attention primitives (counterpart of gigagan_tpu/ops/attention.py:
+``attend`` and ``attend_fused``).
+
+The plain paths keep the JAX package's algebra:
+
+- the |q|² term of the L2 similarity is constant per row and cancels in
+  the softmax, so it is dropped;
+- the scale folds into q, and |k|² plus the key mask fold into one bias
+  row, so the similarity is one matmul plus one broadcast add;
+- logits are fp32; only the exp'd map is rounded to the operand dtype;
+- the softmax divide runs on the (i, d) output, not the (i, j) map.
+
+On a CUDA tensor, ``attend_fused`` with d ≤ 128 runs kernel K3
+(``ops/kernels/flash_attention_fused.py``).  The split-heads flash kernel
+(K6 in ROADMAP.md) is not ported yet: ``attend`` on a CUDA tensor at the
+sizes where the JAX package dispatches to it raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gigagan_tpu_torch.ops.kernels import use_kernels
+from gigagan_tpu_torch.ops.kernels.flash_attention_fused import (
+    flash_attend_fused,
+)
+from gigagan_tpu_torch.utils import exists
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def attend(q, k, v, *, mask=None, l2_dist: bool = False, scale=None):
+    """Softmax attention.  q: (b, h, i, d); k, v: (b, h, j, d); mask: (b, j)
+    key-padding mask (True = attend).  Returns (b, h, i, d)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if (use_kernels(q) and q.shape[-1] <= 128 and q.shape[-2] >= 256
+            and k.shape[-2] >= 128):
+        raise NotImplementedError(
+            "attend: the split-heads flash kernel (K6, ROADMAP.md) is not "
+            "ported yet; on the card only attend_fused has a kernel"
+        )
+
+    out_dtype = q.dtype
+    coeff = 2.0 * scale if l2_dist else scale
+    q_s = (q.float() * coeff).to(q.dtype)
+    sim_dtype = torch.float32 if q.dtype == torch.float32 else q.dtype
+    sim = torch.einsum("bhid,bhjd->bhij", q_s.float(), k.float())
+    bias = None
+    if l2_dist:
+        kf = k.float()
+        bias = -scale * (kf * kf).sum(dim=-1)  # (b, h, j)
+    if exists(mask):
+        mbias = torch.where(mask, 0.0, NEG_INF)[:, None, :].float()
+        bias = mbias if bias is None else bias + mbias
+    if bias is not None:
+        sim = sim + bias[..., None, :]
+
+    m = sim.amax(dim=-1, keepdim=True)
+    e = torch.exp(sim - m).to(sim_dtype)
+    s = e.float().sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhij,bhjd->bhid", e.to(q.dtype).float(), v.float())
+    return (out / s).to(out_dtype)
+
+
+def attend_fused(q, k, v, *, heads: int, null_kv=None, l2_dist: bool = False,
+                 scale=None):
+    """Attention in the network's fused-heads layout: q (b, nq, H·d),
+    k/v (b, nk, H·d), optional learned null_kv (2, H, d) → (b, nq, H·d)."""
+    d = q.shape[-1] // heads
+    if scale is None:
+        scale = d ** -0.5
+    if use_kernels(q) and d <= 128:
+        return flash_attend_fused(q, k, v, null_kv, heads, l2_dist, scale)
+
+    b, nq, _ = q.shape
+    nk = k.shape[1]
+
+    def split(t, n):
+        return t.reshape(b, n, heads, d).permute(0, 2, 1, 3)
+
+    qh, kh, vh = split(q, nq), split(k, nk), split(v, nk)
+    if exists(null_kv):
+        nk_tok = null_kv[0][None, :, None, :].expand(b, heads, 1, d)
+        nv_tok = null_kv[1][None, :, None, :].expand(b, heads, 1, d)
+        kh = torch.cat((nk_tok.to(kh.dtype), kh), dim=-2)
+        vh = torch.cat((nv_tok.to(vh.dtype), vh), dim=-2)
+    out = attend(qh, kh, vh, l2_dist=l2_dist, scale=scale)
+    return out.permute(0, 2, 1, 3).reshape(b, nq, heads * d)

@@ -1,0 +1,49 @@
+"""Blur / resample primitives, channels-last (counterpart of
+gigagan_tpu/ops/resample.py: ``blur_2d``, ``upsample_2x``,
+``upsample_2x_blur``).
+
+Feature maps are ``(b, h, w, c)``; torch's spatial ops want ``(b, c, h, w)``,
+so each op works on a permuted view and permutes back.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+_BINOMIAL = (1.0, 2.0, 1.0)
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def blur_2d(x):
+    """Normalized binomial [1,2,1]⊗[1,2,1] blur on (b, h, w, c) with
+    reflect padding (kornia ``filter2d``'s default border, as in JAX)."""
+    c = x.shape[-1]
+    f = torch.tensor(_BINOMIAL, dtype=torch.float32, device=x.device)
+    f = f[:, None] * f[None, :]
+    f = (f / f.sum()).to(x.dtype)
+    xp = F.pad(_nchw(x), (1, 1, 1, 1), mode="reflect")
+    kern = f.expand(c, 1, 3, 3)
+    return _nhwc(F.conv2d(xp, kern, groups=c))
+
+
+def upsample_2x(x):
+    """Bilinear 2x upsample with half-pixel centers (``align_corners=False``)
+    — the same samples as ``jax.image.resize(..., 'bilinear')`` gives when
+    upsampling, edges included."""
+    return _nhwc(
+        F.interpolate(_nchw(x), scale_factor=2, mode="bilinear",
+                      align_corners=False)
+    )
+
+
+def upsample_2x_blur(x):
+    """The reference Upsample: bilinear 2x then binomial blur."""
+    return blur_2d(upsample_2x(x))
