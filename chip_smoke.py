@@ -2,33 +2,50 @@
 """Smoke run of the PyTorch port (``gigagan_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # the check, one card
-    python3 chip_smoke.py --profile   # also a torch.profiler breakdown of
-                                      # one batch-8 forward
+    python3 chip_smoke.py --profile   # also torch.profiler breakdowns of one
+                                      # batch-8 forward and one batch-8
+                                      # training iteration
 
 Phases (any failure raises and exits non-zero):
 
 1. find the card (fails without CUDA) and print its name and power limit;
-2. build the CUDA kernels from ``gigagan_tpu_torch/csrc`` with nvcc;
+2. build the five CUDA kernels from ``gigagan_tpu_torch/csrc`` with nvcc,
+   one process per source, all at once;
 3. hold kernel K1 (adaptive conv) against its plain PyTorch version at
    every 3x3 conv shape of the 256px generator, batch 8, fp32 (TF32 off)
    and bf16, and time both;
 4. hold kernel K3 (fused-heads attention) against its plain version at
    both self-attention shapes, dot and L2, with the null key/value;
-5. drive the main path: the README quickstart generator (256px, 30M
+5. drive the sampling path: the README quickstart generator (256px, 30M
    params, bf16) answers generate(batch_size=8) and generate(batch_size=1)
    three times each; the kernels' launch counts must show 15 K1 and 2 K3
    launches per forward; one fp32 forward through the kernels is held
    against the plain path on the card; batch-1 latency and batch-8
    images/s are timed;
-6. print the kernel table as one JSON line and, last, the device line.
+6. hold K2 (weight gradient) and K1 as the input gradient, through the
+   conv Function's backward, against plain PyTorch at the same 15 shapes;
+7. hold K4 (attention backward) and K5 (its adjoint) against their plain
+   versions at the generator's and the discriminator's attention shapes;
+8. drive the training path: the quickstart G+D pair (256px, bf16, batch 8)
+   takes 8 iterations of train_discriminator_step + train_generator_step
+   with R1 on iterations 0 and 4; every loss must be finite and every
+   step's K1-K5 launch counts those the path implies (K5 on R1 steps
+   only); ms per d_step (with and without R1) and per g_step and images/s
+   over the 4-iteration cadence are timed; one fp32 d_step with R1 and one
+   fp32 g_step through the kernels are held against the same steps under
+   ``plain_reference()`` on the card (losses and every parameter's
+   gradient);
+9. print the kernel table as one JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -47,15 +64,40 @@ QUICKSTART = dict(
     num_skip_layers_excite=4,
     unconditional=True,
 )
+# and its discriminator (bench.py:129-135)
+QUICKSTART_D = dict(
+    image_size=256,
+    dim_capacity=16,
+    dim_max=512,
+    num_skip_layers_excite=4,
+    unconditional=True,
+)
 BATCH = 8
 # the generator's default self-attention: 32² and 16² maps, 8 heads of 64
 SELF_ATTN_RES, HEADS, DIM_HEAD = (32, 16), 8, 64
 K1_TOL_F32, K1_TOL_BF16, K3_TOL = 0.02, 0.08, 0.03
-G_TOL_F32 = 0.02
+K2_TOL_F32, K2_TOL_BF16, K4_TOL, K5_TOL = 0.02, 0.08, 0.03, 0.05
+G_TOL_F32, STEP_TOL_F32 = 0.02, 0.02
+# the training path's attention (batch, tokens, L2 similarity?): G's dot
+# product at batch 8; D's L2 in the d_step on the [real; fake] batch of
+# 16 grown by the multiscale groups (×4 at 32², ×8 at 16²), and in the
+# g_step on the 8 fakes
+ATTN_PATH = [
+    ("G", 8, 1024, False), ("G", 8, 256, False),
+    ("D d_step", 64, 1024, True), ("D d_step", 128, 256, True),
+    ("D g_step", 32, 1024, True), ("D g_step", 64, 256, True),
+]
+R1_ATTN = [row for row in ATTN_PATH if row[0] == "D d_step"]
+ITERATIONS, R1_EVERY = 8, 4
+KERNEL_NAMES = ("k1", "k2", "k3", "k4", "k5")
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def fail(msg):
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
 def rel_err(got, want):
@@ -103,6 +145,20 @@ def path_convs(cfg):
     return convs
 
 
+def expected_step_launches(n_convs, n_g_attn, n_d_attn):
+    """Launches per step the training path implies.  d_step: G forward
+    without gradient (K1 per conv, K3 per G attention), D's attention
+    forward (K3) and backward (K4); with R1, K4 once more for the
+    create_graph input gradient and K5 in the double backward.  g_step: G
+    forward and backward (K1 forward and as dx, K2 per conv), G's and D's
+    attention forward and backward."""
+    d = dict(k1=n_convs, k2=0, k3=n_g_attn + n_d_attn, k4=n_d_attn, k5=0)
+    d_r1 = dict(d, k4=2 * n_d_attn, k5=n_d_attn)
+    g = dict(k1=2 * n_convs, k2=n_convs, k3=n_g_attn + n_d_attn,
+             k4=n_g_attn + n_d_attn, k5=0)
+    return d, d_r1, g
+
+
 def main():
     import numpy as np
     import torch
@@ -116,10 +172,12 @@ def main():
                          "false — this check runs on a CUDA device only")
     sys.path.insert(0, str(REPO))
     from gigagan_tpu_torch import GigaGAN, ops
+    from gigagan_tpu_torch.data import MockImageDataset
     from gigagan_tpu_torch.models.layers import AdaptiveConv
     from gigagan_tpu_torch.ops.kernels import build, plain_reference
     from gigagan_tpu_torch.ops.kernels import adaptive_conv as k1
     from gigagan_tpu_torch.ops.kernels import flash_attention_fused as k3
+    from gigagan_tpu_torch.ops.kernels import flash_attention_so as so
 
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -135,19 +193,36 @@ def main():
     dev = torch.device("cuda", 0)
     OUT_DIR.mkdir(exist_ok=True)
 
+    counters = {"k1": k1.adaptive_conv_fwd, "k2": k1.adaptive_conv_bwd_w,
+                "k3": k3.flash_attention_fused_fwd,
+                "k4": so.flash_attention_fused_bwd,
+                "k5": so.flash_attention_so_bwd2}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
     # ---------------------------------------------------------------- 2
+    t0 = time.perf_counter()
+    built = build.build_all(verbose=True)
+    log(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s "
+        "(one nvcc each, in parallel)")
     ptxas = []
-    for kname in ("adaptive_conv_fwd", "flash_attention_fused_fwd"):
-        t0 = time.perf_counter()
-        path, text = build.build(kname, verbose=True)
-        log(f"build {kname}: {time.perf_counter() - t0:.2f} s -> "
-            f"{path.relative_to(REPO)}")
-        ptxas.append(text)
+    for kname, (path, text, secs) in built.items():
+        log(f"  {kname}: {secs:.2f} s -> {path.relative_to(REPO)}")
+        ptxas.append(f"== {kname}\n{text}")
         build.load(kname)
     (OUT_DIR / "ptxas.log").write_text("\n".join(ptxas))
-    for line in "\n".join(ptxas).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for kname, (_, text, _) in built.items():
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores",
+                                             text)]
+        log(f"  ptxas {kname}: {len(regs)} kernels, at most {max(regs)} "
+            f"registers and {max(spills, default=0)} bytes of spill stores "
+            "(details in chiprun_out/ptxas.log)")
 
     # ---------------------------------------------------------------- 3
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -189,7 +264,7 @@ def main():
             f"(plain {row['plain_ms_bf16']:.4f})")
         if not (row["rel_f32"] <= K1_TOL_F32
                 and row["rel_bf16"] <= K1_TOL_BF16):
-            raise SystemExit(f"chip_smoke: FAIL: K1 disagrees at {row}")
+            fail(f"K1 disagrees at {row}")
     report["k1"] = list(k1_rows.values())
 
     # ---------------------------------------------------------------- 4
@@ -230,8 +305,7 @@ def main():
                     f"(plain {row['plain_ms']:.4f})")
                 if not (row["rel_out"] <= K3_TOL
                         and row["rel_lse"] <= K3_TOL):
-                    raise SystemExit(f"chip_smoke: FAIL: K3 disagrees at "
-                                     f"{row}")
+                    fail(f"K3 disagrees at {row}")
     report["k3"] = k3_rows
 
     # ---------------------------------------------------------------- 5
@@ -249,26 +323,26 @@ def main():
         if isinstance(m, AdaptiveConv) and m.weights.shape[1] == 3
     ]
 
-    k1.adaptive_conv_fwd.launches = 0
-    k3.flash_attention_fused_fwd.launches = 0
+    reset_counts()
     requests = [BATCH] * 3 + [1] * 3
     for i, bs in enumerate(requests):
         img = gan.generate(batch_size=bs, seed=i)
         size = QUICKSTART["image_size"]
         if img.shape != (bs, size, size, 3) or not np.isfinite(img).all():
-            raise SystemExit(f"chip_smoke: FAIL: request {i} gave "
-                             f"{img.shape} / non-finite values")
-    launches = {"k1": k1.adaptive_conv_fwd.launches,
-                "k3": k3.flash_attention_fused_fwd.launches}
+            fail(f"request {i} gave {img.shape} / non-finite values")
+    counts = read_counts()
+    launches = {"k1": counts["k1"], "k3": counts["k3"]}
     for hk in hooks:
         hk.remove()
-    log(f"main path: {len(requests)} requests, launches {launches}")
+    log(f"sampling path: {len(requests)} requests, launches {counts}")
     per_forward = {"k1": len(convs), "k3": len(SELF_ATTN_RES)}
     if launches != {k: n * len(requests) for k, n in per_forward.items()}:
-        raise SystemExit(f"chip_smoke: FAIL: launch counts {launches}")
+        fail(f"launch counts {launches}")
+    if counts["k2"] or counts["k4"] or counts["k5"]:
+        fail(f"backward kernels launched while sampling: {counts}")
     if seen != set(k1_rows):
-        raise SystemExit(f"chip_smoke: FAIL: path conv shapes {seen} != "
-                         f"checked {set(k1_rows)}")
+        fail(f"path conv shapes {seen} != checked {set(k1_rows)}")
+    report["sampling_launches"] = counts
 
     gan32 = GigaGAN(generator=QUICKSTART, amp=False, device="cuda", seed=0)
     img_k = gan32.generate(batch_size=2, seed=7)
@@ -282,7 +356,7 @@ def main():
         f"bf16 kernels vs fp32 plain: rel {amp_rel:.2e} (not gated)")
     report["g_rel_f32"], report["g_rel_amp"] = g_rel, amp_rel
     if not g_rel <= G_TOL_F32:
-        raise SystemExit("chip_smoke: FAIL: G forward disagrees")
+        fail("G forward disagrees")
 
     def latency(bs, reps):
         times = []
@@ -306,47 +380,324 @@ def main():
         f"of 15, min {min(lat8_all) * 1e3:.3f}) -> {BATCH / lat8:.2f} "
         f"images/s [{smi}]")
 
-    if profile:
+    def profiled(label, fn):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile as prof
 
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        events = p.key_averages()
+        table = events.table(sort_by="self_device_time_total", row_limit=40)
+        (OUT_DIR / f"profile_{label}.txt").write_text(table)
+        devev = [e for e in events if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in devev) / 1e3
+        top = sorted(devev, key=lambda e: -e.self_device_time_total)[:10]
+        report[f"profile_{label}"] = dict(
+            wall_ms=wall_ms, device_busy_ms=busy_ms,
+            device_kernels=sum(e.count for e in devev),
+            top=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                 for e in top])
+        log(f"profile {label}: wall {wall_ms:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+            f"{sum(e.count for e in devev)} device kernels [{smi}]")
+        for key, count, ms in report[f"profile_{label}"]["top"]:
+            log(f"  {ms:9.3f} ms  x{count:<4d} {key}")
+
+    if profile:
         for bs in (BATCH, 1):
-            with prof(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as p:
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                gan.generate(batch_size=bs, seed=1)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t) * 1e3
-            events = p.key_averages()
-            table = events.table(sort_by="self_device_time_total",
-                                 row_limit=30)
-            (OUT_DIR / f"profile_b{bs}.txt").write_text(table)
-            dev = [e for e in events if e.device_type == DeviceType.CUDA]
-            busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-            top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
-            report[f"profile_b{bs}"] = dict(
-                wall_ms=wall_ms, device_busy_ms=busy_ms,
-                device_kernels=sum(e.count for e in dev),
-                top=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
-                     for e in top])
-            log(f"profile b{bs}: wall {wall_ms:.3f} ms, device busy "
-                f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-                f"{sum(e.count for e in dev)} device kernels [{smi}]")
-            for key, count, ms in report[f"profile_b{bs}"]["top"]:
-                log(f"  {ms:9.3f} ms  x{count:<4d} {key}")
+            profiled(f"b{bs}", lambda: gan.generate(batch_size=bs, seed=1))
+    del gan, gan32
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 6
+    k2_rows = {}
+    for _, h, ci, co in convs:
+        if (h, ci, co) in k2_rows:
+            continue
+        x = torch.randn(BATCH, h, h, ci, device=dev, generator=gen)
+        g = torch.randn(BATCH, h, h, co, device=dev, generator=gen)
+        w = torch.randn(2, 3, 3, ci, co, device=dev, generator=gen) * (
+            2.0 / (9 * ci)) ** 0.5
+        a = torch.softmax(torch.randn(BATCH, 2, device=dev, generator=gen),
+                          -1)
+        d = 0.5 + torch.rand(BATCH, co, device=dev, generator=gen)
+        xb, gb = x.bfloat16(), g.bfloat16()
+        dw_want, da_want = k1.adaptive_conv_bwd_w_plain(x, g, w, a)
+        dw32, da32 = k1.adaptive_conv_bwd_w(x, g, w, a)
+        dw16, da16 = k1.adaptive_conv_bwd_w(xb, gb, w, a)
+        # K1 as dx through the conv Function's backward, against autograd
+        # of the plain version
+        xr = x.clone().requires_grad_()
+        (dx_want,) = torch.autograd.grad(
+            k1.adaptive_conv_fwd_plain(xr, w, a, d), xr, g)
+        xk = x.clone().requires_grad_()
+        (dx32,) = torch.autograd.grad(k1.pconv2d(xk, w, a, d), xk, g)
+        xk16 = xb.clone().requires_grad_()
+        (dx16,) = torch.autograd.grad(k1.pconv2d(xk16, w, a, d), xk16, gb)
+        torch.cuda.synchronize()
+        # the launch the backward makes, on its operands
+        gs32 = g * d[:, None, None, :]
+        gs16 = gs32.bfloat16()
+        wft = k1.flip_t(w)
+        ones = torch.ones(BATCH, ci, device=dev)
+        row = dict(
+            h=h, ci=ci, co=co,
+            rel_dw_f32=rel_err(dw32, dw_want),
+            rel_da_f32=rel_err(da32, da_want),
+            rel_dw_bf16=rel_err(dw16, dw_want),
+            rel_da_bf16=rel_err(da16, da_want),
+            rel_dx_f32=rel_err(dx32, dx_want),
+            rel_dx_bf16=rel_err(dx16, dx_want),
+            abs_f32=max(abs_err(dw32, dw_want), abs_err(da32, da_want)),
+            abs_bf16=max(abs_err(dw16, dw_want), abs_err(da16, da_want)),
+            abs_dx=max(abs_err(dx32, dx_want), abs_err(dx16, dx_want)),
+            ms_f32=time_ms(lambda: k1.adaptive_conv_bwd_w(x, g, w, a),
+                           torch),
+            plain_ms_f32=time_ms(
+                lambda: k1.adaptive_conv_bwd_w_plain(x, g, w, a), torch),
+            ms_bf16=time_ms(lambda: k1.adaptive_conv_bwd_w(xb, gb, w, a),
+                            torch),
+            plain_ms_bf16=time_ms(
+                lambda: k1.adaptive_conv_bwd_w_plain(xb, gb, w, a), torch),
+            dx_ms_bf16=time_ms(
+                lambda: k1.adaptive_conv_fwd(gs16, wft, a, ones), torch),
+            dx_plain_ms_bf16=time_ms(
+                lambda: k1.adaptive_conv_fwd_plain(gs16, wft, a, ones),
+                torch),
+        )
+        k2_rows[(h, ci, co)] = row
+        log(f"K2 b{BATCH} {h}x{h} {ci}->{co}: rel dW/da f32 "
+            f"{row['rel_dw_f32']:.2e}/{row['rel_da_f32']:.2e} bf16 "
+            f"{row['rel_dw_bf16']:.2e}/{row['rel_da_bf16']:.2e} | ms f32 "
+            f"{row['ms_f32']:.4f} (plain {row['plain_ms_f32']:.4f}) bf16 "
+            f"{row['ms_bf16']:.4f} (plain {row['plain_ms_bf16']:.4f}) | "
+            f"K1-dx rel f32 {row['rel_dx_f32']:.2e} bf16 "
+            f"{row['rel_dx_bf16']:.2e} ms bf16 {row['dx_ms_bf16']:.4f} "
+            f"(plain {row['dx_plain_ms_bf16']:.4f})")
+        if not (max(row["rel_dw_f32"], row["rel_da_f32"],
+                    row["rel_dx_f32"]) <= K2_TOL_F32
+                and max(row["rel_dw_bf16"], row["rel_da_bf16"],
+                        row["rel_dx_bf16"]) <= K2_TOL_BF16):
+            fail(f"K2 / K1-as-dx disagrees at {row}")
+    report["k2"] = list(k2_rows.values())
+
+    # ---------------------------------------------------------------- 7
+    k4_rows, k5_rows = [], []
+    for who, b, n, l2 in ATTN_PATH:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = (torch.randn(b, n, heads * dh, device=dev,
+                                      generator=gen).to(dtype)
+                          for _ in range(4))
+            null_kv = torch.randn(2, heads, dh, device=dev, generator=gen)
+            k_pre, bias, nk, nv, nb = k3.prep_fused(k, v, null_kv, heads,
+                                                    l2, dh ** -0.5)
+            out, lse = k3.flash_attention_fused_fwd(q, k_pre, v, bias, nk,
+                                                    nv, nb, heads)
+            args = (q, k_pre, v, bias, nk, nv, nb, g, out, lse, heads)
+            want = so.flash_attention_fused_bwd_plain(*args)
+            got = so.flash_attention_fused_bwd(*args)
+            torch.cuda.synchronize()
+            pairs = [(a_, w_) for a_, w_ in zip(got, want) if w_ is not None]
+            row = dict(
+                who=who, b=b, n=n, l2=l2, dtype=str(dtype).split(".")[-1],
+                rel=max(rel_err(a_, w_) for a_, w_ in pairs),
+                abs=max(abs_err(a_, w_) for a_, w_ in pairs),
+                ms=time_ms(lambda: so.flash_attention_fused_bwd(*args),
+                           torch),
+                plain_ms=time_ms(
+                    lambda: so.flash_attention_fused_bwd_plain(*args), torch),
+            )
+            k4_rows.append(row)
+            log(f"K4 {who} b{b} n{n} l2={l2} {row['dtype']}: rel "
+                f"{row['rel']:.2e} | ms {row['ms']:.4f} (plain "
+                f"{row['plain_ms']:.4f})")
+            if not row["rel"] <= K4_TOL:
+                fail(f"K4 disagrees at {row}")
+            if (who, b, n, l2) not in R1_ATTN:
+                continue
+            cots = [None if w_ is None else torch.randn(
+                w_.shape, device=dev, generator=gen).to(w_.dtype)
+                for w_ in want]
+            args5 = (q, k_pre, v, bias, nk, nv, nb, g, lse, *cots, heads)
+            want5 = so.flash_attention_so_bwd2_plain(*args5)
+            got5 = so.flash_attention_so_bwd2(*args5)
+            torch.cuda.synchronize()
+            pairs = [(a_, w_) for a_, w_ in zip(got5, want5)
+                     if w_ is not None]
+            row5 = dict(
+                who=who, b=b, n=n, l2=l2, dtype=str(dtype).split(".")[-1],
+                rel=max(rel_err(a_, w_) for a_, w_ in pairs),
+                abs=max(abs_err(a_, w_) for a_, w_ in pairs),
+                ms=time_ms(lambda: so.flash_attention_so_bwd2(*args5),
+                           torch),
+                plain_ms=time_ms(
+                    lambda: so.flash_attention_so_bwd2_plain(*args5), torch),
+            )
+            k5_rows.append(row5)
+            log(f"K5 {who} b{b} n{n} l2={l2} {row5['dtype']}: rel "
+                f"{row5['rel']:.2e} | ms {row5['ms']:.4f} (plain "
+                f"{row5['plain_ms']:.4f})")
+            if not row5["rel"] <= K5_TOL:
+                fail(f"K5 disagrees at {row5}")
+            del want5, got5, args5, cots
+        del q, k, v, g, want, got, args
+        torch.cuda.empty_cache()
+    report["k4"], report["k5"] = k4_rows, k5_rows
+
+    # ---------------------------------------------------------------- 8
+    t0 = time.perf_counter()
+    gan = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D, amp=True,
+                  device="cuda", seed=0)
+    n_g = sum(p.numel() for p in gan.G.parameters())
+    n_d = sum(p.numel() for p in gan.D.parameters())
+    log(f"G+D: {n_g / 1e6:.2f}M + {n_d / 1e6:.2f}M params, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    data = MockImageDataset(QUICKSTART["image_size"], length=8 * BATCH,
+                            seed=0)
+    batches = [torch.from_numpy(b_).to(dev)
+               for b_ in data.get_dataloader(BATCH)]
+    n_d_attn = sum(s.core.attn is not None for s in gan.D.stages)
+    n_g_attn = sum(s.self_attn is not None for s in gan.G.stages)
+    exp_d, exp_d_r1, exp_g = expected_step_launches(len(convs), n_g_attn,
+                                                    n_d_attn)
+
+    def iteration(i, apply_gp, record=None):
+        real = batches[i % len(batches)]
+        steps = []
+        for kind in ("d", "g"):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if kind == "d":
+                m = gan.train_discriminator_step(
+                    real, apply_gradient_penalty=apply_gp,
+                    calc_multiscale_loss=True, seed=1000 + i)
+            else:
+                m = gan.train_generator_step(
+                    BATCH, calc_multiscale_loss=True, seed=2000 + i)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            after = read_counts()
+            steps.append(dict(
+                kind=kind, r1=apply_gp, ms=ms,
+                losses={k: float(v) for k, v in m.items()},
+                launches={k: after[k] - before[k] for k in after}))
+        if record is not None:
+            record.extend(steps)
+        return steps
+
+    iteration(0, True)  # warm-up: allocator, cuDNN plans, both variants
+    iteration(1, False)
+
+    reset_counts()
+    steps = []
+    for i in range(ITERATIONS):
+        iteration(i, i % R1_EVERY == 0, steps)
+    train_launches = read_counts()
+    report["train_steps"] = steps
+    for s in steps:
+        want = exp_g if s["kind"] == "g" else (exp_d_r1 if s["r1"]
+                                               else exp_d)
+        log(f"train {s['kind']}_step r1={s['r1']}: {s['ms']:.3f} ms, "
+            f"launches {s['launches']}, losses "
+            + ", ".join(f"{k} {v:.4g}" for k, v in s["losses"].items()))
+        if not all(np.isfinite(v) for v in s["losses"].values()):
+            fail(f"non-finite losses in {s}")
+        if s["launches"] != want:
+            fail(f"{s['kind']}_step (r1={s['r1']}) launched "
+                 f"{s['launches']}, the path implies {want}")
+    log(f"training path: {ITERATIONS} iterations, launches "
+        f"{train_launches}")
+    if any(train_launches[k] == 0 for k in KERNEL_NAMES):
+        fail(f"a kernel was never launched on the training path: "
+             f"{train_launches}")
+
+    d_plain = [s["ms"] for s in steps if s["kind"] == "d" and not s["r1"]]
+    d_r1 = [s["ms"] for s in steps if s["kind"] == "d" and s["r1"]]
+    g_ms = [s["ms"] for s in steps if s["kind"] == "g"]
+    cadence_ms = sum(s["ms"] for s in steps[2 * R1_EVERY:4 * R1_EVERY])
+    timing = dict(
+        d_step_ms=statistics.median(d_plain),
+        d_step_r1_ms=statistics.median(d_r1),
+        g_step_ms=statistics.median(g_ms),
+        cadence_ms=cadence_ms,
+        images_per_s=R1_EVERY * BATCH / (cadence_ms / 1e3),
+    )
+    report["train_timing"] = timing
+    log(f"train b{BATCH} bf16: d_step {timing['d_step_ms']:.3f} ms (median "
+        f"of {len(d_plain)}), d_step+R1 {timing['d_step_r1_ms']:.3f} ms "
+        f"(median of {len(d_r1)}), g_step {timing['g_step_ms']:.3f} ms "
+        f"(median of {len(g_ms)}); iterations 4-7 (one R1) "
+        f"{timing['cadence_ms']:.3f} ms -> {timing['images_per_s']:.2f} "
+        f"images/s [{smi}]")
+    if profile:
+        profiled("train_iter", lambda: iteration(1, False))
+        profiled("train_iter_r1", lambda: iteration(0, True))
+    del gan, batches
+    torch.cuda.empty_cache()
+
+    # one fp32 d_step with R1 and one g_step through the kernels against
+    # the same steps on the plain path, each from the same fresh state
+    real = torch.from_numpy(np.stack([data[i] for i in range(BATCH)])).to(dev)
+    step_rel = {}
+    for kind in ("d", "g"):
+        grads, losses_ = [], []
+        for plain in (False, True):
+            g32 = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D,
+                          amp=False, device="cuda", seed=0)
+            with (plain_reference() if plain else contextlib.nullcontext()):
+                if kind == "d":
+                    m = g32.train_discriminator_step(
+                        real, apply_gradient_penalty=True,
+                        calc_multiscale_loss=True, seed=7)
+                    model = g32.D
+                else:
+                    m = g32.train_generator_step(
+                        BATCH, calc_multiscale_loss=True, seed=7)
+                    model = g32.G
+            losses_.append({k: float(v) for k, v in m.items()})
+            grads.append({n_: p.grad.detach().clone()
+                          for n_, p in model.named_parameters()})
+            del g32, model
+            torch.cuda.empty_cache()
+        loss_rel = max(abs(losses_[0][k] - losses_[1][k])
+                       / (abs(losses_[1][k]) + 1e-6) for k in losses_[1])
+        grad_rel = {n_: rel_err(grads[0][n_], grads[1][n_])
+                    for n_ in grads[1]}
+        worst = max(grad_rel, key=grad_rel.get)
+        step_rel[kind] = dict(losses_kernels=losses_[0],
+                              losses_plain=losses_[1], loss_rel=loss_rel,
+                              grad_rel_max=grad_rel[worst], worst=worst)
+        log(f"fp32 {kind}_step{' +R1' if kind == 'd' else ''} kernels vs "
+            f"plain path: losses rel {loss_rel:.2e}, gradients max rel "
+            f"{grad_rel[worst]:.2e} ({worst}) over {len(grad_rel)} leaves "
+            f"(tol {STEP_TOL_F32})")
+        if not (loss_rel <= STEP_TOL_F32
+                and grad_rel[worst] <= STEP_TOL_F32):
+            fail(f"fp32 {kind}_step disagrees with the plain path: "
+                 f"{step_rel[kind]}")
+        del grads
+    report["step_vs_plain_f32"] = step_rel
+
+    # ---------------------------------------------------------------- 9
     mult = {}
     for _, h, ci, co in convs:
         mult[(h, ci, co)] = mult.get((h, ci, co), 0) + 1
     dot_bf16 = [r for r in k3_rows if not r["l2"] and r["dtype"] == "bfloat16"]
+    d_step_bf16 = [r for r in k4_rows if r["who"] == "D d_step"
+                   and r["dtype"] == "bfloat16"]
+    r1_bf16 = [r for r in k5_rows if r["dtype"] == "bfloat16"]
     kernels = [
         dict(
             name="adaptive_conv_fwd", route="cuda",
             source="gigagan_tpu_torch/csrc/adaptive_conv_fwd.cu",
             replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:86",
-            launches=launches["k1"],
+            launches=train_launches["k1"],
             max_abs_err=max(max(r["abs_f32"], r["abs_bf16"])
                             for r in k1_rows.values()),
             ms=sum(mult[s] * r["ms_bf16"] for s, r in k1_rows.items()),
@@ -354,13 +705,42 @@ def main():
                          for s, r in k1_rows.items()),
         ),
         dict(
+            name="adaptive_conv_bwd_w", route="cuda",
+            source="gigagan_tpu_torch/csrc/adaptive_conv_bwd_w.cu",
+            replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:269",
+            launches=train_launches["k2"],
+            max_abs_err=max(max(r["abs_f32"], r["abs_bf16"])
+                            for r in k2_rows.values()),
+            ms=sum(mult[s] * r["ms_bf16"] for s, r in k2_rows.items()),
+            plain_ms=sum(mult[s] * r["plain_ms_bf16"]
+                         for s, r in k2_rows.items()),
+        ),
+        dict(
             name="flash_attention_fused_fwd", route="cuda",
             source="gigagan_tpu_torch/csrc/flash_attention_fused_fwd.cu",
             replaces="gigagan_tpu/ops/pallas/flash_attention_fused.py:95",
-            launches=launches["k3"],
+            launches=train_launches["k3"],
             max_abs_err=max(max(r["abs_out"], r["abs_lse"]) for r in k3_rows),
             ms=sum(r["ms"] for r in dot_bf16),
             plain_ms=sum(r["plain_ms"] for r in dot_bf16),
+        ),
+        dict(
+            name="flash_attention_fused_bwd", route="cuda",
+            source="gigagan_tpu_torch/csrc/flash_attention_fused_bwd.cu",
+            replaces="gigagan_tpu/ops/pallas/flash_attention_so.py:191",
+            launches=train_launches["k4"],
+            max_abs_err=max(r["abs"] for r in k4_rows),
+            ms=sum(r["ms"] for r in d_step_bf16),
+            plain_ms=sum(r["plain_ms"] for r in d_step_bf16),
+        ),
+        dict(
+            name="flash_attention_so_bwd2", route="cuda",
+            source="gigagan_tpu_torch/csrc/flash_attention_so_bwd2.cu",
+            replaces="gigagan_tpu/ops/pallas/flash_attention_so.py:297",
+            launches=train_launches["k5"],
+            max_abs_err=max(r["abs"] for r in k5_rows),
+            ms=sum(r["ms"] for r in r1_bf16),
+            plain_ms=sum(r["plain_ms"] for r in r1_bf16),
         ),
     ]
     report["kernels"] = kernels

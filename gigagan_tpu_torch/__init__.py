@@ -2,16 +2,25 @@
 Hopper.
 
 Module paths mirror the JAX package.  Feature maps are channels-last
-``(b, h, w, c)`` at every public function, as in the JAX package.  The
-generator's sampling path is ported: its adaptive convs run the
-hand-written CUDA kernel K1 and its self-attention the kernel K3
-(``ops/kernels``) on the card, and their plain PyTorch versions on the CPU.
+``(b, h, w, c)`` at every public function, as in the JAX package.  Ported:
+the generator's sampling path and the unconditional G+D training step.
+On the card the adaptive convs run the hand-written CUDA kernels K1
+(forward and input gradient) and K2 (weight gradient), and the fused-heads
+self-attention K3 (forward), K4 (backward) and K5 (its adjoint, in the R1
+penalty's double backward), all through autograd Functions
+(``ops/kernels``); on the CPU the same Functions run the kernels' plain
+PyTorch versions.
 """
 
 __version__ = "0.1.0"
 
 from gigagan_tpu_torch import ops, utils  # noqa: F401
-from gigagan_tpu_torch.models import Generator, StyleNetwork  # noqa: F401
+from gigagan_tpu_torch.models import (  # noqa: F401
+    Discriminator,
+    Generator,
+    StyleNetwork,
+)
 from gigagan_tpu_torch.train import GigaGAN  # noqa: F401
 
-__all__ = ["GigaGAN", "Generator", "StyleNetwork", "ops", "utils"]
+__all__ = ["Discriminator", "GigaGAN", "Generator", "StyleNetwork", "ops",
+           "utils"]

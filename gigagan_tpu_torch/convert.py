@@ -1,12 +1,15 @@
-"""Weight bridge: a JAX parameter tree (the generator's, or any of its
-layers') → the state_dict of this package's twin module.
+"""Weight bridge: a JAX parameter tree (the generator's, the
+discriminator's, or any of their layers') → the state_dict of this
+package's twin module.
 
 Input: the flax ``params`` tree as nested mappings of arrays (for example
 ``jax.device_get(params)``; anything ``np.asarray`` accepts).  Naming and
 layout map as follows:
 
 - ``stages_{s}_{name}/...``   → ``stages.{s}.{name}....``
-- Dense ``kernel`` (in, out)  → Linear ``weight`` (out, in)
+- Dense ``kernel`` (in, out)  → Linear ``weight`` (out, in) (also the
+  discriminator's Downsample ``proj``, which runs it as a 2×2 conv)
+- Conv ``kernel`` (kh, kw, in, out) → conv ``weight`` (out, in, kh, kw)
 - EqualLinear ``weight`` (in, out) (``style_net/linear_i``) → (out, in)
 - kernel banks ``weights`` (n, kh, kw, in, out), ``init_block`` (4, 4, c),
   Noise ``weight``, RMSNorm ``gamma``, ``null_kv`` and biases: as they are.
@@ -42,11 +45,11 @@ def _torch_key_and_value(path, arr):
     segments += rest
     leaf = segments[-1]
     if leaf == "kernel":
-        if arr.ndim != 2:
-            raise ValueError(f"{'/'.join(path)}: Dense kernel must be 2-D, "
-                             f"got {arr.shape}")
+        if arr.ndim not in (2, 4):
+            raise ValueError(f"{'/'.join(path)}: a kernel must be a 2-D "
+                             f"Dense or 4-D Conv kernel, got {arr.shape}")
         segments[-1] = "weight"
-        arr = arr.T
+        arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
     elif leaf == "weight" and arr.ndim == 2:  # EqualLinear (in, out)
         arr = arr.T
     return ".".join(segments), arr

@@ -184,10 +184,16 @@ class Generator(nn.Module):
 
     def forward(self, styles=None, noise=None, batch_size: int = 1,
                 return_all_rgbs: bool = False, latent_generator=None,
-                noise_generator=None):
+                noise_generator=None, pixel_noise=None):
         """``noise`` is the style latent (b, style_network_dim); without it
         the latent is drawn from ``latent_generator``.  Pixel noise comes
-        from ``noise_generator``."""
+        from ``pixel_noise`` (one (b, h, w, 1) tensor per Noise layer, in
+        call order) or is drawn from ``noise_generator``."""
+        pixel_noise = iter(pixel_noise) if exists(pixel_noise) else None
+
+        def next_noise():
+            return next(pixel_noise) if exists(pixel_noise) else None
+
         device = self.init_block.device
         if not exists(styles):
             assert exists(self.style_net)
@@ -224,10 +230,12 @@ class Generator(nn.Module):
 
             x = stage.conv1(x, mod=conv_mods.next(),
                             kernel_mod=conv_mods.next())
-            x = leaky_relu(stage.noise1(x, generator=noise_generator))
+            x = leaky_relu(stage.noise1(x, noise=next_noise(),
+                                        generator=noise_generator))
             x = stage.conv2(x, mod=conv_mods.next(),
                             kernel_mod=conv_mods.next())
-            x = leaky_relu(stage.noise2(x, generator=noise_generator))
+            x = leaky_relu(stage.noise2(x, noise=next_noise(),
+                                        generator=noise_generator))
 
             if exists(stage.self_attn):
                 x = stage.self_attn(x)

@@ -1,9 +1,13 @@
 """Core layer modules, channels-last throughout (counterpart of the parts
-of gigagan_tpu/models/layers.py on the generator's sampling path).
+of gigagan_tpu/models/layers.py on the generator's and the
+discriminator's paths).
 
 - 1x1 convs are ``Dense`` on the trailing channel axis, exactly like flax
   ``nn.Dense``: weights are stored fp32 and cast, with the input, to the
   module's compute ``dtype``.
+- flax ``nn.Conv`` with SAME padding is ``Conv``: a torch conv weight
+  ``(out, in, k, k)`` (the bridge transposes flax's HWIO kernel), run on a
+  channels-last view of the feature map.
 - Parameters are created empty; ``init_parameters(module, generator)``
   draws every one from an explicit ``torch.Generator`` with the JAX
   package's distributions, in module-registration order.
@@ -66,6 +70,84 @@ def conv1x1(dim_in: int, dim_out: int, bias: bool = True,
     return Dense(dim_in, dim_out, bias=bias, dtype=dtype)
 
 
+class Conv(nn.Module):
+    """flax ``nn.Conv(features, (k, k), strides, padding="SAME")`` on
+    (b, h, w, c), kaiming-normal (leaky) on fan_in, zero bias; odd k (or
+    k = 1 at stride 2, which SAME leaves unpadded)."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel: int = 3,
+                 stride: int = 1, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.stride = stride
+        self.padding = kernel // 2
+        self.weight = nn.Parameter(torch.empty(dim_out, dim_in, kernel,
+                                               kernel))
+        self.bias = nn.Parameter(torch.empty(dim_out))
+
+    def reset_own_parameters(self, generator=None):
+        kaiming_normal_leaky_(self.weight, "oihw", generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
+        if w.shape[-1] == 1:  # a strided pointwise conv is a Dense
+            s = self.stride
+            return F.linear(x[:, ::s, ::s], w[:, :, 0, 0], b)
+        out = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=self.stride,
+                       padding=self.padding)
+        return out.permute(0, 2, 3, 1)
+
+
+def conv3x3(dim_in: int, dim_out: int, dtype=torch.float32):
+    return Conv(dim_in, dim_out, kernel=3, dtype=dtype)
+
+
+class Blur(nn.Module):
+    """Binomial [1,2,1] blur.  Parameter-free."""
+
+    def forward(self, x):
+        return ops.resample.blur_2d(x)
+
+
+class _SpaceToDepthProj(nn.Module):
+    """Dense over space-to-depth'd pixels, run as ONE 2×2 stride-2 conv.
+    The parameter keeps the flax Dense layout (as a torch Linear weight
+    (dim, 4·c) whose columns are (c, s1, s2)-major), so its conv view is a
+    reshape to (dim, c, 2, 2)."""
+
+    def __init__(self, dim_in: int, dim: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(dim, 4 * dim_in))
+        self.bias = nn.Parameter(torch.empty(dim))
+
+    def reset_own_parameters(self, generator=None):
+        kaiming_normal_leaky_(self.weight, "linear", generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dim, c = self.weight.shape[0], x.shape[-1]
+        w = self.weight.reshape(dim, c, 2, 2).to(self.dtype)
+        out = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w,
+                       self.bias.to(self.dtype), stride=2)
+        return out.permute(0, 2, 3, 1)
+
+
+class Downsample(nn.Module):
+    """space-to-depth + 1x1 conv, as one 2×2 stride-2 conv (the dense form
+    of the JAX package's ``Downsample``; its space-to-depth trunk variants
+    exist only for the TPU's lane layout)."""
+
+    def __init__(self, dim_in: int, dim: int, dtype=torch.float32):
+        super().__init__()
+        self.proj = _SpaceToDepthProj(dim_in, dim, dtype=dtype)
+
+    def forward(self, x):
+        return self.proj(x)
+
+
 class RMSNorm(nn.Module):
     """RMSNorm over the channel (last) axis."""
 
@@ -121,7 +203,7 @@ class Noise(nn.Module):
         if not exists(noise):
             noise = torch.randn((*x.shape[:-1], 1), generator=generator,
                                 device=x.device, dtype=x.dtype)
-        return x + self.weight.to(x.dtype) * noise
+        return x + self.weight.to(x.dtype) * noise.to(x.dtype)
 
 
 class EqualLinear(nn.Module):

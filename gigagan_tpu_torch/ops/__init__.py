@@ -7,7 +7,12 @@ from gigagan_tpu_torch.ops.adaptive_conv import (
     kernel_gram,
 )
 from gigagan_tpu_torch.ops.attention import attend, attend_fused
-from gigagan_tpu_torch.ops.resample import blur_2d, upsample_2x, upsample_2x_blur
+from gigagan_tpu_torch.ops.resample import (
+    blur_2d,
+    resize_image_to,
+    upsample_2x,
+    upsample_2x_blur,
+)
 
 __all__ = [
     "adaptive_conv",
@@ -19,6 +24,7 @@ __all__ = [
     "expand_batch",
     "kernel_gram",
     "resample",
+    "resize_image_to",
     "upsample_2x",
     "upsample_2x_blur",
 ]

@@ -12,11 +12,13 @@ device memory:
    Gram matrix ``G[n,m,i,o] = Σ_k Wₙ[k,i,o]·Wₘ[k,i,o]``:
    ``d²[b,o] = Σ_{n,m} a[b,n]·a[b,m] · Σᵢ G[n,m,i,o]·(1+mod[b,i])²``.
 
-On a CUDA tensor every 2-D 3x3 stride-1 conv runs kernel K1
-(``ops/kernels/adaptive_conv.py``), which mixes the banks per sample on
-chip.  Elsewhere — on the CPU, and for the 1x1 ``to_rgb`` conv on every
-device, as in JAX — the plain path runs steps (2)+(3) as one conv with n·o
-output channels and a per-sample mix.
+Every 2-D 3x3 stride-1 conv goes through ``pconv2d``
+(``ops/kernels/adaptive_conv.py``): kernel K1, which mixes the banks per
+sample on chip, forward and as the input gradient, and K2 for the weight
+and selection gradients — their plain versions on a CPU tensor.  The 1x1
+``to_rgb`` conv, as in JAX, and everything under ``plain_reference()`` run
+the plain path: steps (2)+(3) as one conv with n·o output channels and a
+per-sample mix.
 
 Feature maps are channels-last ``(b, h, w, c)``; banks are
 ``(n, kh, kw, in, out)``.
@@ -27,8 +29,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from gigagan_tpu_torch.ops.kernels import use_kernels
-from gigagan_tpu_torch.ops.kernels.adaptive_conv import adaptive_conv_fwd
+from gigagan_tpu_torch.ops.kernels import use_fused
+from gigagan_tpu_torch.ops.kernels.adaptive_conv import pconv2d
 from gigagan_tpu_torch.utils import exists
 
 
@@ -104,12 +106,15 @@ def adaptive_conv(x, weights, mod, kernel_mod=None, *, demod: bool = True,
     else:
         attn = None
 
-    if use_kernels(x) and (kh, kw) == (3, 3):
-        if stride != 1 or dilation != 1:
+    fused = use_fused() and (kh, kw) == (3, 3)
+    if fused and (stride != 1 or dilation != 1):
+        if x.is_cuda:
             raise NotImplementedError(
                 "adaptive_conv: the CUDA kernel K1 takes stride-1, "
                 "dilation-1 3x3 convs only"
             )
+        fused = False
+    if fused:
         a = attn if adaptive else torch.ones(
             (b, 1), dtype=torch.float32, device=x.device
         )
@@ -118,8 +123,8 @@ def adaptive_conv(x, weights, mod, kernel_mod=None, *, demod: bool = True,
         else:
             d = torch.ones((b, weights.shape[-1]), dtype=torch.float32,
                            device=x.device)
-        return adaptive_conv_fwd(x.contiguous(), weights.contiguous(),
-                                 a.contiguous(), d.contiguous())
+        return pconv2d(x.contiguous(), weights.contiguous(), a.contiguous(),
+                       d.contiguous())
 
     # (2) one conv with n·o output channels, then per-sample bank mixing
     o = weights.shape[-1]

@@ -10,18 +10,20 @@ The plain paths keep the JAX package's algebra:
 - logits are fp32; only the exp'd map is rounded to the operand dtype;
 - the softmax divide runs on the (i, d) output, not the (i, j) map.
 
-On a CUDA tensor, ``attend_fused`` with d ≤ 128 runs kernel K3
-(``ops/kernels/flash_attention_fused.py``).  The split-heads flash kernel
-(K6 in ROADMAP.md) is not ported yet: ``attend`` on a CUDA tensor at the
-sizes where the JAX package dispatches to it raises.
+``attend_fused`` with d ≤ 128 goes through the autograd chain of kernels
+K3 (forward), K4 (backward) and K5 (its adjoint, for the R1 penalty's
+double backward) in ``ops/kernels/flash_attention_so.py``: the kernels on
+a CUDA tensor, their plain versions on a CPU tensor.  The split-heads flash
+kernel (K6 in ROADMAP.md) is not ported yet: ``attend`` on a CUDA tensor at
+the sizes where the JAX package dispatches to it raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gigagan_tpu_torch.ops.kernels import use_kernels
-from gigagan_tpu_torch.ops.kernels.flash_attention_fused import (
+from gigagan_tpu_torch.ops.kernels import use_fused, use_kernels
+from gigagan_tpu_torch.ops.kernels.flash_attention_so import (
     flash_attend_fused,
 )
 from gigagan_tpu_torch.utils import exists
@@ -70,7 +72,7 @@ def attend_fused(q, k, v, *, heads: int, null_kv=None, l2_dist: bool = False,
     d = q.shape[-1] // heads
     if scale is None:
         scale = d ** -0.5
-    if use_kernels(q) and d <= 128:
+    if use_fused() and d <= 128:
         return flash_attend_fused(q, k, v, null_kv, heads, l2_dist, scale)
 
     b, nq, _ = q.shape

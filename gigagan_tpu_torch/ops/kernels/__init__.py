@@ -2,10 +2,12 @@
 version.
 
 A wrapper takes its plain version only for a CPU tensor; a CUDA tensor
-launches the kernel or raises.  ``plain_reference()`` makes the ops of the
-network take their plain paths on the card as well — the oracle that
-``chip_smoke.py`` holds a kernel-driven forward against.  Nothing on the
-main path enters it.
+launches the kernel or raises.  The ops reach the wrappers through
+``torch.autograd.Function``s whose structure is the same on every device,
+so the CPU tests run the wiring the card runs.  ``plain_reference()``
+makes the ops of the network take their plain PyTorch paths instead, on
+any device — the oracle that ``chip_smoke.py`` holds a kernel-driven
+forward and train step against.  Nothing on the main path enters it.
 """
 
 from __future__ import annotations
@@ -30,3 +32,9 @@ def plain_reference():
 def use_kernels(t) -> bool:
     """True where the ops route a tensor to the CUDA kernels."""
     return t.is_cuda and not _PLAIN.get()
+
+
+def use_fused() -> bool:
+    """True where the ops go through the kernels' autograd Functions (the
+    kernel on a CUDA tensor, its plain version on a CPU tensor)."""
+    return not _PLAIN.get()

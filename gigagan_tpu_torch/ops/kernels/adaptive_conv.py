@@ -1,12 +1,30 @@
-"""Kernel K1: fused sample-adaptive 3x3 conv forward
-(``csrc/adaptive_conv_fwd.cu``), its plain PyTorch version, and the wrapper
-that picks between them by device.
+"""Kernels K1 and K2 of the sample-adaptive 3x3 conv, their plain PyTorch
+versions, the wrappers that pick between them by device, and the
+autograd pair ``pconv2d``/``pcorr2d`` built on them.
+
+K1 (``csrc/adaptive_conv_fwd.cu``), the forward with a fused demod scale:
 
     out[b] = demod[b] ⊙ conv3x3_SAME(x_mod[b], Σₙ attn[b,n]·Wₙ)
 
 x_mod (b, h, w, ci) float32/bfloat16 with (1+mod) folded in; weights
 (n, 3, 3, ci, co) float32 or x_mod's dtype; attn (b, n) float32; demod
 (b, co) float32; out (b, h, w, co) in x_mod's dtype.
+
+K2 (``csrc/adaptive_conv_bwd_w.cu``), the weight-gradient correlation
+contracted against the selection weights and the banks: with
+``C[b] = Σ_{r,c} x_pad[b, r+ky, c+kx, i]·g[b, r, c, o]``
+
+    dW[n] = Σ_b attn[b,n]·C[b]   (n, 3, 3, ci, co) float32
+    da[b,n] = ⟨Wₙ, C[b]⟩          (b, n) float32
+
+x and g share a dtype (float32 or bfloat16); C never reaches device memory
+in the TPU kernel, and reaches it here only as fp32 partial sums.
+
+``pconv2d``/``pcorr2d`` mirror the JAX closure of the same names
+(gigagan_tpu/ops/pallas/adaptive_conv.py): each op's backward is made of
+the two ops, so the pair is differentiable to any order.  The structure is
+the same on every device; only the innermost call changes (the kernel on a
+CUDA tensor, the plain version on a CPU tensor).
 """
 
 from __future__ import annotations
@@ -21,19 +39,39 @@ from gigagan_tpu_torch.ops.kernels import build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def acc_dtype(t):
+    """The accumulation dtype of the plain versions: float64 operands (the
+    gradchecks) stay float64, everything else accumulates in float32."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+# ------------------------------------------------------------------ K1
+
 def adaptive_conv_fwd_plain(x_mod, weights, attn, demod):
     """The kernel's function in plain PyTorch: the per-sample mixed kernel
     in fp32, rounded to the operand dtype, one grouped conv with fp32
     accumulation, the demod scale in fp32, then the cast."""
+    acc = acc_dtype(x_mod)
     b, h, w, ci = x_mod.shape
     co = weights.shape[-1]
-    w_mix = torch.einsum("bn,nyxio->byxio", attn.float(), weights.float())
-    w_mix = w_mix.to(x_mod.dtype).float()
-    xg = x_mod.float().permute(0, 3, 1, 2).reshape(1, b * ci, h, w)
+    w_mix = torch.einsum("bn,nyxio->byxio", attn.to(acc), weights.to(acc))
+    w_mix = w_mix.to(x_mod.dtype).to(acc)
+    xg = x_mod.to(acc).permute(0, 3, 1, 2).reshape(1, b * ci, h, w)
     wg = w_mix.permute(0, 4, 3, 1, 2).reshape(b * co, ci, 3, 3)
     out = F.conv2d(xg, wg, padding=1, groups=b)
     out = out.reshape(b, co, h, w).permute(0, 2, 3, 1)
-    return (out * demod.float()[:, None, None, :]).to(x_mod.dtype)
+    return (out * demod.to(acc)[:, None, None, :]).to(x_mod.dtype)
+
+
+def _check_on_device(what, device, tensors):
+    for name, t in tensors:
+        if not t.is_cuda or t.device != device:
+            raise ValueError(
+                f"{what}: {name} is on {t.device}, the kernel needs every "
+                f"operand on {device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
 
 
 def _check(x_mod, weights, attn, demod):
@@ -64,15 +102,9 @@ def _check(x_mod, weights, attn, demod):
         )
     if attn.dtype != torch.float32 or demod.dtype != torch.float32:
         raise TypeError("adaptive_conv_fwd: attn and demod must be float32")
-    for name, t in (("x_mod", x_mod), ("weights", weights), ("attn", attn),
-                    ("demod", demod)):
-        if not t.is_cuda or t.device != x_mod.device:
-            raise ValueError(
-                f"adaptive_conv_fwd: {name} is on {t.device}, the kernel "
-                f"needs every operand on {x_mod.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"adaptive_conv_fwd: {name} is not contiguous")
+    _check_on_device("adaptive_conv_fwd", x_mod.device,
+                     (("x_mod", x_mod), ("weights", weights), ("attn", attn),
+                      ("demod", demod)))
 
 
 def ci_per_split(lib, b, h, w, ci, co, device: int) -> int:
@@ -129,3 +161,180 @@ def adaptive_conv_fwd(x_mod, weights, attn, demod):
 
 
 adaptive_conv_fwd.launches = 0
+
+
+# ------------------------------------------------------------------ K2
+
+def adaptive_conv_bwd_w_plain(x, g, weights, attn):
+    """The kernel's function in plain PyTorch: the per-sample correlation
+    C, one tap at a time, contracted in fp32 against attn and the banks.
+    Returns (dW (n, 3, 3, ci, co), da (b, n)) in the accumulation dtype."""
+    acc = acc_dtype(x)
+    b, h, w, ci = x.shape
+    xp = F.pad(x.to(acc), (0, 0, 1, 1, 1, 1))
+    gf = g.to(acc)
+    taps = [
+        torch.einsum("bhwi,bhwo->bio", xp[:, ky:ky + h, kx:kx + w], gf)
+        for ky in range(3) for kx in range(3)
+    ]
+    corr = torch.stack(taps, 1).reshape(b, 3, 3, ci, g.shape[-1])
+    dw = torch.einsum("bn,byxio->nyxio", attn.to(acc), corr)
+    da = torch.einsum("nyxio,byxio->bn", weights.to(acc), corr)
+    return dw, da
+
+
+def _check_bwd_w(x, g, weights, attn):
+    if x.dim() != 4 or g.dim() != 4 or weights.dim() != 5:
+        raise ValueError(
+            f"adaptive_conv_bwd_w: x {tuple(x.shape)}, g {tuple(g.shape)}, "
+            f"weights {tuple(weights.shape)} must be (b,h,w,ci), (b,h,w,co), "
+            "(n,3,3,ci,co)"
+        )
+    b, h, w, ci = x.shape
+    n, kh, kw, wci, co = weights.shape
+    if (kh, kw) != (3, 3) or wci != ci or tuple(g.shape) != (b, h, w, co):
+        raise ValueError(
+            f"adaptive_conv_bwd_w: x {tuple(x.shape)}, g {tuple(g.shape)} "
+            f"and weights {tuple(weights.shape)} do not agree"
+        )
+    if tuple(attn.shape) != (b, n) or attn.dtype != torch.float32:
+        raise ValueError(f"adaptive_conv_bwd_w: attn must be float32 "
+                         f"({b}, {n})")
+    if n > 4:
+        raise ValueError(f"adaptive_conv_bwd_w: {n} banks, the kernel "
+                         "takes at most 4")
+    if x.dtype not in _DTYPE_CODES or g.dtype != x.dtype or (
+        weights.dtype not in (torch.float32, x.dtype)
+    ):
+        raise TypeError(
+            f"adaptive_conv_bwd_w: x {x.dtype} / g {g.dtype} / weights "
+            f"{weights.dtype}: x and g share a float32 or bfloat16 dtype, "
+            "weights are float32 or that dtype"
+        )
+    _check_on_device("adaptive_conv_bwd_w", x.device,
+                     (("x", x), ("g", g), ("weights", weights),
+                      ("attn", attn)))
+
+
+def adaptive_conv_bwd_w(x, g, weights, attn):
+    """K2 on a CUDA tensor, its plain version on a CPU tensor.
+    Returns (dW, da) in float32 (float64 for float64 CPU operands)."""
+    if x.device.type == "cpu":
+        return adaptive_conv_bwd_w_plain(x, g, weights, attn)
+    _check_bwd_w(x, g, weights, attn)
+    b, h, w, ci = x.shape
+    n, co = weights.shape[0], weights.shape[-1]
+    dev = x.device
+    lib = build.load("adaptive_conv_bwd_w")
+    plan = lib.gigagan_adaptive_conv_bwd_w_workspace
+    plan.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_long)] * 2
+    plan.restype = ctypes.c_int
+    part_n, da_part_n = ctypes.c_long(), ctypes.c_long()
+    err = plan(b, h, w, ci, co, n, dev.index, ctypes.byref(part_n),
+               ctypes.byref(da_part_n))
+    build.check(lib, err, "adaptive_conv_bwd_w")
+    partial = torch.empty(part_n.value, dtype=torch.float32, device=dev)
+    da_partial = torch.empty(da_part_n.value, dtype=torch.float32, device=dev)
+    dw = torch.empty((n, 3, 3, ci, co), dtype=torch.float32, device=dev)
+    da = torch.empty((b, n), dtype=torch.float32, device=dev)
+    fn = lib.gigagan_adaptive_conv_bwd_w
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    err = fn(
+        x.data_ptr(), g.data_ptr(), weights.data_ptr(), attn.data_ptr(),
+        dw.data_ptr(), da.data_ptr(), partial.data_ptr(),
+        da_partial.data_ptr(), b, h, w, ci, co, n, _DTYPE_CODES[x.dtype],
+        _DTYPE_CODES[weights.dtype], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, err, "adaptive_conv_bwd_w")
+    adaptive_conv_bwd_w.launches += 1
+    return dw, da
+
+
+adaptive_conv_bwd_w.launches = 0
+
+
+# ------------------------------------------------- the AD-closed op pair
+
+def flip_t(banks):
+    """Spatially flip and (i,o)-transpose kernel banks:
+    (n, 3, 3, i, o) → (n, 3, 3, o, i)."""
+    return banks.flip((1, 2)).transpose(-1, -2).contiguous()
+
+
+class _PConv2d(torch.autograd.Function):
+    """out = demod ⊙ conv3x3_SAME(x, Σₙ coeff[b,n]·Wₙ) through K1.
+
+    Backward: the demod folds into the cotangent (g' = g·demod);
+    dx = K1(g', flip_t(W), coeff, 1); (dW, dcoeff) = K2(x, g', W, coeff);
+    ddemod[b,o] = Σ_hw g·out / demod (demod = rsqrt(max(d², eps)) is never
+    0).  The saved output is an output of this op, so under create_graph
+    ddemod stays differentiable through it."""
+
+    @staticmethod
+    def forward(ctx, x, weights, coeff, demod):
+        out = adaptive_conv_fwd(x, weights, coeff, demod)
+        ctx.save_for_backward(x, weights, coeff, demod, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weights, coeff, demod, out = ctx.saved_tensors
+        acc = acc_dtype(x)
+        g_s = (g.to(acc) * demod.to(acc)[:, None, None, :]).to(x.dtype)
+        dx = dw = dcoeff = ddemod = None
+        if ctx.needs_input_grad[0]:
+            ones = torch.ones((x.shape[0], x.shape[-1]), dtype=demod.dtype,
+                              device=x.device)
+            dx = pconv2d(g_s, flip_t(weights), coeff, ones)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, dcoeff = pcorr2d(x, g_s, weights, coeff)
+            dw, dcoeff = dw.to(weights.dtype), dcoeff.to(coeff.dtype)
+        if ctx.needs_input_grad[3]:
+            ddemod = (g.to(acc) * out.to(acc)).sum((1, 2)) / demod.to(acc)
+            ddemod = ddemod.to(demod.dtype)
+        return dx, dw, dcoeff, ddemod
+
+
+class _PCorr2d(torch.autograd.Function):
+    """(dW, da) = K2(x, g, W, coeff).  Its backward, as in JAX, is made of
+    the two ops with the 2n-bank mixture banks = [ĝdW; W], mix = [coeff; ĝda]:
+    dx = pconv(g, flip_t(banks), mix), dg = pconv(x, banks, mix),
+    (dW, dcoeff) = pcorr(x, g, ĝdW, ĝda)."""
+
+    @staticmethod
+    def forward(ctx, x, g, weights, coeff):
+        dw, da = adaptive_conv_bwd_w(x, g, weights, coeff)
+        ctx.save_for_backward(x, g, weights, coeff)
+        return dw, da
+
+    @staticmethod
+    def backward(ctx, g_dw, g_da):
+        x, g, weights, coeff = ctx.saved_tensors
+        banks = torch.cat((g_dw.to(weights.dtype), weights), 0)
+        mix = torch.cat((coeff, g_da.to(coeff.dtype)), 1)
+        b = x.shape[0]
+        ones_o = torch.ones((b, weights.shape[-1]), dtype=coeff.dtype,
+                            device=x.device)
+        ones_i = torch.ones((b, x.shape[-1]), dtype=coeff.dtype,
+                            device=x.device)
+        dx = pconv2d(g, flip_t(banks), mix, ones_i)
+        dg = pconv2d(x, banks, mix, ones_o)
+        dw_hat, da_hat = pcorr2d(x, g, g_dw.to(weights.dtype),
+                                 g_da.to(coeff.dtype))
+        return (dx, dg, dw_hat.to(weights.dtype), da_hat.to(coeff.dtype))
+
+
+def pconv2d(x, weights, coeff, demod):
+    """demod ⊙ conv3x3_SAME(x, Σₙ coeff[b,n]·Wₙ), differentiable to any
+    order; coeff is NOT softmaxed here."""
+    return _PConv2d.apply(x, weights, coeff, demod)
+
+
+def pcorr2d(x, g, weights, coeff):
+    """(dW, da) of a 3x3 SAME conv (see the module docstring),
+    differentiable to any order."""
+    return _PCorr2d.apply(x, g, weights, coeff)

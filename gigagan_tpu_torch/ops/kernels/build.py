@@ -4,7 +4,8 @@ loads them with ctypes.
 Each ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds) under ``gigagan_tpu_torch/_build/``,
-keyed by a hash of the source and the flags.  Nothing here runs when a
+keyed by a hash of the source, the shared ``csrc/*.cuh`` headers and the
+flags; ``build_all`` starts one nvcc per source at once.  Nothing here runs when a
 module is imported: the CPU tests import every module on machines without
 ``nvcc``.
 """
@@ -18,6 +19,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -47,8 +50,19 @@ def nvcc_path() -> str:
     return found
 
 
+KERNELS = (
+    "adaptive_conv_fwd",
+    "adaptive_conv_bwd_w",
+    "flash_attention_fused_fwd",
+    "flash_attention_fused_bwd",
+    "flash_attention_so_bwd2",
+)
+
+
 def _digest(src: pathlib.Path) -> str:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -73,6 +87,19 @@ def build(name: str, verbose: bool = False) -> tuple[pathlib.Path, str]:
         )
     os.replace(tmp, lib)
     return lib, proc.stdout + proc.stderr
+
+
+def build_all(verbose: bool = False) -> dict:
+    """Build every kernel, one nvcc process each, all at once.
+    Returns {name: (library path, compiler log, seconds)}."""
+
+    def one(name):
+        t0 = time.perf_counter()
+        path, log = build(name, verbose=verbose)
+        return name, (path, log, time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        return dict(pool.map(one, KERNELS))
 
 
 def load(name: str) -> ctypes.CDLL:

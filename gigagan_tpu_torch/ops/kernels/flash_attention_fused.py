@@ -1,7 +1,8 @@
 """Kernel K3: fused-heads flash attention forward with an analytic null
 key/value (``csrc/flash_attention_fused_fwd.cu``), its plain PyTorch
 version, the operand prep, and the wrapper that picks between kernel and
-plain version by device.
+plain version by device.  Its backward (K4, K5) and the autograd chain are
+in ``flash_attention_so.py``.
 
 Operands stay in the network's ``(b, n, H·d)`` layout.  The prep is
 ``_prep_fused`` of the JAX package without the TPU's lane padding and
@@ -19,6 +20,7 @@ import ctypes
 import torch
 
 from gigagan_tpu_torch.ops.kernels import build
+from gigagan_tpu_torch.ops.kernels.adaptive_conv import acc_dtype
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -28,21 +30,22 @@ def prep_fused(k, v, null_kv, heads: int, l2_dist: bool, scale: float):
     None without a null_kv."""
     b, nk, hd = k.shape
     d = hd // heads
+    acc = acc_dtype(k)
     coeff = 2.0 * scale if l2_dist else scale
-    k_pre = (k.float() * coeff).to(k.dtype)
+    k_pre = (k.to(acc) * coeff).to(k.dtype)
     bias = None
     if l2_dist:
-        kh = k.reshape(b, nk, heads, d).float()
+        kh = k.reshape(b, nk, heads, d).to(acc)
         bias = (-scale * torch.einsum("bkhd,bkhd->bhk", kh, kh)).contiguous()
     if null_kv is None:
         return k_pre, bias, None, None, None
-    nullk_raw = null_kv[0].float()  # (H, d)
+    nullk_raw = null_kv[0].to(acc)  # (H, d)
     nullk_pre = (nullk_raw * coeff).to(k.dtype)
     nullv = null_kv[1].to(v.dtype)
     if l2_dist:
         null_bias = -scale * (nullk_raw * nullk_raw).sum(-1)
     else:
-        null_bias = torch.zeros(heads, dtype=torch.float32, device=k.device)
+        null_bias = torch.zeros(heads, dtype=acc, device=k.device)
     return k_pre, bias, nullk_pre.contiguous(), nullv.contiguous(), null_bias
 
 
@@ -55,24 +58,25 @@ def flash_attention_fused_fwd_plain(q, k_pre, v, bias, nullk_pre, nullv,
     b, nq, hd = q.shape
     nk = k_pre.shape[1]
     d = hd // heads
-    qh = q.reshape(b, nq, heads, d).float()
-    kh = k_pre.reshape(b, nk, heads, d).float()
+    acc = acc_dtype(q)
+    qh = q.reshape(b, nq, heads, d).to(acc)
+    kh = k_pre.reshape(b, nk, heads, d).to(acc)
     vh = v.reshape(b, nk, heads, d)
     sim = torch.einsum("bihd,bjhd->bhij", qh, kh)
     if bias is not None:
-        sim = sim + bias[:, :, None, :]
+        sim = sim + bias.to(acc)[:, :, None, :]
     m = sim.amax(dim=-1, keepdim=True)
     if nullk_pre is not None:
-        sim_n = torch.einsum("bihd,hd->bhi", qh, nullk_pre.float())
-        sim_n = sim_n[..., None] + null_bias[None, :, None, None]
+        sim_n = torch.einsum("bihd,hd->bhi", qh, nullk_pre.to(acc))
+        sim_n = sim_n[..., None] + null_bias.to(acc)[None, :, None, None]
         m = torch.maximum(m, sim_n)
     e = torch.exp(sim - m)
     s = e.sum(dim=-1, keepdim=True)
-    av = torch.einsum("bhij,bjhd->bhid", e.to(v.dtype).float(), vh.float())
+    av = torch.einsum("bhij,bjhd->bhid", e.to(v.dtype).to(acc), vh.to(acc))
     if nullk_pre is not None:
         en = torch.exp(sim_n - m)
         s = s + en
-        av = av + en * nullv.float()[None, :, None, :]
+        av = av + en * nullv.to(acc)[None, :, None, :]
     out = (av / s).to(q.dtype).permute(0, 2, 1, 3).reshape(b, nq, hd)
     lse = (m + torch.log(s))[..., 0]
     return out, lse
@@ -172,19 +176,3 @@ def flash_attention_fused_fwd(q, k_pre, v, bias, nullk_pre, nullv,
 
 flash_attention_fused_fwd.launches = 0
 
-
-def flash_attend_fused(q, k, v, null_kv, heads: int, l2_dist: bool = False,
-                       scale=None):
-    """Fused-heads attention through K3: q (b, nq, H·d), k/v (b, nk, H·d),
-    null_kv (2, H, d) or None → (b, nq, H·d)."""
-    d = q.shape[-1] // heads
-    if scale is None:
-        scale = d ** -0.5
-    k_pre, bias, nullk_pre, nullv, null_bias = prep_fused(
-        k, v, null_kv, heads, l2_dist, scale
-    )
-    out, _ = flash_attention_fused_fwd(
-        q.contiguous(), k_pre, v.contiguous(), bias, nullk_pre, nullv,
-        null_bias, heads,
-    )
-    return out

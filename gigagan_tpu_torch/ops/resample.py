@@ -1,6 +1,6 @@
 """Blur / resample primitives, channels-last (counterpart of
 gigagan_tpu/ops/resample.py: ``blur_2d``, ``upsample_2x``,
-``upsample_2x_blur``).
+``upsample_2x_blur``, ``resize_image_to``).
 
 Feature maps are ``(b, h, w, c)``; torch's spatial ops want ``(b, c, h, w)``,
 so each op works on a permuted view and permutes back.
@@ -47,3 +47,24 @@ def upsample_2x(x):
 def upsample_2x_blur(x):
     """The reference Upsample: bilinear 2x then binomial blur."""
     return blur_2d(upsample_2x(x))
+
+
+def resize_image_to(images, size: int, method: str = "bilinear"):
+    """Resize (b, h, w, c) so that h == w == size with torch
+    ``F.interpolate`` semantics, which the JAX package reproduces by hand:
+    'bilinear' is align_corners=False without antialiasing, 'nearest' the
+    legacy floor(i·in/out) source index."""
+    if images.shape[1] == size and images.shape[2] == size:
+        return images
+    if method in ("bilinear", "linear"):
+        out = F.interpolate(_nchw(images), size=(size, size),
+                            mode="bilinear", align_corners=False,
+                            antialias=False)
+    elif method == "nearest":
+        out = F.interpolate(_nchw(images), size=(size, size), mode="nearest")
+    else:
+        raise NotImplementedError(
+            f"resize_image_to: method {method!r} is not ported (bilinear "
+            "and nearest are)"
+        )
+    return _nhwc(out)

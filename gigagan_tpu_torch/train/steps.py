@@ -1,0 +1,191 @@
+"""The unconditional discriminator and generator train steps (counterpart
+of the unconditional ``d_step``/``g_step`` of gigagan_tpu/train/steps.py).
+
+- ``d_step``: fakes from G without gradient, DiffAugment, ONE batched D
+  call on [real; fake] (batch-major scale groups keep the halves
+  contiguous), hinge + multiscale hinge, the R1 penalty on that same call
+  via ``torch.autograd.grad(outputs=[logits, *ms], grad_outputs=[1,
+  ms_w, …], create_graph=True)`` — the aux reconstruction losses stay out
+  of the penalty's graph — plus the aux reconstruction loss; then the D
+  optimizer step.
+- ``g_step``: fakes with gradient, DiffAugment, D on the fakes, generator
+  hinge + multiscale hinge; the G optimizer step, then the EMA update.
+
+On the card the D's self-attention runs K3 forward, K4 backward and K5
+inside the R1 double backward, and G's adaptive convs K1/K2 — all through
+the autograd Functions of ``ops/kernels``.
+
+Every random draw of a step comes from explicit generators — the tensors
+(latents, pixel noise, the decoder's dropout mask and patch choice) from
+``generator`` on the step's device, the host-side flip decisions from the
+CPU ``host_generator`` — or is given in ``StepDraws`` so that a run can
+reproduce another's.  Options of the JAX steps this port does not have
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import torch
+
+from gigagan_tpu_torch import losses as L
+from gigagan_tpu_torch.utils import exists
+
+_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, item 2)"
+
+
+@dataclass
+class StepDraws:
+    """Explicit random draws of one step; a None field is drawn from the
+    step's generator.  ``recon`` holds one (keep mask, patch indices) pair
+    per reconstruction decoder (d_step only)."""
+
+    latents: Optional[torch.Tensor] = None
+    pixel_noise: Optional[List[torch.Tensor]] = None
+    fake_flip: Optional[bool] = None
+    real_flip: Optional[bool] = None
+    recon: Optional[list] = None
+
+
+class TrainStepBuilder:
+    """The d/g steps of one unconditional (G, D) pair and its optimizers."""
+
+    def __init__(self, generator, discriminator, g_opt, d_opt, *,
+                 ema=None, multiscale_divergence_loss_weight: float = 0.1,
+                 discr_aux_recon_loss_weight: float = 1.0,
+                 diff_augment=None, gp_chunk: Optional[int] = None,
+                 gp_fwd_over_rev: bool = False):
+        if exists(gp_chunk):
+            raise NotImplementedError(f"gp_chunk (the chunked R1) "
+                                      f"{_NOT_PORTED}")
+        if gp_fwd_over_rev:
+            raise NotImplementedError(
+                "gp_fwd_over_rev (forward-over-reverse R1) is not ported yet "
+                "(ROADMAP.md Queue 1, item 6)")
+        self.G = generator
+        self.D = discriminator
+        self.g_opt = g_opt
+        self.d_opt = d_opt
+        self.ema = ema
+        self.ms_w = multiscale_divergence_loss_weight
+        self.aux_w = discr_aux_recon_loss_weight
+        self.diff_augment = diff_augment
+
+    def _generate(self, batch_size, draws, generator):
+        return self.G(
+            batch_size=batch_size, noise=draws.latents,
+            pixel_noise=draws.pixel_noise, return_all_rgbs=True,
+            latent_generator=generator, noise_generator=generator,
+        )
+
+    def _augment(self, images, rgbs, flip, host_generator):
+        if not exists(self.diff_augment):
+            return images, rgbs
+        return self.diff_augment(images, rgbs, flip=flip,
+                                 generator=host_generator)
+
+    def d_step(self, real_images, *, apply_gp: bool, calc_ms: bool,
+               draws: Optional[StepDraws] = None, generator=None,
+               host_generator=None) -> dict:
+        """One discriminator update on a (b, h, w, c) batch of reals.
+        Returns the step's losses as 0-d tensors (no device sync)."""
+        draws = draws or StepDraws()
+        b = real_images.shape[0]
+        dtype = self.D.dtype
+
+        with torch.no_grad():
+            fake, fake_rgbs = self._generate(b, draws, generator)
+        fake_aug, fake_rgbs_aug = self._augment(fake, fake_rgbs,
+                                                draws.fake_flip,
+                                                host_generator)
+
+        real = real_images.to(dtype)
+        fake_aug = fake_aug.to(dtype)
+        if apply_gp:
+            real = real.detach().requires_grad_()
+            fake_aug = fake_aug.detach().requires_grad_()
+        real_aug, real_rgbs = self._augment(
+            real, self.D.real_images_to_rgbs(real), draws.real_flip,
+            host_generator)
+
+        # ONE batched D call on [real; fake], paired per resolution
+        by_res = [{t.shape[1]: t for t in lst}
+                  for lst in (real_rgbs, fake_rgbs_aug)]
+        pair_rgbs = [torch.cat([ix[r].to(dtype) for ix in by_res])
+                     for r in self.D.multiscale_input_resolutions]
+        images = torch.cat((real_aug, fake_aug))
+        logits, ms, aux_losses = self.D(
+            images, pair_rgbs, return_multiscale_outputs=calc_ms,
+            calc_aux_loss=True, aux_recon_samples=b,
+            recon_draws=draws.recon, generator=generator,
+        )
+
+        divergence = L.discriminator_hinge_loss(logits[:, :b], logits[:, b:])
+        total = divergence
+        ms_div = torch.zeros((), device=logits.device)
+        if self.ms_w > 0.0 and calc_ms and ms:
+            for m in ms:
+                half = m.shape[0] // 2
+                ms_div = ms_div + L.discriminator_hinge_loss(m[:half],
+                                                             m[half:])
+            total = total + ms_div * self.ms_w
+
+        gp = torch.zeros((), device=logits.device)
+        if apply_gp:
+            # R1 on the same call; aux losses are outside its graph
+            outputs = [logits, *ms]
+            cots = [torch.ones_like(logits),
+                    *[torch.ones_like(m) * self.ms_w for m in ms]]
+            g_real, g_fake = torch.autograd.grad(
+                outputs, [real, fake_aug], cots, create_graph=True)
+            gp = 10.0 * (L.sample_sq_norms(g_real).mean()
+                         + L.sample_sq_norms(g_fake).mean())
+            total = total + gp
+
+        aux = torch.zeros((), device=logits.device)
+        if self.aux_w > 0.0 and aux_losses:
+            aux = sum(aux_losses)
+            total = total + aux * self.aux_w
+
+        params = [p for p in self.D.parameters() if p.requires_grad]
+        self.d_opt.zero_grad(set_to_none=True)
+        total.backward(inputs=params)
+        self.d_opt.step()
+        return _detached(divergence=divergence, multiscale_divergence=ms_div,
+                         gradient_penalty=gp, aux_reconstruction=aux)
+
+    def g_step(self, batch_size: int, *, calc_ms: bool,
+               draws: Optional[StepDraws] = None, generator=None,
+               host_generator=None) -> dict:
+        """One generator update (and the EMA update after it)."""
+        draws = draws or StepDraws()
+        fake, rgbs = self._generate(batch_size, draws, generator)
+        fake_aug, rgbs_aug = self._augment(fake, rgbs, draws.fake_flip,
+                                           host_generator)
+        dtype = self.D.dtype
+        logits, ms, _ = self.D(
+            fake_aug.to(dtype), [r.to(dtype) for r in rgbs_aug],
+            return_multiscale_outputs=calc_ms, calc_aux_loss=False,
+        )
+        divergence = L.generator_hinge_loss(logits)
+        total = divergence
+        ms_div = torch.zeros((), device=logits.device)
+        if self.ms_w > 0.0 and calc_ms and ms:
+            for m in ms:
+                ms_div = ms_div + L.generator_hinge_loss(m)
+            total = total + ms_div * self.ms_w
+
+        params = [p for p in self.G.parameters() if p.requires_grad]
+        self.g_opt.zero_grad(set_to_none=True)
+        total.backward(inputs=params)
+        self.g_opt.step()
+        if exists(self.ema):
+            self.ema.update(self.G)
+        return _detached(divergence=divergence, multiscale_divergence=ms_div)
+
+
+def _detached(**losses):
+    return {k: v.detach() for k, v in losses.items()}
+

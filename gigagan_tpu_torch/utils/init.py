@@ -8,7 +8,9 @@ for three parameter layouts:
   flax's ``(in, out)`` Dense kernel, same fan_in;
 - ``conv``: ``(*spatial, in, out)`` (HWIO);
 - ``bank``: ``(n, *spatial, in, out)`` adaptive-conv kernel banks, kept in
-  the JAX layout so the weight bridge copies them as they are.
+  the JAX layout so the weight bridge copies them as they are;
+- ``oihw``: a torch conv weight ``(out, in, *spatial)`` — flax ``nn.Conv``'s
+  HWIO kernel, transposed, same fan_in.
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ def _fan_in_out(shape, layout: str):
         receptive = math.prod(shape[1:-2])
         fan_in = shape[-2] * receptive
         fan_out = shape[-1] * receptive
+    elif layout == "oihw":  # (out, in, *spatial)
+        receptive = math.prod(shape[2:])
+        fan_in = shape[1] * receptive
+        fan_out = shape[0] * receptive
     else:
         raise ValueError(layout)
     return fan_in, fan_out

@@ -4,6 +4,8 @@ path, the Pallas kernel in interpret mode and the per-sample oracle), and
 fused attention (against the Pallas kernel in interpret mode).  Inputs come
 from numpy with a fixed seed; both sides get the same arrays."""
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -224,3 +226,257 @@ def test_attend_masked_matches_jax(l2):
                       mask=jnp.asarray(mask), l2_dist=l2, use_flash=False)
     got = attend(t(q), t(k), t(v), mask=t(mask), l2_dist=l2)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------ backward kernels K2, K4, K5
+
+from gigagan_tpu.ops.pallas.adaptive_conv import pcorr2d as jax_pcorr2d  # noqa: E402,E501
+from gigagan_tpu.ops.pallas.flash_attention_so import (  # noqa: E402
+    _bwd_sc_impl as jax_flash_bwd,
+    flash_bwd_so as jax_flash_bwd_so,
+)
+
+from gigagan_tpu_torch.ops import attention as attention_mod  # noqa: E402
+from gigagan_tpu_torch.ops.kernels import plain_reference  # noqa: E402
+
+# the package re-exports the function under the module's name
+adaptive_conv_mod = importlib.import_module(
+    "gigagan_tpu_torch.ops.adaptive_conv")
+from gigagan_tpu_torch.ops.kernels import (  # noqa: E402
+    flash_attention_so as so,
+)
+
+
+def rel_max(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-30))
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_k2_plain_matches_pallas_pcorr2d(n):
+    rng = np.random.default_rng(20)
+    b, h, w, ci, co = 2, 6, 5, 8, 12
+    x = rng.standard_normal((b, h, w, ci)).astype(np.float32)
+    g = rng.standard_normal((b, h, w, co)).astype(np.float32)
+    weights = rng.standard_normal((n, 3, 3, ci, co)).astype(np.float32)
+    a = rng.random((b, n)).astype(np.float32)
+    dw_j, da_j = jax_pcorr2d(jnp.asarray(x), jnp.asarray(g),
+                             jnp.asarray(weights), jnp.asarray(a), 128, True)
+    dw, da = k1.adaptive_conv_bwd_w(t(x), t(g), t(weights), t(a))
+    assert rel_max(dw.numpy(), dw_j) <= 1e-4
+    assert rel_max(da.numpy(), da_j) <= 1e-4
+
+
+ATTN_CASES = [(l2, null) for l2 in (False, True) for null in (True, False)]
+ATTN_IDS = [f"{'l2' if l2 else 'dot'}-{'null' if null else 'no_null'}"
+            for l2, null in ATTN_CASES]
+
+
+def attn_inputs(seed, null, b=2, n=64, heads=2, d=64):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal((b, n, heads * d)).astype(np.float32)
+                  for _ in range(4))
+    null_kv = (rng.standard_normal((2, heads, d)).astype(np.float32)
+               if null else None)
+    return q, k, v, g, null_kv
+
+
+@pytest.mark.parametrize("l2,null", ATTN_CASES, ids=ATTN_IDS)
+def test_k4_plain_matches_pallas_bwd(l2, null):
+    heads, d = 2, 64
+    scale = d ** -0.5
+    q, k, v, g, null_kv = attn_inputs(21, null)
+    jnull = None if null_kv is None else jnp.asarray(null_kv)
+    out_j, (_, lse_j) = jax_flash_fused_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnull, heads, l2,
+        scale, True)
+    want = jax_flash_bwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         jnull, jnp.asarray(g), lse_j, heads, l2, scale, True)
+
+    # K4's plain version on the prepared operands, fed JAX's out and lse;
+    # the chain rule back to k and null_kv through autograd of the prep
+    kt = t(k).requires_grad_()
+    nkv = None if null_kv is None else t(null_kv).requires_grad_()
+    k_pre, bias, nk_pre, nv, nb = k3.prep_fused(kt, t(v), nkv, heads, l2,
+                                                scale)
+    lse = t(np.asarray(lse_j).reshape(2, heads, -1)[..., :64])
+    dq, dkp, dv, dbias, dnk, dnv, dnb = so.flash_attention_fused_bwd(
+        t(q), k_pre.detach(), t(v), None if bias is None else bias.detach(),
+        None if nk_pre is None else nk_pre.detach(),
+        None if nv is None else nv.detach(),
+        None if nb is None else nb.detach(), t(g), t(np.asarray(out_j)), lse,
+        heads)
+    pairs = [(k_pre, dkp), (bias, dbias), (nk_pre, dnk), (nv, dnv),
+             (nb if l2 else None, dnb)]
+    pairs = [(o, gr) for o, gr in pairs if o is not None and o.requires_grad]
+    torch.autograd.backward([o for o, _ in pairs], [gr for _, gr in pairs])
+    assert rel_max(dq.numpy(), want[0]) <= 1e-4
+    assert rel_max(kt.grad.numpy(), want[1]) <= 1e-4
+    assert rel_max(dv.numpy(), want[2]) <= 1e-4
+    if null:
+        assert rel_max(nkv.grad.numpy(), want[3]) <= 1e-4
+
+
+@pytest.mark.parametrize("l2,null", ATTN_CASES, ids=ATTN_IDS)
+def test_k5_plain_matches_pallas_adjoint(l2, null, monkeypatch):
+    heads, d = 2, 64
+    scale = d ** -0.5
+    q, k, v, g, null_kv = attn_inputs(22, null)
+    rng = np.random.default_rng(23)
+    cots = [rng.standard_normal(a.shape).astype(np.float32)
+            for a in (q, k, v)]
+    cot_null = (rng.standard_normal(null_kv.shape).astype(np.float32)
+                if null else None)
+    jnull = None if null_kv is None else jnp.asarray(null_kv)
+    _, (_, lse_j) = jax_flash_fused_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnull, heads, l2,
+        scale, True)
+
+    def bwd(q_, k_, v_, null_, g_):
+        return jax_flash_bwd_so(q_, k_, v_, null_, g_, lse_j, heads, l2,
+                                scale, True)
+
+    _, vjp = jax.vjp(bwd, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     jnull, jnp.asarray(g))
+    want = vjp((*map(jnp.asarray, cots),
+                None if cot_null is None else jnp.asarray(cot_null)))
+
+    # the port: K3 → K4 with create_graph, then the double backward runs
+    # K5's plain version (counted) and autograd of the prep
+    calls = []
+    plain = so.flash_attention_so_bwd2
+
+    def counted(*args):
+        calls.append(1)
+        return plain(*args)
+
+    monkeypatch.setattr(so, "flash_attention_so_bwd2", counted)
+    ins = [t(a).requires_grad_() for a in (q, k, v)]
+    nkv = None if null_kv is None else t(null_kv).requires_grad_()
+    gt = t(g).requires_grad_()
+    out = so.flash_attend_fused(*ins, nkv, heads, l2, scale)
+    leaves = ins + ([nkv] if null else [])
+    first = torch.autograd.grad(out, leaves, gt, create_graph=True)
+    cot_t = [t(c) for c in cots] + ([t(cot_null)] if null else [])
+    second = torch.autograd.grad(first, leaves + [gt], cot_t)
+    assert calls, "the double backward did not reach K5"
+    names = ["q", "k", "v"] + (["null_kv"] if null else []) + ["g"]
+    want = list(want[:3]) + ([want[3]] if null else []) + [want[4]]
+    for name, got_, want_ in zip(names, second, want):
+        assert rel_max(got_.numpy(), want_) <= 1e-4, name
+
+
+def test_pconv_pcorr_pair_gradchecks():
+    rng = torch.Generator().manual_seed(24)
+    f64 = dict(dtype=torch.float64)
+    x = torch.randn(2, 2, 3, 2, generator=rng, **f64).requires_grad_()
+    w = torch.randn(2, 3, 3, 2, 2, generator=rng, **f64).requires_grad_()
+    a = torch.randn(2, 2, generator=rng, **f64).requires_grad_()
+    dm = (torch.rand(2, 2, generator=rng, **f64) + 0.5).requires_grad_()
+    g = torch.randn(2, 2, 3, 2, generator=rng, **f64).requires_grad_()
+    assert torch.autograd.gradcheck(k1.pconv2d, (x, w, a, dm))
+    assert torch.autograd.gradgradcheck(k1.pconv2d, (x, w, a, dm))
+    assert torch.autograd.gradcheck(k1.pcorr2d, (x, g, w, a))
+    assert torch.autograd.gradgradcheck(k1.pcorr2d, (x, g, w, a))
+
+
+@pytest.mark.parametrize("l2,null", ATTN_CASES, ids=ATTN_IDS)
+def test_fused_attention_chain_gradchecks(l2, null):
+    rng = torch.Generator().manual_seed(25)
+    f64 = dict(dtype=torch.float64)
+    q, k, v = (torch.randn(2, 5, 6, generator=rng, **f64).requires_grad_()
+               for _ in range(3))
+    nkv = (torch.randn(2, 2, 3, generator=rng, **f64).requires_grad_()
+           if null else None)
+
+    def through_prep(*args):
+        return so.flash_attend_fused(args[0], args[1], args[2],
+                                     args[3] if null else None, 2, l2, 0.7)
+
+    args = (q, k, v, nkv) if null else (q, k, v)
+    assert torch.autograd.gradcheck(through_prep, args)
+    assert torch.autograd.gradgradcheck(through_prep, args)
+
+    # the prepared-operand Function alone, bias and null bias free: K5's
+    # bias and null-bias cotangents are checked too
+    bias = torch.randn(2, 2, 5, generator=rng, **f64).requires_grad_()
+    nrows = [torch.randn(2, 3, generator=rng, **f64).requires_grad_()
+             for _ in range(2)] + [torch.randn(2, generator=rng, **f64)
+                                   .requires_grad_()]
+
+    def prepared(q_, k_, v_, bias_, *null_):
+        null_ = null_ if null else (None, None, None)
+        return so.fused_attention(q_, k_, v_, bias_, *null_, 2)
+
+    pargs = (q, k, v, bias, *nrows) if null else (q, k, v, bias)
+    assert torch.autograd.gradcheck(prepared, pargs)
+    assert torch.autograd.gradgradcheck(prepared, pargs)
+
+
+def test_backward_kernel_wrappers_never_fall_back_off_the_cpu():
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="on meta"):
+        k1.adaptive_conv_bwd_w(torch.empty(1, 4, 4, 8, **meta),
+                               torch.empty(1, 4, 4, 8, **meta),
+                               torch.empty(1, 3, 3, 8, 8, **meta),
+                               torch.empty(1, 1, **meta))
+    q = torch.empty(1, 16, 64, **meta)
+    lse = torch.empty(1, 1, 16, **meta)
+    with pytest.raises(ValueError, match="on meta"):
+        so.flash_attention_fused_bwd(q, q, q, None, None, None, None, q, q,
+                                     lse, 1)
+    with pytest.raises(ValueError, match="on meta"):
+        so.flash_attention_so_bwd2(q, q, q, None, None, None, None, q, lse,
+                                   q, q, q, None, None, None, None, 1)
+
+
+def _standin(plain):
+    """A kernel launch's stand-in: the plain result written into a fresh
+    buffer under no_grad, as the ctypes launch writes into torch.empty."""
+    def launch(*args):
+        with torch.no_grad():
+            res = plain(*args)
+        if isinstance(res, tuple):
+            return tuple(None if r is None else r.clone() for r in res)
+        return res.clone()
+    return launch
+
+
+def test_gradients_survive_kernel_outputs(monkeypatch):
+    # the ops take their kernel path as on the card, with every launch
+    # replaced by a stand-in whose output has no autograd history
+    for mod in (adaptive_conv_mod, attention_mod):
+        monkeypatch.setattr(mod, "use_kernels", lambda t_: True,
+                            raising=False)
+    monkeypatch.setattr(adaptive_conv_mod, "adaptive_conv_fwd",
+                        _standin(k1.adaptive_conv_fwd_plain), raising=False)
+    monkeypatch.setattr(k1, "adaptive_conv_fwd",
+                        _standin(k1.adaptive_conv_fwd_plain))
+    monkeypatch.setattr(k1, "adaptive_conv_bwd_w",
+                        _standin(k1.adaptive_conv_bwd_w_plain))
+    fwd = _standin(k3.flash_attention_fused_fwd_plain)
+    monkeypatch.setattr(k3, "flash_attention_fused_fwd", fwd)
+    monkeypatch.setattr(so, "flash_attention_fused_fwd", fwd)
+    monkeypatch.setattr(so, "flash_attention_fused_bwd",
+                        _standin(so.flash_attention_fused_bwd_plain))
+
+    x, weights, mod, kmod = conv_inputs(26)
+    conv_in = [t(a).requires_grad_() for a in (x, weights, mod, kmod)]
+    q, k, v, _, null_kv = attn_inputs(27, True, n=16)
+    attn_in = [t(a).requires_grad_() for a in (q, k, v, null_kv)]
+
+    def run(conv_args, attn_args):
+        out = adaptive_conv(*conv_args).square().sum()
+        qa, ka, va, na = attn_args
+        return out + attend_fused(qa, ka, va, heads=2, null_kv=na,
+                                  l2_dist=True).square().sum()
+
+    run(conv_in, attn_in).backward()
+    ref_in = [a.detach().clone().requires_grad_() for a in conv_in + attn_in]
+    with plain_reference():
+        run(ref_in[:4], ref_in[4:]).backward()
+    names = ["x", "weights", "mod", "kernel_mod", "q", "k", "v", "null_kv"]
+    for name, a, r in zip(names, conv_in + attn_in, ref_in):
+        assert a.grad is not None, f"no gradient reached {name}"
+        assert rel_max(a.grad.numpy(), r.grad.numpy()) <= 1e-4, name

@@ -1,0 +1,422 @@
+"""The PyTorch port's unconditional training pieces against the JAX
+package on the CPU: losses, DiffAugment, the optimizer, the EMA schedule,
+the mock data, and whole d/g steps of ``TrainStepBuilder`` at 32px from one
+state.  Every random draw of a JAX step (latents, pixel noise, the
+DiffAugment flips, the decoder's dropout mask and patch scores) is a numpy
+draw that the port receives explicitly.
+
+The state is a mid-run one: both optimizers start from the same Adam
+moments (count 10, first moment 0, second moment the square of the
+leaf's largest gradient).  From a fresh state Adam's first update is
+lr·sign(g), so a gradient element near zero whose fp32 rounding differs
+between the frameworks would flip a whole lr-sized step."""
+
+import contextlib
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from gigagan_tpu import losses as jlosses  # noqa: E402
+from gigagan_tpu.data.datasets import (  # noqa: E402
+    MockImageDataset as JaxMockImageDataset,
+)
+from gigagan_tpu.models.discriminator import (  # noqa: E402
+    Discriminator as JaxDiscriminator,
+)
+from gigagan_tpu.models.generator import Generator as JaxGenerator  # noqa: E402
+from gigagan_tpu.train.ema import EMAState, ema_update  # noqa: E402
+from gigagan_tpu.train.optimizer import (  # noqa: E402
+    get_optimizer as jax_get_optimizer,
+)
+from gigagan_tpu.train.steps import (  # noqa: E402
+    TrainStepBuilder as JaxTrainStepBuilder,
+)
+
+from gigagan_tpu_torch import GigaGAN, losses  # noqa: E402
+from gigagan_tpu_torch.convert import convert_params  # noqa: E402
+from gigagan_tpu_torch.data import MockImageDataset  # noqa: E402
+from gigagan_tpu_torch.train.ema import EMA  # noqa: E402
+from gigagan_tpu_torch.train.optimizer import get_optimizer  # noqa: E402
+from gigagan_tpu_torch.train.steps import StepDraws  # noqa: E402
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The tier-1 run puts several test processes on the cores; a torch
+    thread pool per process would only oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def random_params(shapes, seed):
+    """Random values at the scale of each leaf's initializer."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name, shape = path[-1].key, s.shape
+        if name == "kernel":
+            std = np.sqrt(2.0 / np.prod(shape[:-1]))
+        elif name == "weights":
+            std = np.sqrt(2.0 / np.prod(shape[1:-1]))
+        elif name == "gamma":
+            return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+        elif name in ("null_kv", "weight") and len(shape) != 1:
+            std = 1.0  # null key/value, EqualLinear
+        elif name == "init_block":
+            std = 0.5
+        else:
+            std = 0.1
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+@contextlib.contextmanager
+def numpy_draws(seed):
+    """jax.random.{normal, uniform, bernoulli} → numpy draws of the
+    requested shape, recorded in call order (constants under jit)."""
+    rng = np.random.default_rng(seed)
+    record = []
+    orig = (jax.random.normal, jax.random.uniform, jax.random.bernoulli)
+    real_sites = ("models/generator.py", "models/layers.py",
+                  "models/discriminator.py", "gigagan_tpu/losses.py")
+
+    def from_model(fn):
+        # flax re-runs initializers under eval_shape to check parameter
+        # shapes; only the draws made by the model code itself count
+        def draw(*args, **kwargs):
+            caller = sys._getframe(1).f_code.co_filename
+            if not caller.endswith(real_sites):
+                return orig[("normal", "uniform", "bernoulli").index(
+                    fn.__name__)](*args, **kwargs)
+            return fn(*args, **kwargs)
+        return draw
+
+    @from_model
+    def normal(key, shape=(), dtype=jnp.float32):
+        a = rng.standard_normal(tuple(shape)).astype(np.float32)
+        record.append(("normal", a))
+        return jnp.asarray(a, dtype)
+
+    @from_model
+    def uniform(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
+        a = rng.random(tuple(shape)).astype(np.float32)
+        record.append(("uniform", a))
+        return jnp.asarray(a, dtype)
+
+    @from_model
+    def bernoulli(key, p=0.5, shape=None):
+        a = rng.random(tuple(shape)) < p
+        record.append(("bernoulli", a))
+        return jnp.asarray(a)
+
+    jax.random.normal, jax.random.uniform, jax.random.bernoulli = (
+        normal, uniform, bernoulli)
+    try:
+        yield record
+    finally:
+        jax.random.normal, jax.random.uniform, jax.random.bernoulli = orig
+
+
+def port_draws(record, patches_kept=1):
+    """The recorded JAX draws of one step as the port's StepDraws: the
+    first normal is the latent, the others the pixel noise; scalar uniform
+    pairs are the DiffAugment draws (fake, then real); the decoder's
+    bernoulli is its keep mask and its uniform its patch scores."""
+    normals = [a for k, a in record if k == "normal"]
+    flips = [bool(a < 0.5) for k, a in record
+             if k == "uniform" and a.ndim == 0][1::2]
+    keeps = [t(a) for k, a in record if k == "bernoulli"]
+    scores = [a for k, a in record if k == "uniform" and a.ndim == 2]
+    recon = [(keep, t(np.argsort(s, axis=-1, kind="stable")
+                      [:, :patches_kept]))
+             for keep, s in zip(keeps, scores)]
+    return StepDraws(
+        latents=t(normals[0]), pixel_noise=[t(n) for n in normals[1:]],
+        fake_flip=flips[0], real_flip=flips[1] if len(flips) > 1 else None,
+        recon=recon or None,
+    )
+
+
+# ------------------------------------------------------------------ losses
+
+def test_hinge_losses_match_jax():
+    rng = np.random.default_rng(0)
+    real, fake = (rng.standard_normal((3, 5)).astype(np.float32)
+                  for _ in range(2))
+    np.testing.assert_allclose(
+        losses.discriminator_hinge_loss(t(real), t(fake)).numpy(),
+        jlosses.discriminator_hinge_loss(real, fake), rtol=1e-6)
+    np.testing.assert_allclose(losses.generator_hinge_loss(t(fake)).numpy(),
+                               jlosses.generator_hinge_loss(fake), rtol=1e-6)
+
+
+def test_gradient_penalty_oracle_matches_jax():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((3, 4, 4, 2)).astype(np.float32)
+    w = rng.standard_normal((4, 4, 2)).astype(np.float32)
+
+    def jfn(i):
+        return jnp.sum(jnp.tanh(i * w) * 2.0)
+
+    def tfn(i):
+        return (torch.tanh(i * t(w)) * 2.0).sum()
+
+    want = jlosses.gradient_penalty(jnp.asarray(x), jfn)
+    np.testing.assert_allclose(
+        losses.gradient_penalty(t(x), tfn).detach().numpy(), want,
+        rtol=1e-5)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_diff_augment_flips_image_and_rgbs_alike(flip):
+    rng = np.random.default_rng(2)
+    img = t(rng.standard_normal((2, 8, 8, 3)).astype(np.float32))
+    rgbs = [t(rng.standard_normal((2, s, s, 3)).astype(np.float32))
+            for s in (4, 2)]
+    aug = losses.DiffAugment(prob=1.0, horizontal_flip=True)
+    out, out_rgbs = aug(img, rgbs, flip=flip)
+    for a, b in zip([out, *out_rgbs], [img, *rgbs]):
+        assert torch.equal(a, b.flip(2) if flip else b)
+    never = losses.DiffAugment(prob=0.0, horizontal_flip=True)
+    gen = torch.Generator().manual_seed(0)
+    assert not any(never.draw(gen) for _ in range(20))
+    flips = [aug.draw(gen) for _ in range(200)]
+    assert 60 < sum(flips) < 140
+
+
+def test_mock_dataset_gives_the_jax_pixels():
+    ours, theirs = MockImageDataset(16, seed=3), JaxMockImageDataset(16, seed=3)
+    for i in (0, 7):
+        np.testing.assert_array_equal(ours[i], theirs[i])
+    batches = list(MockImageDataset(8, length=10).get_dataloader(4))
+    assert len(batches) == 2 and batches[0].shape == (4, 8, 8, 3)
+
+
+# --------------------------------------------------------- optimizer, EMA
+
+@pytest.mark.parametrize("wd", [0.0, 0.1])
+def test_optimizer_matches_optax(wd):
+    rng = np.random.default_rng(4)
+    params = {"w": rng.standard_normal((3, 4)).astype(np.float32),
+              "b": rng.standard_normal((4,)).astype(np.float32)}
+    tx = jax_get_optimizer(lr=2e-3, wd=wd, betas=(0.5, 0.9))
+    state = tx.init(params)
+    tp = {k: torch.nn.Parameter(t(v)) for k, v in params.items()}
+    opt = get_optimizer(tp.values(), lr=2e-3, wd=wd, betas=(0.5, 0.9))
+    for step in range(3):
+        grads = {k: rng.standard_normal(v.shape).astype(np.float32)
+                 for k, v in params.items()}
+        updates, state = tx.update(grads, state, params)
+        params = optax.apply_updates(params, updates)
+        for k, p in tp.items():
+            p.grad = t(grads[k])
+        opt.step()
+    for k, p in tp.items():
+        np.testing.assert_allclose(p.detach().numpy(), params[k], rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_ema_schedule_matches_jax():
+    rng = np.random.default_rng(5)
+    init = rng.standard_normal((6,)).astype(np.float32)
+    kw = dict(beta=0.9, update_every=3, update_after_step=4)
+    state = EMAState.create({"p": jnp.asarray(init)})
+    model, ema_model = (torch.nn.Linear(1, 6, bias=False) for _ in range(2))
+    for m in (model, ema_model):
+        with torch.no_grad():
+            m.weight.copy_(t(init)[:, None])
+    ema = EMA(ema_model, **kw)
+    for _ in range(14):
+        new = rng.standard_normal((6,)).astype(np.float32)
+        state = ema_update(state, {"p": jnp.asarray(new)}, **kw)
+        with torch.no_grad():
+            model.weight.copy_(t(new)[:, None])
+        ema.update(model)
+        np.testing.assert_allclose(ema_model.weight.detach().numpy()[:, 0],
+                                   np.asarray(state.params["p"]), rtol=1e-6,
+                                   atol=1e-7)
+    assert ema.initted == bool(state.initted) and ema.step == int(state.step)
+
+
+# ------------------------------------------------------ whole train steps
+
+G_CFG = dict(image_size=32, dim_capacity=4, dim_max=32, dim_latent=16,
+             style_network=dict(dim=16, depth=1), self_attn_resolutions=(16,),
+             self_attn_dim_head=64, self_attn_heads=2,
+             cross_attn_resolutions=(), num_conv_kernels=2,
+             num_skip_layers_excite=1, unconditional=True)
+D_CFG = dict(image_size=32, dim_capacity=4, dim_max=32, attn_heads=2,
+             attn_dim_head=64, num_skip_layers_excite=1, unconditional=True)
+DIFF_AUGMENT = dict(prob=1.0, horizontal_flip=True)
+LR, BETAS, BATCH = 2e-4, (0.5, 0.9), 2
+ADAM_COUNT = 10  # the mid-run optimizer state
+
+
+def mid_run_nu(grads):
+    """Adam's second moment of the mid-run state: per leaf, the square of
+    its largest gradient."""
+    return jax.tree.map(
+        lambda g: np.full(np.shape(g), float(np.abs(g).max()) ** 2 + 1e-30,
+                          np.float32), grads)
+
+
+def jax_adam_update(tx, grads, params):
+    state = tx.init(params)
+    adam = state[0]._replace(count=jnp.asarray(ADAM_COUNT, jnp.int32),
+                             nu=mid_run_nu(grads))
+    updates, _ = tx.update(grads, (adam, *state[1:]), params)
+    return optax.apply_updates(params, updates)
+
+
+def seed_adam_state(opt, module, jax_grads):
+    nu = convert_params(mid_run_nu(jax_grads), module)
+    for name, p in module.named_parameters():
+        opt.state[p] = {"step": torch.tensor(float(ADAM_COUNT)),
+                        "exp_avg": torch.zeros_like(p),
+                        "exp_avg_sq": nu[name].clone()}
+
+
+@pytest.fixture(scope="module")
+def jax_setup():
+    jg = JaxGenerator(**G_CFG, s2d_trunk=False)
+    jdisc = JaxDiscriminator(**D_CFG, s2d_trunk=False)
+    keys = {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1),
+            "latent": jax.random.PRNGKey(2), "dropout": jax.random.PRNGKey(3)}
+    g_params = random_params(jax.eval_shape(
+        lambda: jg.init(keys, batch_size=1))["params"], seed=10)
+    images = jnp.zeros((1, 32, 32, 3))
+    d_params = random_params(jax.eval_shape(lambda: jdisc.init(
+        keys, images, jdisc.real_images_to_rgbs(images)))["params"], seed=11)
+    tx = jax_get_optimizer(lr=LR, wd=0.0, betas=BETAS)
+    builder = JaxTrainStepBuilder(
+        jg, jdisc, tx, tx, diff_augment=jlosses.DiffAugment(**DIFF_AUGMENT))
+    real = np.random.default_rng(12).random((BATCH, 32, 32, 3)).astype(
+        np.float32)
+    return builder, tx, g_params, d_params, real
+
+
+def port_gan(g_params, d_params):
+    gan = GigaGAN(generator=G_CFG, discriminator=D_CFG,
+                  diff_augment=DIFF_AUGMENT, learning_rate=LR, betas=BETAS,
+                  device="cpu", seed=0)
+    gan.load_jax_params(g_params, d_params=d_params)
+    return gan
+
+
+def check_leaves(module, jax_tree, what, check):
+    want = convert_params(jax_tree, module)
+    got = dict(module.named_parameters())
+    assert set(want) == set(got)
+    for name, w in want.items():
+        check(name, got[name], w.numpy(), what)
+
+
+def grads_within(name, p, want, what):
+    assert p.grad is not None, f"{what}: {name} got no gradient"
+    err = np.abs(p.grad.numpy() - want).max()
+    assert err <= 1e-3 * np.abs(want).max(), (what, name, err,
+                                              np.abs(want).max())
+
+
+def params_within(name, p, want, what):
+    err = np.abs(p.detach().numpy() - want).max()
+    assert err <= 0.05 * LR, (what, name, err / LR)
+
+
+def check_losses(got, want, names):
+    for name in names:
+        g, w = float(got[name]), float(want[name])
+        assert abs(g - w) <= 1e-4 * abs(w), (name, g, w)
+
+
+@pytest.mark.parametrize("apply_gp", [False, True], ids=["no_r1", "r1"])
+def test_d_step_matches_jax(jax_setup, apply_gp):
+    builder, tx, g_params, d_params, real = jax_setup
+    fn = jax.jit(jax.value_and_grad(
+        lambda d, key: builder._d_micro_loss(
+            {"d": d}, g_params, None, {}, real, None, None, None, key,
+            apply_gp=apply_gp, calc_ms=True),
+        has_aux=True))
+    with numpy_draws(20 + apply_gp) as record:
+        (_, metrics), grads = fn(d_params, jax.random.PRNGKey(4))
+    new_params = jax_adam_update(tx, grads, d_params)
+
+    gan = port_gan(g_params, d_params)
+    seed_adam_state(gan.d_opt, gan.D, grads)
+    got = gan.train_discriminator_step(
+        real, apply_gradient_penalty=apply_gp, calc_multiscale_loss=True,
+        draws=port_draws(record))
+    names = ["divergence", "multiscale_divergence", "aux_reconstruction"]
+    check_losses(got, metrics, names + (["gradient_penalty"]
+                                        if apply_gp else []))
+    check_leaves(gan.D, grads, "d grads", grads_within)
+    check_leaves(gan.D, new_params, "d params", params_within)
+
+
+def test_g_step_matches_jax(jax_setup):
+    builder, tx, g_params, d_params, real = jax_setup
+    fn = jax.jit(jax.value_and_grad(
+        lambda g, key: builder._g_micro_loss(
+            g, d_params, None, None, {}, real, None, None, key,
+            calc_ms=True),
+        has_aux=True))
+    with numpy_draws(30) as record:
+        (_, metrics), grads = fn(g_params, jax.random.PRNGKey(5))
+    new_params = jax_adam_update(tx, grads, g_params)
+    ema = ema_update(EMAState.create(g_params), new_params)
+
+    gan = port_gan(g_params, d_params)
+    seed_adam_state(gan.g_opt, gan.G, grads)
+    got = gan.train_generator_step(BATCH, calc_multiscale_loss=True,
+                                   draws=port_draws(record))
+    check_losses(got, metrics, ["divergence", "multiscale_divergence"])
+    check_leaves(gan.G, grads, "g grads", grads_within)
+    check_leaves(gan.G, new_params, "g params", params_within)
+    check_leaves(gan.G_ema, ema.params, "ema params", params_within)
+    assert all(p.grad is None for p in gan.D.parameters())
+
+
+def test_train_loop_runs_r1_every_fourth_step():
+    gan = GigaGAN(generator=dict(G_CFG, image_size=16,
+                                 self_attn_resolutions=()),
+                  discriminator=dict(D_CFG, image_size=16,
+                                     attn_resolutions=()),
+                  device="cpu", seed=0, log_steps_every=1)
+    gan.set_dataloader(MockImageDataset(16, length=8).get_dataloader(BATCH))
+    log = gan.train(4)
+    assert [r["step"] for r in log] == [1, 2, 3, 4]
+    assert [r["d_gradient_penalty"] > 0 for r in log] == [False] * 3 + [True]
+    assert all(np.isfinite(v) for r in log for v in r.values())
+    assert gan.steps == 5 and gan.ema.step == 4
+
+
+@pytest.mark.parametrize("option", ["gp_chunk", "gp_fwd_over_rev",
+                                    "fused_dg_step", "grad_accum_every",
+                                    "conditional"])
+def test_unported_training_options_raise(option):
+    kwargs = dict(generator=G_CFG, discriminator=D_CFG, device="cpu")
+    if option == "gp_chunk":
+        kwargs["gp_chunk"] = 1
+    elif option in ("gp_fwd_over_rev", "fused_dg_step"):
+        kwargs[option] = True
+    elif option == "conditional":
+        kwargs["discriminator"] = dict(D_CFG, unconditional=False)
+    with pytest.raises(NotImplementedError, match=option.split("_every")[0]
+                       if option != "conditional" else "conditioned"):
+        gan = GigaGAN(**kwargs)
+        gan.train_discriminator_step(
+            np.zeros((2, 32, 32, 3), np.float32), grad_accum_every=2,
+            apply_gradient_penalty=False, calc_multiscale_loss=False)
