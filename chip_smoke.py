@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py             # the check, one card
     python3 chip_smoke.py --profile   # also torch.profiler breakdowns of one
-                                      # batch-8 forward and one batch-8
-                                      # training iteration
+                                      # batch-8 forward and of batch-8
+                                      # training iterations (without R1,
+                                      # with R1 in both forms)
 
 Phases (any failure raises and exits non-zero):
 
 1. find the card (fails without CUDA) and print its name and power limit;
-2. build the five CUDA kernels from ``gigagan_tpu_torch/csrc`` with nvcc,
+2. build the nine CUDA kernels from ``gigagan_tpu_torch/csrc`` with nvcc,
    one process per source, all at once;
 3. hold kernel K1 (adaptive conv) against its plain PyTorch version at
    every 3x3 conv shape of the 256px generator, batch 8, fp32 (TF32 off)
@@ -26,16 +27,26 @@ Phases (any failure raises and exits non-zero):
    conv Function's backward, against plain PyTorch at the same 15 shapes;
 7. hold K4 (attention backward) and K5 (its adjoint) against their plain
    versions at the generator's and the discriminator's attention shapes;
-8. drive the training path: the quickstart G+D pair (256px, bf16, batch 8)
+8. hold K6a/K6b (split-heads attention and its backward) and K7a/K7b (its
+   jvp and the jvp's backward) against their plain versions at the two
+   attention shapes of the forward-over-reverse R1 surrogate (L2, the null
+   token as an extra key), fp32 and bf16, and at small masked shapes
+   (dot product, and head dims 128 and 80);
+9. drive the training path: the quickstart G+D pair (256px, bf16, batch 8)
    takes 8 iterations of train_discriminator_step + train_generator_step
    with R1 on iterations 0 and 4; every loss must be finite and every
-   step's K1-K5 launch counts those the path implies (K5 on R1 steps
+   step's K1-K7b launch counts those the path implies (K5 on R1 steps
    only); ms per d_step (with and without R1) and per g_step and images/s
-   over the 4-iteration cadence are timed; one fp32 d_step with R1 and one
-   fp32 g_step through the kernels are held against the same steps under
-   ``plain_reference()`` on the card (losses and every parameter's
-   gradient);
-9. print the kernel table as one JSON line and, last, the device line.
+   over the 4-iteration cadence are timed;
+10. the same 8 iterations with the R1 penalty taken forward-over-reverse
+    (``GigaGAN(gp_fwd_over_rev=True)``): K6a, K6b, K7a and K7b on R1
+    d_steps only, K5 never; d_step+R1 timed beside phase 9's;
+11. fp32 steps on the card, each from the same fresh state: a d_step with
+    R1 (both forms) and a g_step through the kernels against the same
+    steps under ``plain_reference()`` (losses and every parameter's
+    gradient), and the forward-over-reverse d_step against the
+    reverse-over-reverse one (penalty and every gradient);
+12. print the kernel table as one JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -88,8 +99,19 @@ ATTN_PATH = [
     ("D g_step", 32, 1024, True), ("D g_step", 64, 256, True),
 ]
 R1_ATTN = [row for row in ATTN_PATH if row[0] == "D d_step"]
+# the forward-over-reverse surrogate's attention: D's L2 self-attention on
+# split heads, (b, heads, queries, keys with the null token, head dim); and
+# small masked cases for the kernels' other branches, among them the
+# wider heads (64 < d <= 128) a D built with attn_dim_head > 64 runs
+HV_PATH = [("phi", 64, HEADS, 1024, 1025, DIM_HEAD, True, False),
+           ("phi", 128, HEADS, 256, 257, DIM_HEAD, True, False),
+           ("masked dot", 2, 2, 300, 200, DIM_HEAD, False, True),
+           ("masked L2 d128", 2, 2, 300, 200, 128, True, True),
+           ("masked dot d80", 1, 3, 260, 131, 80, False, True)]
+# fp32 rows read at most 1.6e-4 and bf16 rows at most 6.7e-3 on an H100
+K67_TOL_F32, K67_TOL_BF16 = 1e-3, 0.03
 ITERATIONS, R1_EVERY = 8, 4
-KERNEL_NAMES = ("k1", "k2", "k3", "k4", "k5")
+KERNEL_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6a", "k6b", "k7a", "k7b")
 
 
 def log(msg):
@@ -148,15 +170,54 @@ def path_convs(cfg):
 def expected_step_launches(n_convs, n_g_attn, n_d_attn):
     """Launches per step the training path implies.  d_step: G forward
     without gradient (K1 per conv, K3 per G attention), D's attention
-    forward (K3) and backward (K4); with R1, K4 once more for the
-    create_graph input gradient and K5 in the double backward.  g_step: G
-    forward and backward (K1 forward and as dx, K2 per conv), G's and D's
-    attention forward and backward."""
-    d = dict(k1=n_convs, k2=0, k3=n_g_attn + n_d_attn, k4=n_d_attn, k5=0)
+    forward (K3) and backward (K4); with R1, K4 once more for the penalty's
+    input gradient, and then either K5 in the double backward
+    (reverse-over-reverse) or, forward-over-reverse, per D attention in
+    the surrogate φ: K6a (its forward on split heads), K7a (its jvp), and
+    in the backward K7b (through the tangent) and K6b (through the primal,
+    which later layers' tangents read).  g_step: G forward and backward (K1
+    forward and as dx, K2 per conv), G's and D's attention forward and
+    backward."""
+    none = dict(k5=0, k6a=0, k6b=0, k7a=0, k7b=0)
+    d = dict(none, k1=n_convs, k2=0, k3=n_g_attn + n_d_attn, k4=n_d_attn)
     d_r1 = dict(d, k4=2 * n_d_attn, k5=n_d_attn)
-    g = dict(k1=2 * n_convs, k2=n_convs, k3=n_g_attn + n_d_attn,
-             k4=n_g_attn + n_d_attn, k5=0)
-    return d, d_r1, g
+    d_for = dict(d, k4=2 * n_d_attn, k6a=n_d_attn, k6b=n_d_attn,
+                 k7a=n_d_attn, k7b=n_d_attn)
+    g = dict(none, k1=2 * n_convs, k2=n_convs, k3=n_g_attn + n_d_attn,
+             k4=n_g_attn + n_d_attn)
+    return d, d_r1, d_for, g
+
+
+def hv_operands(torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev):
+    """Prepared operands of K6a-K7b as the surrogate φ gives them:
+    (q, k̂, v, bias), their tangents (tq, t̂k, tv, tbias), and the
+    cotangents g (of out) and gt (of tout).  On φ's path k = q with the
+    null token first, and the null token has no tangent."""
+    from gigagan_tpu_torch.ops.kernels import flash_attention as k6
+    from gigagan_tpu_torch.ops.kernels import flash_attention_hv as k7
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    q, tq = rnd(b, h, nq, d), rnd(b, h, nq, d)
+    if not masked:  # shared q/k, the null token as key 0
+        k = torch.cat((rnd(b, h, 1, d), q), 2)
+        tk = torch.cat((torch.zeros(b, h, 1, d, device=dev), tq), 2)
+        v = rnd(b, h, nk, d)
+        tv = torch.cat((torch.zeros(b, h, 1, d, device=dev),
+                        rnd(b, h, nk - 1, d)), 2)
+        mask = None
+    else:
+        k, v, tk, tv = (rnd(b, h, nk, d) for _ in range(4))
+        mask = torch.rand(b, nk, device=dev, generator=gen) > 0.3
+        mask[:, 0] = True
+    q, k, v, tq, tk, tv = (x.to(dtype) for x in (q, k, v, tq, tk, tv))
+    scale = d ** -0.5
+    prepped = k6.prep_split(q, k, v, mask, l2, scale)
+    tq_, tk_pre, tbias = k7.prep_tangents(q, k, tq, tk, mask, l2, scale)
+    tvf = tv.reshape(b * h, nk, d).contiguous()
+    g, gt = (rnd(b * h, nq, d).to(dtype) for _ in range(2))
+    return prepped, (tq_, tk_pre, tvf, tbias), g, gt
 
 
 def main():
@@ -176,7 +237,9 @@ def main():
     from gigagan_tpu_torch.models.layers import AdaptiveConv
     from gigagan_tpu_torch.ops.kernels import build, plain_reference
     from gigagan_tpu_torch.ops.kernels import adaptive_conv as k1
+    from gigagan_tpu_torch.ops.kernels import flash_attention as k6
     from gigagan_tpu_torch.ops.kernels import flash_attention_fused as k3
+    from gigagan_tpu_torch.ops.kernels import flash_attention_hv as k7
     from gigagan_tpu_torch.ops.kernels import flash_attention_so as so
 
     smi = subprocess.run(
@@ -196,7 +259,10 @@ def main():
     counters = {"k1": k1.adaptive_conv_fwd, "k2": k1.adaptive_conv_bwd_w,
                 "k3": k3.flash_attention_fused_fwd,
                 "k4": so.flash_attention_fused_bwd,
-                "k5": so.flash_attention_so_bwd2}
+                "k5": so.flash_attention_so_bwd2,
+                "k6a": k6.flash_attention_fwd, "k6b": k6.flash_attention_bwd,
+                "k7a": k7.flash_attention_hv_jvp,
+                "k7b": k7.flash_attention_hv_bwd}
 
     def reset_counts():
         for fn in counters.values():
@@ -338,7 +404,7 @@ def main():
     per_forward = {"k1": len(convs), "k3": len(SELF_ATTN_RES)}
     if launches != {k: n * len(requests) for k, n in per_forward.items()}:
         fail(f"launch counts {launches}")
-    if counts["k2"] or counts["k4"] or counts["k5"]:
+    if any(n for k, n in counts.items() if k not in ("k1", "k3")):
         fail(f"backward kernels launched while sampling: {counts}")
     if seen != set(k1_rows):
         fail(f"path conv shapes {seen} != checked {set(k1_rows)}")
@@ -550,141 +616,230 @@ def main():
     report["k4"], report["k5"] = k4_rows, k5_rows
 
     # ---------------------------------------------------------------- 8
-    t0 = time.perf_counter()
-    gan = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D, amp=True,
-                  device="cuda", seed=0)
-    n_g = sum(p.numel() for p in gan.G.parameters())
-    n_d = sum(p.numel() for p in gan.D.parameters())
-    log(f"G+D: {n_g / 1e6:.2f}M + {n_d / 1e6:.2f}M params, built in "
-        f"{time.perf_counter() - t0:.2f} s")
+    hv_rows = []
+    for who, b, h, nq, nk, d, l2, masked in HV_PATH:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = K67_TOL_F32 if dtype == torch.float32 else K67_TOL_BF16
+            ops, tang, g, gt = hv_operands(torch, gen, b, h, nq, nk, d, l2,
+                                           masked, dtype, dev)
+            go = g if masked else None  # φ puts no cotangent on out
+            out, lse = k6.flash_attention_fwd_plain(*ops)
+            lse7 = k7.flash_attention_hv_jvp_plain(*ops, *tang)[2]
+            checks = {
+                "k6a": (lambda: k6.flash_attention_fwd(*ops),
+                        lambda: k6.flash_attention_fwd_plain(*ops)),
+                "k6b": (lambda: k6.flash_attention_bwd(*ops, g, out, lse),
+                        lambda: k6.flash_attention_bwd_plain(*ops, g, out,
+                                                             lse)),
+                "k7a": (lambda: k7.flash_attention_hv_jvp(*ops, *tang),
+                        lambda: k7.flash_attention_hv_jvp_plain(*ops,
+                                                                *tang)),
+                "k7b": (lambda: k7.flash_attention_hv_bwd(*ops, *tang, lse7,
+                                                          go, gt),
+                        lambda: k7.flash_attention_hv_bwd_plain(
+                            *ops, *tang, lse7, go, gt)),
+            }
+            row = dict(who=who, bh=b * h, nq=nq, nk=nk, d=d, l2=l2,
+                       masked=masked, dtype=str(dtype).split(".")[-1])
+            for kname, (kernel, plain) in checks.items():
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                pairs = list(zip(got, want))
+                row[kname] = dict(
+                    rel=max(rel_err(a_, w_) for a_, w_ in pairs),
+                    abs=max(abs_err(a_, w_) for a_, w_ in pairs))
+                del got, want, pairs
+                torch.cuda.empty_cache()
+                row[kname]["ms"] = time_ms(kernel, torch)
+                row[kname]["plain_ms"] = time_ms(plain, torch)
+                torch.cuda.empty_cache()
+                if not row[kname]["rel"] <= tol:
+                    fail(f"{kname.upper()} disagrees at {row}")
+            hv_rows.append(row)
+            log(f"K6a-K7b {who} bh{b * h} nq{nq} nk{nk} d{d} l2={l2} "
+                f"{row['dtype']} (tol {tol}): " + "; ".join(
+                    f"{k_} rel {row[k_]['rel']:.2e} ms {row[k_]['ms']:.4f} "
+                    f"(plain {row[k_]['plain_ms']:.4f})" for k_ in checks))
+            del ops, tang, g, gt, go, out, lse, lse7, checks
+            torch.cuda.empty_cache()
+    report["k6_k7"] = hv_rows
+
+    # ------------------------------------------------------------- 9, 10
     data = MockImageDataset(QUICKSTART["image_size"], length=8 * BATCH,
                             seed=0)
     batches = [torch.from_numpy(b_).to(dev)
                for b_ in data.get_dataloader(BATCH)]
-    n_d_attn = sum(s.core.attn is not None for s in gan.D.stages)
-    n_g_attn = sum(s.self_attn is not None for s in gan.G.stages)
-    exp_d, exp_d_r1, exp_g = expected_step_launches(len(convs), n_g_attn,
-                                                    n_d_attn)
 
-    def iteration(i, apply_gp, record=None):
-        real = batches[i % len(batches)]
+    def drive_training(label, fwd_over_rev):
+        """Warm-up, then ITERATIONS iterations with counted launches;
+        returns (steps, launches over the run, timing, the gan)."""
+        t0 = time.perf_counter()
+        gan = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D,
+                      amp=True, device="cuda", seed=0,
+                      gp_fwd_over_rev=fwd_over_rev)
+        n_g = sum(p.numel() for p in gan.G.parameters())
+        n_d = sum(p.numel() for p in gan.D.parameters())
+        log(f"G+D ({label}): {n_g / 1e6:.2f}M + {n_d / 1e6:.2f}M params, "
+            f"built in {time.perf_counter() - t0:.2f} s")
+        n_d_attn = sum(s.core.attn is not None for s in gan.D.stages)
+        n_g_attn = sum(s.self_attn is not None for s in gan.G.stages)
+        exp_d, exp_d_r1, exp_d_for, exp_g = expected_step_launches(
+            len(convs), n_g_attn, n_d_attn)
+        if fwd_over_rev:
+            exp_d_r1 = exp_d_for
+
+        def iteration(i, apply_gp, record=None):
+            real = batches[i % len(batches)]
+            steps = []
+            for kind in ("d", "g"):
+                before = read_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if kind == "d":
+                    m = gan.train_discriminator_step(
+                        real, apply_gradient_penalty=apply_gp,
+                        calc_multiscale_loss=True, seed=1000 + i)
+                else:
+                    m = gan.train_generator_step(
+                        BATCH, calc_multiscale_loss=True, seed=2000 + i)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                after = read_counts()
+                steps.append(dict(
+                    kind=kind, r1=apply_gp, ms=ms,
+                    losses={k: float(v) for k, v in m.items()},
+                    launches={k: after[k] - before[k] for k in after}))
+            if record is not None:
+                record.extend(steps)
+            return steps
+
+        iteration(0, True)  # warm-up: allocator, cuDNN plans, both variants
+        iteration(1, False)
+
+        reset_counts()
         steps = []
-        for kind in ("d", "g"):
-            before = read_counts()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            if kind == "d":
-                m = gan.train_discriminator_step(
-                    real, apply_gradient_penalty=apply_gp,
-                    calc_multiscale_loss=True, seed=1000 + i)
-            else:
-                m = gan.train_generator_step(
-                    BATCH, calc_multiscale_loss=True, seed=2000 + i)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t) * 1e3
-            after = read_counts()
-            steps.append(dict(
-                kind=kind, r1=apply_gp, ms=ms,
-                losses={k: float(v) for k, v in m.items()},
-                launches={k: after[k] - before[k] for k in after}))
-        if record is not None:
-            record.extend(steps)
-        return steps
+        for i in range(ITERATIONS):
+            iteration(i, i % R1_EVERY == 0, steps)
+        launches = read_counts()
+        for s in steps:
+            want = exp_g if s["kind"] == "g" else (exp_d_r1 if s["r1"]
+                                                   else exp_d)
+            log(f"train ({label}) {s['kind']}_step r1={s['r1']}: "
+                f"{s['ms']:.3f} ms, launches {s['launches']}, losses "
+                + ", ".join(f"{k} {v:.4g}" for k, v in s["losses"].items()))
+            if not all(np.isfinite(v) for v in s["losses"].values()):
+                fail(f"non-finite losses in {s}")
+            if s["launches"] != want:
+                fail(f"{s['kind']}_step (r1={s['r1']}, {label}) launched "
+                     f"{s['launches']}, the path implies {want}")
+        log(f"training path ({label}): {ITERATIONS} iterations, launches "
+            f"{launches}")
+        used = [k for k in KERNEL_NAMES
+                if any(row[k] for row in (exp_d, exp_d_r1, exp_g))]
+        if any(launches[k] == 0 for k in used):
+            fail(f"a kernel of the {label} path was never launched: "
+                 f"{launches}")
 
-    iteration(0, True)  # warm-up: allocator, cuDNN plans, both variants
-    iteration(1, False)
+        d_plain = [s["ms"] for s in steps if s["kind"] == "d"
+                   and not s["r1"]]
+        d_r1 = [s["ms"] for s in steps if s["kind"] == "d" and s["r1"]]
+        g_ms = [s["ms"] for s in steps if s["kind"] == "g"]
+        cadence_ms = sum(s["ms"] for s in steps[2 * R1_EVERY:4 * R1_EVERY])
+        timing = dict(
+            d_step_ms=statistics.median(d_plain),
+            d_step_r1_ms=statistics.median(d_r1),
+            g_step_ms=statistics.median(g_ms),
+            cadence_ms=cadence_ms,
+            images_per_s=R1_EVERY * BATCH / (cadence_ms / 1e3),
+        )
+        log(f"train ({label}) b{BATCH} bf16: d_step "
+            f"{timing['d_step_ms']:.3f} ms (median of {len(d_plain)}), "
+            f"d_step+R1 {timing['d_step_r1_ms']:.3f} ms (median of "
+            f"{len(d_r1)}), g_step {timing['g_step_ms']:.3f} ms (median of "
+            f"{len(g_ms)}); iterations 4-7 (one R1) "
+            f"{timing['cadence_ms']:.3f} ms -> "
+            f"{timing['images_per_s']:.2f} images/s [{smi}]")
+        if profile:
+            suffix = "_for" if fwd_over_rev else ""
+            if not fwd_over_rev:
+                profiled("train_iter", lambda: iteration(1, False))
+            profiled(f"train_iter_r1{suffix}", lambda: iteration(0, True))
+        del gan
+        torch.cuda.empty_cache()
+        return steps, launches, timing
 
-    reset_counts()
-    steps = []
-    for i in range(ITERATIONS):
-        iteration(i, i % R1_EVERY == 0, steps)
-    train_launches = read_counts()
-    report["train_steps"] = steps
-    for s in steps:
-        want = exp_g if s["kind"] == "g" else (exp_d_r1 if s["r1"]
-                                               else exp_d)
-        log(f"train {s['kind']}_step r1={s['r1']}: {s['ms']:.3f} ms, "
-            f"launches {s['launches']}, losses "
-            + ", ".join(f"{k} {v:.4g}" for k, v in s["losses"].items()))
-        if not all(np.isfinite(v) for v in s["losses"].values()):
-            fail(f"non-finite losses in {s}")
-        if s["launches"] != want:
-            fail(f"{s['kind']}_step (r1={s['r1']}) launched "
-                 f"{s['launches']}, the path implies {want}")
-    log(f"training path: {ITERATIONS} iterations, launches "
-        f"{train_launches}")
-    if any(train_launches[k] == 0 for k in KERNEL_NAMES):
-        fail(f"a kernel was never launched on the training path: "
-             f"{train_launches}")
-
-    d_plain = [s["ms"] for s in steps if s["kind"] == "d" and not s["r1"]]
-    d_r1 = [s["ms"] for s in steps if s["kind"] == "d" and s["r1"]]
-    g_ms = [s["ms"] for s in steps if s["kind"] == "g"]
-    cadence_ms = sum(s["ms"] for s in steps[2 * R1_EVERY:4 * R1_EVERY])
-    timing = dict(
-        d_step_ms=statistics.median(d_plain),
-        d_step_r1_ms=statistics.median(d_r1),
-        g_step_ms=statistics.median(g_ms),
-        cadence_ms=cadence_ms,
-        images_per_s=R1_EVERY * BATCH / (cadence_ms / 1e3),
-    )
-    report["train_timing"] = timing
-    log(f"train b{BATCH} bf16: d_step {timing['d_step_ms']:.3f} ms (median "
-        f"of {len(d_plain)}), d_step+R1 {timing['d_step_r1_ms']:.3f} ms "
-        f"(median of {len(d_r1)}), g_step {timing['g_step_ms']:.3f} ms "
-        f"(median of {len(g_ms)}); iterations 4-7 (one R1) "
-        f"{timing['cadence_ms']:.3f} ms -> {timing['images_per_s']:.2f} "
-        f"images/s [{smi}]")
-    if profile:
-        profiled("train_iter", lambda: iteration(1, False))
-        profiled("train_iter_r1", lambda: iteration(0, True))
-    del gan, batches
+    steps, train_launches, timing = drive_training("reverse-over-reverse R1",
+                                                   False)
+    report["train_steps"], report["train_timing"] = steps, timing
+    steps, for_launches, for_timing = drive_training(
+        "forward-over-reverse R1", True)
+    report["train_steps_fwd_over_rev"] = steps
+    report["train_timing_fwd_over_rev"] = for_timing
+    log(f"d_step+R1 b{BATCH} bf16: forward-over-reverse "
+        f"{for_timing['d_step_r1_ms']:.3f} ms, reverse-over-reverse "
+        f"{timing['d_step_r1_ms']:.3f} ms [{smi}]")
+    del batches
     torch.cuda.empty_cache()
 
-    # one fp32 d_step with R1 and one g_step through the kernels against
-    # the same steps on the plain path, each from the same fresh state
+    # --------------------------------------------------------------- 11
+    # fp32 steps through the kernels against the same steps on the plain
+    # path, each from the same fresh state
     real = torch.from_numpy(np.stack([data[i] for i in range(BATCH)])).to(dev)
-    step_rel = {}
-    for kind in ("d", "g"):
-        grads, losses_ = [], []
-        for plain in (False, True):
-            g32 = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D,
-                          amp=False, device="cuda", seed=0)
-            with (plain_reference() if plain else contextlib.nullcontext()):
-                if kind == "d":
-                    m = g32.train_discriminator_step(
-                        real, apply_gradient_penalty=True,
-                        calc_multiscale_loss=True, seed=7)
-                    model = g32.D
-                else:
-                    m = g32.train_generator_step(
-                        BATCH, calc_multiscale_loss=True, seed=7)
-                    model = g32.G
-            losses_.append({k: float(v) for k, v in m.items()})
-            grads.append({n_: p.grad.detach().clone()
-                          for n_, p in model.named_parameters()})
-            del g32, model
-            torch.cuda.empty_cache()
-        loss_rel = max(abs(losses_[0][k] - losses_[1][k])
-                       / (abs(losses_[1][k]) + 1e-6) for k in losses_[1])
-        grad_rel = {n_: rel_err(grads[0][n_], grads[1][n_])
-                    for n_ in grads[1]}
+
+    def fp32_step(kind, plain, fwd_over_rev=False):
+        g32 = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D,
+                      amp=False, device="cuda", seed=0,
+                      gp_fwd_over_rev=fwd_over_rev)
+        with (plain_reference() if plain else contextlib.nullcontext()):
+            if kind == "d":
+                m = g32.train_discriminator_step(
+                    real, apply_gradient_penalty=True,
+                    calc_multiscale_loss=True, seed=7)
+                model = g32.D
+            else:
+                m = g32.train_generator_step(
+                    BATCH, calc_multiscale_loss=True, seed=7)
+                model = g32.G
+        losses_ = {k: float(v) for k, v in m.items()}
+        grads = {n_: p.grad.detach().clone()
+                 for n_, p in model.named_parameters()}
+        del g32, model
+        torch.cuda.empty_cache()
+        return losses_, grads
+
+    def compare(label, got, want, loss_keys=None):
+        (l_got, g_got), (l_want, g_want) = got, want
+        loss_keys = loss_keys or list(l_want)
+        loss_rel = max(abs(l_got[k] - l_want[k]) / (abs(l_want[k]) + 1e-6)
+                       for k in loss_keys)
+        grad_rel = {n_: rel_err(g_got[n_], g_want[n_]) for n_ in g_want}
         worst = max(grad_rel, key=grad_rel.get)
-        step_rel[kind] = dict(losses_kernels=losses_[0],
-                              losses_plain=losses_[1], loss_rel=loss_rel,
-                              grad_rel_max=grad_rel[worst], worst=worst)
-        log(f"fp32 {kind}_step{' +R1' if kind == 'd' else ''} kernels vs "
-            f"plain path: losses rel {loss_rel:.2e}, gradients max rel "
+        out = dict(losses_got=l_got, losses_want=l_want, loss_rel=loss_rel,
+                   grad_rel_max=grad_rel[worst], worst=worst)
+        log(f"fp32 {label}: losses rel {loss_rel:.2e} "
+            f"({', '.join(loss_keys)}), gradients max rel "
             f"{grad_rel[worst]:.2e} ({worst}) over {len(grad_rel)} leaves "
             f"(tol {STEP_TOL_F32})")
         if not (loss_rel <= STEP_TOL_F32
                 and grad_rel[worst] <= STEP_TOL_F32):
-            fail(f"fp32 {kind}_step disagrees with the plain path: "
-                 f"{step_rel[kind]}")
-        del grads
-    report["step_vs_plain_f32"] = step_rel
+            fail(f"fp32 {label} disagrees: {out}")
+        return out
 
-    # ---------------------------------------------------------------- 9
+    d_ror, d_for = fp32_step("d", False), fp32_step("d", False, True)
+    report["step_vs_plain_f32"] = step_rel = {}
+    step_rel["d"] = compare("d_step +R1 kernels vs plain path", d_ror,
+                            fp32_step("d", True))
+    step_rel["d_fwd_over_rev"] = compare(
+        "d_step +R1 forward-over-reverse, kernels vs plain path", d_for,
+        fp32_step("d", True, True))
+    step_rel["d_fwd_over_rev_vs_ror"] = compare(
+        "d_step +R1 forward-over-reverse vs reverse-over-reverse, kernels",
+        d_for, d_ror, loss_keys=["gradient_penalty"])
+    del d_ror, d_for
+    step_rel["g"] = compare("g_step kernels vs plain path",
+                            fp32_step("g", False), fp32_step("g", True))
+
+    # --------------------------------------------------------------- 12
     mult = {}
     for _, h, ci, co in convs:
         mult[(h, ci, co)] = mult.get((h, ci, co), 0) + 1
@@ -692,6 +847,8 @@ def main():
     d_step_bf16 = [r for r in k4_rows if r["who"] == "D d_step"
                    and r["dtype"] == "bfloat16"]
     r1_bf16 = [r for r in k5_rows if r["dtype"] == "bfloat16"]
+    phi_bf16 = [r for r in hv_rows if r["who"] == "phi"
+                and r["dtype"] == "bfloat16"]
     kernels = [
         dict(
             name="adaptive_conv_fwd", route="cuda",
@@ -743,6 +900,23 @@ def main():
             plain_ms=sum(r["plain_ms"] for r in r1_bf16),
         ),
     ]
+    # K6a-K7b: launches from the forward-over-reverse run, times summed
+    # over φ's two attentions in bf16
+    for key, source, replaces in (
+        ("k6a", "flash_attention_fwd", "flash_attention.py:118"),
+        ("k6b", "flash_attention_bwd", "flash_attention.py:143"),
+        ("k7a", "flash_attention_hv_jvp", "flash_attention_hv.py:76"),
+        ("k7b", "flash_attention_hv_bwd", "flash_attention_hv.py:110"),
+    ):
+        kernels.append(dict(
+            name=source, route="cuda",
+            source=f"gigagan_tpu_torch/csrc/{source}.cu",
+            replaces=f"gigagan_tpu/ops/pallas/{replaces}",
+            launches=for_launches[key],
+            max_abs_err=max(r[key]["abs"] for r in hv_rows),
+            ms=sum(r[key]["ms"] for r in phi_bf16),
+            plain_ms=sum(r[key]["plain_ms"] for r in phi_bf16),
+        ))
     report["kernels"] = kernels
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,15 +1,20 @@
 // Pieces shared by the fused-heads attention backward (K4,
-// flash_attention_fused_bwd.cu) and its adjoint (K5,
-// flash_attention_so_bwd2.cu).
+// flash_attention_fused_bwd.cu), its adjoint (K5,
+// flash_attention_so_bwd2.cu) and the split-heads kernels K6a/K6b
+// (flash_attention_fwd.cu, flash_attention_bwd.cu) and K7a/K7b
+// (flash_attention_hv_jvp.cu, flash_attention_hv_bwd.cu).
 //
-// Both kernels keep the layout of the forward K3: operands stay in the
+// K4 and K5 keep the layout of the forward K3: operands stay in the
 // network's (b, n, H·d) layout and are read in place with a row stride of
-// H·d.  A block is 128 threads over a 64 × 64 tile of (rows, columns) of
-// the attention map: thread (tx = tid % 16, ty = tid / 16) owns rows
+// H·d.  The split-heads kernels read (b·h, n, d) operands, row stride d.
+// A block is 128 threads over a 64 × 64 tile of (rows, columns) of the
+// attention map: thread (tx = tid % 16, ty = tid / 16) owns rows
 // ty·8 .. ty·8+7 and columns tx + 16·j (j < 4), and output dims
 // tx + 16·c (c < DC) of its rows.  The 16 threads of a row are one
 // half-warp, so row sums are shuffles and a (64, 64) tile that a thread
-// group writes and reads back by rows needs only a warp barrier.
+// group writes and reads back by rows needs only a warp barrier.  K7a/K7b
+// stage more operands per tile and, for d > 64, take CPT = 2 columns per
+// thread (a 64 × 32 tile) so that their shared memory fits.
 
 #pragma once
 
@@ -64,14 +69,48 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// Stage rows [0, 64) of a (n, H·d) operand (row 0 and the head offset
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+template <int R, int C>
+__device__ __forceinline__ void zero(float (&a)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) a[i][j] = 0.f;
+}
+
+// Store acc[i][c] (rows ty·8+i, dims tx+16c of a tile whose first row dst
+// points at) with row stride d; rows past `valid` are skipped.
+template <typename T, int DC>
+__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[kRpt][DC],
+                                           int valid, int d) {
+  const int tx = threadIdx.x % kLanes;
+  const int ty = threadIdx.x / kLanes;
+#pragma unroll
+  for (int i = 0; i < kRpt; ++i) {
+    const int row = ty * kRpt + i;
+    if (row >= valid) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int dd = tx + kLanes * c;
+      if (dd < d) dst[(size_t)row * d + dd] = from_f32<T>(acc[i][c]);
+    }
+  }
+}
+
+// Stage rows [0, rows) of a (n, H·d) operand (row 0 and the head offset
 // already applied to src) as fp32 with row stride ds; rows past `valid`
 // and columns past d are zero.
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           int valid, size_t hd, int d,
-                                          int ds) {
-  for (int idx = threadIdx.x; idx < kTile * ds; idx += kThreads) {
+                                          int ds, int rows = kTile) {
+  for (int idx = threadIdx.x; idx < rows * ds; idx += kThreads) {
     const int r = idx / ds;
     const int c = idx % ds;
     dst[idx] = (r < valid && c < d) ? to_f32(src[(size_t)r * hd + c]) : 0.f;
@@ -79,22 +118,23 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 }
 
 // acc[i][j] += A[row ty·8+i] · B[row tx+16j] over the d (padded) columns
-__device__ __forceinline__ void tile_dot(float (&acc)[kRpt][kCpt],
+template <int CPT>
+__device__ __forceinline__ void tile_dot(float (&acc)[kRpt][CPT],
                                          const float* A, const float* B,
                                          int ds, int d4) {
   const int tx = threadIdx.x % kLanes;
   const int ty = threadIdx.x / kLanes;
   for (int c4 = 0; c4 < d4; ++c4) {
-    float4 bv[kCpt];
+    float4 bv[CPT];
 #pragma unroll
-    for (int j = 0; j < kCpt; ++j)
+    for (int j = 0; j < CPT; ++j)
       bv[j] = reinterpret_cast<const float4*>(B + (tx + kLanes * j) * ds)[c4];
 #pragma unroll
     for (int i = 0; i < kRpt; ++i) {
       const float4 av =
           reinterpret_cast<const float4*>(A + (ty * kRpt + i) * ds)[c4];
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) {
+      for (int j = 0; j < CPT; ++j) {
         acc[i][j] = fmaf(av.x, bv[j].x, acc[i][j]);
         acc[i][j] = fmaf(av.y, bv[j].y, acc[i][j]);
         acc[i][j] = fmaf(av.z, bv[j].z, acc[i][j]);
@@ -104,15 +144,16 @@ __device__ __forceinline__ void tile_dot(float (&acc)[kRpt][kCpt],
   }
 }
 
-// acc[i][c] += Σ_j M[row ty·8+i][j] · V[j][tx+16c]: M a (64, 64) tile whose
-// rows this thread's half-warp wrote, V a staged (64, d) tile
-template <int DC>
+// acc[i][c] += Σ_j M[row ty·8+i][j] · V[j][tx+16c]: M a (64, 16·CPT) tile
+// whose rows this thread's half-warp wrote, V a staged (16·CPT, d) tile
+template <int DC, int CPT = kCpt>
 __device__ __forceinline__ void tile_mm(float (&acc)[kRpt][DC],
                                         const float* M, const float* V,
                                         int ds, int d) {
+  constexpr int kCols = kLanes * CPT;
   const int tx = threadIdx.x % kLanes;
   const int ty = threadIdx.x / kLanes;
-  for (int j4 = 0; j4 < kTile / 4; ++j4) {
+  for (int j4 = 0; j4 < kCols / 4; ++j4) {
     float vv[4][DC];
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -124,7 +165,7 @@ __device__ __forceinline__ void tile_mm(float (&acc)[kRpt][DC],
 #pragma unroll
     for (int i = 0; i < kRpt; ++i) {
       const float4 mv =
-          reinterpret_cast<const float4*>(M + (ty * kRpt + i) * kTile)[j4];
+          reinterpret_cast<const float4*>(M + (ty * kRpt + i) * kCols)[j4];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         acc[i][c] = fmaf(mv.x, vv[0][c], acc[i][c]);

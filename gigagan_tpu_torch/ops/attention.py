@@ -10,19 +10,32 @@ The plain paths keep the JAX package's algebra:
 - logits are fp32; only the exp'd map is rounded to the operand dtype;
 - the softmax divide runs on the (i, d) output, not the (i, j) map.
 
-``attend_fused`` with d ≤ 128 goes through the autograd chain of kernels
-K3 (forward), K4 (backward) and K5 (its adjoint, for the R1 penalty's
-double backward) in ``ops/kernels/flash_attention_so.py``: the kernels on
-a CUDA tensor, their plain versions on a CPU tensor.  The split-heads flash
-kernel (K6 in ROADMAP.md) is not ported yet: ``attend`` on a CUDA tensor at
-the sizes where the JAX package dispatches to it raises.
+The kernels are reached through autograd Functions (the kernel on a CUDA
+tensor, its plain version on a CPU tensor), dispatched as in the JAX
+package:
+
+- ``attend_fused`` with d ≤ 128 goes through the chain K3 (forward), K4
+  (backward) and K5 (its adjoint, for the R1 penalty's double backward)
+  in ``ops/kernels/flash_attention_so.py``;
+- ``attend`` at flash sizes (d ≤ 128, ≥ 256 queries, ≥ 128 keys) goes
+  through K6a/K6b with the jvp pair K7a/K7b
+  (``ops/kernels/flash_attention_hv.py``), which supports grad-of-jvp;
+- under ``flash_hv_mode()`` (the forward-over-reverse R1 surrogate)
+  ``attend_fused`` takes the split-heads route, so it reaches that
+  ``attend``.
+
+``plain_reference()`` takes the plain math everywhere.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gigagan_tpu_torch.ops.kernels import use_fused, use_kernels
+from gigagan_tpu_torch.ops.kernels import use_fused
+from gigagan_tpu_torch.ops.kernels.flash_attention_hv import (
+    flash_attend_hv,
+    hv_mode,
+)
 from gigagan_tpu_torch.ops.kernels.flash_attention_so import (
     flash_attend_fused,
 )
@@ -36,12 +49,9 @@ def attend(q, k, v, *, mask=None, l2_dist: bool = False, scale=None):
     key-padding mask (True = attend).  Returns (b, h, i, d)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if (use_kernels(q) and q.shape[-1] <= 128 and q.shape[-2] >= 256
+    if (use_fused() and q.shape[-1] <= 128 and q.shape[-2] >= 256
             and k.shape[-2] >= 128):
-        raise NotImplementedError(
-            "attend: the split-heads flash kernel (K6, ROADMAP.md) is not "
-            "ported yet; on the card only attend_fused has a kernel"
-        )
+        return flash_attend_hv(q, k, v, mask, l2_dist, scale)
 
     out_dtype = q.dtype
     coeff = 2.0 * scale if l2_dist else scale
@@ -72,7 +82,7 @@ def attend_fused(q, k, v, *, heads: int, null_kv=None, l2_dist: bool = False,
     d = q.shape[-1] // heads
     if scale is None:
         scale = d ** -0.5
-    if use_fused() and d <= 128:
+    if use_fused() and d <= 128 and not hv_mode():
         return flash_attend_fused(q, k, v, null_kv, heads, l2_dist, scale)
 
     b, nq, _ = q.shape

@@ -56,6 +56,10 @@ KERNELS = (
     "flash_attention_fused_fwd",
     "flash_attention_fused_bwd",
     "flash_attention_so_bwd2",
+    "flash_attention_fwd",
+    "flash_attention_bwd",
+    "flash_attention_hv_jvp",
+    "flash_attention_hv_bwd",
 )
 
 

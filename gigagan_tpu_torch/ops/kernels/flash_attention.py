@@ -1,0 +1,197 @@
+"""Kernels K6a (``csrc/flash_attention_fwd.cu``) and K6b
+(``csrc/flash_attention_bwd.cu``): split-heads flash attention forward and
+its first-order backward, their plain PyTorch versions and the operand
+prep (the counterpart of gigagan_tpu/ops/pallas/flash_attention.py).  The
+autograd Function that runs them, with a jvp for the forward-over-reverse
+R1 penalty, is ``_FlashAttendHV`` in ``flash_attention_hv.py``: a torch
+Function can carry a backward and a jvp at once, so one entry point serves
+where the JAX package needs ``flash_attend`` and ``flash_attend_hv``.
+
+``prep_split`` folds heads into batch and prepares the operands as
+``_prep`` does (without the TPU's 128-lane padding: the kernels mask any
+nk): q (b·h, nq, d), k_pre = coeff·k and v (b·h, nk, d), and ONE fp32 bias
+row per (b·h): −scale·|k|² for L2-distance similarity (coeff = 2·scale;
+the |q|² term is constant per row and cancels in the softmax), 0 for dot
+product (coeff = scale), NEG_INF at masked keys.  Per (b·h):
+
+    S = q·k_preᵀ + bias    A = softmax(S)    out = A·v    lse = logsumexp(S)
+
+K6b (the VJP, from the saved lse) works on the same prepared operands:
+
+    δ = rowsum(g ⊙ out)   dS = A ⊙ (g·vᵀ − δ)
+    dq = dS·k_pre   dk_pre = dSᵀ·q   dv = Aᵀ·g   dbias = colsum(dS)
+
+The chain rule from k_pre and the bias back to k (for L2:
+dk = coeff·dk_pre − 2·scale·dbias·k = coeff·dSᵀq − colsum(dS)·k_pre, the
+TPU kernel's in-kernel form) runs as plain autograd of ``prep_split``, so
+the forward-mode derivative of the prep under ``torch.func.jvp`` is plain
+autograd too (``flash_attention_hv.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gigagan_tpu_torch.ops.kernels import build
+from gigagan_tpu_torch.ops.kernels.adaptive_conv import acc_dtype
+from gigagan_tpu_torch.ops.kernels.flash_attention_fused import _DTYPE_CODES
+from gigagan_tpu_torch.ops.kernels.flash_attention_so import _check_rows
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def prep_split(q, k, v, mask, l2_dist: bool, scale: float):
+    """q (b, h, nq, d), k/v (b, h, nk, d), mask (b, nk) or None →
+    (q (b·h, nq, d), k_pre, v (b·h, nk, d), bias (b·h, nk) fp32)."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    acc = acc_dtype(k)
+    coeff = 2.0 * scale if l2_dist else scale
+    qf = q.reshape(b * h, nq, d)
+    kf = k.reshape(b * h, nk, d)
+    vf = v.reshape(b * h, nk, d)
+    if l2_dist:
+        k32 = kf.to(acc)
+        bias = -scale * (k32 * k32).sum(-1)
+    else:
+        bias = torch.zeros((b * h, nk), dtype=acc, device=k.device)
+    if mask is not None:
+        keep = mask.to(k.device).repeat_interleave(h, dim=0)
+        bias = torch.where(keep, bias, torch.full_like(bias, NEG_INF))
+    k_pre = (kf.to(acc) * coeff).to(k.dtype)
+    return (qf.contiguous(), k_pre.contiguous(), vf.contiguous(),
+            bias.contiguous())
+
+
+def _logits(q, k_pre, bias):
+    acc = acc_dtype(q)
+    return (torch.einsum("nid,njd->nij", q.to(acc), k_pre.to(acc))
+            + bias.to(acc)[:, None, :])
+
+
+# ------------------------------------------------------------------ K6a
+
+def flash_attention_fwd_plain(q, k_pre, v, bias):
+    """The kernel's function in plain PyTorch on prepared operands: fp32
+    logits, the exp'd map rounded to v's dtype for the A·v product, the
+    divide on the output.  Returns (out (b·h, nq, d), lse (b·h, nq))."""
+    acc = acc_dtype(q)
+    s = _logits(q, k_pre, bias)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    tot = e.sum(-1, keepdim=True)
+    av = torch.einsum("nij,njd->nid", e.to(v.dtype).to(acc), v.to(acc))
+    return (av / tot).to(q.dtype), (m + torch.log(tot))[..., 0]
+
+
+def _check(what, q, k_pre, v, bias, *, nq_like=(), nk_like=(),
+           bias_like=()):
+    """Operands of the split-heads kernels: (bh, nq, d) and (bh, nk, d)
+    tensors in q's dtype (float32 or bfloat16), (bh, nk) float32 bias rows,
+    all contiguous on one CUDA device.  The ``*_like`` are extra
+    (name, tensor) pairs of each kind."""
+    bh, nq, d = q.shape
+    nk = k_pre.shape[1]
+    if d > 128:
+        raise ValueError(f"{what}: head dim {d} > 128")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what}: q must be float32 or bfloat16, got "
+                        f"{q.dtype}")
+    groups = ([(n, t, (bh, nq, d), q.dtype)
+               for n, t in (("q", q), *nq_like)]
+              + [(n, t, (bh, nk, d), q.dtype)
+                 for n, t in (("k_pre", k_pre), ("v", v), *nk_like)]
+              + [(n, t, (bh, nk), torch.float32)
+                 for n, t in (("bias", bias), *bias_like)])
+    for name, t, shape, dtype in groups:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{what}: {name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, the kernel "
+                             f"needs every operand on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def _launcher(name, n_ptrs):
+    lib = build.load(name)
+    fn = getattr(lib, f"gigagan_{name}")
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def flash_attention_fwd(q, k_pre, v, bias):
+    """K6a on CUDA tensors, its plain version on CPU tensors.
+    Returns (out, lse)."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k_pre, v, bias)
+    what = "flash_attention_fwd"
+    _check(what, q, k_pre, v, bias)
+    bh, nq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, nq), dtype=torch.float32, device=q.device)
+    lib, fn = _launcher(what, 6)
+    err = fn(q.data_ptr(), k_pre.data_ptr(), v.data_ptr(), bias.data_ptr(),
+             out.data_ptr(), lse.data_ptr(), bh, nq, k_pre.shape[1], d,
+             _DTYPE_CODES[q.dtype], q.device.index,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, what)
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+# ------------------------------------------------------------------ K6b
+
+def flash_attention_bwd_plain(q, k_pre, v, bias, g, out, lse):
+    """The kernel's function in plain PyTorch.  Returns (dq, dk_pre, dv)
+    in q's dtype and dbias (b·h, nk) in the accumulation dtype."""
+    acc = acc_dtype(q)
+    a = torch.exp(_logits(q, k_pre, bias) - lse.to(acc)[..., None])
+    g32 = g.to(acc)
+    da = torch.einsum("nid,njd->nij", g32, v.to(acc))
+    delta = (g32 * out.to(acc)).sum(-1, keepdim=True)
+    ds = a * (da - delta)
+    dq = torch.einsum("nij,njd->nid", ds, k_pre.to(acc))
+    dkp = torch.einsum("nij,nid->njd", ds, q.to(acc))
+    dv = torch.einsum("nij,nid->njd", a, g32)
+    dt = q.dtype
+    return dq.to(dt), dkp.to(dt), dv.to(dt), ds.sum(1)
+
+
+def flash_attention_bwd(q, k_pre, v, bias, g, out, lse):
+    """K6b on CUDA tensors, its plain version on CPU tensors (same returns
+    as the plain version)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k_pre, v, bias, g, out, lse)
+    what = "flash_attention_bwd"
+    _check(what, q, k_pre, v, bias, nq_like=(("g", g), ("out", out)))
+    bh, nq, d = q.shape
+    nk = k_pre.shape[1]
+    dev = q.device
+    _check_rows(what, "lse", lse, (bh, nq), dev)
+    dq = torch.empty_like(q)
+    dkp = torch.empty_like(k_pre)
+    dv = torch.empty_like(v)
+    dbias = torch.empty((bh, nk), dtype=torch.float32, device=dev)
+    delta = torch.empty((bh, nq), dtype=torch.float32, device=dev)
+    lib, fn = _launcher(what, 12)
+    err = fn(q.data_ptr(), k_pre.data_ptr(), v.data_ptr(), bias.data_ptr(),
+             g.data_ptr(), out.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+             dkp.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+             delta.data_ptr(), bh, nq, nk, d, _DTYPE_CODES[q.dtype],
+             dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, what)
+    flash_attention_bwd.launches += 1
+    return dq, dkp, dv, dbias
+
+
+flash_attention_bwd.launches = 0

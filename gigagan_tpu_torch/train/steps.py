@@ -7,13 +7,17 @@ of the unconditional ``d_step``/``g_step`` of gigagan_tpu/train/steps.py).
   via ``torch.autograd.grad(outputs=[logits, *ms], grad_outputs=[1,
   ms_w, …], create_graph=True)`` — the aux reconstruction losses stay out
   of the penalty's graph — plus the aux reconstruction loss; then the D
-  optimizer step.
+  optimizer step.  With ``gp_fwd_over_rev`` the penalty is taken
+  forward-over-reverse instead (``_r1_fwd_over_rev``): the same value, and
+  its parameter gradient from a jvp and a first-order backward in place
+  of the double backward.
 - ``g_step``: fakes with gradient, DiffAugment, D on the fakes, generator
   hinge + multiscale hinge; the G optimizer step, then the EMA update.
 
 On the card the D's self-attention runs K3 forward, K4 backward and K5
-inside the R1 double backward, and G's adaptive convs K1/K2 — all through
-the autograd Functions of ``ops/kernels``.
+inside the R1 double backward (K6a, K6b, K7a and K7b in the
+forward-over-reverse surrogate instead of K5), and G's adaptive convs
+K1/K2 — all through the autograd Functions of ``ops/kernels``.
 
 Every random draw of a step comes from explicit generators — the tensors
 (latents, pixel noise, the decoder's dropout mask and patch choice) from
@@ -31,6 +35,7 @@ from typing import List, Optional
 import torch
 
 from gigagan_tpu_torch import losses as L
+from gigagan_tpu_torch.ops.kernels.flash_attention_hv import flash_hv_mode
 from gigagan_tpu_torch.utils import exists
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, item 2)"
@@ -60,10 +65,6 @@ class TrainStepBuilder:
         if exists(gp_chunk):
             raise NotImplementedError(f"gp_chunk (the chunked R1) "
                                       f"{_NOT_PORTED}")
-        if gp_fwd_over_rev:
-            raise NotImplementedError(
-                "gp_fwd_over_rev (forward-over-reverse R1) is not ported yet "
-                "(ROADMAP.md Queue 1, item 6)")
         self.G = generator
         self.D = discriminator
         self.g_opt = g_opt
@@ -72,6 +73,7 @@ class TrainStepBuilder:
         self.ms_w = multiscale_divergence_loss_weight
         self.aux_w = discr_aux_recon_loss_weight
         self.diff_augment = diff_augment
+        self.gp_fwd_over_rev = gp_fwd_over_rev
 
     def _generate(self, batch_size, draws, generator):
         return self.G(
@@ -106,18 +108,23 @@ class TrainStepBuilder:
         if apply_gp:
             real = real.detach().requires_grad_()
             fake_aug = fake_aug.detach().requires_grad_()
-        real_aug, real_rgbs = self._augment(
-            real, self.D.real_images_to_rgbs(real), draws.real_flip,
-            host_generator)
+        real_flip = draws.real_flip
+        if real_flip is None and exists(self.diff_augment):
+            real_flip = self.diff_augment.draw(host_generator)
 
-        # ONE batched D call on [real; fake], paired per resolution
-        by_res = [{t.shape[1]: t for t in lst}
-                  for lst in (real_rgbs, fake_rgbs_aug)]
-        pair_rgbs = [torch.cat([ix[r].to(dtype) for ix in by_res])
-                     for r in self.D.multiscale_input_resolutions]
-        images = torch.cat((real_aug, fake_aug))
+        def pair_inputs(real_, fake_):
+            """[real; fake] and its rgbs, paired per resolution, for ONE
+            batched D call."""
+            real_aug, real_rgbs = self._augment(
+                real_, self.D.real_images_to_rgbs(real_), real_flip, None)
+            by_res = [{t.shape[1]: t for t in lst}
+                      for lst in (real_rgbs, fake_rgbs_aug)]
+            pair_rgbs = [torch.cat([ix[r].to(dtype) for ix in by_res])
+                         for r in self.D.multiscale_input_resolutions]
+            return torch.cat((real_aug, fake_)), pair_rgbs
+
         logits, ms, aux_losses = self.D(
-            images, pair_rgbs, return_multiscale_outputs=calc_ms,
+            *pair_inputs(real, fake_aug), return_multiscale_outputs=calc_ms,
             calc_aux_loss=True, aux_recon_samples=b,
             recon_draws=draws.recon, generator=generator,
         )
@@ -139,9 +146,14 @@ class TrainStepBuilder:
             cots = [torch.ones_like(logits),
                     *[torch.ones_like(m) * self.ms_w for m in ms]]
             g_real, g_fake = torch.autograd.grad(
-                outputs, [real, fake_aug], cots, create_graph=True)
+                outputs, [real, fake_aug], cots,
+                create_graph=not self.gp_fwd_over_rev,
+                retain_graph=True)
             gp = 10.0 * (L.sample_sq_norms(g_real).mean()
                          + L.sample_sq_norms(g_fake).mean())
+            if self.gp_fwd_over_rev:
+                gp = gp + self._r1_fwd_over_rev(
+                    pair_inputs, real, fake_aug, g_real, g_fake, calc_ms)
             total = total + gp
 
         aux = torch.zeros((), device=logits.device)
@@ -155,6 +167,35 @@ class TrainStepBuilder:
         self.d_opt.step()
         return _detached(divergence=divergence, multiscale_divergence=ms_div,
                          gradient_penalty=gp, aux_reconstruction=aux)
+
+    def _r1_fwd_over_rev(self, pair_inputs, real, fake, v_real, v_fake,
+                         calc_ms):
+        """The parameter gradient of the R1 penalty, as a surrogate whose
+        value is 0 (gigagan_tpu/train/steps.py, ``gp_fwd_over_rev``).
+
+        v = ∇ₓ⟨D(x), u⟩ is the penalty's input gradient, taken at frozen
+        parameters (no ``create_graph``).  ∇θ 10·mean‖v‖² = ∇θ (20/b)·⟨v(θ),
+        sg(v)⟩, and ⟨v(θ), sg(v)⟩ is the directional derivative of
+        φ(x) = ⟨D(x), u⟩ along sg(v): one jvp of φ, then a first-order
+        backward.  φ is the step's own D pipeline — the same real-side flip,
+        the fakes' rgbs as constants, the aux losses out — with the
+        attention on the grad-of-jvp kernels (``flash_hv_mode``)."""
+
+        def phi(r, f):
+            with flash_hv_mode():
+                lg, msl, _ = self.D(*pair_inputs(r, f),
+                                    return_multiscale_outputs=calc_ms,
+                                    calc_aux_loss=False)
+            out = lg.float().sum()
+            for m in msl:
+                out = out + self.ms_w * m.float().sum()
+            return out
+
+        _, s = torch.func.jvp(phi, (real.detach(), fake.detach()),
+                              (v_real.to(real.dtype),
+                               v_fake.to(fake.dtype)))
+        surrogate = (20.0 / real.shape[0]) * s
+        return surrogate - surrogate.detach()
 
     def g_step(self, batch_size: int, *, calc_ms: bool,
                draws: Optional[StepDraws] = None, generator=None,

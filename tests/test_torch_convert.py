@@ -177,6 +177,7 @@ def test_importing_the_port_needs_no_jax_nvcc_or_gpu(tmp_path):
         "from gigagan_tpu_torch.ops.kernels import build\n"
         "import gigagan_tpu_torch.ops.kernels.adaptive_conv\n"
         "import gigagan_tpu_torch.ops.kernels.flash_attention_fused\n"
+        "import gigagan_tpu_torch.ops.kernels.flash_attention_hv\n"
         "assert not build._LIBS\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'gigagan_tpu', 'triton')]\n"

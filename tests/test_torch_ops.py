@@ -243,7 +243,12 @@ from gigagan_tpu_torch.ops.kernels import plain_reference  # noqa: E402
 adaptive_conv_mod = importlib.import_module(
     "gigagan_tpu_torch.ops.adaptive_conv")
 from gigagan_tpu_torch.ops.kernels import (  # noqa: E402
+    flash_attention as k6,
+    flash_attention_hv as k7,
     flash_attention_so as so,
+)
+from gigagan_tpu_torch.ops.kernels.flash_attention_hv import (  # noqa: E402
+    flash_hv_mode,
 )
 
 
@@ -460,23 +465,53 @@ def test_gradients_survive_kernel_outputs(monkeypatch):
     monkeypatch.setattr(so, "flash_attention_fused_fwd", fwd)
     monkeypatch.setattr(so, "flash_attention_fused_bwd",
                         _standin(so.flash_attention_fused_bwd_plain))
+    # the split-heads kernels K6a/K6b and the grad-of-jvp pair K7a/K7b,
+    # as the Functions in flash_attention_hv.py call them
+    monkeypatch.setattr(k7, "flash_attention_fwd",
+                        _standin(k6.flash_attention_fwd_plain))
+    monkeypatch.setattr(k7, "flash_attention_bwd",
+                        _standin(k6.flash_attention_bwd_plain))
+    monkeypatch.setattr(k7, "flash_attention_hv_jvp",
+                        _standin(k7.flash_attention_hv_jvp_plain))
+    monkeypatch.setattr(k7, "flash_attention_hv_bwd",
+                        _standin(k7.flash_attention_hv_bwd_plain))
 
     x, weights, mod, kmod = conv_inputs(26)
     conv_in = [t(a).requires_grad_() for a in (x, weights, mod, kmod)]
     q, k, v, _, null_kv = attn_inputs(27, True, n=16)
     attn_in = [t(a).requires_grad_() for a in (q, k, v, null_kv)]
+    # flash-sized: attend goes to K6a/K6b (with K7a/K7b in a jvp), and
+    # under flash_hv_mode attend_fused to the split heads and that attend
+    q2, k2, v2, _, null2 = attn_inputs(28, True, b=1, n=256, d=8)
+    flash_in = [t(a).requires_grad_() for a in (q2, k2, v2, null2)]
+    tangents = [t(a) for a in attn_inputs(29, False, b=1, n=256, d=8)[:3]]
 
-    def run(conv_args, attn_args):
+    def run(conv_args, attn_args, flash_args):
         out = adaptive_conv(*conv_args).square().sum()
         qa, ka, va, na = attn_args
-        return out + attend_fused(qa, ka, va, heads=2, null_kv=na,
-                                  l2_dist=True).square().sum()
+        out = out + attend_fused(qa, ka, va, heads=2, null_kv=na,
+                                 l2_dist=True).square().sum()
+        qf, kf, vf, nf = flash_args
+        heads = [a.reshape(1, 256, 2, 8).transpose(1, 2)
+                 for a in (qf, kf, vf)]
+        out = out + attend(*heads).square().sum()
 
-    run(conv_in, attn_in).backward()
-    ref_in = [a.detach().clone().requires_grad_() for a in conv_in + attn_in]
+        def layer(q_, k_, v_):
+            return attend_fused(q_, k_, v_, heads=2, null_kv=nf,
+                                l2_dist=True)
+
+        with flash_hv_mode():
+            primal, tangent = torch.func.jvp(layer, (qf, kf, vf),
+                                             tuple(tangents))
+        return out + tangent.square().sum() + primal.sin().sum()
+
+    run(conv_in, attn_in, flash_in).backward()
+    ref_in = [a.detach().clone().requires_grad_()
+              for a in conv_in + attn_in + flash_in]
     with plain_reference():
-        run(ref_in[:4], ref_in[4:]).backward()
-    names = ["x", "weights", "mod", "kernel_mod", "q", "k", "v", "null_kv"]
-    for name, a, r in zip(names, conv_in + attn_in, ref_in):
+        run(ref_in[:4], ref_in[4:8], ref_in[8:]).backward()
+    names = ["x", "weights", "mod", "kernel_mod", "q", "k", "v", "null_kv",
+             "flash q", "flash k", "flash v", "flash null_kv"]
+    for name, a, r in zip(names, conv_in + attn_in + flash_in, ref_in):
         assert a.grad is not None, f"no gradient reached {name}"
         assert rel_max(a.grad.numpy(), r.grad.numpy()) <= 1e-4, name

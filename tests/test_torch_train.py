@@ -84,11 +84,18 @@ def random_params(shapes, seed):
 
 
 @contextlib.contextmanager
-def numpy_draws(seed):
+def numpy_draws(seed, replay=None):
     """jax.random.{normal, uniform, bernoulli} → numpy draws of the
-    requested shape, recorded in call order (constants under jit)."""
+    requested shape, recorded in call order (constants under jit).
+
+    ``replay=n``: the discriminator pipeline's n draws (from the real-side
+    DiffAugment flip, the third scalar uniform, on) repeat in every later
+    run of the pipeline, as the same keys repeat them in JAX (the
+    forward-over-reverse step runs it three times); only the first run's
+    draws are recorded."""
     rng = np.random.default_rng(seed)
     record = []
+    calls = []  # (kind, shape) of every draw, replays included
     orig = (jax.random.normal, jax.random.uniform, jax.random.bernoulli)
     real_sites = ("models/generator.py", "models/layers.py",
                   "models/discriminator.py", "gigagan_tpu/losses.py")
@@ -104,22 +111,36 @@ def numpy_draws(seed):
             return fn(*args, **kwargs)
         return draw
 
+    def drawn(kind, shape, fresh):
+        if replay is not None:
+            scalar_u = [i for i, c in enumerate(calls)
+                        if c == ("uniform", ())]
+            if len(scalar_u) >= 3 and len(calls) >= scalar_u[2] + replay:
+                start = scalar_u[2]
+                k, a = record[start + (len(calls) - start) % replay]
+                assert (k, a.shape) == (kind, tuple(shape)), (k, kind)
+                calls.append((kind, tuple(shape)))
+                return a
+        calls.append((kind, tuple(shape)))
+        a = fresh()
+        record.append((kind, a))
+        return a
+
     @from_model
     def normal(key, shape=(), dtype=jnp.float32):
-        a = rng.standard_normal(tuple(shape)).astype(np.float32)
-        record.append(("normal", a))
+        a = drawn("normal", shape, lambda: rng.standard_normal(
+            tuple(shape)).astype(np.float32))
         return jnp.asarray(a, dtype)
 
     @from_model
     def uniform(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
-        a = rng.random(tuple(shape)).astype(np.float32)
-        record.append(("uniform", a))
+        a = drawn("uniform", shape,
+                  lambda: rng.random(tuple(shape)).astype(np.float32))
         return jnp.asarray(a, dtype)
 
     @from_model
     def bernoulli(key, p=0.5, shape=None):
-        a = rng.random(tuple(shape)) < p
-        record.append(("bernoulli", a))
+        a = drawn("bernoulli", shape, lambda: rng.random(tuple(shape)) < p)
         return jnp.asarray(a)
 
     jax.random.normal, jax.random.uniform, jax.random.bernoulli = (
@@ -308,10 +329,10 @@ def jax_setup():
     return builder, tx, g_params, d_params, real
 
 
-def port_gan(g_params, d_params):
+def port_gan(g_params, d_params, gp_fwd_over_rev=False):
     gan = GigaGAN(generator=G_CFG, discriminator=D_CFG,
                   diff_augment=DIFF_AUGMENT, learning_rate=LR, betas=BETAS,
-                  device="cpu", seed=0)
+                  device="cpu", seed=0, gp_fwd_over_rev=gp_fwd_over_rev)
     gan.load_jax_params(g_params, d_params=d_params)
     return gan
 
@@ -342,19 +363,32 @@ def check_losses(got, want, names):
         assert abs(g - w) <= 1e-4 * abs(w), (name, g, w)
 
 
-@pytest.mark.parametrize("apply_gp", [False, True], ids=["no_r1", "r1"])
-def test_d_step_matches_jax(jax_setup, apply_gp):
+# the discriminator pipeline's draws: the real-side DiffAugment pair and
+# one (keep mask, patch scores) pair per reconstruction decoder
+D_PIPELINE_DRAWS = 4
+
+
+@pytest.mark.parametrize("apply_gp,fwd_over_rev",
+                         [(False, False), (True, False), (True, True)],
+                         ids=["no_r1", "r1", "r1_fwd_over_rev"])
+def test_d_step_matches_jax(jax_setup, apply_gp, fwd_over_rev):
     builder, tx, g_params, d_params, real = jax_setup
+    if fwd_over_rev:
+        builder = JaxTrainStepBuilder(
+            builder.G, builder.D, tx, tx,
+            diff_augment=jlosses.DiffAugment(**DIFF_AUGMENT),
+            gp_fwd_over_rev=True)
     fn = jax.jit(jax.value_and_grad(
         lambda d, key: builder._d_micro_loss(
             {"d": d}, g_params, None, {}, real, None, None, None, key,
             apply_gp=apply_gp, calc_ms=True),
         has_aux=True))
-    with numpy_draws(20 + apply_gp) as record:
+    with numpy_draws(20 + apply_gp, replay=D_PIPELINE_DRAWS
+                     if fwd_over_rev else None) as record:
         (_, metrics), grads = fn(d_params, jax.random.PRNGKey(4))
     new_params = jax_adam_update(tx, grads, d_params)
 
-    gan = port_gan(g_params, d_params)
+    gan = port_gan(g_params, d_params, gp_fwd_over_rev=fwd_over_rev)
     seed_adam_state(gan.d_opt, gan.D, grads)
     got = gan.train_discriminator_step(
         real, apply_gradient_penalty=apply_gp, calc_multiscale_loss=True,
@@ -403,14 +437,43 @@ def test_train_loop_runs_r1_every_fourth_step():
     assert gan.steps == 5 and gan.ema.step == 4
 
 
-@pytest.mark.parametrize("option", ["gp_chunk", "gp_fwd_over_rev",
-                                    "fused_dg_step", "grad_accum_every",
-                                    "conditional"])
+def test_fwd_over_rev_matches_reverse_over_reverse(jax_setup):
+    # the port's two R1 forms from one mid-run state: the same penalty and
+    # the same update (the tolerances of tests/test_train.py's JAX check)
+    _, _, g_params, d_params, real = jax_setup
+    draws = StepDraws(fake_flip=True, real_flip=False)
+    probe = port_gan(g_params, d_params)
+    probe.train_discriminator_step(real, apply_gradient_penalty=True,
+                                   calc_multiscale_loss=True, seed=5,
+                                   draws=draws)
+    nu = {n: torch.full_like(p, float(p.grad.abs().max()) ** 2 + 1e-30)
+          for n, p in probe.D.named_parameters()}
+    out = {}
+    for fwd_over_rev in (True, False):
+        gan = port_gan(g_params, d_params, gp_fwd_over_rev=fwd_over_rev)
+        for n, p in gan.D.named_parameters():
+            gan.d_opt.state[p] = {"step": torch.tensor(float(ADAM_COUNT)),
+                                  "exp_avg": torch.zeros_like(p),
+                                  "exp_avg_sq": nu[n].clone()}
+        m = gan.train_discriminator_step(
+            real, apply_gradient_penalty=True, calc_multiscale_loss=True,
+            seed=5, draws=draws)
+        out[fwd_over_rev] = (float(m["gradient_penalty"]),
+                             {n: p.detach().clone()
+                              for n, p in gan.D.named_parameters()})
+    np.testing.assert_allclose(out[True][0], out[False][0], rtol=1e-5)
+    for n, p in out[False][1].items():
+        np.testing.assert_allclose(out[True][1][n].numpy(), p.numpy(),
+                                   rtol=5e-3, atol=3e-6, err_msg=n)
+
+
+@pytest.mark.parametrize("option", ["gp_chunk", "fused_dg_step",
+                                    "grad_accum_every", "conditional"])
 def test_unported_training_options_raise(option):
     kwargs = dict(generator=G_CFG, discriminator=D_CFG, device="cpu")
     if option == "gp_chunk":
         kwargs["gp_chunk"] = 1
-    elif option in ("gp_fwd_over_rev", "fused_dg_step"):
+    elif option == "fused_dg_step":
         kwargs[option] = True
     elif option == "conditional":
         kwargs["discriminator"] = dict(D_CFG, unconditional=False)
