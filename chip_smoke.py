@@ -10,13 +10,20 @@
 Phases (any failure raises and exits non-zero):
 
 1. find the card (fails without CUDA) and print its name and power limit;
-2. build the nine CUDA kernels from ``gigagan_tpu_torch/csrc`` with nvcc,
-   one process per source, all at once;
+2. build the CUDA kernels from ``gigagan_tpu_torch/csrc`` with nvcc, one
+   process per source, all at once, and check in their SASS that the
+   tensor-core K3 and K4 run ``HGMMA`` (``wgmma``) fed by ``UTMALDG`` (TMA);
 3. hold kernel K1 (adaptive conv) against its plain PyTorch version at
    every 3x3 conv shape of the 256px generator, batch 8, fp32 (TF32 off)
-   and bf16, and time both;
-4. hold kernel K3 (fused-heads attention) against its plain version at
-   both self-attention shapes, dot and L2, with the null key/value;
+   and bf16, and time both and cuDNN's grouped conv;
+4. hold kernel K3 (fused-heads attention) against its plain version at the
+   six attention shapes of the training path (G's dot product, D's L2 in
+   the d_step and the g_step) with the null key/value, fp32 (CUDA-core
+   kernel) and bf16 (tensor-core kernel), and at small ragged rows (300
+   queries, 200 keys) for d = 64 and 128 (tensor cores in bf16) and 80
+   (CUDA cores), with and without the null token, dot and L2; time the
+   bf16 path shapes on both implementations, the plain version and one
+   ``scaled_dot_product_attention`` call;
 5. drive the sampling path: the README quickstart generator (256px, 30M
    params, bf16) answers generate(batch_size=8) and generate(batch_size=1)
    three times each; the kernels' launch counts must show 15 K1 and 2 K3
@@ -25,8 +32,9 @@ Phases (any failure raises and exits non-zero):
    images/s are timed;
 6. hold K2 (weight gradient) and K1 as the input gradient, through the
    conv Function's backward, against plain PyTorch at the same 15 shapes;
-7. hold K4 (attention backward) and K5 (its adjoint) against their plain
-   versions at the generator's and the discriminator's attention shapes;
+7. the same for K4 (attention backward; the SDPA yardstick is its
+   backward), and K5 (its adjoint) at the d_step's R1 shapes and at the
+   small rows with d = 128 and 80;
 8. hold K6a/K6b (split-heads attention and its backward) and K7a/K7b (its
    jvp and the jvp's backward) against their plain versions at the two
    attention shapes of the forward-over-reverse R1 surrogate (L2, the null
@@ -36,8 +44,9 @@ Phases (any failure raises and exits non-zero):
    takes 8 iterations of train_discriminator_step + train_generator_step
    with R1 on iterations 0 and 4; every loss must be finite and every
    step's K1-K7b launch counts those the path implies (K5 on R1 steps
-   only); ms per d_step (with and without R1) and per g_step and images/s
-   over the 4-iteration cadence are timed;
+   only), every K3 and K4 launch on the tensor-core kernels; ms per d_step
+   (with and without R1) and per g_step and images/s over the 4-iteration
+   cadence are timed;
 10. the same 8 iterations with the R1 penalty taken forward-over-reverse
     (``GigaGAN(gp_fwd_over_rev=True)``): K6a, K6b, K7a and K7b on R1
     d_steps only, K5 never; d_step+R1 timed beside phase 9's;
@@ -45,8 +54,12 @@ Phases (any failure raises and exits non-zero):
     R1 (both forms) and a g_step through the kernels against the same
     steps under ``plain_reference()`` (losses and every parameter's
     gradient), and the forward-over-reverse d_step against the
-    reverse-over-reverse one (penalty and every gradient);
-12. print the kernel table as one JSON line and, last, the device line.
+    reverse-over-reverse one (penalty and every gradient); then bf16: a
+    d_step with R1 and a g_step through the tensor-core K3/K4 against the
+    same steps with the CUDA-core ones patched in;
+12. print the kernel table as one JSON line (time, plain version, library
+    call where one computes the same function, bound, launches) and, last,
+    the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -88,7 +101,12 @@ BATCH = 8
 SELF_ATTN_RES, HEADS, DIM_HEAD = (32, 16), 8, 64
 K1_TOL_F32, K1_TOL_BF16, K3_TOL = 0.02, 0.08, 0.03
 K2_TOL_F32, K2_TOL_BF16, K4_TOL, K5_TOL = 0.02, 0.08, 0.03, 0.05
-G_TOL_F32, STEP_TOL_F32 = 0.02, 0.02
+G_TOL_F32, STEP_TOL_F32, STEP_TOL_BF16 = 0.02, 0.02, 0.08
+# a gradient leaf that moves by more than this in fp32 when only the order
+# of summation changes (kernels vs plain path, same step) carries no
+# information at bf16's 2^16 times coarser rounding: the bf16 comparison of
+# the two K3/K4 routes reports it and holds the other leaves to 0.08
+STABLE_F32 = 1e-3
 # the training path's attention (batch, tokens, L2 similarity?): G's dot
 # product at batch 8; D's L2 in the d_step on the [real; fake] batch of
 # 16 grown by the multiscale groups (×4 at 32², ×8 at 16²), and in the
@@ -99,6 +117,11 @@ ATTN_PATH = [
     ("D g_step", 32, 1024, True), ("D g_step", 64, 256, True),
 ]
 R1_ATTN = [row for row in ATTN_PATH if row[0] == "D d_step"]
+# small rows for the other branches: ragged nq != nk, and head dims 128
+# (tensor cores in bf16) and 80 (CUDA cores), each with and without the null
+# token, dot and L2: (who, b, heads, nq, nk, d)
+ATTN_SMALL = [("ragged", 2, 2, 300, 200, 64), ("d128", 2, 2, 300, 200, 128),
+              ("d80", 1, 3, 260, 131, 80)]
 # the forward-over-reverse surrogate's attention: D's L2 self-attention on
 # split heads, (b, heads, queries, keys with the null token, head dim); and
 # small masked cases for the kernels' other branches, among them the
@@ -112,6 +135,9 @@ HV_PATH = [("phi", 64, HEADS, 1024, 1025, DIM_HEAD, True, False),
 K67_TOL_F32, K67_TOL_BF16 = 1e-3, 0.03
 ITERATIONS, R1_EVERY = 8, 4
 KERNEL_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6a", "k6b", "k7a", "k7b")
+# one H100 SXM: dense bf16 tensor-core rate and HBM3 rate (NVIDIA's data
+# sheet); a bound is the larger of operations and bytes over these
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 
 def log(msg):
@@ -148,6 +174,66 @@ def time_ms(fn, torch, min_ms=60.0):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(flops, moved):
+    """(ms, what bounds it): the least time an H100 takes for work of
+    `flops` operations that must move `moved` bytes."""
+    ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def attn_bound(products, bh, nq, nk, d, moved):
+    """Bound of attention work of `products` (nq, nk, d) matrix products."""
+    return bound(2.0 * products * bh * nq * nk * d, moved)
+
+
+def sdpa_operands(torch, q, k_pre, v, bias, nullk, nullv, null_bias, heads):
+    """K3's function as the operands of one scaled_dot_product_attention
+    call: (b, H, n, d) views, the null token as key 0, [null_bias, bias] as
+    a float mask broadcast over the queries (in q's dtype, as the call
+    takes it); the call's scale is 1."""
+    b, nq, hd = q.shape
+    nk, d = k_pre.shape[1], hd // heads
+    qh = q.view(b, nq, heads, d).transpose(1, 2)
+    kh = k_pre.view(b, nk, heads, d).transpose(1, 2)
+    vh = v.view(b, nk, heads, d).transpose(1, 2)
+    mask = (bias[:, :, None, :] if bias is not None
+            else torch.zeros(b, heads, 1, nk, device=q.device))
+    if nullk is not None:
+        kh = torch.cat((nullk[None, :, None].expand(b, heads, 1, d), kh), 2)
+        vh = torch.cat((nullv[None, :, None].expand(b, heads, 1, d), vh), 2)
+        mask = torch.cat((null_bias[None, :, None, None].expand(
+            b, heads, 1, 1), mask), 3)
+    return qh, kh, vh, mask.to(q.dtype).contiguous()
+
+
+def sdpa_times(torch, qh, kh, vh, mask, g=None):
+    """ms of one scaled_dot_product_attention call on these operands, and
+    of its backward (to q, k, v and the mask, as K4 gives dbias) for a
+    cotangent g; a call PyTorch refuses gives None and the reason."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    try:
+        fwd = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=1.0),
+                      torch)
+        if g is None:
+            return fwd, None, None
+        ins = [t.detach().requires_grad_() for t in (qh, kh, vh, mask)]
+        out = sdpa(*ins[:3], attn_mask=ins[3], scale=1.0)
+        gh = g.view(out.shape[0], out.shape[2], out.shape[1],
+                    out.shape[3]).transpose(1, 2)
+        bwd = time_ms(lambda: torch.autograd.grad(out, ins, gh,
+                                                  retain_graph=True), torch)
+        del out, ins
+        return fwd, bwd, None
+    except RuntimeError as e:
+        return None, None, f"{type(e).__name__}: {str(e)[:200]}"
 
 
 def path_convs(cfg):
@@ -256,20 +342,29 @@ def main():
     dev = torch.device("cuda", 0)
     OUT_DIR.mkdir(exist_ok=True)
 
-    counters = {"k1": k1.adaptive_conv_fwd, "k2": k1.adaptive_conv_bwd_w,
-                "k3": k3.flash_attention_fused_fwd,
-                "k4": so.flash_attention_fused_bwd,
-                "k5": so.flash_attention_so_bwd2,
-                "k6a": k6.flash_attention_fwd, "k6b": k6.flash_attention_bwd,
-                "k7a": k7.flash_attention_hv_jvp,
-                "k7b": k7.flash_attention_hv_bwd}
+    # K3 and K4 count the launches of both implementations; the CUDA-core
+    # ones alone are read as well, to show that no bf16 call reached them
+    simt = {"k3": k3.flash_attention_fused_fwd_simt,
+            "k4": so.flash_attention_fused_bwd_simt}
+    counters = {"k1": [k1.adaptive_conv_fwd], "k2": [k1.adaptive_conv_bwd_w],
+                "k3": [k3.flash_attention_fused_fwd_tc, simt["k3"]],
+                "k4": [so.flash_attention_fused_bwd_tc, simt["k4"]],
+                "k5": [so.flash_attention_so_bwd2],
+                "k6a": [k6.flash_attention_fwd], "k6b": [k6.flash_attention_bwd],
+                "k7a": [k7.flash_attention_hv_jvp],
+                "k7b": [k7.flash_attention_hv_bwd]}
 
     def reset_counts():
-        for fn in counters.values():
-            fn.launches = 0
+        for fns in counters.values():
+            for fn in fns:
+                fn.launches = 0
 
     def read_counts():
-        return {k: fn.launches for k, fn in counters.items()}
+        return {k: sum(fn.launches for fn in fns)
+                for k, fns in counters.items()}
+
+    def simt_counts():
+        return {k: fn.launches for k, fn in simt.items()}
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
@@ -289,6 +384,21 @@ def main():
         log(f"  ptxas {kname}: {len(regs)} kernels, at most {max(regs)} "
             f"registers and {max(spills, default=0)} bytes of spill stores "
             "(details in chiprun_out/ptxas.log)")
+    # a tensor-core kernel that quietly lost its tensor cores or its TMA
+    # loads fails here
+    cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    report["sass"] = {}
+    for kname in ("flash_attention_fused_fwd_tc",
+                  "flash_attention_fused_bwd_tc"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(built[kname][0])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        found = {op: len(re.findall(rf"\b{op}\b", sass))
+                 for op in ("HGMMA", "UTMALDG")}
+        report["sass"][kname] = found
+        log(f"  sass {kname}: {found}")
+        if not all(found.values()):
+            fail(f"{kname} lacks tensor-core products or TMA loads: {found}")
 
     # ---------------------------------------------------------------- 3
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -311,6 +421,11 @@ def main():
         xb = xm.bfloat16()
         got16 = k1.adaptive_conv_fwd(xb, w, a, d)
         torch.cuda.synchronize()
+        # the yardstick: cuDNN's grouped conv (one group per sample) on the
+        # pre-mixed, demodulated weights, mixed outside the timed call
+        wg = torch.einsum("bn,nijcd,bd->bdcij", a, w, d).reshape(
+            BATCH * co, ci, 3, 3).bfloat16()
+        xg = xb.permute(0, 3, 1, 2).reshape(1, BATCH * ci, h, h)
         row = dict(
             h=h, ci=ci, co=co,
             rel_f32=rel_err(got32, want), rel_bf16=rel_err(got16, want),
@@ -322,56 +437,90 @@ def main():
                             torch),
             plain_ms_bf16=time_ms(
                 lambda: k1.adaptive_conv_fwd_plain(xb, w, a, d), torch),
+            library_ms_bf16=time_ms(
+                lambda: torch.nn.functional.conv2d(xg, wg, padding=1,
+                                                   groups=BATCH), torch),
         )
+        row["bound_ms"], row["bound_by"] = bound(
+            2.0 * BATCH * h * h * 9 * ci * co,
+            nbytes(xb, w, a, d) + nbytes(got16))
         k1_rows[(h, ci, co)] = row
         log(f"K1 b{BATCH} {h}x{h} {ci}->{co}: rel f32 {row['rel_f32']:.2e} "
             f"bf16 {row['rel_bf16']:.2e} | ms f32 {row['ms_f32']:.4f} "
             f"(plain {row['plain_ms_f32']:.4f}) bf16 {row['ms_bf16']:.4f} "
-            f"(plain {row['plain_ms_bf16']:.4f})")
+            f"(plain {row['plain_ms_bf16']:.4f}, cuDNN grouped conv "
+            f"{row['library_ms_bf16']:.4f}, bound {row['bound_ms']:.4f})")
         if not (row["rel_f32"] <= K1_TOL_F32
                 and row["rel_bf16"] <= K1_TOL_BF16):
             fail(f"K1 disagrees at {row}")
     report["k1"] = list(k1_rows.values())
 
     # ---------------------------------------------------------------- 4
-    heads, dh = HEADS, DIM_HEAD
+    bf16 = torch.bfloat16
+
+    def dtype_name(dtype):
+        return str(dtype).split(".")[-1]
+
+    def attn_operands(b, heads, nq, nk, d, l2, null, dtype):
+        """K3's prepared operands from random q, k, v and null_kv."""
+        q = torch.randn(b, nq, heads * d, device=dev, generator=gen).to(dtype)
+        k, v = (torch.randn(b, nk, heads * d, device=dev,
+                            generator=gen).to(dtype) for _ in range(2))
+        null_kv = (torch.randn(2, heads, d, device=dev, generator=gen)
+                   if null else None)
+        k_pre, bias, nullk, nullv, null_bias = k3.prep_fused(
+            k, v, null_kv, heads, l2, d ** -0.5)
+        return q, k_pre, v, bias, nullk, nullv, null_bias, heads
+
+    def attn_rows(timed_shapes):
+        """(who, b, heads, nq, nk, d, l2, null, dtype, timed) of the
+        attention phases: the path shapes (timed), then the small rows."""
+        for who, b, n, l2 in timed_shapes:
+            for dtype in (torch.float32, bf16):
+                yield who, b, HEADS, n, n, DIM_HEAD, l2, True, dtype, True
+        for who, b, h, nq, nk, d in ATTN_SMALL:
+            for null in (True, False):
+                for l2 in (False, True):
+                    for dtype in (torch.float32, bf16):
+                        yield who, b, h, nq, nk, d, l2, null, dtype, False
+
     k3_rows = []
-    for h in SELF_ATTN_RES:
-        n = h * h
-        for l2 in (False, True):
-            for dtype in (torch.float32, torch.bfloat16):
-                q, k, v = (torch.randn(BATCH, n, heads * dh, device=dev,
-                                       generator=gen).to(dtype)
-                           for _ in range(3))
-                null_kv = torch.randn(2, heads, dh, device=dev,
-                                      generator=gen)
-                k_pre, bias, nk, nv, nb = k3.prep_fused(
-                    k, v, null_kv, heads, l2, dh ** -0.5)
-                args = (q, k_pre, v, bias, nk, nv, nb, heads)
-                o_want, l_want = k3.flash_attention_fused_fwd_plain(*args)
-                o_got, l_got = k3.flash_attention_fused_fwd(*args)
-                torch.cuda.synchronize()
-                row = dict(
-                    n=n, heads=heads, d=dh, l2=l2,
-                    dtype=str(dtype).split(".")[-1],
-                    rel_out=rel_err(o_got, o_want),
-                    rel_lse=rel_err(l_got, l_want),
-                    abs_out=abs_err(o_got, o_want),
-                    abs_lse=abs_err(l_got, l_want),
-                    ms=time_ms(lambda: k3.flash_attention_fused_fwd(*args),
-                               torch),
-                    plain_ms=time_ms(
-                        lambda: k3.flash_attention_fused_fwd_plain(*args),
-                        torch),
-                )
-                k3_rows.append(row)
-                log(f"K3 b{BATCH} n{n} H{heads} d{dh} l2={l2} "
-                    f"{row['dtype']}: rel out {row['rel_out']:.2e} lse "
-                    f"{row['rel_lse']:.2e} | ms {row['ms']:.4f} "
-                    f"(plain {row['plain_ms']:.4f})")
-                if not (row["rel_out"] <= K3_TOL
-                        and row["rel_lse"] <= K3_TOL):
-                    fail(f"K3 disagrees at {row}")
+    for who, b, h, nq, nk, d, l2, null, dtype, timed in attn_rows(ATTN_PATH):
+        args = attn_operands(b, h, nq, nk, d, l2, null, dtype)
+        o_want, l_want = k3.flash_attention_fused_fwd_plain(*args)
+        o_got, l_got = k3.flash_attention_fused_fwd(*args)
+        torch.cuda.synchronize()
+        row = dict(
+            who=who, b=b, heads=h, nq=nq, nk=nk, d=d, l2=l2, null=null,
+            dtype=dtype_name(dtype),
+            route="tc" if k3.uses_tensor_cores(dtype, d) else "simt",
+            rel_out=rel_err(o_got, o_want), rel_lse=rel_err(l_got, l_want),
+            abs_out=abs_err(o_got, o_want), abs_lse=abs_err(l_got, l_want))
+        if timed:
+            row["ms"] = time_ms(lambda: k3.flash_attention_fused_fwd(*args),
+                                torch)
+            row["plain_ms"] = time_ms(
+                lambda: k3.flash_attention_fused_fwd_plain(*args), torch)
+        if timed and dtype == bf16:
+            row["simt_ms"] = time_ms(
+                lambda: k3.flash_attention_fused_fwd_simt(*args), torch)
+            row["library_ms"], _, row["library_note"] = sdpa_times(
+                torch, *sdpa_operands(torch, *args))
+            row["bound_ms"], row["bound_by"] = attn_bound(
+                2, b * h, nq, nk + null, d,
+                nbytes(*args[:-1], o_got, l_got))
+        k3_rows.append(row)
+        log(f"K3 {who} b{b} H{h} nq{nq} nk{nk} d{d} l2={l2} null={null} "
+            f"{row['dtype']} ({row['route']}): rel out {row['rel_out']:.2e} "
+            f"lse {row['rel_lse']:.2e}" + (
+                f" | ms {row['ms']:.4f} (plain {row['plain_ms']:.4f}" + (
+                    f", simt {row['simt_ms']:.4f}, SDPA {row['library_ms']}"
+                    f", bound {row['bound_ms']:.4f}"
+                    if "simt_ms" in row else "") + ")" if timed else ""))
+        if not (row["rel_out"] <= K3_TOL and row["rel_lse"] <= K3_TOL):
+            fail(f"K3 disagrees at {row}")
+        del args, o_want, o_got, l_want, l_got
+    torch.cuda.empty_cache()
     report["k3"] = k3_rows
 
     # ---------------------------------------------------------------- 5
@@ -406,6 +555,8 @@ def main():
         fail(f"launch counts {launches}")
     if any(n for k, n in counts.items() if k not in ("k1", "k3")):
         fail(f"backward kernels launched while sampling: {counts}")
+    if simt_counts()["k3"]:
+        fail(f"bf16 sampling reached the CUDA-core K3: {simt_counts()}")
     if seen != set(k1_rows):
         fail(f"path conv shapes {seen} != checked {set(k1_rows)}")
     report["sampling_launches"] = counts
@@ -536,6 +687,9 @@ def main():
                 lambda: k1.adaptive_conv_fwd_plain(gs16, wft, a, ones),
                 torch),
         )
+        row["bound_ms"], row["bound_by"] = bound(
+            2.0 * BATCH * h * h * 9 * ci * co,
+            nbytes(xb, gb, w, a, dw16, da16))
         k2_rows[(h, ci, co)] = row
         log(f"K2 b{BATCH} {h}x{h} {ci}->{co}: rel dW/da f32 "
             f"{row['rel_dw_f32']:.2e}/{row['rel_da_f32']:.2e} bf16 "
@@ -554,64 +708,82 @@ def main():
 
     # ---------------------------------------------------------------- 7
     k4_rows, k5_rows = [], []
-    for who, b, n, l2 in ATTN_PATH:
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, g = (torch.randn(b, n, heads * dh, device=dev,
-                                      generator=gen).to(dtype)
-                          for _ in range(4))
-            null_kv = torch.randn(2, heads, dh, device=dev, generator=gen)
-            k_pre, bias, nk, nv, nb = k3.prep_fused(k, v, null_kv, heads,
-                                                    l2, dh ** -0.5)
-            out, lse = k3.flash_attention_fused_fwd(q, k_pre, v, bias, nk,
-                                                    nv, nb, heads)
-            args = (q, k_pre, v, bias, nk, nv, nb, g, out, lse, heads)
-            want = so.flash_attention_fused_bwd_plain(*args)
-            got = so.flash_attention_fused_bwd(*args)
-            torch.cuda.synchronize()
-            pairs = [(a_, w_) for a_, w_ in zip(got, want) if w_ is not None]
-            row = dict(
-                who=who, b=b, n=n, l2=l2, dtype=str(dtype).split(".")[-1],
-                rel=max(rel_err(a_, w_) for a_, w_ in pairs),
-                abs=max(abs_err(a_, w_) for a_, w_ in pairs),
-                ms=time_ms(lambda: so.flash_attention_fused_bwd(*args),
-                           torch),
-                plain_ms=time_ms(
-                    lambda: so.flash_attention_fused_bwd_plain(*args), torch),
-            )
-            k4_rows.append(row)
-            log(f"K4 {who} b{b} n{n} l2={l2} {row['dtype']}: rel "
-                f"{row['rel']:.2e} | ms {row['ms']:.4f} (plain "
-                f"{row['plain_ms']:.4f})")
-            if not row["rel"] <= K4_TOL:
-                fail(f"K4 disagrees at {row}")
-            if (who, b, n, l2) not in R1_ATTN:
-                continue
-            cots = [None if w_ is None else torch.randn(
-                w_.shape, device=dev, generator=gen).to(w_.dtype)
-                for w_ in want]
-            args5 = (q, k_pre, v, bias, nk, nv, nb, g, lse, *cots, heads)
-            want5 = so.flash_attention_so_bwd2_plain(*args5)
-            got5 = so.flash_attention_so_bwd2(*args5)
-            torch.cuda.synchronize()
-            pairs = [(a_, w_) for a_, w_ in zip(got5, want5)
-                     if w_ is not None]
-            row5 = dict(
-                who=who, b=b, n=n, l2=l2, dtype=str(dtype).split(".")[-1],
-                rel=max(rel_err(a_, w_) for a_, w_ in pairs),
-                abs=max(abs_err(a_, w_) for a_, w_ in pairs),
-                ms=time_ms(lambda: so.flash_attention_so_bwd2(*args5),
-                           torch),
-                plain_ms=time_ms(
-                    lambda: so.flash_attention_so_bwd2_plain(*args5), torch),
-            )
-            k5_rows.append(row5)
-            log(f"K5 {who} b{b} n{n} l2={l2} {row5['dtype']}: rel "
-                f"{row5['rel']:.2e} | ms {row5['ms']:.4f} (plain "
-                f"{row5['plain_ms']:.4f})")
-            if not row5["rel"] <= K5_TOL:
-                fail(f"K5 disagrees at {row5}")
-            del want5, got5, args5, cots
-        del q, k, v, g, want, got, args
+    for who, b, h, nq, nk, d, l2, null, dtype, timed in attn_rows(ATTN_PATH):
+        args = attn_operands(b, h, nq, nk, d, l2, null, dtype)
+        q, k_pre, v, bias, nullk, nullv, null_bias, _ = args
+        g = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
+        out, lse = k3.flash_attention_fused_fwd(*args)
+        bargs = (q, k_pre, v, bias, nullk, nullv, null_bias, g, out, lse, h)
+        want = so.flash_attention_fused_bwd_plain(*bargs)
+        got = so.flash_attention_fused_bwd(*bargs)
+        torch.cuda.synchronize()
+        pairs = [(a_, w_) for a_, w_ in zip(got, want) if w_ is not None]
+        row = dict(
+            who=who, b=b, heads=h, nq=nq, nk=nk, d=d, l2=l2, null=null,
+            dtype=dtype_name(dtype),
+            route="tc" if k3.uses_tensor_cores(dtype, d) else "simt",
+            rel=max(rel_err(a_, w_) for a_, w_ in pairs),
+            abs=max(abs_err(a_, w_) for a_, w_ in pairs))
+        if timed:
+            row["ms"] = time_ms(lambda: so.flash_attention_fused_bwd(*bargs),
+                                torch)
+            row["plain_ms"] = time_ms(
+                lambda: so.flash_attention_fused_bwd_plain(*bargs), torch)
+        if timed and dtype == bf16:
+            row["simt_ms"] = time_ms(
+                lambda: so.flash_attention_fused_bwd_simt(*bargs), torch)
+            _, row["library_ms"], row["library_note"] = sdpa_times(
+                torch, *sdpa_operands(torch, *args), g)
+            row["bound_ms"], row["bound_by"] = attn_bound(
+                5, b * h, nq, nk + null, d,
+                nbytes(*bargs[:-1], *(t for t in got if t is not None)))
+        k4_rows.append(row)
+        log(f"K4 {who} b{b} H{h} nq{nq} nk{nk} d{d} l2={l2} null={null} "
+            f"{row['dtype']} ({row['route']}): rel {row['rel']:.2e}" + (
+                f" | ms {row['ms']:.4f} (plain {row['plain_ms']:.4f}" + (
+                    f", simt {row['simt_ms']:.4f}, SDPA backward "
+                    f"{row['library_ms']}, bound {row['bound_ms']:.4f}"
+                    if "simt_ms" in row else "") + ")" if timed else ""))
+        if not row["rel"] <= K4_TOL:
+            fail(f"K4 disagrees at {row}")
+        del got, pairs
+        # K5 at the R1 shapes of the d_step (timed) and at the small rows
+        # with the wider heads
+        r1_row = (who, b, nq, l2) in R1_ATTN
+        if not (r1_row or (null and who in ("d128", "d80"))):
+            del args, bargs, want, out, lse, g
+            torch.cuda.empty_cache()
+            continue
+        cots = [None if w_ is None else torch.randn(
+            w_.shape, device=dev, generator=gen).to(w_.dtype) for w_ in want]
+        args5 = (*bargs[:8], lse, *cots, h)
+        want5 = so.flash_attention_so_bwd2_plain(*args5)
+        got5 = so.flash_attention_so_bwd2(*args5)
+        torch.cuda.synchronize()
+        pairs = [(a_, w_) for a_, w_ in zip(got5, want5) if w_ is not None]
+        row5 = dict(
+            who=who, b=b, heads=h, nq=nq, nk=nk, d=d, l2=l2,
+            dtype=dtype_name(dtype),
+            rel=max(rel_err(a_, w_) for a_, w_ in pairs),
+            abs=max(abs_err(a_, w_) for a_, w_ in pairs))
+        if r1_row:
+            row5["ms"] = time_ms(lambda: so.flash_attention_so_bwd2(*args5),
+                                 torch)
+            row5["plain_ms"] = time_ms(
+                lambda: so.flash_attention_so_bwd2_plain(*args5), torch)
+            # the products the adjoint needs: S, dA, two for c_dS, G·C̃ᵀ,
+            # then two each for c_q, c_g, c_k and one for c_v
+            row5["bound_ms"], row5["bound_by"] = attn_bound(
+                12, b * h, nq, nk + 1, d,
+                nbytes(*args5[:-1], *(t for t in got5 if t is not None)))
+        k5_rows.append(row5)
+        log(f"K5 {who} b{b} H{h} nq{nq} nk{nk} d{d} l2={l2} {row5['dtype']}: "
+            f"rel {row5['rel']:.2e}" + (
+                f" | ms {row5['ms']:.4f} (plain {row5['plain_ms']:.4f}, "
+                f"bound {row5['bound_ms']:.4f})" if r1_row else ""))
+        if not row5["rel"] <= K5_TOL:
+            fail(f"K5 disagrees at {row5}")
+        del want5, got5, args5, cots, pairs, args, bargs, want, out, lse, g
         torch.cuda.empty_cache()
     report["k4"], report["k5"] = k4_rows, k5_rows
 
@@ -641,6 +813,27 @@ def main():
             }
             row = dict(who=who, bh=b * h, nq=nq, nk=nk, d=d, l2=l2,
                        masked=masked, dtype=str(dtype).split(".")[-1])
+            if who == "phi" and dtype == torch.bfloat16:
+                # products per call: K6a S, P·V; K6b S, dA, dq, dk, dv; K7a
+                # S, two for T, P·V, P·tV, (P⊙T)·V; K7b (no cotangent on
+                # out) S, two for T, two for the pieces, eight for the
+                # cotangents of q, tq, k, tk, v, tv
+                # (bytes: the outputs of K6b and K7b are the size of their
+                # operands, each row's out the size of g, lse 4 b·h·nq)
+                ob, tb, rb = nbytes(*ops), nbytes(*tang), nbytes(g)
+                lb = 4 * b * h * nq
+                for kname, products, moved in (
+                        ("k6a", 2, ob + rb + lb),
+                        ("k6b", 5, 2 * ob + 2 * rb + lb),
+                        ("k7a", 6, ob + tb + 2 * rb + lb),
+                        ("k7b", 13, 2 * (ob + tb) + rb + lb)):
+                    row[kname + "_bound"] = attn_bound(products, b * h, nq,
+                                                       nk, d, moved)
+                qh, kh, vh = (t[:, None] for t in ops[:3])
+                mask = ops[3][:, None, None, :].to(dtype)
+                fwd_ms, bwd_ms, note = sdpa_times(torch, qh, kh, vh, mask, g)
+                row["k6a_library"], row["k6b_library"] = fwd_ms, bwd_ms
+                row["library_note"] = note
             for kname, (kernel, plain) in checks.items():
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
@@ -721,6 +914,9 @@ def main():
         for i in range(ITERATIONS):
             iteration(i, i % R1_EVERY == 0, steps)
         launches = read_counts()
+        if any(simt_counts().values()):
+            fail(f"bf16 K3/K4 calls of the {label} path reached the "
+                 f"CUDA-core kernels: {simt_counts()}")
         for s in steps:
             want = exp_g if s["kind"] == "g" else (exp_d_r1 if s["r1"]
                                                    else exp_d)
@@ -783,12 +979,13 @@ def main():
 
     # --------------------------------------------------------------- 11
     # fp32 steps through the kernels against the same steps on the plain
-    # path, each from the same fresh state
+    # path, each from the same fresh state; then bf16 steps through the
+    # tensor-core K3/K4 against the CUDA-core ones
     real = torch.from_numpy(np.stack([data[i] for i in range(BATCH)])).to(dev)
 
-    def fp32_step(kind, plain, fwd_over_rev=False):
+    def fp32_step(kind, plain, fwd_over_rev=False, amp=False):
         g32 = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D,
-                      amp=False, device="cuda", seed=0,
+                      amp=amp, device="cuda", seed=0,
                       gp_fwd_over_rev=fwd_over_rev)
         with (plain_reference() if plain else contextlib.nullcontext()):
             if kind == "d":
@@ -807,116 +1004,180 @@ def main():
         torch.cuda.empty_cache()
         return losses_, grads
 
-    def compare(label, got, want, loss_keys=None):
+    def compare(label, got, want, loss_keys=None, tol=STEP_TOL_F32,
+                stable=None):
+        """Losses and every gradient leaf, max-rel, all held to `tol` or,
+        given `stable` (an fp32 comparison of the same step), the leaves
+        whose fp32 gradient moved by at most STABLE_F32 there; the others
+        are reported by name."""
         (l_got, g_got), (l_want, g_want) = got, want
         loss_keys = loss_keys or list(l_want)
         loss_rel = max(abs(l_got[k] - l_want[k]) / (abs(l_want[k]) + 1e-6)
                        for k in loss_keys)
         grad_rel = {n_: rel_err(g_got[n_], g_want[n_]) for n_ in g_want}
-        worst = max(grad_rel, key=grad_rel.get)
+        gated = grad_rel
+        if stable is not None:
+            gated = {n_: r for n_, r in grad_rel.items()
+                     if stable["grad_rel"][n_] <= STABLE_F32}
+            loose = {n_: (r, stable["grad_rel"][n_])
+                     for n_, r in grad_rel.items() if n_ not in gated}
+            log(f"{label}: {len(loose)} leaves not gated, moved by more than "
+                f"{STABLE_F32} in fp32 (leaf: rel here, rel in fp32): "
+                + ", ".join(f"{n_}: {a:.2e}, {b:.2e}"
+                            for n_, (a, b) in loose.items()))
+        worst = max(gated, key=gated.get)
+        top = sorted(gated, key=gated.get)[-5:]
+        log(f"{label}: largest gated leaves: "
+            + ", ".join(f"{n_} {gated[n_]:.2e}" for n_ in reversed(top)))
         out = dict(losses_got=l_got, losses_want=l_want, loss_rel=loss_rel,
-                   grad_rel_max=grad_rel[worst], worst=worst)
-        log(f"fp32 {label}: losses rel {loss_rel:.2e} "
+                   grad_rel_max=gated[worst], worst=worst, grad_rel=grad_rel)
+        log(f"{label}: losses rel {loss_rel:.2e} "
             f"({', '.join(loss_keys)}), gradients max rel "
-            f"{grad_rel[worst]:.2e} ({worst}) over {len(grad_rel)} leaves "
-            f"(tol {STEP_TOL_F32})")
-        if not (loss_rel <= STEP_TOL_F32
-                and grad_rel[worst] <= STEP_TOL_F32):
-            fail(f"fp32 {label} disagrees: {out}")
+            f"{gated[worst]:.2e} ({worst}) over {len(gated)} leaves "
+            f"(tol {tol})")
+        if not (loss_rel <= tol and gated[worst] <= tol):
+            fail(f"{label} disagrees: {out}")
         return out
 
     d_ror, d_for = fp32_step("d", False), fp32_step("d", False, True)
     report["step_vs_plain_f32"] = step_rel = {}
-    step_rel["d"] = compare("d_step +R1 kernels vs plain path", d_ror,
+    step_rel["d"] = compare("fp32 d_step +R1 kernels vs plain path", d_ror,
                             fp32_step("d", True))
     step_rel["d_fwd_over_rev"] = compare(
-        "d_step +R1 forward-over-reverse, kernels vs plain path", d_for,
+        "fp32 d_step +R1 forward-over-reverse, kernels vs plain path", d_for,
         fp32_step("d", True, True))
     step_rel["d_fwd_over_rev_vs_ror"] = compare(
-        "d_step +R1 forward-over-reverse vs reverse-over-reverse, kernels",
-        d_for, d_ror, loss_keys=["gradient_penalty"])
+        "fp32 d_step +R1 forward-over-reverse vs reverse-over-reverse, "
+        "kernels", d_for, d_ror, loss_keys=["gradient_penalty"])
     del d_ror, d_for
-    step_rel["g"] = compare("g_step kernels vs plain path",
+    step_rel["g"] = compare("fp32 g_step kernels vs plain path",
                             fp32_step("g", False), fp32_step("g", True))
+
+    @contextlib.contextmanager
+    def simt_kernels():
+        """K3 and K4 on their CUDA-core kernels for every dtype: the
+        dispatch patched here, not through a switch of the package."""
+        saved = (k3.flash_attention_fused_fwd_tc,
+                 so.flash_attention_fused_bwd_tc)
+        k3.flash_attention_fused_fwd_tc = k3.flash_attention_fused_fwd_simt
+        so.flash_attention_fused_bwd_tc = so.flash_attention_fused_bwd_simt
+        try:
+            yield
+        finally:
+            (k3.flash_attention_fused_fwd_tc,
+             so.flash_attention_fused_bwd_tc) = saved
+
+    def bf16_step(kind, route):
+        reset_counts()
+        with (simt_kernels() if route == "simt"
+              else contextlib.nullcontext()):
+            res = fp32_step(kind, False, amp=True)
+        tc = {k: counters[k][0].launches for k in simt}
+        if not all((tc if route == "tc" else simt_counts()).values()) or any(
+                (simt_counts() if route == "tc" else tc).values()):
+            fail(f"bf16 {kind}_step on the {route} route launched tensor-core "
+                 f"{tc} and CUDA-core {simt_counts()} K3/K4 kernels")
+        return res
+
+    for kind, label in (("d", "d_step +R1"), ("g", "g_step")):
+        step_rel[f"{kind}_bf16_tc_vs_simt"] = compare(
+            f"bf16 {label}, tensor-core vs CUDA-core K3/K4",
+            bf16_step(kind, "tc"), bf16_step(kind, "simt"),
+            tol=STEP_TOL_BF16, stable=step_rel[kind])
 
     # --------------------------------------------------------------- 12
     mult = {}
     for _, h, ci, co in convs:
         mult[(h, ci, co)] = mult.get((h, ci, co), 0) + 1
-    dot_bf16 = [r for r in k3_rows if not r["l2"] and r["dtype"] == "bfloat16"]
-    d_step_bf16 = [r for r in k4_rows if r["who"] == "D d_step"
+
+    def total(rows, key):
+        """Σ over (weight, row) of row[key]; None if a row has none."""
+        vals = [r.get(key) for _, r in rows]
+        if any(v is None for v in vals):
+            return None
+        return sum(w * v for (w, _), v in zip(rows, vals))
+
+    def timing(rows, suffix=""):
+        """ms, plain_ms, library_ms, bound_ms, bound_by over weighted rows
+        (bound_by: what bounds the row of the largest bound)."""
+        top = max(rows, key=lambda wr: wr[0] * wr[1]["bound_ms"])[1]
+        return dict(ms=total(rows, "ms" + suffix),
+                    plain_ms=total(rows, "plain_ms" + suffix),
+                    library_ms=total(rows, "library_ms" + suffix),
+                    bound_ms=total(rows, "bound_ms"),
+                    bound_by=top["bound_by"])
+
+    conv_rows = [(mult[s_], r) for s_, r in k1_rows.items()]
+    k2_weighted = [(mult[s_], r) for s_, r in k2_rows.items()]
+    d_step = {kn: [(1, r) for r in rows if r["who"] == "D d_step"
                    and r["dtype"] == "bfloat16"]
-    r1_bf16 = [r for r in k5_rows if r["dtype"] == "bfloat16"]
-    phi_bf16 = [r for r in hv_rows if r["who"] == "phi"
-                and r["dtype"] == "bfloat16"]
+              for kn, rows in (("k3", k3_rows), ("k4", k4_rows))}
+    r1_bf16 = [(1, r) for r in k5_rows if r["dtype"] == "bfloat16"
+               and "ms" in r]
     kernels = [
-        dict(
-            name="adaptive_conv_fwd", route="cuda",
-            source="gigagan_tpu_torch/csrc/adaptive_conv_fwd.cu",
-            replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:86",
-            launches=train_launches["k1"],
-            max_abs_err=max(max(r["abs_f32"], r["abs_bf16"])
-                            for r in k1_rows.values()),
-            ms=sum(mult[s] * r["ms_bf16"] for s, r in k1_rows.items()),
-            plain_ms=sum(mult[s] * r["plain_ms_bf16"]
-                         for s, r in k1_rows.items()),
-        ),
-        dict(
-            name="adaptive_conv_bwd_w", route="cuda",
-            source="gigagan_tpu_torch/csrc/adaptive_conv_bwd_w.cu",
-            replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:269",
-            launches=train_launches["k2"],
-            max_abs_err=max(max(r["abs_f32"], r["abs_bf16"])
-                            for r in k2_rows.values()),
-            ms=sum(mult[s] * r["ms_bf16"] for s, r in k2_rows.items()),
-            plain_ms=sum(mult[s] * r["plain_ms_bf16"]
-                         for s, r in k2_rows.items()),
-        ),
-        dict(
-            name="flash_attention_fused_fwd", route="cuda",
-            source="gigagan_tpu_torch/csrc/flash_attention_fused_fwd.cu",
-            replaces="gigagan_tpu/ops/pallas/flash_attention_fused.py:95",
-            launches=train_launches["k3"],
-            max_abs_err=max(max(r["abs_out"], r["abs_lse"]) for r in k3_rows),
-            ms=sum(r["ms"] for r in dot_bf16),
-            plain_ms=sum(r["plain_ms"] for r in dot_bf16),
-        ),
-        dict(
-            name="flash_attention_fused_bwd", route="cuda",
-            source="gigagan_tpu_torch/csrc/flash_attention_fused_bwd.cu",
-            replaces="gigagan_tpu/ops/pallas/flash_attention_so.py:191",
-            launches=train_launches["k4"],
-            max_abs_err=max(r["abs"] for r in k4_rows),
-            ms=sum(r["ms"] for r in d_step_bf16),
-            plain_ms=sum(r["plain_ms"] for r in d_step_bf16),
-        ),
-        dict(
-            name="flash_attention_so_bwd2", route="cuda",
-            source="gigagan_tpu_torch/csrc/flash_attention_so_bwd2.cu",
-            replaces="gigagan_tpu/ops/pallas/flash_attention_so.py:297",
-            launches=train_launches["k5"],
-            max_abs_err=max(r["abs"] for r in k5_rows),
-            ms=sum(r["ms"] for r in r1_bf16),
-            plain_ms=sum(r["plain_ms"] for r in r1_bf16),
-        ),
+        dict(name="adaptive_conv_fwd", route="cuda",
+             source="gigagan_tpu_torch/csrc/adaptive_conv_fwd.cu",
+             replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:86",
+             launches=train_launches["k1"],
+             max_abs_err=max(max(r["abs_f32"], r["abs_bf16"])
+                             for r in k1_rows.values()),
+             **timing(conv_rows, "_bf16")),
+        dict(name="adaptive_conv_bwd_w", route="cuda",
+             source="gigagan_tpu_torch/csrc/adaptive_conv_bwd_w.cu",
+             replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:269",
+             launches=train_launches["k2"],
+             max_abs_err=max(max(r["abs_f32"], r["abs_bf16"])
+                             for r in k2_rows.values()),
+             **timing(k2_weighted, "_bf16")),
+        # K3 and K4: D's d_step pair in bf16 on the tensor-core kernels;
+        # the CUDA-core kernels (fp32 and other head dims) beside them
+        dict(name="flash_attention_fused_fwd", route="cuda",
+             source="gigagan_tpu_torch/csrc/flash_attention_fused_fwd_tc.cu",
+             replaces="gigagan_tpu/ops/pallas/flash_attention_fused.py:95",
+             launches=train_launches["k3"],
+             max_abs_err=max(max(r["abs_out"], r["abs_lse"])
+                             for r in k3_rows),
+             **timing(d_step["k3"]),
+             simt_source="gigagan_tpu_torch/csrc/flash_attention_fused_fwd.cu",
+             simt_ms=total(d_step["k3"], "simt_ms")),
+        dict(name="flash_attention_fused_bwd", route="cuda",
+             source="gigagan_tpu_torch/csrc/flash_attention_fused_bwd_tc.cu",
+             replaces="gigagan_tpu/ops/pallas/flash_attention_so.py:191",
+             launches=train_launches["k4"],
+             max_abs_err=max(r["abs"] for r in k4_rows),
+             **timing(d_step["k4"]),
+             simt_source="gigagan_tpu_torch/csrc/flash_attention_fused_bwd.cu",
+             simt_ms=total(d_step["k4"], "simt_ms")),
+        dict(name="flash_attention_so_bwd2", route="cuda",
+             source="gigagan_tpu_torch/csrc/flash_attention_so_bwd2.cu",
+             replaces="gigagan_tpu/ops/pallas/flash_attention_so.py:297",
+             launches=train_launches["k5"],
+             max_abs_err=max(r["abs"] for r in k5_rows),
+             **timing(r1_bf16)),
     ]
     # K6a-K7b: launches from the forward-over-reverse run, times summed
     # over φ's two attentions in bf16
+    phi_bf16 = [r for r in hv_rows if r["who"] == "phi"
+                and r["dtype"] == "bfloat16"]
     for key, source, replaces in (
         ("k6a", "flash_attention_fwd", "flash_attention.py:118"),
         ("k6b", "flash_attention_bwd", "flash_attention.py:143"),
         ("k7a", "flash_attention_hv_jvp", "flash_attention_hv.py:76"),
         ("k7b", "flash_attention_hv_bwd", "flash_attention_hv.py:110"),
     ):
+        rows = [(1, dict(r[key], library_ms=r.get(f"{key}_library"),
+                         bound_ms=r[f"{key}_bound"][0],
+                         bound_by=r[f"{key}_bound"][1])) for r in phi_bf16]
         kernels.append(dict(
             name=source, route="cuda",
             source=f"gigagan_tpu_torch/csrc/{source}.cu",
             replaces=f"gigagan_tpu/ops/pallas/{replaces}",
             launches=for_launches[key],
             max_abs_err=max(r[key]["abs"] for r in hv_rows),
-            ms=sum(r[key]["ms"] for r in phi_bf16),
-            plain_ms=sum(r[key]["plain_ms"] for r in phi_bf16),
-        ))
+            **timing(rows)))
+    cadences = ITERATIONS // R1_EVERY
+    for k_ in kernels:
+        k_["launches_per_cadence"] = k_["launches"] / cadences
     report["kernels"] = kernels
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

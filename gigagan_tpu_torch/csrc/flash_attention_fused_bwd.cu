@@ -30,8 +30,9 @@
 //
 // No float atomics anywhere: the result is deterministic.  P and dS are
 // rounded to the operand dtype before the products, as the TPU kernel casts
-// them for the MXU; logits and row statistics stay fp32.  Simple first
-// version: CUDA-core FMAs, no tensor cores, no TMA.
+// them for the MXU; logits and row statistics stay fp32.  CUDA-core FMAs,
+// no tensor cores, no TMA: the route for fp32 and for head dims other than
+// 64 and 128 (flash_attention_fused_bwd_tc.cu takes bf16 at those).
 
 #include "flash_attention_common.cuh"
 
@@ -354,7 +355,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // product); the null-token pointers may be null when have_null is 0.
 // `delta` is a (b, H, nq) fp32 workspace, `null_part` one of
 // b·ceil(nq/64)·H·(2d+1) floats.  Returns a cudaError_t.
-extern "C" int gigagan_flash_attention_fused_bwd(
+extern "C" int gigagan_flash_attention_fused_bwd_simt(
     const void* q, const void* k, const void* v, const void* bias,
     const void* nullk, const void* nullv, const void* null_bias,
     const void* g, const void* out, const void* lse, void* dq, void* dk,

@@ -30,7 +30,9 @@
 // for the P·V product (as the TPU kernel casts it for the MXU); logits and
 // statistics stay fp32.  Ragged nq/nk are masked in the kernel.
 //
-// Simple first version: CUDA-core FMAs, no tensor cores, no TMA.
+// CUDA-core FMAs, no tensor cores, no TMA: the route for fp32 and for head
+// dims other than 64 and 128 (flash_attention_fused_fwd_tc.cu takes bf16 at
+// those on the tensor cores).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -320,7 +322,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 // dtype codes: 0 = float32, 1 = bfloat16.  `bias` may be null (dot product).
 // Returns a cudaError_t.
-extern "C" int gigagan_flash_attention_fused_fwd(
+extern "C" int gigagan_flash_attention_fused_fwd_simt(
     const void* q, const void* k, const void* v, const void* bias,
     const void* nullk, const void* nullv, const void* null_bias, void* out,
     void* lse, int b, int nq, int nk, int heads, int d, int have_null,

@@ -36,11 +36,13 @@
 //    c_k_pre, c_v and the c_bias column sum.
 // 3. `null_reduce_kernel`: the null partials added in a fixed order.
 //
-// The (64, 64) pieces pass through shared memory, rounded to the operand
+// The (64, KC) pieces pass through shared memory, rounded to the operand
 // dtype, for the products.  No float atomics: the result is deterministic.
 // Simple first version: CUDA-core FMAs, no tensor cores, no TMA; the
 // query-major kernel needs ~185 KB of shared memory at d = 64, so one block
-// runs per SM.
+// runs per SM.  For d > 64 the streamed tiles (keys in the query-major
+// kernel, queries in the key-major one) hold KC = 32 rows instead of 64, so
+// that the shared memory fits (202 and 211 KB at d = 128), as K7b does.
 
 #include "flash_attention_common.cuh"
 
@@ -48,7 +50,7 @@ namespace {
 
 using namespace flash;
 
-template <typename T, int DC>
+template <typename T, int DC, int CPT>
 __global__ void __launch_bounds__(kThreads)
 so_bwd2_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
@@ -62,24 +64,26 @@ so_bwd2_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  T* __restrict__ cg, float* __restrict__ stats,
                  float* __restrict__ null_part, int nq, int nk, int heads,
                  int d, int have_null) {
+  constexpr int KC = kLanes * CPT;  // keys per tile
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ds = tile_stride(d);
   const int d4 = round4(d) / 4;
   const int tsz = kTile * ds;
-  float* qs = smem;          // q-side tiles: q, g, Ã
+  const int ksz = KC * ds;
+  float* qs = smem;          // q-side tiles (64 rows): q, g, Ã
   float* gs = qs + tsz;
   float* as = gs + tsz;
-  float* ks = as + tsz;      // key-side tiles: k_pre, v, B̃, C̃
-  float* vs = ks + tsz;
-  float* bs = vs + tsz;
-  float* cs = bs + tsz;
-  float* t1 = cs + tsz;      // (64, 64) pieces: c_S, dS, c_dA, P
-  float* t2 = t1 + kTile * kTile;
-  float* t3 = t2 + kTile * kTile;
-  float* t4 = t3 + kTile * kTile;
-  float* kb_s = t4 + kTile * kTile;  // (64) bias of the key tile
-  float* kd_s = kb_s + kTile;        // (64) D̃ of the key tile
+  float* ks = as + tsz;      // key-side tiles (KC rows): k_pre, v, B̃, C̃
+  float* vs = ks + ksz;
+  float* bs = vs + ksz;
+  float* cs = bs + ksz;
+  float* t1 = cs + ksz;      // (64, KC) pieces: c_S, dS, c_dA, P
+  float* t2 = t1 + kTile * KC;
+  float* t3 = t2 + kTile * KC;
+  float* t4 = t3 + kTile * KC;
+  float* kb_s = t4 + kTile * KC;  // (KC) bias of the key tile
+  float* kd_s = kb_s + KC;        // (KC) D̃ of the key tile
 
   const int tx = threadIdx.x % kLanes;
   const int ty = threadIdx.x / kLanes;
@@ -130,45 +134,45 @@ so_bwd2_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float r1[kRpt], r2[kRpt], r3[kRpt], r4[kRpt];
 #pragma unroll
   for (int i = 0; i < kRpt; ++i) r1[i] = r2[i] = r3[i] = r4[i] = 0.f;
-  for (int k0 = 0; k0 < nk; k0 += kTile) {
+  for (int k0 = 0; k0 < nk; k0 += KC) {
     __syncthreads();
-    load_tile(ks, k + koff + (size_t)k0 * hd, nk - k0, hd, d, ds);
-    load_tile(vs, v + koff + (size_t)k0 * hd, nk - k0, hd, d, ds);
-    load_tile(bs, cb + koff + (size_t)k0 * hd, nk - k0, hd, d, ds);
-    load_tile(cs, cc + koff + (size_t)k0 * hd, nk - k0, hd, d, ds);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    load_tile(ks, k + koff + (size_t)k0 * hd, nk - k0, hd, d, ds, KC);
+    load_tile(vs, v + koff + (size_t)k0 * hd, nk - k0, hd, d, ds, KC);
+    load_tile(bs, cb + koff + (size_t)k0 * hd, nk - k0, hd, d, ds, KC);
+    load_tile(cs, cc + koff + (size_t)k0 * hd, nk - k0, hd, d, ds, KC);
+    for (int r = threadIdx.x; r < KC; r += kThreads) {
       const bool ok = k0 + r < nk;
       kb_s[r] = (ok && bias) ? bias[key0 + k0 + r] : 0.f;
       kd_s[r] = (ok && cdbias) ? cdbias[key0 + k0 + r] : 0.f;
     }
     __syncthreads();
 
-    float p[kRpt][kCpt], x[kRpt][kCpt];
+    float p[kRpt][CPT], x[kRpt][CPT];
 #pragma unroll
     for (int i = 0; i < kRpt; ++i)
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) p[i][j] = x[i][j] = 0.f;
+      for (int j = 0; j < CPT; ++j) p[i][j] = x[i][j] = 0.f;
     tile_dot(p, qs, ks, ds, d4);
     tile_dot(x, gs, vs, ds, d4);  // dA
 #pragma unroll
     for (int i = 0; i < kRpt; ++i)
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) {
+      for (int j = 0; j < CPT; ++j) {
         const int col = tx + kLanes * j;
         p[i][j] = k0 + col < nk ? expf(p[i][j] + kb_s[col] - lse_r[i]) : 0.f;
         r4[i] += p[i][j] * x[i][j];
       }
-    float y[kRpt][kCpt];
+    float y[kRpt][CPT];
 #pragma unroll
     for (int i = 0; i < kRpt; ++i)
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) y[i][j] = 0.f;
+      for (int j = 0; j < CPT; ++j) y[i][j] = 0.f;
     tile_dot(y, as, ks, ds, d4);
     tile_dot(y, qs, bs, ds, d4);  // c_dS without D̃
 #pragma unroll
     for (int i = 0; i < kRpt; ++i)
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) {
+      for (int j = 0; j < CPT; ++j) {
         const float pc = p[i][j] * (y[i][j] + kd_s[tx + kLanes * j]);
         r1[i] += pc * x[i][j];
         r2[i] += pc;
@@ -178,7 +182,7 @@ so_bwd2_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kRpt; ++i)
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) r3[i] += p[i][j] * y[i][j];
+      for (int j = 0; j < CPT; ++j) r3[i] += p[i][j] * y[i][j];
   }
   float del[kRpt], rho[kRpt];
 #pragma unroll
@@ -227,52 +231,52 @@ so_bwd2_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
       pb += c_sn;
     }
   }
-  for (int k0 = 0; k0 < nk; k0 += kTile) {
+  for (int k0 = 0; k0 < nk; k0 += KC) {
     __syncthreads();
-    load_tile(ks, k + koff + (size_t)k0 * hd, nk - k0, hd, d, ds);
-    load_tile(vs, v + koff + (size_t)k0 * hd, nk - k0, hd, d, ds);
-    load_tile(bs, cb + koff + (size_t)k0 * hd, nk - k0, hd, d, ds);
-    load_tile(cs, cc + koff + (size_t)k0 * hd, nk - k0, hd, d, ds);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    load_tile(ks, k + koff + (size_t)k0 * hd, nk - k0, hd, d, ds, KC);
+    load_tile(vs, v + koff + (size_t)k0 * hd, nk - k0, hd, d, ds, KC);
+    load_tile(bs, cb + koff + (size_t)k0 * hd, nk - k0, hd, d, ds, KC);
+    load_tile(cs, cc + koff + (size_t)k0 * hd, nk - k0, hd, d, ds, KC);
+    for (int r = threadIdx.x; r < KC; r += kThreads) {
       const bool ok = k0 + r < nk;
       kb_s[r] = (ok && bias) ? bias[key0 + k0 + r] : 0.f;
       kd_s[r] = (ok && cdbias) ? cdbias[key0 + k0 + r] : 0.f;
     }
     __syncthreads();
 
-    float p[kRpt][kCpt], x[kRpt][kCpt];
+    float p[kRpt][CPT], x[kRpt][CPT];
 #pragma unroll
     for (int i = 0; i < kRpt; ++i)
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) p[i][j] = x[i][j] = 0.f;
+      for (int j = 0; j < CPT; ++j) p[i][j] = x[i][j] = 0.f;
     tile_dot(p, qs, ks, ds, d4);
     tile_dot(x, gs, vs, ds, d4);  // dA
 #pragma unroll
     for (int i = 0; i < kRpt; ++i) {
       const int row = ty * kRpt + i;
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) {
+      for (int j = 0; j < CPT; ++j) {
         const int col = tx + kLanes * j;
         p[i][j] = k0 + col < nk ? expf(p[i][j] + kb_s[col] - lse_r[i]) : 0.f;
-        t2[row * kTile + col] = round_to<T>(p[i][j] * (x[i][j] - del[i]));
-        t4[row * kTile + col] = round_to<T>(p[i][j]);
+        t2[row * KC + col] = round_to<T>(p[i][j] * (x[i][j] - del[i]));
+        t4[row * KC + col] = round_to<T>(p[i][j]);
       }
     }
-    float y[kRpt][kCpt];
+    float y[kRpt][CPT];
 #pragma unroll
     for (int i = 0; i < kRpt; ++i)
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) y[i][j] = 0.f;
+      for (int j = 0; j < CPT; ++j) y[i][j] = 0.f;
     tile_dot(y, as, ks, ds, d4);
     tile_dot(y, qs, bs, ds, d4);
 #pragma unroll
     for (int i = 0; i < kRpt; ++i) {
       const int row = ty * kRpt + i;
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) {
+      for (int j = 0; j < CPT; ++j) {
         const int col = tx + kLanes * j;
         const float cds = y[i][j] + kd_s[col];
-        t3[row * kTile + col] = round_to<T>(p[i][j] * (cds - r2[i]));
+        t3[row * KC + col] = round_to<T>(p[i][j] * (cds - r2[i]));
         // x becomes c_dS (dA − δ) − r₂ dA − ρ
         x[i][j] = cds * (x[i][j] - del[i]) - r2[i] * x[i][j] - rho[i];
         y[i][j] = 0.f;
@@ -283,16 +287,16 @@ so_bwd2_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < kRpt; ++i) {
       const int row = ty * kRpt + i;
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) {
-        t1[row * kTile + tx + kLanes * j] =
+      for (int j = 0; j < CPT; ++j) {
+        t1[row * KC + tx + kLanes * j] =
             round_to<T>(p[i][j] * (x[i][j] + y[i][j]));
       }
     }
     __syncwarp();
-    tile_mm<DC>(acq, t1, ks, ds, d);
-    tile_mm<DC>(acq, t2, bs, ds, d);
-    tile_mm<DC>(acg, t3, vs, ds, d);
-    tile_mm<DC>(acg, t4, cs, ds, d);
+    tile_mm<DC, CPT>(acq, t1, ks, ds, d);
+    tile_mm<DC, CPT>(acq, t2, bs, ds, d);
+    tile_mm<DC, CPT>(acg, t3, vs, ds, d);
+    tile_mm<DC, CPT>(acg, t4, cs, ds, d);
     __syncwarp();
   }
 
@@ -318,7 +322,7 @@ so_bwd2_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DC>
+template <typename T, int DC, int CPT>
 __global__ void __launch_bounds__(kThreads)
 so_bwd2_k_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
@@ -328,25 +332,27 @@ so_bwd2_k_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ stats, T* __restrict__ ck,
                  T* __restrict__ cv, float* __restrict__ cbias, int nq, int nk,
                  int heads, int d) {
+  constexpr int KC = kLanes * CPT;  // queries per tile
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ds = tile_stride(d);
   const int d4 = round4(d) / 4;
   const int tsz = kTile * ds;
-  float* ks = smem;          // this block's keys: k_pre, v, B̃, C̃
+  const int qsz = KC * ds;
+  float* ks = smem;          // this block's keys (64 rows): k_pre, v, B̃, C̃
   float* vs = ks + tsz;
   float* bs = vs + tsz;
   float* cs = bs + tsz;
-  float* qs = cs + tsz;      // the query tile: q, g, Ã
-  float* gs = qs + tsz;
-  float* as = gs + tsz;
-  float* t1 = as + tsz;      // (64 keys, 64 queries): c_S, dS, c_dA
-  float* t2 = t1 + kTile * kTile;
-  float* t3 = t2 + kTile * kTile;
-  float* lse_s = t3 + kTile * kTile;  // per query row: lse, δ, r₂, ρ
-  float* del_s = lse_s + kTile;
-  float* r2_s = del_s + kTile;
-  float* rho_s = r2_s + kTile;
+  float* qs = cs + tsz;      // the query tile (KC rows): q, g, Ã
+  float* gs = qs + qsz;
+  float* as = gs + qsz;
+  float* t1 = as + qsz;      // (64 keys, KC queries): c_S, dS, c_dA
+  float* t2 = t1 + kTile * KC;
+  float* t3 = t2 + kTile * KC;
+  float* lse_s = t3 + kTile * KC;  // per query row: lse, δ, r₂, ρ
+  float* del_s = lse_s + KC;
+  float* r2_s = del_s + KC;
+  float* rho_s = r2_s + KC;
 
   const int tx = threadIdx.x % kLanes;
   const int ty = threadIdx.x / kLanes;
@@ -375,12 +381,12 @@ so_bwd2_k_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DC; ++c) ack[i][c] = acv[i][c] = 0.f;
   }
 
-  for (int q0 = 0; q0 < nq; q0 += kTile) {
+  for (int q0 = 0; q0 < nq; q0 += KC) {
     __syncthreads();
-    load_tile(qs, q + qoff + (size_t)q0 * hd, nq - q0, hd, d, ds);
-    load_tile(gs, g + qoff + (size_t)q0 * hd, nq - q0, hd, d, ds);
-    load_tile(as, ca + qoff + (size_t)q0 * hd, nq - q0, hd, d, ds);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    load_tile(qs, q + qoff + (size_t)q0 * hd, nq - q0, hd, d, ds, KC);
+    load_tile(gs, g + qoff + (size_t)q0 * hd, nq - q0, hd, d, ds, KC);
+    load_tile(as, ca + qoff + (size_t)q0 * hd, nq - q0, hd, d, ds, KC);
+    for (int r = threadIdx.x; r < KC; r += kThreads) {
       const bool valid = q0 + r < nq;
       const float* st = stats + (row0 + q0 + r) * 3;
       lse_s[r] = valid ? lse[row0 + q0 + r] : INFINITY;
@@ -390,11 +396,11 @@ so_bwd2_k_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    float p[kRpt][kCpt], x[kRpt][kCpt];
+    float p[kRpt][CPT], x[kRpt][CPT];
 #pragma unroll
     for (int i = 0; i < kRpt; ++i)
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) p[i][j] = x[i][j] = 0.f;
+      for (int j = 0; j < CPT; ++j) p[i][j] = x[i][j] = 0.f;
     tile_dot(p, ks, qs, ds, d4);
     tile_dot(x, vs, gs, ds, d4);  // dA (keys × queries)
 #pragma unroll
@@ -402,27 +408,27 @@ so_bwd2_k_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = ty * kRpt + i;
       const bool key_ok = k0 + row < nk;
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) {
+      for (int j = 0; j < CPT; ++j) {
         const int col = tx + kLanes * j;
         p[i][j] = key_ok ? expf(p[i][j] + kb[i] - lse_s[col]) : 0.f;
-        t2[row * kTile + col] = round_to<T>(p[i][j] * (x[i][j] - del_s[col]));
+        t2[row * KC + col] = round_to<T>(p[i][j] * (x[i][j] - del_s[col]));
       }
     }
-    float y[kRpt][kCpt];
+    float y[kRpt][CPT];
 #pragma unroll
     for (int i = 0; i < kRpt; ++i)
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) y[i][j] = 0.f;
+      for (int j = 0; j < CPT; ++j) y[i][j] = 0.f;
     tile_dot(y, ks, as, ds, d4);
     tile_dot(y, bs, qs, ds, d4);
 #pragma unroll
     for (int i = 0; i < kRpt; ++i) {
       const int row = ty * kRpt + i;
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) {
+      for (int j = 0; j < CPT; ++j) {
         const int col = tx + kLanes * j;
         const float cds = y[i][j] + kd[i];
-        t3[row * kTile + col] = round_to<T>(p[i][j] * (cds - r2_s[col]));
+        t3[row * KC + col] = round_to<T>(p[i][j] * (cds - r2_s[col]));
         x[i][j] = cds * (x[i][j] - del_s[col]) - r2_s[col] * x[i][j] -
                   rho_s[col];
         y[i][j] = 0.f;
@@ -433,16 +439,16 @@ so_bwd2_k_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < kRpt; ++i) {
       const int row = ty * kRpt + i;
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) {
+      for (int j = 0; j < CPT; ++j) {
         const float c_s = p[i][j] * (x[i][j] + y[i][j]);
         acb[i] += c_s;
-        t1[row * kTile + tx + kLanes * j] = round_to<T>(c_s);
+        t1[row * KC + tx + kLanes * j] = round_to<T>(c_s);
       }
     }
     __syncwarp();
-    tile_mm<DC>(ack, t1, qs, ds, d);
-    tile_mm<DC>(ack, t2, as, ds, d);
-    tile_mm<DC>(acv, t3, gs, ds, d);
+    tile_mm<DC, CPT>(ack, t1, qs, ds, d);
+    tile_mm<DC, CPT>(ack, t2, as, ds, d);
+    tile_mm<DC, CPT>(acv, t3, gs, ds, d);
     __syncwarp();
   }
 
@@ -465,14 +471,15 @@ so_bwd2_k_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-inline size_t q_smem(int d) {
-  return sizeof(float) *
-         (size_t)(7 * kTile * tile_stride(d) + 4 * kTile * kTile + 2 * kTile);
+// kc: rows of the streamed tiles
+inline size_t q_smem(int d, int kc) {
+  return sizeof(float) * (size_t)((3 * kTile + 4 * kc) * tile_stride(d) +
+                                  4 * kTile * kc + 2 * kc);
 }
 
-inline size_t k_smem(int d) {
-  return sizeof(float) *
-         (size_t)(7 * kTile * tile_stride(d) + 3 * kTile * kTile + 4 * kTile);
+inline size_t k_smem(int d, int kc) {
+  return sizeof(float) * (size_t)((4 * kTile + 3 * kc) * tile_stride(d) +
+                                  3 * kTile * kc + 4 * kc);
 }
 
 struct Args {
@@ -489,15 +496,17 @@ struct Args {
   int b, nq, nk, heads, d, have_null;
 };
 
-template <typename T, int DC>
+template <typename T, int DC, int CPT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto qk = so_bwd2_q_kernel<T, DC>;
-  auto kk = so_bwd2_k_kernel<T, DC>;
+  auto qk = so_bwd2_q_kernel<T, DC, CPT>;
+  auto kk = so_bwd2_k_kernel<T, DC, CPT>;
+  const int kc = kLanes * CPT;
+  const size_t qb = q_smem(a.d, kc), kb = k_smem(a.d, kc);
   cudaError_t err = cudaFuncSetAttribute(
-      qk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem(a.d));
+      qk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)qb);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)k_smem(a.d));
+                             (int)kb);
   if (err != cudaSuccess) return err;
   const int qtiles = (a.nq + kTile - 1) / kTile;
   const T* q = static_cast<const T*>(a.q);
@@ -507,14 +516,14 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const T* ca = static_cast<const T*>(a.ca);
   const T* cb = static_cast<const T*>(a.cb);
   const T* cc = static_cast<const T*>(a.cc);
-  qk<<<dim3(qtiles, a.heads, a.b), kThreads, q_smem(a.d), stream>>>(
+  qk<<<dim3(qtiles, a.heads, a.b), kThreads, qb, stream>>>(
       q, k, v, a.bias, static_cast<const T*>(a.nullk),
       static_cast<const T*>(a.nullv), a.null_bias, g, a.lse, ca, cb, cc,
       a.cdbias, a.ce, a.cf, a.ch, static_cast<T*>(a.cq), static_cast<T*>(a.cg),
       a.stats, a.null_part, a.nq, a.nk, a.heads, a.d, a.have_null);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kk<<<dim3((a.nk + kTile - 1) / kTile, a.heads, a.b), kThreads, k_smem(a.d),
+  kk<<<dim3((a.nk + kTile - 1) / kTile, a.heads, a.b), kThreads, kb,
        stream>>>(q, k, v, a.bias, g, a.lse, ca, cb, cc, a.cdbias, a.stats,
                  static_cast<T*>(a.ck), static_cast<T*>(a.cv), a.cbias, a.nq,
                  a.nk, a.heads, a.d);
@@ -527,10 +536,10 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t dispatch(const Args& a, cudaStream_t s) {
-  if (a.d <= 16) return launch<T, 1>(a, s);
-  if (a.d <= 32) return launch<T, 2>(a, s);
-  if (a.d <= 64) return launch<T, 4>(a, s);
-  return launch<T, 8>(a, s);
+  if (a.d <= 16) return launch<T, 1, 4>(a, s);
+  if (a.d <= 32) return launch<T, 2, 4>(a, s);
+  if (a.d <= 64) return launch<T, 4, 4>(a, s);
+  return launch<T, 8, 2>(a, s);  // 32-row streamed tiles
 }
 
 }  // namespace

@@ -1,8 +1,11 @@
 """Kernel K3: fused-heads flash attention forward with an analytic null
-key/value (``csrc/flash_attention_fused_fwd.cu``), its plain PyTorch
-version, the operand prep, and the wrapper that picks between kernel and
-plain version by device.  Its backward (K4, K5) and the autograd chain are
-in ``flash_attention_so.py``.
+key/value, in two implementations (``uses_tensor_cores`` picks one by dtype
+and head dim): the tensor-core kernel for bf16 at d = 64 or 128
+(``csrc/flash_attention_fused_fwd_tc.cu``) and the CUDA-core kernel for the
+rest (``csrc/flash_attention_fused_fwd.cu``); its plain PyTorch version,
+the operand prep, and the wrapper that takes the plain version on CPU
+tensors.  Its backward (K4, K5) and the autograd chain are in
+``flash_attention_so.py``.
 
 Operands stay in the network's ``(b, n, H·d)`` layout.  The prep is
 ``_prep_fused`` of the JAX package without the TPU's lane padding and
@@ -82,14 +85,20 @@ def flash_attention_fused_fwd_plain(q, k_pre, v, bias, nullk_pre, nullv,
     return out, lse
 
 
+def _head_dim(what, q, heads):
+    hd = q.shape[-1]
+    if hd % heads != 0:
+        raise ValueError(f"{what}: {hd} % {heads} != 0")
+    d = hd // heads
+    if d > 128:
+        raise ValueError(f"{what}: head dim {d} > 128")
+    return d
+
+
 def _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads):
     b, nq, hd = q.shape
     nk = k_pre.shape[1]
-    if hd % heads != 0:
-        raise ValueError(f"flash_attention_fused_fwd: {hd} % {heads} != 0")
-    d = hd // heads
-    if d > 128:
-        raise ValueError(f"flash_attention_fused_fwd: head dim {d} > 128")
+    d = _head_dim("flash_attention_fused_fwd", q, heads)
     if tuple(k_pre.shape) != (b, nk, hd) or tuple(v.shape) != (b, nk, hd):
         raise ValueError(
             f"flash_attention_fused_fwd: q {tuple(q.shape)}, k "
@@ -131,48 +140,104 @@ def _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads):
             )
 
 
-def launch(lib, q, k_pre, v, bias, nullk_pre, nullv, null_bias, out, lse,
-           heads: int, device: int, stream: int):
-    """Call the built library on already-checked operands."""
-    fn = lib.gigagan_flash_attention_fused_fwd
+def uses_tensor_cores(dtype, d: int) -> bool:
+    """The one dispatch rule of K3 and K4: bf16 operands with head dim 64 or
+    128 go to the tensor-core kernels (``*_tc.cu``, one or two 64-column
+    atoms); every other case (fp32, or another head dim up to 128) to the
+    CUDA-core kernels (``*_simt``)."""
+    return dtype == torch.bfloat16 and d in (64, 128)
+
+
+def check_tc(what, tensors):
+    """The tensor-core route reads its operands through TMA maps, which
+    need 16-byte aligned base addresses."""
+    for name, t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned (the "
+                             "tensor-core kernel reads it by TMA)")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _outputs(q, heads):
+    b, nq, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, heads, nq), dtype=torch.float32, device=q.device)
+    return out, lse
+
+
+def flash_attention_fused_fwd_simt(q, k_pre, v, bias, nullk_pre, nullv,
+                                   null_bias, heads: int):
+    """K3 on CUDA cores (``csrc/flash_attention_fused_fwd.cu``), any float32
+    or bf16 operands with head dim up to 128.  Returns (out, lse)."""
+    _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)
+    out, lse = _outputs(q, heads)
+    b, nq, hd = q.shape
+    lib = build.load("flash_attention_fused_fwd")
+    fn = lib.gigagan_flash_attention_fused_fwd_simt
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
-    b, nq, hd = q.shape
-    have_null = nullk_pre is not None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     err = fn(
-        q.data_ptr(), k_pre.data_ptr(), v.data_ptr(), ptr(bias),
-        ptr(nullk_pre), ptr(nullv), ptr(null_bias), out.data_ptr(),
+        q.data_ptr(), k_pre.data_ptr(), v.data_ptr(), _ptr(bias),
+        _ptr(nullk_pre), _ptr(nullv), _ptr(null_bias), out.data_ptr(),
         lse.data_ptr(), b, nq, k_pre.shape[1], heads, hd // heads,
-        int(have_null), _DTYPE_CODES[q.dtype], device, stream,
+        int(nullk_pre is not None), _DTYPE_CODES[q.dtype], q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    build.check(lib, err, "flash_attention_fused_fwd")
+    build.check(lib, err, "flash_attention_fused_fwd_simt")
+    flash_attention_fused_fwd_simt.launches += 1
+    return out, lse
+
+
+def flash_attention_fused_fwd_tc(q, k_pre, v, bias, nullk_pre, nullv,
+                                 null_bias, heads: int):
+    """K3 on the tensor cores (``csrc/flash_attention_fused_fwd_tc.cu``):
+    bf16 operands with head dim 64 or 128.  Returns (out, lse)."""
+    what = "flash_attention_fused_fwd_tc"
+    _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)
+    b, nq, hd = q.shape
+    if not uses_tensor_cores(q.dtype, hd // heads):
+        raise ValueError(f"{what}: takes bf16 with head dim 64 or 128, got "
+                         f"{q.dtype} with {hd // heads}")
+    check_tc(what, (("q", q), ("k_pre", k_pre), ("v", v),
+                    ("nullk_pre", nullk_pre), ("nullv", nullv)))
+    out, lse = _outputs(q, heads)
+    lib = build.load("flash_attention_fused_fwd_tc")
+    fn = lib.gigagan_flash_attention_fused_fwd_tc
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    err = fn(
+        q.data_ptr(), k_pre.data_ptr(), v.data_ptr(), _ptr(bias),
+        _ptr(nullk_pre), _ptr(nullv), _ptr(null_bias), out.data_ptr(),
+        lse.data_ptr(), b, nq, k_pre.shape[1], heads, hd // heads,
+        int(nullk_pre is not None), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(lib, err, what)
+    flash_attention_fused_fwd_tc.launches += 1
+    return out, lse
+
+
+flash_attention_fused_fwd_simt.launches = 0
+flash_attention_fused_fwd_tc.launches = 0
 
 
 def flash_attention_fused_fwd(q, k_pre, v, bias, nullk_pre, nullv,
                               null_bias, heads: int):
-    """K3 on CUDA tensors, its plain version on CPU tensors.
+    """K3: its plain version on CPU tensors; on CUDA tensors the
+    tensor-core or the CUDA-core kernel by ``uses_tensor_cores``.
     Returns (out, lse)."""
     if q.device.type == "cpu":
         return flash_attention_fused_fwd_plain(
             q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads
         )
-    _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)
-    b, nq, _ = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((b, heads, nq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    launch(build.load("flash_attention_fused_fwd"), q, k_pre, v, bias,
-           nullk_pre, nullv, null_bias, out, lse, heads, q.device.index,
-           stream)
-    flash_attention_fused_fwd.launches += 1
-    return out, lse
-
-
-flash_attention_fused_fwd.launches = 0
-
+    d = _head_dim("flash_attention_fused_fwd", q, heads)
+    kernel = (flash_attention_fused_fwd_tc if uses_tensor_cores(q.dtype, d)
+              else flash_attention_fused_fwd_simt)
+    return kernel(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)

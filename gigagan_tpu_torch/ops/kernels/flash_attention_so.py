@@ -1,7 +1,9 @@
-"""Kernels K4 (``csrc/flash_attention_fused_bwd.cu``) and K5
-(``csrc/flash_attention_so_bwd2.cu``): the backward of the fused-heads
-attention K3 and its adjoint, their plain PyTorch versions, and the
-autograd chain K3 → K4 → K5 behind ``flash_attend_fused``.
+"""Kernels K4 and K5 (``csrc/flash_attention_so_bwd2.cu``): the backward of
+the fused-heads attention K3 and its adjoint, their plain PyTorch versions,
+and the autograd chain K3 → K4 → K5 behind ``flash_attend_fused``.  K4 has
+two implementations, picked as K3's are (``uses_tensor_cores``): on the
+tensor cores (``csrc/flash_attention_fused_bwd_tc.cu``) for bf16 at d = 64
+or 128, on CUDA cores (``csrc/flash_attention_fused_bwd.cu``) otherwise.
 
 Everything works on K3's PREPARED operands (``prep_fused``):
 q (b, nq, H·d), k_pre = coeff·k and v (b, nk, H·d), bias (b, H, nk) fp32
@@ -52,11 +54,15 @@ from gigagan_tpu_torch.ops.kernels.adaptive_conv import acc_dtype
 from gigagan_tpu_torch.ops.kernels.flash_attention_fused import (
     _DTYPE_CODES,
     _check,
+    _head_dim,
+    _ptr,
+    check_tc,
     flash_attention_fused_fwd,
     prep_fused,
+    uses_tensor_cores,
 )
 
-_BQ = 64  # query rows per block in both kernels (the null partial count)
+_BQ = 64  # fewest query rows per block of any K4/K5 kernel (null partials)
 
 
 def _heads(t, heads, acc):
@@ -136,29 +142,21 @@ def _check_like(what, ref, tensors):
                              f"{ref.device}")
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def _null_workspace(b, nq, heads, d, device):
-    """Per-(sample, 64-row query tile) partials of the null gradients:
-    (b·qtiles, H, 2·d + 1) fp32, added in a fixed order by the kernel."""
+    """Per-(sample, query block) partials of the null gradients:
+    (b·qtiles, H, 2·d + 1) fp32 for the smallest block, 64 rows; added in a
+    fixed order by the kernel."""
     qtiles = -(-nq // _BQ)
     return torch.empty((b * qtiles, heads, 2 * d + 1), dtype=torch.float32,
                        device=device)
 
 
-def flash_attention_fused_bwd(q, k_pre, v, bias, nullk_pre, nullv,
-                              null_bias, g, out, lse, heads: int):
-    """K4 on CUDA tensors, its plain version on CPU tensors (same
-    returns as the plain version)."""
-    if q.device.type == "cpu":
-        return flash_attention_fused_bwd_plain(
-            q, k_pre, v, bias, nullk_pre, nullv, null_bias, g, out, lse,
-            heads,
-        )
-    what = "flash_attention_fused_bwd"
-    _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)
+def _bwd_launch(what, source, q, k_pre, v, bias, nullk_pre, nullv,
+                null_bias, g, out, lse, heads, *dtype):
+    """Check the operands, allocate, and call ``gigagan_<what>`` of
+    ``csrc/<source>.cu``: the two K4 kernels share one C signature, and
+    only the CUDA-core one takes a dtype code.  The caller has run
+    ``_check``."""
     _check_like(what, q, (("g", g), ("out", out)))
     b, nq, hd = q.shape
     nk = k_pre.shape[1]
@@ -166,23 +164,22 @@ def flash_attention_fused_bwd(q, k_pre, v, bias, nullk_pre, nullv,
     dev = q.device
     _check_rows(what, "lse", lse, (b, heads, nq), dev)
     have_null = nullk_pre is not None
+    f32 = dict(dtype=torch.float32, device=dev)
     dq = torch.empty_like(q)
     dkp = torch.empty_like(k_pre)
     dv = torch.empty_like(v)
-    dbias = (torch.empty((b, heads, nk), dtype=torch.float32, device=dev)
-             if bias is not None else None)
-    delta = torch.empty((b, heads, nq), dtype=torch.float32, device=dev)
-    part = _null_workspace(b, nq, heads, d, dev) if have_null else None
-    dnk = dnv = dnb = None
+    dbias = torch.empty((b, heads, nk), **f32) if bias is not None else None
+    delta = torch.empty((b, heads, nq), **f32)
+    part = dnk = dnv = dnb = None
     if have_null:
-        dnk = torch.empty((heads, d), dtype=torch.float32, device=dev)
-        dnv = torch.empty((heads, d), dtype=torch.float32, device=dev)
-        dnb = torch.empty((heads,), dtype=torch.float32, device=dev)
-    lib = build.load("flash_attention_fused_bwd")
-    fn = lib.gigagan_flash_attention_fused_bwd
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p
-    ]
+        part = _null_workspace(b, nq, heads, d, dev)
+        dnk = torch.empty((heads, d), **f32)
+        dnv = torch.empty((heads, d), **f32)
+        dnb = torch.empty((heads,), **f32)
+    lib = build.load(source)
+    fn = getattr(lib, f"gigagan_{what}")
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * (
+        7 + len(dtype)) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(
         q.data_ptr(), k_pre.data_ptr(), v.data_ptr(), _ptr(bias),
@@ -190,15 +187,62 @@ def flash_attention_fused_bwd(q, k_pre, v, bias, nullk_pre, nullv,
         out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dkp.data_ptr(),
         dv.data_ptr(), _ptr(dbias), delta.data_ptr(), _ptr(part), _ptr(dnk),
         _ptr(dnv), _ptr(dnb), b, nq, nk, heads, d, int(have_null),
-        _DTYPE_CODES[q.dtype], dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        *dtype, dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, what)
-    flash_attention_fused_bwd.launches += 1
     return dq, dkp, dv, dbias, dnk, dnv, dnb
 
 
-flash_attention_fused_bwd.launches = 0
+def flash_attention_fused_bwd_simt(q, k_pre, v, bias, nullk_pre, nullv,
+                                   null_bias, g, out, lse, heads: int):
+    """K4 on CUDA cores (``csrc/flash_attention_fused_bwd.cu``), float32 or
+    bf16 with head dim up to 128 (returns as the plain version)."""
+    _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)
+    res = _bwd_launch("flash_attention_fused_bwd_simt",
+                      "flash_attention_fused_bwd", q, k_pre, v, bias,
+                      nullk_pre, nullv, null_bias, g, out, lse, heads,
+                      _DTYPE_CODES[q.dtype])
+    flash_attention_fused_bwd_simt.launches += 1
+    return res
+
+
+def flash_attention_fused_bwd_tc(q, k_pre, v, bias, nullk_pre, nullv,
+                                 null_bias, g, out, lse, heads: int):
+    """K4 on the tensor cores (``csrc/flash_attention_fused_bwd_tc.cu``),
+    bf16 with head dim 64 or 128 (returns as the plain version)."""
+    what = "flash_attention_fused_bwd_tc"
+    _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)
+    d = q.shape[-1] // heads
+    if not uses_tensor_cores(q.dtype, d):
+        raise ValueError(f"{what}: takes bf16 with head dim 64 or 128, got "
+                         f"{q.dtype} with {d}")
+    check_tc(what, (("q", q), ("k_pre", k_pre), ("v", v), ("g", g),
+                    ("out", out), ("nullk_pre", nullk_pre), ("nullv", nullv)))
+    res = _bwd_launch(what, what, q, k_pre, v, bias, nullk_pre, nullv,
+                      null_bias, g, out, lse, heads)
+    flash_attention_fused_bwd_tc.launches += 1
+    return res
+
+
+flash_attention_fused_bwd_simt.launches = 0
+flash_attention_fused_bwd_tc.launches = 0
+
+
+def flash_attention_fused_bwd(q, k_pre, v, bias, nullk_pre, nullv,
+                              null_bias, g, out, lse, heads: int):
+    """K4: its plain version on CPU tensors; on CUDA tensors the
+    tensor-core or the CUDA-core kernel by ``uses_tensor_cores`` (same
+    returns as the plain version)."""
+    if q.device.type == "cpu":
+        return flash_attention_fused_bwd_plain(
+            q, k_pre, v, bias, nullk_pre, nullv, null_bias, g, out, lse,
+            heads,
+        )
+    d = _head_dim("flash_attention_fused_bwd", q, heads)
+    kernel = (flash_attention_fused_bwd_tc if uses_tensor_cores(q.dtype, d)
+              else flash_attention_fused_bwd_simt)
+    return kernel(q, k_pre, v, bias, nullk_pre, nullv, null_bias, g, out,
+                  lse, heads)
 
 
 # ------------------------------------------------------------------ K5
@@ -291,9 +335,6 @@ def flash_attention_so_bwd2(q, k_pre, v, bias, nullk_pre, nullv, null_bias,
     b, nq, hd = q.shape
     nk = k_pre.shape[1]
     d = hd // heads
-    if d > 64:
-        raise ValueError(f"{what}: head dim {d} > 64 (its query-major "
-                         "kernel's shared memory is sized for d <= 64)")
     dev = q.device
     have_null = nullk_pre is not None
     _check_like(what, q, (("g", g), ("cdq", cdq)))

@@ -66,7 +66,11 @@ class GigaGAN:
             raise NotImplementedError(
                 "training the upsampler " + _NOT_PORTED.format(item="5"))
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "GigaGAN runs on a CUDA device by default and none is "
+                    'available; pass device="cpu" to run on the CPU')
+            device = "cuda"
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if amp else torch.float32
         self._rng = np.random.default_rng(seed)

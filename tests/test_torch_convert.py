@@ -138,6 +138,15 @@ def test_unported_generator_options_raise(kwargs, match):
         Generator(**{**G_CONFIG, **kwargs})
 
 
+def test_gigagan_runs_on_the_card_unless_asked(monkeypatch):
+    # no device means the card; without one it raises and names the CPU
+    # option instead of quietly running there
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        GigaGAN(generator=G_CONFIG)
+    assert GigaGAN(generator=G_CONFIG, device="cpu").device.type == "cpu"
+
+
 def test_discriminator_raises_until_ported():
     with pytest.raises(NotImplementedError, match="discriminator"):
         GigaGAN(generator=G_CONFIG, discriminator=dict(image_size=16),
@@ -165,8 +174,15 @@ def test_port_imports_no_jax(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in ("jax", "flax", "optax", "gigagan_tpu")]
     assert not bad, f"{path}: imports {bad}"
+    # no library attention in the package: the yardsticks of the attention
+    # kernels (one scaled_dot_product_attention call each) live in
+    # chip_smoke.py only
     text = path.read_text()
-    for word in ("scaled_dot_product_attention", "torch.compile"):
+    words = ["torch.compile"]
+    if PORT in path.parents:
+        words += ["scaled_dot_product_attention", "sdpa_kernel",
+                  "sdp_kernel", "torch.backends.cudnn", "cudnn_attention"]
+    for word in words:
         assert word not in text, f"{path} uses {word}"
 
 

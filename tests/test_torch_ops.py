@@ -436,6 +436,101 @@ def test_backward_kernel_wrappers_never_fall_back_off_the_cpu():
                                    q, q, q, None, None, None, None, 1)
 
 
+# K3 and K4 each have a tensor-core and a CUDA-core kernel, picked by one
+# rule on (dtype, head dim)
+DISPATCH = [(torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+            (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+            (torch.bfloat16, 80, "simt"), (torch.bfloat16, 32, "simt")]
+
+
+def _meta_attention(dtype, d, heads=2, n=16):
+    q = torch.empty(1, n, heads * d, dtype=dtype, device="meta")
+    return q, torch.empty(1, heads, n, device="meta"), heads
+
+
+@pytest.mark.parametrize(
+    "dtype,d,route", DISPATCH,
+    ids=[f"{str(dt).split('.')[-1]}-d{d}" for dt, d, _ in DISPATCH])
+def test_fused_attention_dispatch_rule(dtype, d, route, monkeypatch):
+    # a tensor off the CPU goes to the implementation the rule names; each
+    # entry is replaced by a stand-in that counts its launches
+    def standin(name):
+        def entry(*args):
+            entry.launches += 1
+        entry.launches = 0
+        return entry
+
+    entries = {}
+    for mod, base in ((k3, "flash_attention_fused_fwd"),
+                      (so, "flash_attention_fused_bwd")):
+        for r in ("tc", "simt"):
+            entries[f"{base}_{r}"] = standin(f"{base}_{r}")
+            monkeypatch.setattr(mod, f"{base}_{r}", entries[f"{base}_{r}"])
+    q, lse, heads = _meta_attention(dtype, d)
+    assert k3.uses_tensor_cores(dtype, d) == (route == "tc")
+    k3.flash_attention_fused_fwd(q, q, q, None, None, None, None, heads)
+    so.flash_attention_fused_bwd(q, q, q, None, None, None, None, q, q, lse,
+                                 heads)
+    assert {name: e.launches for name, e in entries.items()} == {
+        f"{base}_{r}": int(r == route)
+        for base in ("flash_attention_fused_fwd", "flash_attention_fused_bwd")
+        for r in ("tc", "simt")}
+
+
+@pytest.mark.parametrize("entry", ["fwd", "fwd_tc", "fwd_simt", "bwd",
+                                   "bwd_tc", "bwd_simt", "so_bwd2"])
+def test_attention_kernels_take_heads_up_to_128(entry):
+    # every entry of K3, K4 and K5 takes d = 128 (it reaches the device
+    # check) and refuses d = 136; none counts a launch
+    def call(d):
+        q, lse, heads = _meta_attention(torch.bfloat16, d)
+        if entry.startswith("fwd"):
+            fn = getattr(k3, "flash_attention_fused_" + entry)
+            return fn(q, q, q, None, None, None, None, heads), fn
+        if entry.startswith("bwd"):
+            fn = getattr(so, "flash_attention_fused_" + entry)
+            return fn(q, q, q, None, None, None, None, q, q, lse, heads), fn
+        fn = so.flash_attention_so_bwd2
+        return fn(q, q, q, None, None, None, None, q, lse, q, q, q, None,
+                  None, None, None, heads), fn
+
+    launched = [f.launches for f in (
+        k3.flash_attention_fused_fwd_tc, k3.flash_attention_fused_fwd_simt,
+        so.flash_attention_fused_bwd_tc, so.flash_attention_fused_bwd_simt,
+        so.flash_attention_so_bwd2)]
+    with pytest.raises(ValueError, match="on meta"):
+        call(128)
+    with pytest.raises(ValueError, match="head dim 136 > 128"):
+        call(136)
+    assert launched == [f.launches for f in (
+        k3.flash_attention_fused_fwd_tc, k3.flash_attention_fused_fwd_simt,
+        so.flash_attention_fused_bwd_tc, so.flash_attention_fused_bwd_simt,
+        so.flash_attention_so_bwd2)]
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_fused_attention_on_cpu_runs_plain_and_launches_nothing(d):
+    # bf16 CPU tensors, whichever implementation the rule would pick on the
+    # card: the chain runs the plain versions, and no counter moves
+    counters = (k3.flash_attention_fused_fwd_tc,
+                k3.flash_attention_fused_fwd_simt,
+                so.flash_attention_fused_bwd_tc,
+                so.flash_attention_fused_bwd_simt, so.flash_attention_so_bwd2)
+    before = [f.launches for f in counters]
+    q, k, v, g, null_kv = (None if a is None else t(a).bfloat16()
+                           for a in attn_inputs(40, True, n=16, d=d))
+    qg = q.clone().requires_grad_()
+    out = so.flash_attend_fused(qg, k, v, null_kv, 2, l2_dist=True)
+    (dq,) = torch.autograd.grad(out, qg, g, create_graph=True)
+    dq.float().square().sum().backward()
+    prepped = k3.prep_fused(k, v, null_kv, 2, True, d ** -0.5)
+    ref, _ = k3.flash_attention_fused_fwd_plain(q, prepped[0], v, *prepped[1:],
+                                                2)
+    assert torch.equal(out, ref)
+    assert qg.grad is not None
+    assert [f.launches for f in counters] == before
+
+
 def _standin(plain):
     """A kernel launch's stand-in: the plain result written into a fresh
     buffer under no_grad, as the ctypes launch writes into torch.empty."""
