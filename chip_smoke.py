@@ -12,10 +12,15 @@ Phases (any failure raises and exits non-zero):
 1. find the card (fails without CUDA) and print its name and power limit;
 2. build the CUDA kernels from ``gigagan_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and check in their SASS that the
-   tensor-core K3 and K4 run ``HGMMA`` (``wgmma``) fed by ``UTMALDG`` (TMA);
+   tensor-core K1, K3, K4 and K5 run ``HGMMA`` (``wgmma``) fed by
+   ``UTMALDG`` (TMA);
 3. hold kernel K1 (adaptive conv) against its plain PyTorch version at
-   every 3x3 conv shape of the 256px generator, batch 8, fp32 (TF32 off)
-   and bf16, and time both and cuDNN's grouped conv;
+   every 3x3 conv shape of the 256px generator, batch 8: fp32 (TF32 off) on
+   the CUDA-core kernel, bf16 with fp32 and with bf16 banks on the
+   tensor-core one; and at extra rows (a ragged 12x20 map, 64 -> 48, with
+   1 and 2 banks, and 4 banks as the conv pair's double backward makes);
+   time the bf16 path shapes on both implementations, the plain version
+   and cuDNN's grouped conv;
 4. hold kernel K3 (fused-heads attention) against its plain version at the
    six attention shapes of the training path (G's dot product, D's L2 in
    the d_step and the g_step) with the null key/value, fp32 (CUDA-core
@@ -29,12 +34,16 @@ Phases (any failure raises and exits non-zero):
    three times each; the kernels' launch counts must show 15 K1 and 2 K3
    launches per forward; one fp32 forward through the kernels is held
    against the plain path on the card; batch-1 latency and batch-8
-   images/s are timed;
-6. hold K2 (weight gradient) and K1 as the input gradient, through the
-   conv Function's backward, against plain PyTorch at the same 15 shapes;
+   images/s are timed, with K1's CUDA-core kernel patched in on every
+   other request as the yardstick;
+6. hold K2 (weight gradient) and K1 as the input gradient (tensor cores
+   in bf16), through the conv Function's backward, against plain PyTorch
+   at the same 15 shapes;
 7. the same for K4 (attention backward; the SDPA yardstick is its
-   backward), and K5 (its adjoint) at the d_step's R1 shapes and at the
-   small rows with d = 128 and 80;
+   backward), and K5 (its adjoint; tensor cores in bf16 at d = 64) at the
+   d_step's R1 shapes, timed beside its CUDA-core kernel, and at the small
+   rows (ragged with and without the null token, dot and L2; d = 128 and
+   80 on the CUDA cores);
 8. hold K6a/K6b (split-heads attention and its backward) and K7a/K7b (its
    jvp and the jvp's backward) against their plain versions at the two
    attention shapes of the forward-over-reverse R1 surrogate (L2, the null
@@ -44,9 +53,9 @@ Phases (any failure raises and exits non-zero):
    takes 8 iterations of train_discriminator_step + train_generator_step
    with R1 on iterations 0 and 4; every loss must be finite and every
    step's K1-K7b launch counts those the path implies (K5 on R1 steps
-   only), every K3 and K4 launch on the tensor-core kernels; ms per d_step
-   (with and without R1) and per g_step and images/s over the 4-iteration
-   cadence are timed;
+   only), every K1, K3, K4 and K5 launch on the tensor-core kernels; ms per
+   d_step (with and without R1) and per g_step and images/s over the
+   4-iteration cadence are timed;
 10. the same 8 iterations with the R1 penalty taken forward-over-reverse
     (``GigaGAN(gp_fwd_over_rev=True)``): K6a, K6b, K7a and K7b on R1
     d_steps only, K5 never; d_step+R1 timed beside phase 9's;
@@ -56,7 +65,8 @@ Phases (any failure raises and exits non-zero):
     gradient), and the forward-over-reverse d_step against the
     reverse-over-reverse one (penalty and every gradient); then bf16: a
     d_step with R1 and a g_step through the tensor-core K3/K4 against the
-    same steps with the CUDA-core ones patched in;
+    same steps with the CUDA-core ones patched in, and the same for K1/K5;
+    each bf16 route's distance from the fp32 plain step is reported;
 12. print the kernel table as one JSON line (time, plain version, library
     call where one computes the same function, bound, launches) and, last,
     the device line.
@@ -100,6 +110,10 @@ BATCH = 8
 # the generator's default self-attention: 32² and 16² maps, 8 heads of 64
 SELF_ATTN_RES, HEADS, DIM_HEAD = (32, 16), 8, 64
 K1_TOL_F32, K1_TOL_BF16, K3_TOL = 0.02, 0.08, 0.03
+# K1's extra rows (b, h, w, ci, co, banks): a ragged map, one bank, and the
+# 2n = 4 banks of the conv pair's double backward
+K1_EXTRA = [(2, 12, 20, 64, 48, 2), (2, 12, 20, 64, 48, 1),
+            (2, 9, 13, 32, 64, 4)]
 K2_TOL_F32, K2_TOL_BF16, K4_TOL, K5_TOL = 0.02, 0.08, 0.03, 0.05
 G_TOL_F32, STEP_TOL_F32, STEP_TOL_BF16 = 0.02, 0.02, 0.08
 # a gradient leaf that moves by more than this in fp32 when only the order
@@ -340,16 +354,25 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    bf16 = torch.bfloat16
     OUT_DIR.mkdir(exist_ok=True)
 
-    # K3 and K4 count the launches of both implementations; the CUDA-core
-    # ones alone are read as well, to show that no bf16 call reached them
-    simt = {"k3": k3.flash_attention_fused_fwd_simt,
-            "k4": so.flash_attention_fused_bwd_simt}
-    counters = {"k1": [k1.adaptive_conv_fwd], "k2": [k1.adaptive_conv_bwd_w],
-                "k3": [k3.flash_attention_fused_fwd_tc, simt["k3"]],
-                "k4": [so.flash_attention_fused_bwd_tc, simt["k4"]],
-                "k5": [so.flash_attention_so_bwd2],
+    # K1, K3, K4 and K5 count the launches of both implementations; the
+    # CUDA-core ones alone are read as well, to show that no bf16 call
+    # reached them
+    simt = {"k1": k1.adaptive_conv_fwd_simt,
+            "k3": k3.flash_attention_fused_fwd_simt,
+            "k4": so.flash_attention_fused_bwd_simt,
+            "k5": so.flash_attention_so_bwd2_simt}
+    tc_entry = {"k1": k1.adaptive_conv_fwd_tc,
+                "k3": k3.flash_attention_fused_fwd_tc,
+                "k4": so.flash_attention_fused_bwd_tc,
+                "k5": so.flash_attention_so_bwd2_tc}
+    counters = {"k1": [tc_entry["k1"], simt["k1"]],
+                "k2": [k1.adaptive_conv_bwd_w],
+                "k3": [tc_entry["k3"], simt["k3"]],
+                "k4": [tc_entry["k4"], simt["k4"]],
+                "k5": [tc_entry["k5"], simt["k5"]],
                 "k6a": [k6.flash_attention_fwd], "k6b": [k6.flash_attention_bwd],
                 "k7a": [k7.flash_attention_hv_jvp],
                 "k7b": [k7.flash_attention_hv_bwd]}
@@ -365,6 +388,28 @@ def main():
 
     def simt_counts():
         return {k: fn.launches for k, fn in simt.items()}
+
+    # where each kernel's tensor-core entry lives as a module attribute that
+    # its dispatcher reads
+    tc_home = {"k1": (k1, "adaptive_conv_fwd"),
+               "k3": (k3, "flash_attention_fused_fwd"),
+               "k4": (so, "flash_attention_fused_bwd"),
+               "k5": (so, "flash_attention_so_bwd2")}
+
+    @contextlib.contextmanager
+    def simt_kernels(keys):
+        """The kernels `keys` on their CUDA-core implementations for every
+        dtype: the dispatch patched here, not through a switch of the
+        package."""
+        for k_ in keys:
+            mod, base = tc_home[k_]
+            setattr(mod, f"{base}_tc", simt[k_])
+        try:
+            yield
+        finally:
+            for k_ in keys:
+                mod, base = tc_home[k_]
+                setattr(mod, f"{base}_tc", tc_entry[k_])
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
@@ -388,8 +433,9 @@ def main():
     # loads fails here
     cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
     report["sass"] = {}
-    for kname in ("flash_attention_fused_fwd_tc",
-                  "flash_attention_fused_bwd_tc"):
+    for kname in ("adaptive_conv_fwd_tc", "flash_attention_fused_fwd_tc",
+                  "flash_attention_fused_bwd_tc",
+                  "flash_attention_so_bwd2_tc"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(built[kname][0])],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -403,23 +449,28 @@ def main():
     # ---------------------------------------------------------------- 3
     gen = torch.Generator(device=dev).manual_seed(0)
     convs = path_convs(QUICKSTART)
+
+    def conv_operands(b, h, w_, ci, co, n):
+        """x_mod, banks, selection weights and demod as the generator's
+        AdaptiveConv hands them to K1."""
+        x = torch.randn(b, h, w_, ci, device=dev, generator=gen)
+        w = torch.randn(n, 3, 3, ci, co, device=dev, generator=gen) * (
+            2.0 / (9 * ci)) ** 0.5
+        a = torch.softmax(torch.randn(b, n, device=dev, generator=gen), -1)
+        scale_in = 1.0 + 0.2 * torch.randn(b, ci, device=dev, generator=gen)
+        d = ops.demod_scale(w, scale_in, a)
+        return x * scale_in[:, None, None, :], w, a, d
+
     k1_rows = {}
     for _, h, ci, co in convs:
         if (h, ci, co) in k1_rows:
             continue
-        x = torch.randn(BATCH, h, h, ci, device=dev, generator=gen)
-        w = torch.randn(2, 3, 3, ci, co, device=dev, generator=gen) * (
-            2.0 / (9 * ci)) ** 0.5
-        a = torch.softmax(torch.randn(BATCH, 2, device=dev, generator=gen),
-                          -1)
-        scale_in = 1.0 + 0.2 * torch.randn(BATCH, ci, device=dev,
-                                           generator=gen)
-        d = ops.demod_scale(w, scale_in, a)
-        xm = x * scale_in[:, None, None, :]
+        xm, w, a, d = conv_operands(BATCH, h, h, ci, co, 2)
         want = k1.adaptive_conv_fwd_plain(xm, w, a, d)
         got32 = k1.adaptive_conv_fwd(xm, w, a, d)
-        xb = xm.bfloat16()
+        xb, wb = xm.bfloat16(), w.bfloat16()
         got16 = k1.adaptive_conv_fwd(xb, w, a, d)
+        got16w = k1.adaptive_conv_fwd(xb, wb, a, d)
         torch.cuda.synchronize()
         # the yardstick: cuDNN's grouped conv (one group per sample) on the
         # pre-mixed, demodulated weights, mixed outside the timed call
@@ -428,13 +479,19 @@ def main():
         xg = xb.permute(0, 3, 1, 2).reshape(1, BATCH * ci, h, h)
         row = dict(
             h=h, ci=ci, co=co,
+            route_bf16="tc" if k1.conv_uses_tensor_cores(bf16, ci, co)
+            else "simt",
             rel_f32=rel_err(got32, want), rel_bf16=rel_err(got16, want),
-            abs_f32=abs_err(got32, want), abs_bf16=abs_err(got16, want),
+            rel_bf16_banks=rel_err(got16w, want),
+            abs_f32=abs_err(got32, want),
+            abs_bf16=max(abs_err(got16, want), abs_err(got16w, want)),
             ms_f32=time_ms(lambda: k1.adaptive_conv_fwd(xm, w, a, d), torch),
             plain_ms_f32=time_ms(
                 lambda: k1.adaptive_conv_fwd_plain(xm, w, a, d), torch),
             ms_bf16=time_ms(lambda: k1.adaptive_conv_fwd(xb, w, a, d),
                             torch),
+            simt_ms_bf16=time_ms(
+                lambda: k1.adaptive_conv_fwd_simt(xb, w, a, d), torch),
             plain_ms_bf16=time_ms(
                 lambda: k1.adaptive_conv_fwd_plain(xb, w, a, d), torch),
             library_ms_bf16=time_ms(
@@ -446,17 +503,43 @@ def main():
             nbytes(xb, w, a, d) + nbytes(got16))
         k1_rows[(h, ci, co)] = row
         log(f"K1 b{BATCH} {h}x{h} {ci}->{co}: rel f32 {row['rel_f32']:.2e} "
-            f"bf16 {row['rel_bf16']:.2e} | ms f32 {row['ms_f32']:.4f} "
+            f"bf16 ({row['route_bf16']}) {row['rel_bf16']:.2e}, bf16 banks "
+            f"{row['rel_bf16_banks']:.2e} | ms f32 {row['ms_f32']:.4f} "
             f"(plain {row['plain_ms_f32']:.4f}) bf16 {row['ms_bf16']:.4f} "
-            f"(plain {row['plain_ms_bf16']:.4f}, cuDNN grouped conv "
+            f"(simt {row['simt_ms_bf16']:.4f}, plain "
+            f"{row['plain_ms_bf16']:.4f}, cuDNN grouped conv "
             f"{row['library_ms_bf16']:.4f}, bound {row['bound_ms']:.4f})")
         if not (row["rel_f32"] <= K1_TOL_F32
-                and row["rel_bf16"] <= K1_TOL_BF16):
+                and max(row["rel_bf16"], row["rel_bf16_banks"])
+                <= K1_TOL_BF16):
             fail(f"K1 disagrees at {row}")
+    if any(r["route_bf16"] != "tc" for r in k1_rows.values()):
+        fail("a path conv shape is not on the tensor-core K1")
     report["k1"] = list(k1_rows.values())
+    # extra rows: a ragged map with co not a multiple of 32 (16-wide co
+    # tiles), one bank, and the four banks of the conv pair's double
+    # backward; bf16 with fp32 and bf16 banks on the tensor cores
+    k1_extra = []
+    for b, h, w_, ci, co, n in K1_EXTRA:
+        xm, w, a, d = conv_operands(b, h, w_, ci, co, n)
+        want = k1.adaptive_conv_fwd_plain(xm, w, a, d)
+        xb = xm.bfloat16()
+        before = tc_entry["k1"].launches
+        got = [k1.adaptive_conv_fwd(xb, w, a, d),
+               k1.adaptive_conv_fwd(xb, w.bfloat16(), a, d)]
+        torch.cuda.synchronize()
+        row = dict(b=b, h=h, w=w_, ci=ci, co=co, n=n,
+                   rel=max(rel_err(g_, want) for g_ in got),
+                   abs=max(abs_err(g_, want) for g_ in got),
+                   tc=tc_entry["k1"].launches - before == 2)
+        k1_extra.append(row)
+        log(f"K1 extra b{b} {h}x{w_} {ci}->{co} n={n} bf16 (tc "
+            f"{row['tc']}): rel {row['rel']:.2e}")
+        if not (row["tc"] and row["rel"] <= K1_TOL_BF16):
+            fail(f"K1 extra row failed: {row}")
+    report["k1_extra"] = k1_extra
 
     # ---------------------------------------------------------------- 4
-    bf16 = torch.bfloat16
 
     def dtype_name(dtype):
         return str(dtype).split(".")[-1]
@@ -555,8 +638,8 @@ def main():
         fail(f"launch counts {launches}")
     if any(n for k, n in counts.items() if k not in ("k1", "k3")):
         fail(f"backward kernels launched while sampling: {counts}")
-    if simt_counts()["k3"]:
-        fail(f"bf16 sampling reached the CUDA-core K3: {simt_counts()}")
+    if simt_counts()["k1"] or simt_counts()["k3"]:
+        fail(f"bf16 sampling reached the CUDA-core K1/K3: {simt_counts()}")
     if seen != set(k1_rows):
         fail(f"path conv shapes {seen} != checked {set(k1_rows)}")
     report["sampling_launches"] = counts
@@ -576,26 +659,38 @@ def main():
         fail("G forward disagrees")
 
     def latency(bs, reps):
-        times = []
+        """Seconds of `reps` requests on each K1 route: the package's
+        (tensor cores) and the CUDA-core kernel patched in, taking turns so
+        that the host's drift, which moves a request by more than K1 does,
+        falls on both alike."""
+        times = {"tc": [], "simt": []}
         for i in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            gan.generate(batch_size=bs, seed=100 + i)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        return statistics.median(times), times
+            for route in ("tc", "simt") if i % 2 else ("simt", "tc"):
+                with (simt_kernels(["k1"]) if route == "simt"
+                      else contextlib.nullcontext()):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    gan.generate(batch_size=bs, seed=100 + i)
+                    torch.cuda.synchronize()
+                times[route].append(time.perf_counter() - t)
+        return times
 
-    latency(1, 3)  # warm-up
-    latency(BATCH, 3)
-    lat1, lat1_all = latency(1, 25)
-    lat8, lat8_all = latency(BATCH, 15)
-    report["latency_b1_s"], report["latency_b1_all_s"] = lat1, lat1_all
-    report["batch8_s"], report["batch8_all_s"] = lat8, lat8_all
+    latency(1, 2)  # warm-up
+    latency(BATCH, 2)
+    lat1_all, lat8_all = latency(1, 25), latency(BATCH, 15)
+    lat1, lat8 = (statistics.median(t["tc"]) for t in (lat1_all, lat8_all))
+    report["latency_b1_s"], report["latency_b1_all_s"] = lat1, lat1_all["tc"]
+    report["batch8_s"], report["batch8_all_s"] = lat8, lat8_all["tc"]
+    report["latency_k1_simt"] = dict(b1_all_s=lat1_all["simt"],
+                                     b8_all_s=lat8_all["simt"])
     report["batch8_images_per_s"] = BATCH / lat8
     log(f"generate latency b1: {lat1 * 1e3:.3f} ms (median of 25, min "
-        f"{min(lat1_all) * 1e3:.3f}); b{BATCH}: {lat8 * 1e3:.3f} ms (median "
-        f"of 15, min {min(lat8_all) * 1e3:.3f}) -> {BATCH / lat8:.2f} "
-        f"images/s [{smi}]")
+        f"{min(lat1_all['tc']) * 1e3:.3f}); b{BATCH}: {lat8 * 1e3:.3f} ms "
+        f"(median of 15, min {min(lat8_all['tc']) * 1e3:.3f}) -> "
+        f"{BATCH / lat8:.2f} images/s; in turn with K1 on the CUDA cores: "
+        f"b1 {statistics.median(lat1_all['simt']) * 1e3:.3f} ms, "
+        f"b{BATCH} {statistics.median(lat8_all['simt']) * 1e3:.3f} ms "
+        f"[{smi}]")
 
     def profiled(label, fn):
         from torch.autograd import DeviceType
@@ -655,8 +750,12 @@ def main():
         xk = x.clone().requires_grad_()
         (dx32,) = torch.autograd.grad(k1.pconv2d(xk, w, a, d), xk, g)
         xk16 = xb.clone().requires_grad_()
+        before = tc_entry["k1"].launches
         (dx16,) = torch.autograd.grad(k1.pconv2d(xk16, w, a, d), xk16, gb)
         torch.cuda.synchronize()
+        if tc_entry["k1"].launches - before != 2:
+            fail(f"bf16 K1 forward and dx at {h}x{h} {ci}->{co} did not both "
+                 "run on the tensor-core kernel")
         # the launch the backward makes, on its operands
         gs32 = g * d[:, None, None, :]
         gs16 = gs32.bfloat16()
@@ -683,6 +782,9 @@ def main():
                 lambda: k1.adaptive_conv_bwd_w_plain(xb, gb, w, a), torch),
             dx_ms_bf16=time_ms(
                 lambda: k1.adaptive_conv_fwd(gs16, wft, a, ones), torch),
+            dx_simt_ms_bf16=time_ms(
+                lambda: k1.adaptive_conv_fwd_simt(gs16, wft, a, ones),
+                torch),
             dx_plain_ms_bf16=time_ms(
                 lambda: k1.adaptive_conv_fwd_plain(gs16, wft, a, ones),
                 torch),
@@ -698,7 +800,8 @@ def main():
             f"{row['ms_bf16']:.4f} (plain {row['plain_ms_bf16']:.4f}) | "
             f"K1-dx rel f32 {row['rel_dx_f32']:.2e} bf16 "
             f"{row['rel_dx_bf16']:.2e} ms bf16 {row['dx_ms_bf16']:.4f} "
-            f"(plain {row['dx_plain_ms_bf16']:.4f})")
+            f"(simt {row['dx_simt_ms_bf16']:.4f}, plain "
+            f"{row['dx_plain_ms_bf16']:.4f})")
         if not (max(row["rel_dw_f32"], row["rel_da_f32"],
                     row["rel_dx_f32"]) <= K2_TOL_F32
                 and max(row["rel_dw_bf16"], row["rel_da_bf16"],
@@ -747,10 +850,11 @@ def main():
         if not row["rel"] <= K4_TOL:
             fail(f"K4 disagrees at {row}")
         del got, pairs
-        # K5 at the R1 shapes of the d_step (timed) and at the small rows
-        # with the wider heads
+        # K5 at the R1 shapes of the d_step (timed), at every ragged small
+        # row (null or not, dot or L2) and at the wider heads' rows
         r1_row = (who, b, nq, l2) in R1_ATTN
-        if not (r1_row or (null and who in ("d128", "d80"))):
+        if not (r1_row or who == "ragged"
+                or (null and who in ("d128", "d80"))):
             del args, bargs, want, out, lse, g
             torch.cuda.empty_cache()
             continue
@@ -762,8 +866,9 @@ def main():
         torch.cuda.synchronize()
         pairs = [(a_, w_) for a_, w_ in zip(got5, want5) if w_ is not None]
         row5 = dict(
-            who=who, b=b, heads=h, nq=nq, nk=nk, d=d, l2=l2,
+            who=who, b=b, heads=h, nq=nq, nk=nk, d=d, l2=l2, null=null,
             dtype=dtype_name(dtype),
+            route="tc" if so.so_uses_tensor_cores(dtype, d) else "simt",
             rel=max(rel_err(a_, w_) for a_, w_ in pairs),
             abs=max(abs_err(a_, w_) for a_, w_ in pairs))
         if r1_row:
@@ -771,16 +876,21 @@ def main():
                                  torch)
             row5["plain_ms"] = time_ms(
                 lambda: so.flash_attention_so_bwd2_plain(*args5), torch)
+            if dtype == bf16:
+                row5["simt_ms"] = time_ms(
+                    lambda: so.flash_attention_so_bwd2_simt(*args5), torch)
             # the products the adjoint needs: S, dA, two for c_dS, G·C̃ᵀ,
             # then two each for c_q, c_g, c_k and one for c_v
             row5["bound_ms"], row5["bound_by"] = attn_bound(
                 12, b * h, nq, nk + 1, d,
                 nbytes(*args5[:-1], *(t for t in got5 if t is not None)))
         k5_rows.append(row5)
-        log(f"K5 {who} b{b} H{h} nq{nq} nk{nk} d{d} l2={l2} {row5['dtype']}: "
-            f"rel {row5['rel']:.2e}" + (
+        log(f"K5 {who} b{b} H{h} nq{nq} nk{nk} d{d} l2={l2} null={null} "
+            f"{row5['dtype']} ({row5['route']}): rel {row5['rel']:.2e}" + (
                 f" | ms {row5['ms']:.4f} (plain {row5['plain_ms']:.4f}, "
-                f"bound {row5['bound_ms']:.4f})" if r1_row else ""))
+                + (f"simt {row5['simt_ms']:.4f}, " if "simt_ms" in row5
+                   else "")
+                + f"bound {row5['bound_ms']:.4f})" if r1_row else ""))
         if not row5["rel"] <= K5_TOL:
             fail(f"K5 disagrees at {row5}")
         del want5, got5, args5, cots, pairs, args, bargs, want, out, lse, g
@@ -915,7 +1025,7 @@ def main():
             iteration(i, i % R1_EVERY == 0, steps)
         launches = read_counts()
         if any(simt_counts().values()):
-            fail(f"bf16 K3/K4 calls of the {label} path reached the "
+            fail(f"bf16 K1/K3/K4/K5 calls of the {label} path reached the "
                  f"CUDA-core kernels: {simt_counts()}")
         for s in steps:
             want = exp_g if s["kind"] == "g" else (exp_d_r1 if s["r1"]
@@ -980,7 +1090,8 @@ def main():
     # --------------------------------------------------------------- 11
     # fp32 steps through the kernels against the same steps on the plain
     # path, each from the same fresh state; then bf16 steps through the
-    # tensor-core K3/K4 against the CUDA-core ones
+    # tensor-core K3/K4, and K1/K5, against the CUDA-core ones, each route
+    # also measured from the fp32 plain step
     real = torch.from_numpy(np.stack([data[i] for i in range(BATCH)])).to(dev)
 
     def fp32_step(kind, plain, fwd_over_rev=False, amp=False):
@@ -1039,10 +1150,11 @@ def main():
             fail(f"{label} disagrees: {out}")
         return out
 
+    plain_step = {kind: fp32_step(kind, True) for kind in ("d", "g")}
     d_ror, d_for = fp32_step("d", False), fp32_step("d", False, True)
     report["step_vs_plain_f32"] = step_rel = {}
     step_rel["d"] = compare("fp32 d_step +R1 kernels vs plain path", d_ror,
-                            fp32_step("d", True))
+                            plain_step["d"])
     step_rel["d_fwd_over_rev"] = compare(
         "fp32 d_step +R1 forward-over-reverse, kernels vs plain path", d_for,
         fp32_step("d", True, True))
@@ -1051,39 +1163,47 @@ def main():
         "kernels", d_for, d_ror, loss_keys=["gradient_penalty"])
     del d_ror, d_for
     step_rel["g"] = compare("fp32 g_step kernels vs plain path",
-                            fp32_step("g", False), fp32_step("g", True))
+                            fp32_step("g", False), plain_step["g"])
 
-    @contextlib.contextmanager
-    def simt_kernels():
-        """K3 and K4 on their CUDA-core kernels for every dtype: the
-        dispatch patched here, not through a switch of the package."""
-        saved = (k3.flash_attention_fused_fwd_tc,
-                 so.flash_attention_fused_bwd_tc)
-        k3.flash_attention_fused_fwd_tc = k3.flash_attention_fused_fwd_simt
-        so.flash_attention_fused_bwd_tc = so.flash_attention_fused_bwd_simt
-        try:
-            yield
-        finally:
-            (k3.flash_attention_fused_fwd_tc,
-             so.flash_attention_fused_bwd_tc) = saved
-
-    def bf16_step(kind, route):
+    def bf16_step(kind, route, keys):
         reset_counts()
-        with (simt_kernels() if route == "simt"
+        with (simt_kernels(keys) if route == "simt"
               else contextlib.nullcontext()):
             res = fp32_step(kind, False, amp=True)
-        tc = {k: counters[k][0].launches for k in simt}
-        if not all((tc if route == "tc" else simt_counts()).values()) or any(
-                (simt_counts() if route == "tc" else tc).values()):
+        tc = {k_: tc_entry[k_].launches for k_ in keys}
+        sc = {k_: simt[k_].launches for k_ in keys}
+        ran = [k_ for k_ in keys if kind == "d" or k_ != "k5"]
+        used, unused = (tc, sc) if route == "tc" else (sc, tc)
+        if not all(used[k_] for k_ in ran) or any(unused.values()):
             fail(f"bf16 {kind}_step on the {route} route launched tensor-core "
-                 f"{tc} and CUDA-core {simt_counts()} K3/K4 kernels")
+                 f"{tc} and CUDA-core {sc} kernels")
         return res
 
-    for kind, label in (("d", "d_step +R1"), ("g", "g_step")):
-        step_rel[f"{kind}_bf16_tc_vs_simt"] = compare(
-            f"bf16 {label}, tensor-core vs CUDA-core K3/K4",
-            bf16_step(kind, "tc"), bf16_step(kind, "simt"),
-            tol=STEP_TOL_BF16, stable=step_rel[kind])
+    def from_plain(kind, res):
+        """(max-rel, leaf) of a bf16 step's gated leaves from the fp32 plain
+        step: the bf16 noise floor that the route comparison sits on."""
+        want = plain_step[kind][1]
+        rel = {n_: rel_err(res[1][n_], want[n_]) for n_ in want
+               if step_rel[kind]["grad_rel"][n_] <= STABLE_F32}
+        worst = max(rel, key=rel.get)
+        return rel[worst], worst
+
+    for keys in (("k3", "k4"), ("k1", "k5")):
+        names = "/".join(k_.upper() for k_ in keys)
+        for kind, label in (("d", "d_step +R1"), ("g", "g_step")):
+            runs = {r: bf16_step(kind, r, keys) for r in ("tc", "simt")}
+            key = f"{kind}_bf16_tc_vs_simt_{'_'.join(keys)}"
+            step_rel[key] = compare(
+                f"bf16 {label}, tensor-core vs CUDA-core {names}",
+                runs["tc"], runs["simt"], tol=STEP_TOL_BF16,
+                stable=step_rel[kind])
+            step_rel[key]["from_fp32_plain"] = far = {
+                r: from_plain(kind, res) for r, res in runs.items()}
+            log(f"bf16 {label}, each {names} route vs the fp32 plain step "
+                f"(not gated): tensor-core {far['tc'][0]:.2e} "
+                f"({far['tc'][1]}), CUDA-core {far['simt'][0]:.2e} "
+                f"({far['simt'][1]})")
+            del runs
 
     # --------------------------------------------------------------- 12
     mult = {}
@@ -1114,14 +1234,19 @@ def main():
               for kn, rows in (("k3", k3_rows), ("k4", k4_rows))}
     r1_bf16 = [(1, r) for r in k5_rows if r["dtype"] == "bfloat16"
                and "ms" in r]
+    # K1, K3, K4 and K5: bf16 on the tensor-core kernels, the CUDA-core
+    # kernels (fp32, other channel counts or head dims) beside them
     kernels = [
         dict(name="adaptive_conv_fwd", route="cuda",
-             source="gigagan_tpu_torch/csrc/adaptive_conv_fwd.cu",
+             source="gigagan_tpu_torch/csrc/adaptive_conv_fwd_tc.cu",
              replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:86",
              launches=train_launches["k1"],
-             max_abs_err=max(max(r["abs_f32"], r["abs_bf16"])
-                             for r in k1_rows.values()),
-             **timing(conv_rows, "_bf16")),
+             max_abs_err=max([max(r["abs_f32"], r["abs_bf16"])
+                              for r in k1_rows.values()]
+                             + [r["abs"] for r in k1_extra]),
+             **timing(conv_rows, "_bf16"),
+             simt_source="gigagan_tpu_torch/csrc/adaptive_conv_fwd.cu",
+             simt_ms=total(conv_rows, "simt_ms_bf16")),
         dict(name="adaptive_conv_bwd_w", route="cuda",
              source="gigagan_tpu_torch/csrc/adaptive_conv_bwd_w.cu",
              replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:269",
@@ -1129,8 +1254,6 @@ def main():
              max_abs_err=max(max(r["abs_f32"], r["abs_bf16"])
                              for r in k2_rows.values()),
              **timing(k2_weighted, "_bf16")),
-        # K3 and K4: D's d_step pair in bf16 on the tensor-core kernels;
-        # the CUDA-core kernels (fp32 and other head dims) beside them
         dict(name="flash_attention_fused_fwd", route="cuda",
              source="gigagan_tpu_torch/csrc/flash_attention_fused_fwd_tc.cu",
              replaces="gigagan_tpu/ops/pallas/flash_attention_fused.py:95",
@@ -1149,11 +1272,13 @@ def main():
              simt_source="gigagan_tpu_torch/csrc/flash_attention_fused_bwd.cu",
              simt_ms=total(d_step["k4"], "simt_ms")),
         dict(name="flash_attention_so_bwd2", route="cuda",
-             source="gigagan_tpu_torch/csrc/flash_attention_so_bwd2.cu",
+             source="gigagan_tpu_torch/csrc/flash_attention_so_bwd2_tc.cu",
              replaces="gigagan_tpu/ops/pallas/flash_attention_so.py:297",
              launches=train_launches["k5"],
              max_abs_err=max(r["abs"] for r in k5_rows),
-             **timing(r1_bf16)),
+             **timing(r1_bf16),
+             simt_source="gigagan_tpu_torch/csrc/flash_attention_so_bwd2.cu",
+             simt_ms=total(r1_bf16, "simt_ms")),
     ]
     # K6a-K7b: launches from the forward-over-reverse run, times summed
     # over φ's two attentions in bf16

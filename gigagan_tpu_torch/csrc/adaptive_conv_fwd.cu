@@ -283,7 +283,7 @@ extern "C" int gigagan_adaptive_conv_fwd_ci_per_split(int b, int h, int wd,
 
 // dtype codes: 0 = float32, 1 = bfloat16.  `partial` may be null when
 // ci_per_split >= ci.  Returns a cudaError_t.
-extern "C" int gigagan_adaptive_conv_fwd(const void* x, const void* w,
+extern "C" int gigagan_adaptive_conv_fwd_simt(const void* x, const void* w,
                                          const void* a, const void* demod,
                                          void* out, void* partial, int b,
                                          int h, int wd, int ci, int co, int n,

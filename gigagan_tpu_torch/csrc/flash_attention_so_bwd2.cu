@@ -551,7 +551,7 @@ cudaError_t dispatch(const Args& a, cudaStream_t s) {
 // cdnull_bias (H,) fp32) may be null when have_null is 0.  `stats` is a
 // (b, H, nq, 3) fp32 workspace, `null_part` one of b·ceil(nq/64)·H·(2d+1)
 // floats.  Returns a cudaError_t.
-extern "C" int gigagan_flash_attention_so_bwd2(
+extern "C" int gigagan_flash_attention_so_bwd2_simt(
     const void* q, const void* k, const void* v, const void* bias,
     const void* nullk, const void* nullv, const void* null_bias,
     const void* g, const void* lse, const void* cdq, const void* cdk,

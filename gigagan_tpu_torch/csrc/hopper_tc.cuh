@@ -1,7 +1,10 @@
-// Hopper (sm_90a) building blocks of the tensor-core attention kernels
-// (flash_attention_fused_fwd_tc.cu, flash_attention_fused_bwd_tc.cu):
-// TMA tensor maps and loads, mbarriers, `wgmma` with shared-memory
-// descriptors, and register reallocation between warpgroups.
+// Hopper (sm_90a) building blocks of the tensor-core kernels
+// (adaptive_conv_fwd_tc.cu, flash_attention_fused_fwd_tc.cu,
+// flash_attention_fused_bwd_tc.cu, flash_attention_so_bwd2_tc.cu): TMA
+// tensor maps and loads, mbarriers, `wgmma` with shared-memory
+// descriptors, and register reallocation between warpgroups.  The conv
+// kernel's tiles of 16- and 32-channel rows use the 32- and 64-byte
+// swizzles (`swizzle_for`, `desc_rows`), the rest the layout below.
 //
 // Tile layout.  Every operand tile is a stack of (64 rows, 64 bf16) boxes of
 // 8 KB ("atoms"), each loaded by one TMA copy with the 128-byte swizzle: row
@@ -89,6 +92,39 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int b, int n,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The swizzle that matches a row of `row_bytes` (32, 64 or 128): TMA and
+// `wgmma` both apply it to shared-memory address bits, so a tile base must
+// sit on a multiple of 8 rows (256, 512 or 1024 bytes).
+inline CUtensorMapSwizzle swizzle_for(int row_bytes) {
+  return row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// A map over a channels-last (b, h, w, c) bf16 activation: dims (c, w, h, b),
+// box (ck channels, bw pixels, bh rows, 1 sample), the swizzle of a
+// 2·ck-byte row.  Coordinates may be negative or run past the map: TMA
+// fills those elements with zeros, which is a conv's SAME padding, so a
+// shifted tile is one box and no padded copy of the activation exists.
+inline cudaError_t make_map_nhwc(CUtensorMap* map, const void* ptr, int b,
+                                 int h, int w, int c, int ck, int bw, int bh) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)w * c * 2,
+                                 (cuuint64_t)h * w * c * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)ck, (cuuint32_t)bw, (cuuint32_t)bh,
+                             1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_for(2 * ck),
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------- device
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -145,6 +181,32 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 4-D map (make_map_nhwc) into shared memory
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (`wgmma` operands written by threads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// byte offset of a 16-byte chunk under the swizzle of RB-byte rows, for a
+// tile whose base sits on a multiple of 8 rows
+template <int RB>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+  return off ^ (((off >> 7) & (RB / 16 - 1)) << 4);
+}
+
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -166,6 +228,19 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo_bytes) {
   d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
   d |= (uint64_t)(1024 >> 4) << 32;  // SBO: 8 rows of 128 bytes
   d |= (uint64_t)1 << 62;            // 128-byte swizzle
+  return d;
+}
+
+// K-major descriptor of a tile of RB-byte rows (RB = 32, 64 or 128 with
+// the matching swizzle), SBO = 8 rows; the 16-column step of the reduction
+// is +32 bytes on the address
+template <int RB>
+__device__ __forceinline__ uint64_t desc_rows(uint32_t addr) {
+  constexpr uint64_t layout = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;                         // LBO: unused here
+  d |= (uint64_t)((8 * RB) >> 4) << 32;           // SBO: 8 rows
+  d |= layout << 62;
   return d;
 }
 
@@ -194,9 +269,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving accumulator reads across the asynchronous
 // products
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define TC_ACC32(d)                                                           \
@@ -235,6 +311,47 @@ __device__ __forceinline__ void mma_rs_t(float (&d)[32], const uint32_t* a,
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : TC_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (+)= A·B for the narrower N of thin output channels and of half-width
+// attention pieces: m64n16k16 and m64n32k16, A and B K-major in shared
+// memory; accumulate = 0 overwrites d
+__device__ __forceinline__ void mma_ss16(float (&d)[8], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_ss32(float (&d)[16], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A·B, m64nNk16 with N = 16, 32 or 64, both operands K-major
+template <int N>
+__device__ __forceinline__ void mma_ss_n(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate = 1) {
+  if constexpr (N == 16) {
+    mma_ss16(d, a, b, accumulate);
+  } else if constexpr (N == 32) {
+    mma_ss32(d, a, b, accumulate);
+  } else {
+    mma_ss(d, a, b, accumulate);
+  }
 }
 
 #undef TC_ACC32

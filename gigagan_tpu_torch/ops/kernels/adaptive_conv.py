@@ -2,7 +2,10 @@
 versions, the wrappers that pick between them by device, and the
 autograd pair ``pconv2d``/``pcorr2d`` built on them.
 
-K1 (``csrc/adaptive_conv_fwd.cu``), the forward with a fused demod scale:
+K1, the forward with a fused demod scale, in two implementations
+(``conv_uses_tensor_cores`` picks one by dtype and channel counts): on the
+tensor cores (``csrc/adaptive_conv_fwd_tc.cu``) for bf16 with ci and co
+multiples of 16, on CUDA cores (``csrc/adaptive_conv_fwd.cu``) otherwise:
 
     out[b] = demod[b] ⊙ conv3x3_SAME(x_mod[b], Σₙ attn[b,n]·Wₙ)
 
@@ -108,8 +111,8 @@ def _check(x_mod, weights, attn, demod):
 
 
 def ci_per_split(lib, b, h, w, ci, co, device: int) -> int:
-    """Input channels per block: the library's choice (K1 splits ci on
-    small, wide maps)."""
+    """Input channels per block of the CUDA-core kernel: the library's
+    choice (it splits ci on small, wide maps)."""
     fn = lib.gigagan_adaptive_conv_fwd_ci_per_split
     fn.argtypes = [ctypes.c_int] * 6
     fn.restype = ctypes.c_int
@@ -121,9 +124,10 @@ def ci_per_split(lib, b, h, w, ci, co, device: int) -> int:
 
 def launch(lib, x_mod, weights, attn, demod, out, partial, cps: int,
            device: int, stream: int):
-    """Call the built library on already-checked operands; ``partial`` is
-    the fp32 workspace (splits, b, h, w, co), None when cps >= ci."""
-    fn = lib.gigagan_adaptive_conv_fwd
+    """Call the built CUDA-core library on already-checked operands;
+    ``partial`` is the fp32 workspace (splits, b, h, w, co), None when
+    cps >= ci."""
+    fn = lib.gigagan_adaptive_conv_fwd_simt
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
     ]
@@ -137,13 +141,20 @@ def launch(lib, x_mod, weights, attn, demod, out, partial, cps: int,
         cps, _DTYPE_CODES[x_mod.dtype], _DTYPE_CODES[weights.dtype], device,
         stream,
     )
-    build.check(lib, err, "adaptive_conv_fwd")
+    build.check(lib, err, "adaptive_conv_fwd_simt")
 
 
-def adaptive_conv_fwd(x_mod, weights, attn, demod):
-    """K1 on a CUDA tensor, its plain version on a CPU tensor."""
-    if x_mod.device.type == "cpu":
-        return adaptive_conv_fwd_plain(x_mod, weights, attn, demod)
+def conv_uses_tensor_cores(dtype, ci: int, co: int) -> bool:
+    """K1's dispatch rule: bf16 operands with ci and co multiples of 16 go
+    to the tensor-core kernel (``csrc/adaptive_conv_fwd_tc.cu``: 16-, 32-
+    or 64-channel chunks, 16-, 32- or 64-wide co tiles); fp32 and other
+    channel counts to the CUDA-core kernel (``*_simt``)."""
+    return dtype == torch.bfloat16 and ci % 16 == 0 and co % 16 == 0
+
+
+def adaptive_conv_fwd_simt(x_mod, weights, attn, demod):
+    """K1 on CUDA cores (``csrc/adaptive_conv_fwd.cu``): float32 or bf16
+    operands with any channel counts."""
     _check(x_mod, weights, attn, demod)
     b, h, w, ci = x_mod.shape
     co = weights.shape[-1]
@@ -156,11 +167,66 @@ def adaptive_conv_fwd(x_mod, weights, attn, demod):
     out = torch.empty((b, h, w, co), dtype=x_mod.dtype, device=dev)
     launch(lib, x_mod, weights, attn, demod, out, partial, cps, dev.index,
            torch.cuda.current_stream(dev).cuda_stream)
-    adaptive_conv_fwd.launches += 1
+    adaptive_conv_fwd_simt.launches += 1
     return out
 
 
-adaptive_conv_fwd.launches = 0
+def adaptive_conv_fwd_tc(x_mod, weights, attn, demod):
+    """K1 on the tensor cores (``csrc/adaptive_conv_fwd_tc.cu``): bf16
+    x_mod with ci and co multiples of 16, float32 or bf16 weights."""
+    what = "adaptive_conv_fwd_tc"
+    ci, co = x_mod.shape[-1], weights.shape[-1]
+    if not conv_uses_tensor_cores(x_mod.dtype, ci, co):
+        raise ValueError(f"{what}: takes bf16 with ci and co multiples of "
+                         f"16, got {x_mod.dtype} with {ci} -> {co}")
+    _check(x_mod, weights, attn, demod)
+    b, h, w, _ = x_mod.shape
+    n = weights.shape[0]
+    if x_mod.data_ptr() % 16:
+        raise ValueError(f"{what}: x_mod is not 16-byte aligned (the "
+                         "tensor-core kernel reads it by TMA)")
+    dev = x_mod.device
+    lib = build.load("adaptive_conv_fwd_tc")
+    plan = lib.gigagan_adaptive_conv_fwd_tc_splits
+    plan.argtypes = [ctypes.c_int] * 6
+    plan.restype = ctypes.c_int
+    splits = plan(b, h, w, ci, co, dev.index)
+    if splits <= 0:
+        raise RuntimeError(f"{what}: could not query the device")
+    partial = (torch.empty((splits, b, h, w, co), dtype=torch.float32,
+                           device=dev) if splits > 1 else None)
+    out = torch.empty((b, h, w, co), dtype=x_mod.dtype, device=dev)
+    fn = lib.gigagan_adaptive_conv_fwd_tc
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    err = fn(
+        x_mod.data_ptr(), weights.data_ptr(), attn.data_ptr(),
+        demod.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), b, h, w, ci, co, n,
+        _DTYPE_CODES[weights.dtype], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, err, what)
+    adaptive_conv_fwd_tc.launches += 1
+    return out
+
+
+adaptive_conv_fwd_simt.launches = 0
+adaptive_conv_fwd_tc.launches = 0
+
+
+def adaptive_conv_fwd(x_mod, weights, attn, demod):
+    """K1: its plain version on CPU tensors; on CUDA tensors the
+    tensor-core or the CUDA-core kernel by ``conv_uses_tensor_cores``."""
+    if x_mod.device.type == "cpu":
+        return adaptive_conv_fwd_plain(x_mod, weights, attn, demod)
+    kernel = (adaptive_conv_fwd_tc
+              if conv_uses_tensor_cores(x_mod.dtype, x_mod.shape[-1],
+                                        weights.shape[-1])
+              else adaptive_conv_fwd_simt)
+    return kernel(x_mod, weights, attn, demod)
 
 
 # ------------------------------------------------------------------ K2

@@ -52,12 +52,14 @@ def nvcc_path() -> str:
 
 KERNELS = (
     "adaptive_conv_fwd",
+    "adaptive_conv_fwd_tc",
     "adaptive_conv_bwd_w",
     "flash_attention_fused_fwd",
     "flash_attention_fused_fwd_tc",
     "flash_attention_fused_bwd",
     "flash_attention_fused_bwd_tc",
     "flash_attention_so_bwd2",
+    "flash_attention_so_bwd2_tc",
     "flash_attention_fwd",
     "flash_attention_bwd",
     "flash_attention_hv_jvp",

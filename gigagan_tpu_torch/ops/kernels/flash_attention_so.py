@@ -1,9 +1,12 @@
-"""Kernels K4 and K5 (``csrc/flash_attention_so_bwd2.cu``): the backward of
-the fused-heads attention K3 and its adjoint, their plain PyTorch versions,
-and the autograd chain K3 → K4 → K5 behind ``flash_attend_fused``.  K4 has
-two implementations, picked as K3's are (``uses_tensor_cores``): on the
-tensor cores (``csrc/flash_attention_fused_bwd_tc.cu``) for bf16 at d = 64
-or 128, on CUDA cores (``csrc/flash_attention_fused_bwd.cu``) otherwise.
+"""Kernels K4 and K5: the backward of the fused-heads attention K3 and its
+adjoint, their plain PyTorch versions, and the autograd chain K3 → K4 → K5
+behind ``flash_attend_fused``.  Each has two implementations.  K4 is
+picked as K3 is (``uses_tensor_cores``): on the tensor cores
+(``csrc/flash_attention_fused_bwd_tc.cu``) for bf16 at d = 64 or 128, on
+CUDA cores (``csrc/flash_attention_fused_bwd.cu``) otherwise.  K5 by
+``so_uses_tensor_cores``: on the tensor cores
+(``csrc/flash_attention_so_bwd2_tc.cu``) for bf16 at d = 64, on CUDA cores
+(``csrc/flash_attention_so_bwd2.cu``) otherwise.
 
 Everything works on K3's PREPARED operands (``prep_fused``):
 q (b, nq, H·d), k_pre = coeff·k and v (b, nk, H·d), bias (b, H, nk) fp32
@@ -320,18 +323,22 @@ def flash_attention_so_bwd2_plain(q, k_pre, v, bias, nullk_pre, nullv,
             cnv, cnb, _merge(cg, dt))
 
 
-def flash_attention_so_bwd2(q, k_pre, v, bias, nullk_pre, nullv, null_bias,
-                            g, lse, cdq, cdk, cdv, cdbias, cdnullk, cdnullv,
-                            cdnull_bias, heads: int):
-    """K5 on CUDA tensors, its plain version on CPU tensors (same returns
-    as the plain version)."""
-    if q.device.type == "cpu":
-        return flash_attention_so_bwd2_plain(
-            q, k_pre, v, bias, nullk_pre, nullv, null_bias, g, lse, cdq, cdk,
-            cdv, cdbias, cdnullk, cdnullv, cdnull_bias, heads,
-        )
-    what = "flash_attention_so_bwd2"
-    _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)
+def so_uses_tensor_cores(dtype, d: int) -> bool:
+    """K5's dispatch rule: bf16 operands at head dim 64 go to the
+    tensor-core kernels (``csrc/flash_attention_so_bwd2_tc.cu``); fp32 and
+    every other head dim up to 128 (d = 128 among them: its two (64 × d)
+    accumulators and four pieces do not fit the tensor-core kernel's
+    registers) to the CUDA-core kernels (``*_simt``)."""
+    return dtype == torch.bfloat16 and d == 64
+
+
+def _so_bwd2_launch(what, source, q, k_pre, v, bias, nullk_pre, nullv,
+                    null_bias, g, lse, cdq, cdk, cdv, cdbias, cdnullk,
+                    cdnullv, cdnull_bias, heads, *dtype):
+    """Check the operands, allocate, and call ``gigagan_<what>`` of
+    ``csrc/<source>.cu``: the two K5 implementations share one C signature,
+    and only the CUDA-core one takes a dtype code.  The caller has run
+    ``_check``."""
     b, nq, hd = q.shape
     nk = k_pre.shape[1]
     d = hd // heads
@@ -368,11 +375,10 @@ def flash_attention_so_bwd2(q, k_pre, v, bias, nullk_pre, nullv, null_bias,
         cnk = torch.empty((heads, d), **f32)
         cnv = torch.empty((heads, d), **f32)
         cnb = torch.empty((heads,), **f32)
-    lib = build.load("flash_attention_so_bwd2")
-    fn = lib.gigagan_flash_attention_so_bwd2
-    fn.argtypes = [ctypes.c_void_p] * 26 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p
-    ]
+    lib = build.load(source)
+    fn = getattr(lib, f"gigagan_{what}")
+    fn.argtypes = [ctypes.c_void_p] * 26 + [ctypes.c_int] * (
+        7 + len(dtype)) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(
         q.data_ptr(), k_pre.data_ptr(), v.data_ptr(), _ptr(bias),
@@ -381,16 +387,65 @@ def flash_attention_so_bwd2(q, k_pre, v, bias, nullk_pre, nullv, null_bias,
         _ptr(cdbias), _ptr(cdnullk), _ptr(cdnullv), _ptr(cdnull_bias),
         cq.data_ptr(), ckp.data_ptr(), cv.data_ptr(), cg.data_ptr(),
         _ptr(cbias), stats.data_ptr(), _ptr(part), _ptr(cnk), _ptr(cnv),
-        _ptr(cnb), b, nq, nk, heads, d, int(have_null),
-        _DTYPE_CODES[q.dtype], dev.index,
+        _ptr(cnb), b, nq, nk, heads, d, int(have_null), *dtype, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, what)
-    flash_attention_so_bwd2.launches += 1
     return cq, ckp, cv, cbias, cnk, cnv, cnb, cg
 
 
-flash_attention_so_bwd2.launches = 0
+def flash_attention_so_bwd2_simt(q, k_pre, v, bias, nullk_pre, nullv,
+                                 null_bias, g, lse, cdq, cdk, cdv, cdbias,
+                                 cdnullk, cdnullv, cdnull_bias, heads: int):
+    """K5 on CUDA cores (``csrc/flash_attention_so_bwd2.cu``), float32 or
+    bf16 with head dim up to 128 (returns as the plain version)."""
+    _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)
+    res = _so_bwd2_launch(
+        "flash_attention_so_bwd2_simt", "flash_attention_so_bwd2", q, k_pre,
+        v, bias, nullk_pre, nullv, null_bias, g, lse, cdq, cdk, cdv, cdbias,
+        cdnullk, cdnullv, cdnull_bias, heads, _DTYPE_CODES[q.dtype])
+    flash_attention_so_bwd2_simt.launches += 1
+    return res
+
+
+def flash_attention_so_bwd2_tc(q, k_pre, v, bias, nullk_pre, nullv,
+                               null_bias, g, lse, cdq, cdk, cdv, cdbias,
+                               cdnullk, cdnullv, cdnull_bias, heads: int):
+    """K5 on the tensor cores (``csrc/flash_attention_so_bwd2_tc.cu``),
+    bf16 at head dim 64 (returns as the plain version)."""
+    what = "flash_attention_so_bwd2_tc"
+    d = _head_dim(what, q, heads)
+    if not so_uses_tensor_cores(q.dtype, d):
+        raise ValueError(f"{what}: takes bf16 with head dim 64, got "
+                         f"{q.dtype} with {d}")
+    _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)
+    check_tc(what, (("q", q), ("k_pre", k_pre), ("v", v), ("g", g),
+                    ("cdq", cdq), ("cdk", cdk), ("cdv", cdv)))
+    res = _so_bwd2_launch(
+        what, what, q, k_pre, v, bias, nullk_pre, nullv, null_bias, g, lse,
+        cdq, cdk, cdv, cdbias, cdnullk, cdnullv, cdnull_bias, heads)
+    flash_attention_so_bwd2_tc.launches += 1
+    return res
+
+
+flash_attention_so_bwd2_simt.launches = 0
+flash_attention_so_bwd2_tc.launches = 0
+
+
+def flash_attention_so_bwd2(q, k_pre, v, bias, nullk_pre, nullv, null_bias,
+                            g, lse, cdq, cdk, cdv, cdbias, cdnullk, cdnullv,
+                            cdnull_bias, heads: int):
+    """K5: its plain version on CPU tensors; on CUDA tensors the
+    tensor-core or the CUDA-core kernel by ``so_uses_tensor_cores`` (same
+    returns as the plain version)."""
+    args = (q, k_pre, v, bias, nullk_pre, nullv, null_bias, g, lse, cdq,
+            cdk, cdv, cdbias, cdnullk, cdnullv, cdnull_bias, heads)
+    if q.device.type == "cpu":
+        return flash_attention_so_bwd2_plain(*args)
+    d = _head_dim("flash_attention_so_bwd2", q, heads)
+    kernel = (flash_attention_so_bwd2_tc if so_uses_tensor_cores(q.dtype, d)
+              else flash_attention_so_bwd2_simt)
+    return kernel(*args)
 
 
 # ------------------------------------------------------ the autograd chain

@@ -168,7 +168,8 @@ def test_k1_plain_rounds_the_mix_like_the_kernel():
 def test_kernel_wrappers_never_fall_back_off_the_cpu():
     # a tensor that is not on the CPU goes to the kernel or raises; CPU
     # calls run the plain version and do not count as launches
-    before = k1.adaptive_conv_fwd.launches
+    k1_entries = (k1.adaptive_conv_fwd_tc, k1.adaptive_conv_fwd_simt)
+    before = [f.launches for f in k1_entries]
     meta = torch.empty(1, 4, 4, 8, device="meta")
     with pytest.raises(ValueError, match="on meta"):
         k1.adaptive_conv_fwd(meta, torch.empty(1, 3, 3, 8, 8, device="meta"),
@@ -179,7 +180,7 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
         k3.flash_attention_fused_fwd(q, q, q, None, None, None, None, 1)
     x, weights, mod, kmod = conv_inputs(6)
     adaptive_conv(t(x), t(weights), t(mod), t(kmod))
-    assert k1.adaptive_conv_fwd.launches == before
+    assert [f.launches for f in k1_entries] == before
 
 
 # --------------------------------------------------------------- attention
@@ -436,6 +437,21 @@ def test_backward_kernel_wrappers_never_fall_back_off_the_cpu():
                                    q, q, q, None, None, None, None, 1)
 
 
+def _counting_standins(monkeypatch, mod, base):
+    """Replace ``<base>_tc`` and ``<base>_simt`` of ``mod`` with stand-ins
+    that count their calls; returns them by route."""
+    def standin():
+        def entry(*args):
+            entry.launches += 1
+        entry.launches = 0
+        return entry
+
+    entries = {r: standin() for r in ("tc", "simt")}
+    for r, entry in entries.items():
+        monkeypatch.setattr(mod, f"{base}_{r}", entry)
+    return entries
+
+
 # K3 and K4 each have a tensor-core and a CUDA-core kernel, picked by one
 # rule on (dtype, head dim)
 DISPATCH = [(torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
@@ -454,18 +470,11 @@ def _meta_attention(dtype, d, heads=2, n=16):
 def test_fused_attention_dispatch_rule(dtype, d, route, monkeypatch):
     # a tensor off the CPU goes to the implementation the rule names; each
     # entry is replaced by a stand-in that counts its launches
-    def standin(name):
-        def entry(*args):
-            entry.launches += 1
-        entry.launches = 0
-        return entry
-
     entries = {}
     for mod, base in ((k3, "flash_attention_fused_fwd"),
                       (so, "flash_attention_fused_bwd")):
-        for r in ("tc", "simt"):
-            entries[f"{base}_{r}"] = standin(f"{base}_{r}")
-            monkeypatch.setattr(mod, f"{base}_{r}", entries[f"{base}_{r}"])
+        for r, entry in _counting_standins(monkeypatch, mod, base).items():
+            entries[f"{base}_{r}"] = entry
     q, lse, heads = _meta_attention(dtype, d)
     assert k3.uses_tensor_cores(dtype, d) == (route == "tc")
     k3.flash_attention_fused_fwd(q, q, q, None, None, None, None, heads)
@@ -477,8 +486,18 @@ def test_fused_attention_dispatch_rule(dtype, d, route, monkeypatch):
         for r in ("tc", "simt")}
 
 
+# every implementation of K3, K4 and K5, each with its own launch count
+ATTN_ENTRIES = (k3.flash_attention_fused_fwd_tc,
+                k3.flash_attention_fused_fwd_simt,
+                so.flash_attention_fused_bwd_tc,
+                so.flash_attention_fused_bwd_simt,
+                so.flash_attention_so_bwd2_tc,
+                so.flash_attention_so_bwd2_simt)
+
+
 @pytest.mark.parametrize("entry", ["fwd", "fwd_tc", "fwd_simt", "bwd",
-                                   "bwd_tc", "bwd_simt", "so_bwd2"])
+                                   "bwd_tc", "bwd_simt", "so_bwd2",
+                                   "so_bwd2_simt"])
 def test_attention_kernels_take_heads_up_to_128(entry):
     # every entry of K3, K4 and K5 takes d = 128 (it reaches the device
     # check) and refuses d = 136; none counts a launch
@@ -490,32 +509,23 @@ def test_attention_kernels_take_heads_up_to_128(entry):
         if entry.startswith("bwd"):
             fn = getattr(so, "flash_attention_fused_" + entry)
             return fn(q, q, q, None, None, None, None, q, q, lse, heads), fn
-        fn = so.flash_attention_so_bwd2
+        fn = getattr(so, "flash_attention_" + entry)
         return fn(q, q, q, None, None, None, None, q, lse, q, q, q, None,
                   None, None, None, heads), fn
 
-    launched = [f.launches for f in (
-        k3.flash_attention_fused_fwd_tc, k3.flash_attention_fused_fwd_simt,
-        so.flash_attention_fused_bwd_tc, so.flash_attention_fused_bwd_simt,
-        so.flash_attention_so_bwd2)]
+    launched = [f.launches for f in ATTN_ENTRIES]
     with pytest.raises(ValueError, match="on meta"):
         call(128)
     with pytest.raises(ValueError, match="head dim 136 > 128"):
         call(136)
-    assert launched == [f.launches for f in (
-        k3.flash_attention_fused_fwd_tc, k3.flash_attention_fused_fwd_simt,
-        so.flash_attention_fused_bwd_tc, so.flash_attention_fused_bwd_simt,
-        so.flash_attention_so_bwd2)]
+    assert launched == [f.launches for f in ATTN_ENTRIES]
 
 
 @pytest.mark.parametrize("d", [64, 80])
 def test_fused_attention_on_cpu_runs_plain_and_launches_nothing(d):
     # bf16 CPU tensors, whichever implementation the rule would pick on the
     # card: the chain runs the plain versions, and no counter moves
-    counters = (k3.flash_attention_fused_fwd_tc,
-                k3.flash_attention_fused_fwd_simt,
-                so.flash_attention_fused_bwd_tc,
-                so.flash_attention_fused_bwd_simt, so.flash_attention_so_bwd2)
+    counters = ATTN_ENTRIES
     before = [f.launches for f in counters]
     q, k, v, g, null_kv = (None if a is None else t(a).bfloat16()
                            for a in attn_inputs(40, True, n=16, d=d))
@@ -528,6 +538,116 @@ def test_fused_attention_on_cpu_runs_plain_and_launches_nothing(d):
                                                 2)
     assert torch.equal(out, ref)
     assert qg.grad is not None
+    assert [f.launches for f in counters] == before
+
+
+# K1 and K5 each have a tensor-core and a CUDA-core kernel too: K1 by
+# (dtype, ci, co), K5 by (dtype, head dim)
+# the generator's 15 convs (forward and as dx, ci and co swapped) have
+# channel counts 16-512 in powers of two; 48 and 24 are not on the path
+K1_DISPATCH = [(torch.bfloat16, ci, co, "tc")
+               for ci, co in ((512, 512), (512, 256), (256, 128), (128, 64),
+                              (64, 32), (32, 16), (16, 16), (16, 32),
+                              (64, 48))] + [
+    (torch.bfloat16, 24, 16, "simt"), (torch.bfloat16, 64, 40, "simt"),
+    (torch.float32, 512, 512, "simt"), (torch.float32, 16, 16, "simt")]
+
+
+@pytest.mark.parametrize(
+    "dtype,ci,co,route", K1_DISPATCH,
+    ids=[f"{str(dt).split('.')[-1]}-{ci}-{co}" for dt, ci, co, _ in
+         K1_DISPATCH])
+def test_adaptive_conv_dispatch_rule(dtype, ci, co, route, monkeypatch):
+    # a tensor off the CPU goes to the implementation the rule names
+    entries = _counting_standins(monkeypatch, k1, "adaptive_conv_fwd")
+    assert k1.conv_uses_tensor_cores(dtype, ci, co) == (route == "tc")
+    meta = dict(device="meta")
+    k1.adaptive_conv_fwd(torch.empty(2, 8, 8, ci, dtype=dtype, **meta),
+                         torch.empty(2, 3, 3, ci, co, **meta),
+                         torch.empty(2, 2, **meta), torch.empty(2, co, **meta))
+    assert {r: e.launches for r, e in entries.items()} == {
+        r: int(r == route) for r in ("tc", "simt")}
+
+
+K5_DISPATCH = [(torch.bfloat16, 64, "tc"), (torch.float32, 64, "simt"),
+               (torch.bfloat16, 80, "simt"), (torch.bfloat16, 128, "simt"),
+               (torch.float32, 128, "simt"), (torch.bfloat16, 32, "simt")]
+
+
+@pytest.mark.parametrize(
+    "dtype,d,route", K5_DISPATCH,
+    ids=[f"{str(dt).split('.')[-1]}-d{d}" for dt, d, _ in K5_DISPATCH])
+def test_so_bwd2_dispatch_rule(dtype, d, route, monkeypatch):
+    entries = _counting_standins(monkeypatch, so, "flash_attention_so_bwd2")
+    assert so.so_uses_tensor_cores(dtype, d) == (route == "tc")
+    q, lse, heads = _meta_attention(dtype, d)
+    so.flash_attention_so_bwd2(q, q, q, None, None, None, None, q, lse, q, q,
+                               q, None, None, None, None, heads)
+    assert {r: e.launches for r, e in entries.items()} == {
+        r: int(r == route) for r in ("tc", "simt")}
+
+
+@pytest.mark.parametrize("entry", ["k1_tc", "k1_simt", "k5_tc", "k5_simt"])
+def test_new_entries_never_fall_back_off_the_cpu(entry):
+    # each implementation, called directly on a tensor that is not on the
+    # CPU, reaches the device check and raises; none counts a launch
+    counted = (k1.adaptive_conv_fwd_tc, k1.adaptive_conv_fwd_simt,
+               so.flash_attention_so_bwd2_tc, so.flash_attention_so_bwd2_simt)
+    before = [f.launches for f in counted]
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="on meta"):
+        if entry.startswith("k1"):
+            fn = getattr(k1, "adaptive_conv_fwd_" + entry[3:])
+            fn(torch.empty(1, 4, 4, 16, dtype=torch.bfloat16, **meta),
+               torch.empty(1, 3, 3, 16, 16, **meta),
+               torch.empty(1, 1, **meta), torch.empty(1, 16, **meta))
+        else:
+            fn = getattr(so, "flash_attention_so_bwd2_" + entry[3:])
+            q, lse, heads = _meta_attention(torch.bfloat16, 64)
+            fn(q, q, q, None, None, None, None, q, lse, q, q, q, None, None,
+               None, None, heads)
+    assert [f.launches for f in counted] == before
+
+
+def test_tensor_core_entries_refuse_what_they_do_not_take():
+    # K1's tensor-core entry takes bf16 with channel multiples of 16 only;
+    # K5's takes head dim 64 only (d = 128 stays on the CUDA cores, up to
+    # 128 like every attention entry); the message names the limit
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        k1.adaptive_conv_fwd_tc(
+            torch.empty(1, 4, 4, 24, dtype=torch.bfloat16, **meta),
+            torch.empty(1, 3, 3, 24, 16, **meta), torch.empty(1, 1, **meta),
+            torch.empty(1, 16, **meta))
+    for d, msg in ((128, "head dim 64"), (136, "head dim 136 > 128")):
+        q, lse, heads = _meta_attention(torch.bfloat16, d)
+        with pytest.raises(ValueError, match=msg):
+            so.flash_attention_so_bwd2_tc(q, q, q, None, None, None, None, q,
+                                          lse, q, q, q, None, None, None,
+                                          None, heads)
+
+
+@pytest.mark.parametrize("ci,co", [(16, 32), (24, 16)],
+                         ids=["tc-route", "simt-route"])
+def test_pconv2d_bf16_on_cpu_runs_plain_and_launches_nothing(ci, co):
+    # bf16 CPU tensors, whichever implementation the rule would pick on the
+    # card: the conv pair (K1 forward, K1 as dx, K2) runs the plain
+    # versions, and no counter moves
+    counters = (k1.adaptive_conv_fwd_tc, k1.adaptive_conv_fwd_simt,
+                k1.adaptive_conv_bwd_w)
+    before = [f.launches for f in counters]
+    rng = np.random.default_rng(41)
+    x = t(rng.standard_normal((2, 5, 6, ci)).astype(np.float32)).bfloat16()
+    w = t(rng.standard_normal((2, 3, 3, ci, co)).astype(np.float32) * 0.2)
+    a = torch.softmax(t(rng.standard_normal((2, 2)).astype(np.float32)), -1)
+    dm = t(rng.random((2, co)).astype(np.float32) + 0.5)
+    xg = x.clone().requires_grad_()
+    wg = w.clone().requires_grad_()
+    out = k1.pconv2d(xg, wg, a, dm)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, k1.adaptive_conv_fwd_plain(x, w, a, dm))
+    out.float().square().sum().backward()
+    assert xg.grad is not None and wg.grad is not None
     assert [f.launches for f in counters] == before
 
 
