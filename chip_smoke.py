@@ -38,17 +38,21 @@ Phases (any failure raises and exits non-zero):
    other request as the yardstick;
 6. hold K2 (weight gradient) and K1 as the input gradient (tensor cores
    in bf16), through the conv Function's backward, against plain PyTorch
-   at the same 15 shapes;
+   at the same 15 shapes, and K2 at 8 banks (two launches of at most 4);
 7. the same for K4 (attention backward; the SDPA yardstick is its
    backward), and K5 (its adjoint; tensor cores in bf16 at d = 64) at the
    d_step's R1 shapes, timed beside its CUDA-core kernel, and at the small
    rows (ragged with and without the null token, dot and L2; d = 128 and
    80 on the CUDA cores);
-8. hold K6a/K6b (split-heads attention and its backward) and K7a/K7b (its
-   jvp and the jvp's backward) against their plain versions at the two
-   attention shapes of the forward-over-reverse R1 surrogate (L2, the null
-   token as an extra key), fp32 and bf16, and at small masked shapes
-   (dot product, and head dims 128 and 80);
+8. hold K6a/K6b (split-heads attention and its backward; bf16 at d = 64
+   and 128 on the tensor-core kernels of K3/K4 with one head, the rest on
+   CUDA cores) and K7a/K7b (its jvp and the jvp's backward) against their
+   plain versions at the two attention shapes of the forward-over-reverse
+   R1 surrogate (L2, the null token as an extra key), fp32 and bf16, and
+   at small masked shapes (dot product, and head dims 128 and 80); K6a/K6b
+   also at a masked shape where one sample has every key masked, on both
+   routes, whose outputs must be finite; time K6a/K6b's two routes at φ's
+   pair beside the plain versions and SDPA;
 9. drive the training path: the quickstart G+D pair (256px, bf16, batch 8)
    takes 8 iterations of train_discriminator_step + train_generator_step
    with R1 on iterations 0 and 4; every loss must be finite and every
@@ -58,15 +62,18 @@ Phases (any failure raises and exits non-zero):
    4-iteration cadence are timed;
 10. the same 8 iterations with the R1 penalty taken forward-over-reverse
     (``GigaGAN(gp_fwd_over_rev=True)``): K6a, K6b, K7a and K7b on R1
-    d_steps only, K5 never; d_step+R1 timed beside phase 9's;
+    d_steps only, K5 never, every K6a/K6b launch on the tensor cores;
+    d_step+R1 timed beside phase 9's;
 11. fp32 steps on the card, each from the same fresh state: a d_step with
     R1 (both forms) and a g_step through the kernels against the same
     steps under ``plain_reference()`` (losses and every parameter's
     gradient), and the forward-over-reverse d_step against the
     reverse-over-reverse one (penalty and every gradient); then bf16: a
     d_step with R1 and a g_step through the tensor-core K3/K4 against the
-    same steps with the CUDA-core ones patched in, and the same for K1/K5;
-    each bf16 route's distance from the fp32 plain step is reported;
+    same steps with the CUDA-core ones patched in, the same for K1/K5, and
+    a forward-over-reverse d_step with R1 through the tensor-core K6a/K6b
+    against the CUDA-core ones; each bf16 route's distance from the fp32
+    plain step is reported;
 12. print the kernel table as one JSON line (time, plain version, library
     call where one computes the same function, bound, launches) and, last,
     the device line.
@@ -145,6 +152,12 @@ HV_PATH = [("phi", 64, HEADS, 1024, 1025, DIM_HEAD, True, False),
            ("masked dot", 2, 2, 300, 200, DIM_HEAD, False, True),
            ("masked L2 d128", 2, 2, 300, 200, 128, True, True),
            ("masked dot d80", 1, 3, 260, 131, 80, False, True)]
+# K6a/K6b where sample 0 has every key masked (NEG_INF in its whole bias
+# row): the plain version gives the mean of v, lse = NEG_INF and, from that
+# lse, P = 1 at every key; both routes must give it, finite
+K6_ALL_MASKED = ("all masked", 2, 2, 300, 200, DIM_HEAD, False, "all")
+# K2 with more banks than one launch takes (b, h, ci, co, banks)
+K2_BANKS = (BATCH, 32, 128, 128, 8)
 # fp32 rows read at most 1.6e-4 and bf16 rows at most 6.7e-3 on an H100
 K67_TOL_F32, K67_TOL_BF16 = 1e-3, 0.03
 ITERATIONS, R1_EVERY = 8, 4
@@ -311,6 +324,8 @@ def hv_operands(torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev):
         k, v, tk, tv = (rnd(b, h, nk, d) for _ in range(4))
         mask = torch.rand(b, nk, device=dev, generator=gen) > 0.3
         mask[:, 0] = True
+        if masked == "all":  # sample 0: every key masked
+            mask[0] = False
     q, k, v, tq, tk, tv = (x.to(dtype) for x in (q, k, v, tq, tk, tv))
     scale = d ** -0.5
     prepped = k6.prep_split(q, k, v, mask, l2, scale)
@@ -357,25 +372,25 @@ def main():
     bf16 = torch.bfloat16
     OUT_DIR.mkdir(exist_ok=True)
 
-    # K1, K3, K4 and K5 count the launches of both implementations; the
-    # CUDA-core ones alone are read as well, to show that no bf16 call
-    # reached them
+    # K1, K3, K4, K5, K6a and K6b count the launches of both
+    # implementations; the CUDA-core ones alone are read as well, to show
+    # that no bf16 call reached them
     simt = {"k1": k1.adaptive_conv_fwd_simt,
             "k3": k3.flash_attention_fused_fwd_simt,
             "k4": so.flash_attention_fused_bwd_simt,
-            "k5": so.flash_attention_so_bwd2_simt}
+            "k5": so.flash_attention_so_bwd2_simt,
+            "k6a": k6.flash_attention_fwd_simt,
+            "k6b": k6.flash_attention_bwd_simt}
     tc_entry = {"k1": k1.adaptive_conv_fwd_tc,
                 "k3": k3.flash_attention_fused_fwd_tc,
                 "k4": so.flash_attention_fused_bwd_tc,
-                "k5": so.flash_attention_so_bwd2_tc}
-    counters = {"k1": [tc_entry["k1"], simt["k1"]],
-                "k2": [k1.adaptive_conv_bwd_w],
-                "k3": [tc_entry["k3"], simt["k3"]],
-                "k4": [tc_entry["k4"], simt["k4"]],
-                "k5": [tc_entry["k5"], simt["k5"]],
-                "k6a": [k6.flash_attention_fwd], "k6b": [k6.flash_attention_bwd],
-                "k7a": [k7.flash_attention_hv_jvp],
-                "k7b": [k7.flash_attention_hv_bwd]}
+                "k5": so.flash_attention_so_bwd2_tc,
+                "k6a": k6.flash_attention_fwd_tc,
+                "k6b": k6.flash_attention_bwd_tc}
+    counters = {k_: [tc_entry[k_], simt[k_]] for k_ in tc_entry}
+    counters.update(k2=[k1.adaptive_conv_bwd_w],
+                    k7a=[k7.flash_attention_hv_jvp],
+                    k7b=[k7.flash_attention_hv_bwd])
 
     def reset_counts():
         for fns in counters.values():
@@ -394,7 +409,9 @@ def main():
     tc_home = {"k1": (k1, "adaptive_conv_fwd"),
                "k3": (k3, "flash_attention_fused_fwd"),
                "k4": (so, "flash_attention_fused_bwd"),
-               "k5": (so, "flash_attention_so_bwd2")}
+               "k5": (so, "flash_attention_so_bwd2"),
+               "k6a": (k6, "flash_attention_fwd"),
+               "k6b": (k6, "flash_attention_bwd")}
 
     @contextlib.contextmanager
     def simt_kernels(keys):
@@ -808,6 +825,32 @@ def main():
                         row["rel_dx_bf16"]) <= K2_TOL_BF16):
             fail(f"K2 / K1-as-dx disagrees at {row}")
     report["k2"] = list(k2_rows.values())
+    # more banks than one K2 launch takes: the wrapper's groups of 4
+    b, h, ci, co, n = K2_BANKS
+    x = torch.randn(b, h, h, ci, device=dev, generator=gen)
+    g = torch.randn(b, h, h, co, device=dev, generator=gen)
+    w = torch.randn(n, 3, 3, ci, co, device=dev, generator=gen) * (
+        2.0 / (9 * ci)) ** 0.5
+    a = torch.softmax(torch.randn(b, n, device=dev, generator=gen), -1)
+    want = k1.adaptive_conv_bwd_w_plain(x, g, w, a)
+    before = k1.adaptive_conv_bwd_w.launches
+    got32 = k1.adaptive_conv_bwd_w(x, g, w, a)
+    got16 = k1.adaptive_conv_bwd_w(x.bfloat16(), g.bfloat16(), w, a)
+    torch.cuda.synchronize()
+    row = dict(b=b, h=h, ci=ci, co=co, n=n,
+               launches=k1.adaptive_conv_bwd_w.launches - before,
+               rel_f32=max(rel_err(o, w_) for o, w_ in zip(got32, want)),
+               rel_bf16=max(rel_err(o, w_) for o, w_ in zip(got16, want)),
+               abs=max(abs_err(o, w_) for o, w_ in zip((*got32, *got16),
+                                                      want * 2)))
+    report["k2_banks"] = row
+    log(f"K2 b{b} {h}x{h} {ci}->{co} n={n}: {row['launches']} launches for "
+        f"two calls, rel f32 {row['rel_f32']:.2e} bf16 {row['rel_bf16']:.2e}")
+    if not (row["launches"] == 2 * -(-n // k1.MAX_BANKS)
+            and row["rel_f32"] <= K2_TOL_F32
+            and row["rel_bf16"] <= K2_TOL_BF16):
+        fail(f"K2 at {n} banks failed: {row}")
+    del x, g, w, a, want, got32, got16
 
     # ---------------------------------------------------------------- 7
     k4_rows, k5_rows = [], []
@@ -898,6 +941,21 @@ def main():
     report["k4"], report["k5"] = k4_rows, k5_rows
 
     # ---------------------------------------------------------------- 8
+    def k6_route(dtype, d):
+        return "tc" if k3.uses_tensor_cores(dtype, d) else "simt"
+
+    def launched_on(kname, call):
+        """call() and the route of K6a/K6b it launched on (None if it did
+        not launch exactly once, on one route)."""
+        before = {r: e[kname].launches for r, e in (("tc", tc_entry),
+                                                      ("simt", simt))}
+        res = call()
+        ran = {r: e[kname].launches - before[r]
+               for r, e in (("tc", tc_entry), ("simt", simt))}
+        hit = [r for r, n_ in ran.items() if n_]
+        return res, (hit[0] if len(hit) == 1 and ran[hit[0]] == 1
+                     else None)
+
     hv_rows = []
     for who, b, h, nq, nk, d, l2, masked in HV_PATH:
         for dtype in (torch.float32, torch.bfloat16):
@@ -921,9 +979,15 @@ def main():
                         lambda: k7.flash_attention_hv_bwd_plain(
                             *ops, *tang, lse7, go, gt)),
             }
+            simt_calls = {
+                "k6a": lambda: k6.flash_attention_fwd_simt(*ops),
+                "k6b": lambda: k6.flash_attention_bwd_simt(*ops, g, out,
+                                                           lse)}
             row = dict(who=who, bh=b * h, nq=nq, nk=nk, d=d, l2=l2,
-                       masked=masked, dtype=str(dtype).split(".")[-1])
-            if who == "phi" and dtype == torch.bfloat16:
+                       masked=masked, dtype=str(dtype).split(".")[-1],
+                       route_k6=k6_route(dtype, d))
+            phi_bf16 = who == "phi" and dtype == torch.bfloat16
+            if phi_bf16:
                 # products per call: K6a S, P·V; K6b S, dA, dq, dk, dv; K7a
                 # S, two for T, P·V, P·tV, (P⊙T)·V; K7b (no cotangent on
                 # out) S, two for T, two for the pieces, eight for the
@@ -945,7 +1009,14 @@ def main():
                 row["k6a_library"], row["k6b_library"] = fwd_ms, bwd_ms
                 row["library_note"] = note
             for kname, (kernel, plain) in checks.items():
-                got, want = kernel(), plain()
+                if kname in simt_calls:
+                    got, route = launched_on(kname, kernel)
+                    if route != row["route_k6"]:
+                        fail(f"{kname.upper()} at {row} ran on {route}, the "
+                             f"rule names {row['route_k6']}")
+                else:
+                    got = kernel()
+                want = plain()
                 torch.cuda.synchronize()
                 pairs = list(zip(got, want))
                 row[kname] = dict(
@@ -955,17 +1026,75 @@ def main():
                 torch.cuda.empty_cache()
                 row[kname]["ms"] = time_ms(kernel, torch)
                 row[kname]["plain_ms"] = time_ms(plain, torch)
+                if phi_bf16 and kname in simt_calls:
+                    row[kname]["simt_ms"] = time_ms(simt_calls[kname], torch)
                 torch.cuda.empty_cache()
                 if not row[kname]["rel"] <= tol:
                     fail(f"{kname.upper()} disagrees at {row}")
             hv_rows.append(row)
             log(f"K6a-K7b {who} bh{b * h} nq{nq} nk{nk} d{d} l2={l2} "
-                f"{row['dtype']} (tol {tol}): " + "; ".join(
+                f"{row['dtype']} (tol {tol}; K6 on {row['route_k6']}): "
+                + "; ".join(
                     f"{k_} rel {row[k_]['rel']:.2e} ms {row[k_]['ms']:.4f} "
-                    f"(plain {row[k_]['plain_ms']:.4f})" for k_ in checks))
-            del ops, tang, g, gt, go, out, lse, lse7, checks
+                    + (f"(simt {row[k_]['simt_ms']:.4f}, " if "simt_ms"
+                       in row[k_] else "(")
+                    + f"plain {row[k_]['plain_ms']:.4f})" for k_ in checks)
+                + (f"; SDPA {row['k6a_library']} / backward "
+                   f"{row['k6b_library']}, bounds {row['k6a_bound'][0]:.4f}"
+                   f" / {row['k6b_bound'][0]:.4f} [{smi}]" if phi_bf16
+                   else ""))
+            del ops, tang, g, gt, go, out, lse, lse7, checks, simt_calls
             torch.cuda.empty_cache()
     report["k6_k7"] = hv_rows
+
+    # K6a/K6b where one sample has every key masked, on each route that
+    # takes the dtype: finite, and the plain version's numbers (lse exactly
+    # NEG_INF on the all-masked rows)
+    k6_masked = []
+    who, b, h, nq, nk, d, l2, masked = K6_ALL_MASKED
+    for dtype in (torch.float32, bf16):
+        tol = K67_TOL_F32 if dtype == torch.float32 else K67_TOL_BF16
+        ops, _, g, _ = hv_operands(torch, gen, b, h, nq, nk, d, l2, masked,
+                                   dtype, dev)
+        dead = (ops[3] == k6.NEG_INF).all(-1)
+        if not dead.any() or dead.all():
+            fail(f"the all-masked K6 row has {int(dead.sum())} dead rows")
+        out, lse = k6.flash_attention_fwd_plain(*ops)
+        want_b = k6.flash_attention_bwd_plain(*ops, g, out, lse)
+        routes = ("tc", "simt") if k6_route(dtype, d) == "tc" else ("simt",)
+        for r in routes:
+            got_o, got_l = getattr(k6, f"flash_attention_fwd_{r}")(*ops)
+            got_b = getattr(k6, f"flash_attention_bwd_{r}")(*ops, g, out,
+                                                            lse)
+            torch.cuda.synchronize()
+            got = (got_o, got_l, *got_b)
+            row = dict(
+                who=who, bh=b * h, nq=nq, nk=nk, d=d,
+                dtype=str(dtype).split(".")[-1], route=r,
+                dead_rows=int(dead.sum()),
+                finite=all(bool(torch.isfinite(x).all()) for x in got),
+                lse_dead_exact=bool((got_l[dead] == lse[dead]).all()),
+                k6a=dict(rel=max(rel_err(got_o, out),
+                                 rel_err(got_l[~dead], lse[~dead])),
+                         abs=max(abs_err(got_o, out),
+                                 abs_err(got_l[~dead], lse[~dead]))),
+                k6b=dict(rel=max(rel_err(a_, w_)
+                                 for a_, w_ in zip(got_b, want_b)),
+                         abs=max(abs_err(a_, w_)
+                                 for a_, w_ in zip(got_b, want_b))))
+            k6_masked.append(row)
+            log(f"K6a/K6b {who} bh{b * h} nq{nq} nk{nk} d{d} {row['dtype']} "
+                f"({r}, {row['dead_rows']} all-masked rows): finite "
+                f"{row['finite']}, lse NEG_INF there {row['lse_dead_exact']},"
+                f" rel K6a {row['k6a']['rel']:.2e} K6b {row['k6b']['rel']:.2e}"
+                f" (tol {tol})")
+            if not (row["finite"] and row["lse_dead_exact"]
+                    and max(row["k6a"]["rel"], row["k6b"]["rel"]) <= tol):
+                fail(f"K6a/K6b with all-masked rows failed: {row}")
+            del got_o, got_l, got_b, got
+        del ops, g, out, lse, want_b
+        torch.cuda.empty_cache()
+    report["k6_all_masked"] = k6_masked
 
     # ------------------------------------------------------------- 9, 10
     data = MockImageDataset(QUICKSTART["image_size"], length=8 * BATCH,
@@ -1151,13 +1280,14 @@ def main():
         return out
 
     plain_step = {kind: fp32_step(kind, True) for kind in ("d", "g")}
+    plain_step["d_fwd_over_rev"] = fp32_step("d", True, True)
     d_ror, d_for = fp32_step("d", False), fp32_step("d", False, True)
     report["step_vs_plain_f32"] = step_rel = {}
     step_rel["d"] = compare("fp32 d_step +R1 kernels vs plain path", d_ror,
                             plain_step["d"])
     step_rel["d_fwd_over_rev"] = compare(
         "fp32 d_step +R1 forward-over-reverse, kernels vs plain path", d_for,
-        fp32_step("d", True, True))
+        plain_step["d_fwd_over_rev"])
     step_rel["d_fwd_over_rev_vs_ror"] = compare(
         "fp32 d_step +R1 forward-over-reverse vs reverse-over-reverse, "
         "kernels", d_for, d_ror, loss_keys=["gradient_penalty"])
@@ -1166,13 +1296,17 @@ def main():
                             fp32_step("g", False), plain_step["g"])
 
     def bf16_step(kind, route, keys):
+        """A bf16 step of `kind` ("d", "g", or "d_fwd_over_rev": the d_step
+        with R1 taken forward-over-reverse) with the kernels `keys` on
+        `route`."""
         reset_counts()
         with (simt_kernels(keys) if route == "simt"
               else contextlib.nullcontext()):
-            res = fp32_step(kind, False, amp=True)
+            res = fp32_step(kind[0], False, fwd_over_rev=kind != kind[0],
+                            amp=True)
         tc = {k_: tc_entry[k_].launches for k_ in keys}
         sc = {k_: simt[k_].launches for k_ in keys}
-        ran = [k_ for k_ in keys if kind == "d" or k_ != "k5"]
+        ran = [k_ for k_ in keys if kind[0] == "d" or k_ != "k5"]
         used, unused = (tc, sc) if route == "tc" else (sc, tc)
         if not all(used[k_] for k_ in ran) or any(unused.values()):
             fail(f"bf16 {kind}_step on the {route} route launched tensor-core "
@@ -1188,9 +1322,13 @@ def main():
         worst = max(rel, key=rel.get)
         return rel[worst], worst
 
-    for keys in (("k3", "k4"), ("k1", "k5")):
+    for keys, kinds in (
+            (("k3", "k4"), (("d", "d_step +R1"), ("g", "g_step"))),
+            (("k1", "k5"), (("d", "d_step +R1"), ("g", "g_step"))),
+            (("k6a", "k6b"), (("d_fwd_over_rev",
+                               "d_step +R1 forward-over-reverse"),))):
         names = "/".join(k_.upper() for k_ in keys)
-        for kind, label in (("d", "d_step +R1"), ("g", "g_step")):
+        for kind, label in kinds:
             runs = {r: bf16_step(kind, r, keys) for r in ("tc", "simt")}
             key = f"{kind}_bf16_tc_vs_simt_{'_'.join(keys)}"
             step_rel[key] = compare(
@@ -1251,8 +1389,9 @@ def main():
              source="gigagan_tpu_torch/csrc/adaptive_conv_bwd_w.cu",
              replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:269",
              launches=train_launches["k2"],
-             max_abs_err=max(max(r["abs_f32"], r["abs_bf16"])
-                             for r in k2_rows.values()),
+             max_abs_err=max([max(r["abs_f32"], r["abs_bf16"])
+                              for r in k2_rows.values()]
+                             + [report["k2_banks"]["abs"]]),
              **timing(k2_weighted, "_bf16")),
         dict(name="flash_attention_fused_fwd", route="cuda",
              source="gigagan_tpu_torch/csrc/flash_attention_fused_fwd_tc.cu",
@@ -1281,25 +1420,36 @@ def main():
              simt_ms=total(r1_bf16, "simt_ms")),
     ]
     # K6a-K7b: launches from the forward-over-reverse run, times summed
-    # over φ's two attentions in bf16
+    # over φ's two attentions in bf16; K6a/K6b on the tensor-core kernels
+    # of K3/K4 there, their CUDA-core kernels beside them
     phi_bf16 = [r for r in hv_rows if r["who"] == "phi"
                 and r["dtype"] == "bfloat16"]
-    for key, source, replaces in (
-        ("k6a", "flash_attention_fwd", "flash_attention.py:118"),
-        ("k6b", "flash_attention_bwd", "flash_attention.py:143"),
-        ("k7a", "flash_attention_hv_jvp", "flash_attention_hv.py:76"),
-        ("k7b", "flash_attention_hv_bwd", "flash_attention_hv.py:110"),
+    for key, name_, source, replaces in (
+        ("k6a", "flash_attention_fwd", "flash_attention_fused_fwd_tc",
+         "flash_attention.py:118"),
+        ("k6b", "flash_attention_bwd", "flash_attention_fused_bwd_tc",
+         "flash_attention.py:143"),
+        ("k7a", "flash_attention_hv_jvp", "flash_attention_hv_jvp",
+         "flash_attention_hv.py:76"),
+        ("k7b", "flash_attention_hv_bwd", "flash_attention_hv_bwd",
+         "flash_attention_hv.py:110"),
     ):
         rows = [(1, dict(r[key], library_ms=r.get(f"{key}_library"),
                          bound_ms=r[f"{key}_bound"][0],
                          bound_by=r[f"{key}_bound"][1])) for r in phi_bf16]
-        kernels.append(dict(
-            name=source, route="cuda",
+        entry = dict(
+            name=name_, route="cuda",
             source=f"gigagan_tpu_torch/csrc/{source}.cu",
             replaces=f"gigagan_tpu/ops/pallas/{replaces}",
             launches=for_launches[key],
-            max_abs_err=max(r[key]["abs"] for r in hv_rows),
-            **timing(rows)))
+            max_abs_err=max([r[key]["abs"] for r in hv_rows]
+                            + [r[key]["abs"] for r in k6_masked
+                               if key in r]),
+            **timing(rows))
+        if key in simt:
+            entry.update(simt_source=f"gigagan_tpu_torch/csrc/{name_}.cu",
+                         simt_ms=total(rows, "simt_ms"))
+        kernels.append(entry)
     cadences = ITERATIONS // R1_EVERY
     for k_ in kernels:
         k_["launches_per_cadence"] = k_["launches"] / cadences

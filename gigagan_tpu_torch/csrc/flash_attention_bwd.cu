@@ -1,5 +1,7 @@
 // Split-heads flash attention backward from the saved log-sum-exp (kernel
-// K6b).
+// K6b) on CUDA cores: the route for float32 and for head dims other than 64
+// and 128 (bf16 at 64 and 128 runs flash_attention_fused_bwd_tc.cu with one
+// head).
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` in
 // gigagan_tpu/ops/pallas/flash_attention.py (called through `_flash_bwd`,
@@ -269,7 +271,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 // dtype codes: 0 = float32, 1 = bfloat16.  `delta` is a (bh, nq) fp32
 // workspace.  Returns a cudaError_t.
-extern "C" int gigagan_flash_attention_bwd(
+extern "C" int gigagan_flash_attention_bwd_simt(
     const void* q, const void* k, const void* v, const void* bias,
     const void* g, const void* out, const void* lse, void* dq, void* dk,
     void* dv, void* dbias, void* delta, int bh, int nq, int nk, int d,

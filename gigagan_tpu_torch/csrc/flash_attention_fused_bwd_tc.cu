@@ -35,6 +35,15 @@
 //    takes the fp32 row sums of the unrounded dSᵀ.
 // 3. `null_reduce_kernel` (flash_attention_common.cuh): the null partials
 //    added in a fixed order.
+//
+// The same kernels are K6b's bf16 route for head dims 64 and 128 (the
+// split-heads backward, replacing `_bwd_kernel` of
+// gigagan_tpu/ops/pallas/flash_attention.py, called through `_flash_bwd`):
+// K6a's (b·h, n, d) operands with H = 1, b = b·h and no null token; dbias is
+// its fourth output.  A masked key's bias and an all-masked row's lse
+// (both NEG_INF) go to the log2 domain through `to_log2`, as in the forward,
+// so such a row gives P = 1 at every key from its lse, as the plain version
+// does.
 
 #include <math.h>
 
@@ -169,7 +178,7 @@ bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     for (int c = lane; c < kCols; c += 32) {
                       const int key = t * kCols + c;
                       vec[s * kCols + c] =
-                          key < nk ? (bias_b ? bias_b[key] * kLog2e : 0.f)
+                          key < nk ? (bias_b ? to_log2(bias_b[key]) : 0.f)
                                    : -INFINITY;
                     }
                   });
@@ -198,7 +207,7 @@ bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       const int rb = row_blk + 8 * i;
       const int row = q0 + rb;
       const bool valid = row < nq;
-      lse2[i] = valid ? lse[rows0 + row] * kLog2e : INFINITY;  // P = 0
+      lse2[i] = valid ? to_log2(lse[rows0 + row]) : INFINITY;  // P = 0
       const __nv_bfloat16* orow = out + ((size_t)bi * nq + row) * hd + hh * D;
       float part = 0.f;
       if (valid)
@@ -364,7 +373,7 @@ bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                       const int qr = t * kCols + c;
                       const bool ok = qr < nq;
                       vec[s * 2 * kCols + c] =
-                          ok ? lse[rows0 + qr] * kLog2e : INFINITY;
+                          ok ? to_log2(lse[rows0 + qr]) : INFINITY;
                       vec[s * 2 * kCols + kCols + c] =
                           ok ? delta[rows0 + qr] : 0.f;
                     }
@@ -383,7 +392,7 @@ bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int key = k0 + row_blk + 8 * i;
-      b2[i] = key < nk ? (bias ? bias[keys0 + key] * kLog2e : 0.f)
+      b2[i] = key < nk ? (bias ? to_log2(bias[keys0 + key]) : 0.f)
                        : -INFINITY;  // keys past nk: P = 0
       db[i] = 0.f;
     }

@@ -16,6 +16,14 @@
 // nullk_pre/nullv (H, d) bf16; null_bias (H,) f32; out (b, nq, H·d) bf16;
 // lse (b, H, nq) f32, which K4 and K5 read.
 //
+// The same kernel is K6a's bf16 route for head dims 64 and 128 (the
+// split-heads forward, replacing `_fwd_kernel` of
+// gigagan_tpu/ops/pallas/flash_attention.py, called through
+// `_flash_fwd_impl`): K6a's (b·h, n, d) operands are this layout with H = 1
+// and b = b·h, its (b·h, nk) bias this bias with H = 1, and it has no null
+// token.  Its bias holds NEG_INF at masked keys; `to_log2` keeps a row whose
+// every key is masked finite (the mean of v, lse = NEG_INF).
+//
 // What bounds it on an H100: 4·n²·d FLOPs per (sample, head) against
 // 4·n·d bytes of operands, so it is compute-bound at the discriminator's
 // shapes (n = 1024: ~0.14 ms of bf16 tensor-core work for the d_step's
@@ -120,7 +128,7 @@ fused_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int c = lane; c < kKeys; c += 32) {
           const int key = k0 + c;
           vec[s * kKeys + c] =
-              key < nk ? (bias_b ? bias_b[key] * kLog2e : 0.f) : -INFINITY;
+              key < nk ? (bias_b ? to_log2(bias_b[key]) : 0.f) : -INFINITY;
         }
         if (lane == 0) {
           mbar_arrive_tx(full(s), L::kStage);
@@ -268,9 +276,10 @@ fused_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
           *reinterpret_cast<__nv_bfloat162*>(orow + 64 * a + 8 * j + cq) =
               __floats2bfloat162_rn(o[a][4 * j + 2 * i] * inv,
                                     o[a][4 * j + 2 * i + 1] * inv);
+      // a row whose every key is masked keeps lse = NEG_INF (`to_log2`)
       if (lane % 4 == 0)
         lse[((size_t)bi * heads + hh) * nq + row] =
-            (m[i] + log2f(l_tot)) * kLn2;
+            m[i] == kMasked ? kMasked : (m[i] + log2f(l_tot)) * kLn2;
     }
   }
 }

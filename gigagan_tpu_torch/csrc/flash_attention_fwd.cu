@@ -1,4 +1,6 @@
-// Split-heads flash attention forward (kernel K6a).
+// Split-heads flash attention forward (kernel K6a) on CUDA cores: the route
+// for float32 and for head dims other than 64 and 128 (bf16 at 64 and 128
+// runs flash_attention_fused_fwd_tc.cu with one head).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` in
 // gigagan_tpu/ops/pallas/flash_attention.py (called through
@@ -150,11 +152,12 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
-extern "C" int gigagan_flash_attention_fwd(const void* q, const void* k,
-                                           const void* v, const void* bias,
-                                           void* out, void* lse, int bh,
-                                           int nq, int nk, int d, int dtype,
-                                           int device, void* stream) {
+extern "C" int gigagan_flash_attention_fwd_simt(const void* q, const void* k,
+                                                const void* v,
+                                                const void* bias, void* out,
+                                                void* lse, int bh, int nq,
+                                                int nk, int d, int dtype,
+                                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0 || d <= 0 || d > 128) {

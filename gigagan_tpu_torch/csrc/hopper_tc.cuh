@@ -40,6 +40,20 @@ constexpr int kAtomRows = 64;
 constexpr int kAtomBytes = kAtomRows * 128;  // (64, 64) bf16
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+// The bias of a masked key: NEG_INF = −0.7·FLT_MAX rounded to fp32, as
+// `prep_split` (ops/kernels/flash_attention.py) writes it.
+constexpr float kMasked = -0x1.666664p+127f;
+
+// A bias or lse taken to the log2 domain of the softmax kernels.  A masked
+// key's bias times log2 e overflows to −inf, and a row whose every key is
+// masked would then give exp2(−inf − (−inf)) = NaN.  Clamped to kMasked,
+// every logit of such a row is kMasked: P = 1 at every key, the row's mean
+// of v, and lse = kMasked (the forward writes it back as is), which is what
+// the plain version and the CUDA-core kernels give.  Every value above
+// kMasked / log2 e (any unmasked bias, any finite lse) passes unchanged.
+__device__ __forceinline__ float to_log2(float x) {
+  return fmaxf(x * kLog2e, kMasked);
+}
 
 // ------------------------------------------------------------------ host
 

@@ -68,7 +68,9 @@ def attend(q, k, v, *, mask=None, l2_dist: bool = False, scale=None):
     if bias is not None:
         sim = sim + bias[..., None, :]
 
-    m = sim.amax(dim=-1, keepdim=True)
+    # a constant, as JAX's stop_gradient makes it: the softmax does not
+    # depend on it
+    m = sim.amax(dim=-1, keepdim=True).detach()
     e = torch.exp(sim - m).to(sim_dtype)
     s = e.float().sum(dim=-1, keepdim=True)
     out = torch.einsum("bhij,bhjd->bhid", e.to(q.dtype).float(), v.float())

@@ -231,6 +231,10 @@ def adaptive_conv_fwd(x_mod, weights, attn, demod):
 
 # ------------------------------------------------------------------ K2
 
+# banks per K2 launch (kMaxBanks of csrc/adaptive_conv_bwd_w.cu)
+MAX_BANKS = 4
+
+
 def adaptive_conv_bwd_w_plain(x, g, weights, attn):
     """The kernel's function in plain PyTorch: the per-sample correlation
     C, one tap at a time, contracted in fp32 against attn and the banks.
@@ -266,9 +270,9 @@ def _check_bwd_w(x, g, weights, attn):
     if tuple(attn.shape) != (b, n) or attn.dtype != torch.float32:
         raise ValueError(f"adaptive_conv_bwd_w: attn must be float32 "
                          f"({b}, {n})")
-    if n > 4:
-        raise ValueError(f"adaptive_conv_bwd_w: {n} banks, the kernel "
-                         "takes at most 4")
+    if n > MAX_BANKS:
+        raise ValueError(f"adaptive_conv_bwd_w: {n} banks, one launch "
+                         f"takes at most {MAX_BANKS}")
     if x.dtype not in _DTYPE_CODES or g.dtype != x.dtype or (
         weights.dtype not in (torch.float32, x.dtype)
     ):
@@ -282,11 +286,31 @@ def _check_bwd_w(x, g, weights, attn):
                       ("attn", attn)))
 
 
+def by_banks(kernel, x, g, weights, attn):
+    """``kernel`` on groups of at most MAX_BANKS banks, its outputs
+    concatenated: dW[n] and da[:, n] depend on bank n alone, so this is
+    exact."""
+    n = weights.shape[0]
+    if n <= MAX_BANKS:
+        return kernel(x, g, weights, attn)
+    parts = [kernel(x, g, weights[i:i + MAX_BANKS],
+                    attn[:, i:i + MAX_BANKS].contiguous())
+             for i in range(0, n, MAX_BANKS)]
+    return (torch.cat([dw for dw, _ in parts]),
+            torch.cat([da for _, da in parts], 1))
+
+
 def adaptive_conv_bwd_w(x, g, weights, attn):
-    """K2 on a CUDA tensor, its plain version on a CPU tensor.
-    Returns (dW, da) in float32 (float64 for float64 CPU operands)."""
+    """K2 on a CUDA tensor, one launch per group of at most MAX_BANKS
+    banks; its plain version on a CPU tensor.  Returns (dW, da) in float32
+    (float64 for float64 CPU operands)."""
     if x.device.type == "cpu":
         return adaptive_conv_bwd_w_plain(x, g, weights, attn)
+    return by_banks(_launch_bwd_w, x, g, weights, attn)
+
+
+def _launch_bwd_w(x, g, weights, attn):
+    """One K2 launch on at most MAX_BANKS banks."""
     _check_bwd_w(x, g, weights, attn)
     b, h, w, ci = x.shape
     n, co = weights.shape[0], weights.shape[-1]

@@ -1,7 +1,11 @@
-"""Kernels K6a (``csrc/flash_attention_fwd.cu``) and K6b
-(``csrc/flash_attention_bwd.cu``): split-heads flash attention forward and
-its first-order backward, their plain PyTorch versions and the operand
-prep (the counterpart of gigagan_tpu/ops/pallas/flash_attention.py).  The
+"""Kernels K6a and K6b: split-heads flash attention forward and its
+first-order backward, their plain PyTorch versions and the operand prep
+(the counterpart of gigagan_tpu/ops/pallas/flash_attention.py).  Each has
+two implementations, picked as K3/K4 pick theirs (``uses_tensor_cores``):
+for bf16 at d = 64 or 128 the tensor-core kernels of K3 and K4 with one
+head and no null token (``csrc/flash_attention_fused_fwd_tc.cu``,
+``csrc/flash_attention_fused_bwd_tc.cu``), otherwise the CUDA-core kernels
+(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``).  The
 autograd Function that runs them, with a jvp for the forward-over-reverse
 R1 penalty, is ``_FlashAttendHV`` in ``flash_attention_hv.py``: a torch
 Function can carry a backward and a jvp at once, so one entry point serves
@@ -16,6 +20,9 @@ product (coeff = scale), NEG_INF at masked keys.  Per (b·h):
 
     S = q·k_preᵀ + bias    A = softmax(S)    out = A·v    lse = logsumexp(S)
 
+A row whose every key is masked keeps NEG_INF finite, as the TPU kernel
+does: out is the mean of v over the row's keys and lse = NEG_INF.
+
 K6b (the VJP, from the saved lse) works on the same prepared operands:
 
     δ = rowsum(g ⊙ out)   dS = A ⊙ (g·vᵀ − δ)
@@ -26,6 +33,10 @@ dk = coeff·dk_pre − 2·scale·dbias·k = coeff·dSᵀq − colsum(dS)·k_pre,
 TPU kernel's in-kernel form) runs as plain autograd of ``prep_split``, so
 the forward-mode derivative of the prep under ``torch.func.jvp`` is plain
 autograd too (``flash_attention_hv.py``).
+
+Both kernels put b·h on a grid axis of at most 65535 blocks; the
+dispatchers run larger b·h in chunks (``by_rows``), which is exact since
+the rows are independent.
 """
 
 from __future__ import annotations
@@ -36,10 +47,20 @@ import torch
 
 from gigagan_tpu_torch.ops.kernels import build
 from gigagan_tpu_torch.ops.kernels.adaptive_conv import acc_dtype
-from gigagan_tpu_torch.ops.kernels.flash_attention_fused import _DTYPE_CODES
-from gigagan_tpu_torch.ops.kernels.flash_attention_so import _check_rows
+from gigagan_tpu_torch.ops.kernels.flash_attention_fused import (
+    _DTYPE_CODES,
+    launch_fwd_tc,
+    uses_tensor_cores,
+)
+from gigagan_tpu_torch.ops.kernels.flash_attention_so import (
+    _check_rows,
+    launch_bwd_tc,
+)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+# b·h rows per launch: the kernels' grids put b·h on an axis of at most
+# 65535 blocks
+MAX_ROWS = 65535
 
 
 def prep_split(q, k, v, mask, l2_dist: bool, scale: float):
@@ -71,6 +92,19 @@ def _logits(q, k_pre, bias):
             + bias.to(acc)[:, None, :])
 
 
+def by_rows(kernel, *operands, chunk=None):
+    """``kernel`` on chunks of at most ``chunk`` (MAX_ROWS by default) b·h
+    rows, its outputs concatenated: every operand and output has b·h rows
+    first."""
+    chunk = chunk or MAX_ROWS
+    bh = operands[0].shape[0]
+    if bh <= chunk:
+        return kernel(*operands)
+    parts = [kernel(*(t[i:i + chunk] for t in operands))
+             for i in range(0, bh, chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 # ------------------------------------------------------------------ K6a
 
 def flash_attention_fwd_plain(q, k_pre, v, bias):
@@ -90,12 +124,15 @@ def _check(what, q, k_pre, v, bias, *, nq_like=(), nk_like=(),
            bias_like=()):
     """Operands of the split-heads kernels: (bh, nq, d) and (bh, nk, d)
     tensors in q's dtype (float32 or bfloat16), (bh, nk) float32 bias rows,
-    all contiguous on one CUDA device.  The ``*_like`` are extra
-    (name, tensor) pairs of each kind."""
+    all contiguous on one CUDA device, bh ≤ MAX_ROWS.  The ``*_like`` are
+    extra (name, tensor) pairs of each kind."""
     bh, nq, d = q.shape
     nk = k_pre.shape[1]
     if d > 128:
         raise ValueError(f"{what}: head dim {d} > 128")
+    if bh > MAX_ROWS:
+        raise ValueError(f"{what}: {bh} b·h rows > {MAX_ROWS}, the grid "
+                         "axis's limit")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{what}: q must be float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -116,8 +153,10 @@ def _check(what, q, k_pre, v, bias, *, nq_like=(), nk_like=(),
             raise ValueError(f"{what}: {name} is not contiguous")
 
 
-def _launcher(name, n_ptrs):
-    lib = build.load(name)
+def _launcher(name, n_ptrs, source=None):
+    """``gigagan_<name>`` of ``csrc/<source or name>.cu``: n_ptrs pointers,
+    (bh, nq, nk, d, dtype, device) and the stream."""
+    lib = build.load(source or name)
     fn = getattr(lib, f"gigagan_{name}")
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
         ctypes.c_void_p
@@ -126,27 +165,50 @@ def _launcher(name, n_ptrs):
     return lib, fn
 
 
-def flash_attention_fwd(q, k_pre, v, bias):
-    """K6a on CUDA tensors, its plain version on CPU tensors.
-    Returns (out, lse)."""
-    if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k_pre, v, bias)
-    what = "flash_attention_fwd"
+def flash_attention_fwd_simt(q, k_pre, v, bias):
+    """K6a on CUDA cores (``csrc/flash_attention_fwd.cu``): float32 or bf16
+    with head dim up to 128.  Returns (out, lse)."""
+    what = "flash_attention_fwd_simt"
     _check(what, q, k_pre, v, bias)
     bh, nq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, nq), dtype=torch.float32, device=q.device)
-    lib, fn = _launcher(what, 6)
+    lib, fn = _launcher(what, 6, "flash_attention_fwd")
     err = fn(q.data_ptr(), k_pre.data_ptr(), v.data_ptr(), bias.data_ptr(),
              out.data_ptr(), lse.data_ptr(), bh, nq, k_pre.shape[1], d,
              _DTYPE_CODES[q.dtype], q.device.index,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, what)
-    flash_attention_fwd.launches += 1
+    flash_attention_fwd_simt.launches += 1
     return out, lse
 
 
-flash_attention_fwd.launches = 0
+def flash_attention_fwd_tc(q, k_pre, v, bias):
+    """K6a on the tensor cores: K3's kernel
+    (``csrc/flash_attention_fused_fwd_tc.cu``) with one head and no null
+    token; bf16 with head dim 64 or 128.  Returns (out, lse)."""
+    what = "flash_attention_fwd_tc"
+    _check(what, q, k_pre, v, bias)
+    bh, nq, _ = q.shape
+    out, lse = launch_fwd_tc(what, q, k_pre, v, bias[:, None], None, None,
+                             None, 1)
+    flash_attention_fwd_tc.launches += 1
+    return out, lse.view(bh, nq)
+
+
+flash_attention_fwd_simt.launches = 0
+flash_attention_fwd_tc.launches = 0
+
+
+def flash_attention_fwd(q, k_pre, v, bias):
+    """K6a: its plain version on CPU tensors; on CUDA tensors the
+    tensor-core or the CUDA-core kernel by ``uses_tensor_cores``, in chunks
+    of at most MAX_ROWS b·h rows.  Returns (out, lse)."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k_pre, v, bias)
+    kernel = (flash_attention_fwd_tc if uses_tensor_cores(q.dtype, q.shape[-1])
+              else flash_attention_fwd_simt)
+    return by_rows(kernel, q, k_pre, v, bias)
 
 
 # ------------------------------------------------------------------ K6b
@@ -167,31 +229,60 @@ def flash_attention_bwd_plain(q, k_pre, v, bias, g, out, lse):
     return dq.to(dt), dkp.to(dt), dv.to(dt), ds.sum(1)
 
 
-def flash_attention_bwd(q, k_pre, v, bias, g, out, lse):
-    """K6b on CUDA tensors, its plain version on CPU tensors (same returns
-    as the plain version)."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k_pre, v, bias, g, out, lse)
-    what = "flash_attention_bwd"
+def _check_bwd(what, q, k_pre, v, bias, g, out, lse):
     _check(what, q, k_pre, v, bias, nq_like=(("g", g), ("out", out)))
+    _check_rows(what, "lse", lse, tuple(q.shape[:2]), q.device)
+
+
+def flash_attention_bwd_simt(q, k_pre, v, bias, g, out, lse):
+    """K6b on CUDA cores (``csrc/flash_attention_bwd.cu``): float32 or bf16
+    with head dim up to 128 (same returns as the plain version)."""
+    what = "flash_attention_bwd_simt"
+    _check_bwd(what, q, k_pre, v, bias, g, out, lse)
     bh, nq, d = q.shape
     nk = k_pre.shape[1]
     dev = q.device
-    _check_rows(what, "lse", lse, (bh, nq), dev)
     dq = torch.empty_like(q)
     dkp = torch.empty_like(k_pre)
     dv = torch.empty_like(v)
     dbias = torch.empty((bh, nk), dtype=torch.float32, device=dev)
     delta = torch.empty((bh, nq), dtype=torch.float32, device=dev)
-    lib, fn = _launcher(what, 12)
+    lib, fn = _launcher(what, 12, "flash_attention_bwd")
     err = fn(q.data_ptr(), k_pre.data_ptr(), v.data_ptr(), bias.data_ptr(),
              g.data_ptr(), out.data_ptr(), lse.data_ptr(), dq.data_ptr(),
              dkp.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
              delta.data_ptr(), bh, nq, nk, d, _DTYPE_CODES[q.dtype],
              dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, what)
-    flash_attention_bwd.launches += 1
+    flash_attention_bwd_simt.launches += 1
     return dq, dkp, dv, dbias
 
 
-flash_attention_bwd.launches = 0
+def flash_attention_bwd_tc(q, k_pre, v, bias, g, out, lse):
+    """K6b on the tensor cores: K4's kernels
+    (``csrc/flash_attention_fused_bwd_tc.cu``) with one head and no null
+    token; bf16 with head dim 64 or 128 (same returns as the plain
+    version)."""
+    what = "flash_attention_bwd_tc"
+    _check_bwd(what, q, k_pre, v, bias, g, out, lse)
+    bh, nq, _ = q.shape
+    dq, dkp, dv, dbias = launch_bwd_tc(what, q, k_pre, v, bias[:, None],
+                                       None, None, None, g, out,
+                                       lse.view(bh, 1, nq), 1)[:4]
+    flash_attention_bwd_tc.launches += 1
+    return dq, dkp, dv, dbias.view(bh, -1)
+
+
+flash_attention_bwd_simt.launches = 0
+flash_attention_bwd_tc.launches = 0
+
+
+def flash_attention_bwd(q, k_pre, v, bias, g, out, lse):
+    """K6b: its plain version on CPU tensors; on CUDA tensors the
+    tensor-core or the CUDA-core kernel by ``uses_tensor_cores``, in chunks
+    of at most MAX_ROWS b·h rows (same returns as the plain version)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k_pre, v, bias, g, out, lse)
+    kernel = (flash_attention_bwd_tc if uses_tensor_cores(q.dtype, q.shape[-1])
+              else flash_attention_bwd_simt)
+    return by_rows(kernel, q, k_pre, v, bias, g, out, lse)

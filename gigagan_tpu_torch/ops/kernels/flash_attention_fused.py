@@ -144,7 +144,8 @@ def uses_tensor_cores(dtype, d: int) -> bool:
     """The one dispatch rule of K3 and K4: bf16 operands with head dim 64 or
     128 go to the tensor-core kernels (``*_tc.cu``, one or two 64-column
     atoms); every other case (fp32, or another head dim up to 128) to the
-    CUDA-core kernels (``*_simt``)."""
+    CUDA-core kernels (``*_simt``).  K6a and K6b dispatch by it too, since
+    their tensor-core route is these same kernels with one head."""
     return dtype == torch.bfloat16 and d in (64, 128)
 
 
@@ -193,11 +194,11 @@ def flash_attention_fused_fwd_simt(q, k_pre, v, bias, nullk_pre, nullv,
     return out, lse
 
 
-def flash_attention_fused_fwd_tc(q, k_pre, v, bias, nullk_pre, nullv,
-                                 null_bias, heads: int):
-    """K3 on the tensor cores (``csrc/flash_attention_fused_fwd_tc.cu``):
-    bf16 operands with head dim 64 or 128.  Returns (out, lse)."""
-    what = "flash_attention_fused_fwd_tc"
+def launch_fwd_tc(what, q, k_pre, v, bias, nullk_pre, nullv, null_bias,
+                  heads: int):
+    """Check the operands and launch ``csrc/flash_attention_fused_fwd_tc.cu``
+    (K3's tensor-core kernel, also K6a's with heads = 1); the caller counts
+    the launch.  Returns (out, lse (b, H, nq))."""
     _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)
     b, nq, hd = q.shape
     if not uses_tensor_cores(q.dtype, hd // heads):
@@ -220,8 +221,17 @@ def flash_attention_fused_fwd_tc(q, k_pre, v, bias, nullk_pre, nullv,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(lib, err, what)
-    flash_attention_fused_fwd_tc.launches += 1
     return out, lse
+
+
+def flash_attention_fused_fwd_tc(q, k_pre, v, bias, nullk_pre, nullv,
+                                 null_bias, heads: int):
+    """K3 on the tensor cores (``csrc/flash_attention_fused_fwd_tc.cu``):
+    bf16 operands with head dim 64 or 128.  Returns (out, lse)."""
+    res = launch_fwd_tc("flash_attention_fused_fwd_tc", q, k_pre, v, bias,
+                        nullk_pre, nullv, null_bias, heads)
+    flash_attention_fused_fwd_tc.launches += 1
+    return res
 
 
 flash_attention_fused_fwd_simt.launches = 0

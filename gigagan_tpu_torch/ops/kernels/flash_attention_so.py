@@ -209,11 +209,11 @@ def flash_attention_fused_bwd_simt(q, k_pre, v, bias, nullk_pre, nullv,
     return res
 
 
-def flash_attention_fused_bwd_tc(q, k_pre, v, bias, nullk_pre, nullv,
-                                 null_bias, g, out, lse, heads: int):
-    """K4 on the tensor cores (``csrc/flash_attention_fused_bwd_tc.cu``),
-    bf16 with head dim 64 or 128 (returns as the plain version)."""
-    what = "flash_attention_fused_bwd_tc"
+def launch_bwd_tc(what, q, k_pre, v, bias, nullk_pre, nullv, null_bias, g,
+                  out, lse, heads: int):
+    """Check the operands and launch ``csrc/flash_attention_fused_bwd_tc.cu``
+    (K4's tensor-core kernels, also K6b's with heads = 1); the caller counts
+    the launch.  Returns as the plain version."""
     _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)
     d = q.shape[-1] // heads
     if not uses_tensor_cores(q.dtype, d):
@@ -221,8 +221,17 @@ def flash_attention_fused_bwd_tc(q, k_pre, v, bias, nullk_pre, nullv,
                          f"{q.dtype} with {d}")
     check_tc(what, (("q", q), ("k_pre", k_pre), ("v", v), ("g", g),
                     ("out", out), ("nullk_pre", nullk_pre), ("nullv", nullv)))
-    res = _bwd_launch(what, what, q, k_pre, v, bias, nullk_pre, nullv,
-                      null_bias, g, out, lse, heads)
+    return _bwd_launch("flash_attention_fused_bwd_tc",
+                       "flash_attention_fused_bwd_tc", q, k_pre, v, bias,
+                       nullk_pre, nullv, null_bias, g, out, lse, heads)
+
+
+def flash_attention_fused_bwd_tc(q, k_pre, v, bias, nullk_pre, nullv,
+                                 null_bias, g, out, lse, heads: int):
+    """K4 on the tensor cores (``csrc/flash_attention_fused_bwd_tc.cu``),
+    bf16 with head dim 64 or 128 (returns as the plain version)."""
+    res = launch_bwd_tc("flash_attention_fused_bwd_tc", q, k_pre, v, bias,
+                        nullk_pre, nullv, null_bias, g, out, lse, heads)
     flash_attention_fused_bwd_tc.launches += 1
     return res
 

@@ -83,6 +83,7 @@ class GigaGAN:
         self.G_ema.requires_grad_(False)
 
         self.D = None
+        self.ema = None
         self.builder = None
         self.steps = 1
         self.log_steps_every = log_steps_every
@@ -192,12 +193,13 @@ class GigaGAN:
                         and step % self.apply_gradient_penalty_every == 0)
             calc_ms = (self.calc_multiscale_loss_every > 0
                        and step % self.calc_multiscale_loss_every == 0)
-            real = next(dl_iter)
             d = self.train_discriminator_step(
-                real, apply_gradient_penalty=apply_gp,
+                next(dl_iter), apply_gradient_penalty=apply_gp,
                 calc_multiscale_loss=calc_ms)
+            # a batch of its own for the g_step, as the JAX trainer draws
+            # one; the unconditional g_step reads only its size
             g = self.train_generator_step(
-                real.shape[0], calc_multiscale_loss=calc_ms)
+                next(dl_iter).shape[0], calc_multiscale_loss=calc_ms)
             if step == 1 or step % self.log_steps_every == 0:
                 record = {"step": step,
                           **{f"d_{k}": float(v) for k, v in d.items()},
@@ -213,13 +215,23 @@ class GigaGAN:
 
     # ----------------------------------------------------------- sampling
 
+    @property
+    def has_ema_generator(self) -> bool:
+        """Whether ``G_ema`` holds an EMA generator: a trainer's when it
+        keeps one (``create_ema_generator_at_init``), and a sampler's
+        (built without a discriminator), whose ``G_ema`` is what
+        ``load_jax_params`` loaded."""
+        return exists(self.ema) or not exists(self.D)
+
     @torch.inference_mode()
     def generate(self, batch_size: int = 4, styles=None, noise=None,
                  seed: Optional[int] = None, use_ema: bool = True):
-        """Sample from the (EMA) generator; ``use_ema=False`` samples the
-        raw generator.  ``styles``/``noise`` (the style latent) override
-        the drawn latent.  Returns a float32 (b, h, w, 3) numpy array."""
-        g = self.G_ema if use_ema else self.G
+        """Sample from the EMA generator, or from the trained one with
+        ``use_ema=False`` or when there is no EMA generator (as JAX's
+        ``_generate_params``).  ``styles``/``noise`` (the style latent)
+        override the drawn latent.  Returns a float32 (b, h, w, 3) numpy
+        array."""
+        g = self.G_ema if use_ema and self.has_ema_generator else self.G
         if seed is None:
             seed = int(self._rng.integers(2 ** 63))
         s_noise, s_latent = np.random.SeedSequence(seed).generate_state(2)

@@ -66,14 +66,23 @@ IDS = [f"{'l2' if l2 else 'dot'}-{'mask' if m else 'no_mask'}"
 
 # ------------------------------------------------------------ K6a / K6b
 
-@pytest.mark.parametrize("l2,masked", CASES + [(True, "shared")],
-                         ids=IDS + ["l2-shared_qk"])
+@pytest.mark.parametrize(
+    "l2,masked", CASES + [(True, "shared"), (False, "all"), (True, "all")],
+    ids=IDS + ["l2-shared_qk", "dot-all_masked", "l2-all_masked"])
 def test_k6_plain_matches_pallas_flash_attend(l2, masked):
+    # "all": sample 0 has every key masked.  NEG_INF stays finite: its rows
+    # take the mean of v and lse = NEG_INF, and the backward P = 1 at every
+    # key.  nk = 128 because the Pallas prep pads the keys to 128 lanes with
+    # NEG_INF bias, and an all-masked row's mean would take in the padding.
     shared = masked == "shared"
-    q, k, v = qkv(40, nk=9 if shared else 11)
+    all_masked = masked == "all"
+    nk = 9 if shared else 128 if all_masked else 11
+    q, k, v = qkv(40, nk=nk)
     if shared:
         k = q
-    mask = key_mask(41, 2, 11) if masked is True else None
+    mask = key_mask(41, 2, nk) if masked in (True, "all") else None
+    if all_masked:
+        mask[0] = False
     jmask = None if mask is None else jnp.asarray(mask)
     rng = np.random.default_rng(42)
     w = rng.standard_normal(q.shape).astype(np.float32)
@@ -93,19 +102,36 @@ def test_k6_plain_matches_pallas_flash_attend(l2, masked):
     tmask = None if mask is None else t(mask)
     out = k7.flash_attend_hv(qt, qt if shared else kt, vt, tmask, l2)
     (out * t(w)).sum().backward()
+    assert torch.isfinite(out).all()
     assert rel_max(out.detach().numpy(), out_j) <= 2e-4
 
     # K6a's plain version on the prepared operands: lse too
     ops = k6.prep_split(t(q), t(k), t(v), tmask, l2, 16 ** -0.5)
     _, lse = k6.flash_attention_fwd(*ops)
     lse_j = np.asarray(lse_j)[:, 0, :9]
+    if all_masked:  # sample 0's rows (its two heads) hold NEG_INF exactly
+        assert (lse[:2] == np.float32(k6.NEG_INF)).all()
+        np.testing.assert_array_equal(lse[:2].numpy(), lse_j[:2])
+        np.testing.assert_allclose(out[0].detach().numpy(),
+                                   np.broadcast_to(v[0].mean(1, keepdims=True),
+                                                   out[0].shape), rtol=1e-5,
+                                   atol=1e-6)
+        lse, lse_j = lse[2:], lse_j[2:]
     assert rel_max(lse.numpy(), lse_j) <= 2e-4
 
     names = ("dq", "dk", "dv")
     got = (qt.grad, None if shared else kt.grad, vt.grad)
     for name, g, w_ in zip(names, got, grads_j):
-        if g is not None:
-            assert rel_max(g.numpy(), w_) <= 2e-4, name
+        if g is None:
+            continue
+        assert torch.isfinite(g).all(), name
+        if all_masked and l2 and name == "dk":
+            # the Pallas backward folds the |k|² chain rule in without the
+            # mask (dk = coeff·dSᵀq − colsum(dS)·k), which differs from the
+            # true derivative only where dS ≠ 0 at masked keys: in the
+            # all-masked sample 0
+            g, w_ = g[1:], np.asarray(w_)[1:]
+        assert rel_max(g.numpy(), w_) <= 2e-4, name
 
 
 # ------------------------------------------------------------ K7a / K7b
@@ -282,17 +308,30 @@ def test_flash_attend_gradchecks():
             gq.sum().backward()
 
 
+# every implementation of K6a, K6b, K7a and K7b, each with its own count
+HV_ENTRIES = (k6.flash_attention_fwd_tc, k6.flash_attention_fwd_simt,
+              k6.flash_attention_bwd_tc, k6.flash_attention_bwd_simt,
+              k7.flash_attention_hv_jvp, k7.flash_attention_hv_bwd)
+
+
 def test_hv_wrappers_never_fall_back_off_the_cpu():
     meta = dict(device="meta")
     q = torch.empty(2, 16, 64, **meta)
     bias = torch.empty(2, 16, **meta)
     lse = torch.empty(2, 16, **meta)
-    before = [f.launches for f in (k6.flash_attention_fwd,
-                                   k7.flash_attention_hv_jvp)]
+    before = [f.launches for f in HV_ENTRIES]
     with pytest.raises(ValueError, match="on meta"):
         k6.flash_attention_fwd(q, q, q, bias)
     with pytest.raises(ValueError, match="on meta"):
         k6.flash_attention_bwd(q, q, q, bias, q, q, lse)
+    # each K6 implementation called directly, in the dtype it takes
+    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+        qd = q.to(dtype)
+        with pytest.raises(ValueError, match="on meta"):
+            getattr(k6, f"flash_attention_fwd_{route}")(qd, qd, qd, bias)
+        with pytest.raises(ValueError, match="on meta"):
+            getattr(k6, f"flash_attention_bwd_{route}")(qd, qd, qd, bias, qd,
+                                                        qd, lse)
     with pytest.raises(ValueError, match="on meta"):
         k7.flash_attention_hv_jvp(q, q, q, bias, q, q, q, bias)
     with pytest.raises(ValueError, match="on meta"):
@@ -313,8 +352,99 @@ def test_hv_wrappers_never_fall_back_off_the_cpu():
                                   bias, lse, None, wide)
     q_cpu, k_cpu, v_cpu = (t(a) for a in qkv(49, nq=256, nk=128))
     attend(q_cpu, k_cpu, v_cpu)
-    assert [f.launches for f in (k6.flash_attention_fwd,
-                                 k7.flash_attention_hv_jvp)] == before
+    assert [f.launches for f in HV_ENTRIES] == before
+
+
+def _k6_standins(monkeypatch):
+    """K6a's and K6b's implementations replaced by stand-ins that count
+    their calls and return outputs of the right shapes; by entry name."""
+    entries = {}
+    for kname in ("fwd", "bwd"):
+        for route in ("tc", "simt"):
+            name = f"flash_attention_{kname}_{route}"
+
+            def entry(q, k_pre, v, bias, *rest, _name=name):
+                entries[_name].append(q.shape[0])
+                if rest:
+                    return q, k_pre, v, bias
+                return q, torch.empty(q.shape[:2], device=q.device)
+
+            entries[name] = []
+            monkeypatch.setattr(k6, name, entry)
+    return entries
+
+
+# K6a and K6b dispatch by K3/K4's rule: bf16 at head dim 64 or 128 to the
+# tensor cores, everything else to the CUDA cores
+K6_DISPATCH = [(torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+               (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+               (torch.bfloat16, 80, "simt"), (torch.bfloat16, 32, "simt")]
+
+
+@pytest.mark.parametrize(
+    "dtype,d,route", K6_DISPATCH,
+    ids=[f"{str(dt).split('.')[-1]}-d{d}" for dt, d, _ in K6_DISPATCH])
+def test_k6_dispatch_rule(dtype, d, route, monkeypatch):
+    entries = _k6_standins(monkeypatch)
+    assert k3.uses_tensor_cores(dtype, d) == (route == "tc")
+    q = torch.empty(4, 16, d, dtype=dtype, device="meta")
+    bias = torch.empty(4, 16, device="meta")
+    k6.flash_attention_fwd(q, q, q, bias)
+    k6.flash_attention_bwd(q, q, q, bias, q, q, bias)
+    assert entries == {f"flash_attention_{k}_{r}": [4] if r == route else []
+                       for k in ("fwd", "bwd") for r in ("tc", "simt")}
+
+
+@pytest.mark.parametrize("route", ["tc", "simt"])
+def test_k6_dispatch_splits_rows_past_the_grid_limit(route, monkeypatch):
+    # b·h past MAX_ROWS runs as launches of at most MAX_ROWS rows each, the
+    # outputs concatenated in order
+    entries = _k6_standins(monkeypatch)
+    monkeypatch.setattr(k6, "MAX_ROWS", 3)
+    dtype = torch.bfloat16 if route == "tc" else torch.float32
+    q = torch.empty(8, 16, 64, dtype=dtype, device="meta")
+    bias = torch.empty(8, 16, device="meta")
+    out, lse = k6.flash_attention_fwd(q, q, q, bias)
+    grads = k6.flash_attention_bwd(q, q, q, bias, q, q, lse)
+    assert out.shape == q.shape and lse.shape == (8, 16)
+    assert [g_.shape for g_ in grads] == [q.shape] * 3 + [bias.shape]
+    assert entries[f"flash_attention_fwd_{route}"] == [3, 3, 2]
+    assert entries[f"flash_attention_bwd_{route}"] == [3, 3, 2]
+
+
+@pytest.mark.parametrize("l2", [False, True], ids=["dot", "l2"])
+def test_k6_row_split_matches_one_call(l2):
+    # the split the dispatchers make past MAX_ROWS, at a chunk of 3 rows on
+    # the plain versions: the same out, lse and gradients as one call
+    q, k, v = qkv(56, b=2, h=4, nq=20, nk=24)
+    ops = k6.prep_split(t(q), t(k), t(v), t(key_mask(57, 2, 24)), l2,
+                        16 ** -0.5)
+    out, lse = k6.flash_attention_fwd_plain(*ops)
+    split = k6.by_rows(k6.flash_attention_fwd_plain, *ops, chunk=3)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(58))
+    grads = k6.flash_attention_bwd_plain(*ops, g, out, lse)
+    split_grads = k6.by_rows(k6.flash_attention_bwd_plain, *ops, g, out, lse,
+                             chunk=3)
+    for got, want in zip((*split, *split_grads), (out, lse, *grads)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_k6_on_cpu_runs_plain_and_launches_nothing(d):
+    # bf16 CPU tensors, whichever implementation the rule would pick on the
+    # card: the wrappers return the plain versions' results, and no counter
+    # moves
+    before = [f.launches for f in HV_ENTRIES]
+    q, k, v = (t(a).bfloat16() for a in qkv(59, nq=20, nk=24, d=d))
+    ops = k6.prep_split(q, k, v, t(key_mask(60, 2, 24)), True, d ** -0.5)
+    out, lse = k6.flash_attention_fwd(*ops)
+    want = k6.flash_attention_fwd_plain(*ops)
+    assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+    g = out.clone()
+    for got, want_ in zip(k6.flash_attention_bwd(*ops, g, out, lse),
+                          k6.flash_attention_bwd_plain(*ops, g, out, lse)):
+        assert torch.equal(got, want_)
+    assert [f.launches for f in HV_ENTRIES] == before
 
 
 # -------------------------------------------------------------- dispatch

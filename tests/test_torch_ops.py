@@ -274,6 +274,81 @@ def test_k2_plain_matches_pallas_pcorr2d(n):
     assert rel_max(da.numpy(), da_j) <= 1e-4
 
 
+@pytest.mark.parametrize("n", [5, 8])
+def test_k2_bank_split_matches_one_call(n):
+    # more banks than one K2 launch takes: the wrapper's groups of at most
+    # MAX_BANKS, on the plain version, give the unsplit result
+    rng = np.random.default_rng(21)
+    b, h, w, ci, co = 2, 5, 6, 8, 12
+    x = t(rng.standard_normal((b, h, w, ci)).astype(np.float32))
+    g = t(rng.standard_normal((b, h, w, co)).astype(np.float32))
+    weights = t(rng.standard_normal((n, 3, 3, ci, co)).astype(np.float32))
+    a = t(rng.random((b, n)).astype(np.float32))
+    dw, da = k1.by_banks(k1.adaptive_conv_bwd_w_plain, x, g, weights, a)
+    want_dw, want_da = k1.adaptive_conv_bwd_w_plain(x, g, weights, a)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(da, want_da, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1, 4, 5, 8])
+def test_k2_takes_any_bank_count_off_the_cpu(n, monkeypatch):
+    # a tensor off the CPU: one launch per group of at most 4 banks, each
+    # on its own banks and selection weights, the results concatenated
+    calls = []
+
+    def launch(x, g, weights, attn):
+        assert attn.shape == (x.shape[0], weights.shape[0])
+        assert attn.is_contiguous()
+        calls.append(weights.shape[0])
+        return (torch.empty(weights.shape, device="meta"),
+                torch.empty(attn.shape, device="meta"))
+
+    monkeypatch.setattr(k1, "_launch_bwd_w", launch, raising=False)
+    meta = dict(device="meta")
+    dw, da = k1.adaptive_conv_bwd_w(
+        torch.empty(2, 4, 4, 8, **meta), torch.empty(2, 4, 4, 16, **meta),
+        torch.empty(n, 3, 3, 8, 16, **meta), torch.empty(2, n, **meta))
+    assert calls == [min(4, n - i) for i in range(0, n, 4)]
+    assert dw.shape == (n, 3, 3, 8, 16) and da.shape == (2, n)
+
+
+def graph_nodes(out):
+    """Names of every autograd node behind ``out``."""
+    seen, todo = set(), [out.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        todo.extend(fn for fn, _ in node.next_functions)
+    return {type(node).__name__ for node in seen}
+
+
+@pytest.mark.parametrize("l2", [False, True], ids=["dot", "l2"])
+def test_plain_attend_takes_no_gradient_through_its_max(l2):
+    # the row max is a constant (JAX's stop_gradient): no amax backward in
+    # the graph, and the gradients of JAX's plain attend
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.standard_normal((2, 2, n, 16)).astype(np.float32)
+               for n in (12, 10, 10))
+    mask = rng.random((2, 10)) > 0.3
+    mask[:, 0] = True
+    w = rng.standard_normal(q.shape).astype(np.float32)
+
+    def loss_j(q_, k_, v_):
+        return jnp.sum(jax_attend(q_, k_, v_, mask=jnp.asarray(mask),
+                                  l2_dist=l2, use_flash=False) * w)
+
+    want = jax.grad(loss_j, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    ins = [t(a).requires_grad_() for a in (q, k, v)]
+    out = attend(*ins, mask=t(mask), l2_dist=l2)
+    assert not any("Amax" in name for name in graph_nodes(out))
+    (out * t(w)).sum().backward()
+    for name, a, w_ in zip("qkv", ins, want):
+        assert rel_max(a.grad.numpy(), w_) <= 1e-5, name
+
+
 ATTN_CASES = [(l2, null) for l2 in (False, True) for null in (True, False)]
 ATTN_IDS = [f"{'l2' if l2 else 'dot'}-{'null' if null else 'no_null'}"
             for l2, null in ATTN_CASES]

@@ -437,6 +437,52 @@ def test_train_loop_runs_r1_every_fourth_step():
     assert gan.steps == 5 and gan.ema.step == 4
 
 
+def small_gan(**kwargs):
+    return GigaGAN(generator=dict(G_CFG, image_size=16,
+                                  self_attn_resolutions=()),
+                   discriminator=dict(D_CFG, image_size=16,
+                                      attn_resolutions=()),
+                   device="cpu", seed=0, **kwargs)
+
+
+class CountingLoader:
+    """A dataloader that counts the batches drawn from it."""
+
+    def __init__(self, dl):
+        self.dl, self.drawn = dl, 0
+
+    def __iter__(self):
+        for batch in self.dl:
+            self.drawn += 1
+            yield batch
+
+
+def test_train_draws_a_batch_for_each_step():
+    # as GigaGAN.forward of the JAX trainer: the d_step and the g_step each
+    # collect a batch, so D sees every other batch of the dataloader
+    gan = small_gan(log_steps_every=100)
+    loader = CountingLoader(
+        MockImageDataset(16, length=8).get_dataloader(BATCH))
+    gan.set_dataloader(loader)
+    gan.train(4)
+    assert loader.drawn == 8
+
+
+def test_generate_samples_the_trained_g_without_an_ema():
+    # as JAX's _generate_params: with no EMA generator, use_ema=True samples
+    # the trained parameters, not G's initial copy
+    gan = small_gan(create_ema_generator_at_init=False, log_steps_every=100)
+    gan.set_dataloader(MockImageDataset(16, length=8).get_dataloader(BATCH))
+    gan.train(1)
+    # the step moved G away from its initial copy
+    assert any(not torch.equal(p, q) for p, q in zip(
+        gan.G.parameters(), gan.G_ema.parameters()))
+    got = gan.generate(batch_size=2, seed=3)
+    np.testing.assert_array_equal(got, gan.generate(batch_size=2, seed=3,
+                                                    use_ema=False))
+    assert not gan.has_ema_generator and small_gan().has_ema_generator
+
+
 def test_fwd_over_rev_matches_reverse_over_reverse(jax_setup):
     # the port's two R1 forms from one mid-run state: the same penalty and
     # the same update (the tolerances of tests/test_train.py's JAX check)
