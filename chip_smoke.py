@@ -12,7 +12,7 @@ Phases (any failure raises and exits non-zero):
 1. find the card (fails without CUDA) and print its name and power limit;
 2. build the CUDA kernels from ``gigagan_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and check in their SASS that the
-   tensor-core K1, K3, K4 and K5 run ``HGMMA`` (``wgmma``) fed by
+   tensor-core K1, K3, K4, K5, K7a and K7b run ``HGMMA`` (``wgmma``) fed by
    ``UTMALDG`` (TMA);
 3. hold kernel K1 (adaptive conv) against its plain PyTorch version at
    every 3x3 conv shape of the 256px generator, batch 8: fp32 (TF32 off) on
@@ -46,23 +46,26 @@ Phases (any failure raises and exits non-zero):
    80 on the CUDA cores);
 8. hold K6a/K6b (split-heads attention and its backward; bf16 at d = 64
    and 128 on the tensor-core kernels of K3/K4 with one head, the rest on
-   CUDA cores) and K7a/K7b (its jvp and the jvp's backward) against their
+   CUDA cores) and K7a/K7b (its jvp and the jvp's backward; bf16 at d = 64
+   on their tensor-core kernels, the rest on CUDA cores) against their
    plain versions at the two attention shapes of the forward-over-reverse
    R1 surrogate (L2, the null token as an extra key), fp32 and bf16, and
-   at small masked shapes (dot product, and head dims 128 and 80); K6a/K6b
-   also at a masked shape where one sample has every key masked, on both
-   routes, whose outputs must be finite; time K6a/K6b's two routes at φ's
-   pair beside the plain versions and SDPA;
+   at small masked shapes (dot product, and head dims 128 and 80), each
+   call on the route its rule names; all four also at a masked shape where
+   one sample has every key masked, on both routes, whose outputs must be
+   finite; time each kernel's two routes at φ's pair beside the plain
+   versions (and SDPA for K6a/K6b);
 9. drive the training path: the quickstart G+D pair (256px, bf16, batch 8)
    takes 8 iterations of train_discriminator_step + train_generator_step
    with R1 on iterations 0 and 4; every loss must be finite and every
    step's K1-K7b launch counts those the path implies (K5 on R1 steps
-   only), every K1, K3, K4 and K5 launch on the tensor-core kernels; ms per
+   only), every bf16 launch of a kernel with two routes on its tensor-core
+   kernel; ms per
    d_step (with and without R1) and per g_step and images/s over the
    4-iteration cadence are timed;
 10. the same 8 iterations with the R1 penalty taken forward-over-reverse
     (``GigaGAN(gp_fwd_over_rev=True)``): K6a, K6b, K7a and K7b on R1
-    d_steps only, K5 never, every K6a/K6b launch on the tensor cores;
+    d_steps only, K5 never, every K6a-K7b launch on the tensor cores;
     d_step+R1 timed beside phase 9's;
 11. fp32 steps on the card, each from the same fresh state: a d_step with
     R1 (both forms) and a g_step through the kernels against the same
@@ -71,9 +74,10 @@ Phases (any failure raises and exits non-zero):
     reverse-over-reverse one (penalty and every gradient); then bf16: a
     d_step with R1 and a g_step through the tensor-core K3/K4 against the
     same steps with the CUDA-core ones patched in, the same for K1/K5, and
-    a forward-over-reverse d_step with R1 through the tensor-core K6a/K6b
-    against the CUDA-core ones; each bf16 route's distance from the fp32
-    plain step is reported;
+    a forward-over-reverse d_step with R1 through the tensor-core K6a/K6b,
+    then K7a/K7b, against the CUDA-core ones; each bf16 route's distance
+    from the fp32 plain step is reported, and the tensor-core route's may
+    be at most FROM_PLAIN_RATIO times the CUDA-core route's;
 12. print the kernel table as one JSON line (time, plain version, library
     call where one computes the same function, bound, launches) and, last,
     the device line.
@@ -160,6 +164,11 @@ K6_ALL_MASKED = ("all masked", 2, 2, 300, 200, DIM_HEAD, False, "all")
 K2_BANKS = (BATCH, 32, 128, 128, 8)
 # fp32 rows read at most 1.6e-4 and bf16 rows at most 6.7e-3 on an H100
 K67_TOL_F32, K67_TOL_BF16 = 1e-3, 0.03
+# phase 11: a bf16 step's tensor-core route may sit at most this many times
+# as far from the fp32 plain step as its CUDA-core route; every route read
+# 7.75e-2 to 9.53e-2 from it on an H100, so 1.5 leaves room for noise and
+# still catches a route that drifts
+FROM_PLAIN_RATIO = 1.5
 ITERATIONS, R1_EVERY = 8, 4
 KERNEL_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6a", "k6b", "k7a", "k7b")
 # one H100 SXM: dense bf16 tensor-core rate and HBM3 rate (NVIDIA's data
@@ -372,25 +381,27 @@ def main():
     bf16 = torch.bfloat16
     OUT_DIR.mkdir(exist_ok=True)
 
-    # K1, K3, K4, K5, K6a and K6b count the launches of both
-    # implementations; the CUDA-core ones alone are read as well, to show
-    # that no bf16 call reached them
+    # K1 and K3-K7b count the launches of both implementations; the
+    # CUDA-core ones alone are read as well, to show that no bf16 call
+    # reached them
     simt = {"k1": k1.adaptive_conv_fwd_simt,
             "k3": k3.flash_attention_fused_fwd_simt,
             "k4": so.flash_attention_fused_bwd_simt,
             "k5": so.flash_attention_so_bwd2_simt,
             "k6a": k6.flash_attention_fwd_simt,
-            "k6b": k6.flash_attention_bwd_simt}
+            "k6b": k6.flash_attention_bwd_simt,
+            "k7a": k7.flash_attention_hv_jvp_simt,
+            "k7b": k7.flash_attention_hv_bwd_simt}
     tc_entry = {"k1": k1.adaptive_conv_fwd_tc,
                 "k3": k3.flash_attention_fused_fwd_tc,
                 "k4": so.flash_attention_fused_bwd_tc,
                 "k5": so.flash_attention_so_bwd2_tc,
                 "k6a": k6.flash_attention_fwd_tc,
-                "k6b": k6.flash_attention_bwd_tc}
+                "k6b": k6.flash_attention_bwd_tc,
+                "k7a": k7.flash_attention_hv_jvp_tc,
+                "k7b": k7.flash_attention_hv_bwd_tc}
     counters = {k_: [tc_entry[k_], simt[k_]] for k_ in tc_entry}
-    counters.update(k2=[k1.adaptive_conv_bwd_w],
-                    k7a=[k7.flash_attention_hv_jvp],
-                    k7b=[k7.flash_attention_hv_bwd])
+    counters.update(k2=[k1.adaptive_conv_bwd_w])
 
     def reset_counts():
         for fns in counters.values():
@@ -411,7 +422,9 @@ def main():
                "k4": (so, "flash_attention_fused_bwd"),
                "k5": (so, "flash_attention_so_bwd2"),
                "k6a": (k6, "flash_attention_fwd"),
-               "k6b": (k6, "flash_attention_bwd")}
+               "k6b": (k6, "flash_attention_bwd"),
+               "k7a": (k7, "flash_attention_hv_jvp"),
+               "k7b": (k7, "flash_attention_hv_bwd")}
 
     @contextlib.contextmanager
     def simt_kernels(keys):
@@ -452,7 +465,8 @@ def main():
     report["sass"] = {}
     for kname in ("adaptive_conv_fwd_tc", "flash_attention_fused_fwd_tc",
                   "flash_attention_fused_bwd_tc",
-                  "flash_attention_so_bwd2_tc"):
+                  "flash_attention_so_bwd2_tc", "flash_attention_hv_jvp_tc",
+                  "flash_attention_hv_bwd_tc"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(built[kname][0])],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -941,12 +955,15 @@ def main():
     report["k4"], report["k5"] = k4_rows, k5_rows
 
     # ---------------------------------------------------------------- 8
-    def k6_route(dtype, d):
-        return "tc" if k3.uses_tensor_cores(dtype, d) else "simt"
+    def hv_route(kname, dtype, d):
+        """The route the rule of K6a/K6b (K3/K4's) or K7a/K7b names."""
+        rule = (k3.uses_tensor_cores if kname in ("k6a", "k6b")
+                else k7.hv_uses_tensor_cores)
+        return "tc" if rule(dtype, d) else "simt"
 
     def launched_on(kname, call):
-        """call() and the route of K6a/K6b it launched on (None if it did
-        not launch exactly once, on one route)."""
+        """call() and the route of the kernel it launched on (None if it
+        did not launch exactly once, on one route)."""
         before = {r: e[kname].launches for r, e in (("tc", tc_entry),
                                                       ("simt", simt))}
         res = call()
@@ -982,10 +999,14 @@ def main():
             simt_calls = {
                 "k6a": lambda: k6.flash_attention_fwd_simt(*ops),
                 "k6b": lambda: k6.flash_attention_bwd_simt(*ops, g, out,
-                                                           lse)}
+                                                           lse),
+                "k7a": lambda: k7.flash_attention_hv_jvp_simt(*ops, *tang),
+                "k7b": lambda: k7.flash_attention_hv_bwd_simt(
+                    *ops, *tang, lse7, go, gt)}
             row = dict(who=who, bh=b * h, nq=nq, nk=nk, d=d, l2=l2,
                        masked=masked, dtype=str(dtype).split(".")[-1],
-                       route_k6=k6_route(dtype, d))
+                       route_k6=hv_route("k6a", dtype, d),
+                       route_k7=hv_route("k7a", dtype, d))
             phi_bf16 = who == "phi" and dtype == torch.bfloat16
             if phi_bf16:
                 # products per call: K6a S, P·V; K6b S, dA, dq, dk, dv; K7a
@@ -1009,13 +1030,11 @@ def main():
                 row["k6a_library"], row["k6b_library"] = fwd_ms, bwd_ms
                 row["library_note"] = note
             for kname, (kernel, plain) in checks.items():
-                if kname in simt_calls:
-                    got, route = launched_on(kname, kernel)
-                    if route != row["route_k6"]:
-                        fail(f"{kname.upper()} at {row} ran on {route}, the "
-                             f"rule names {row['route_k6']}")
-                else:
-                    got = kernel()
+                got, route = launched_on(kname, kernel)
+                named = row["route_" + kname[:2]]
+                if route != named:
+                    fail(f"{kname.upper()} at {row} ran on {route}, the "
+                         f"rule names {named}")
                 want = plain()
                 torch.cuda.synchronize()
                 pairs = list(zip(got, want))
@@ -1026,73 +1045,91 @@ def main():
                 torch.cuda.empty_cache()
                 row[kname]["ms"] = time_ms(kernel, torch)
                 row[kname]["plain_ms"] = time_ms(plain, torch)
-                if phi_bf16 and kname in simt_calls:
+                if phi_bf16:
                     row[kname]["simt_ms"] = time_ms(simt_calls[kname], torch)
                 torch.cuda.empty_cache()
                 if not row[kname]["rel"] <= tol:
                     fail(f"{kname.upper()} disagrees at {row}")
             hv_rows.append(row)
             log(f"K6a-K7b {who} bh{b * h} nq{nq} nk{nk} d{d} l2={l2} "
-                f"{row['dtype']} (tol {tol}; K6 on {row['route_k6']}): "
+                f"{row['dtype']} (tol {tol}; K6 on {row['route_k6']}, K7 on "
+                f"{row['route_k7']}): "
                 + "; ".join(
                     f"{k_} rel {row[k_]['rel']:.2e} ms {row[k_]['ms']:.4f} "
                     + (f"(simt {row[k_]['simt_ms']:.4f}, " if "simt_ms"
                        in row[k_] else "(")
                     + f"plain {row[k_]['plain_ms']:.4f})" for k_ in checks)
                 + (f"; SDPA {row['k6a_library']} / backward "
-                   f"{row['k6b_library']}, bounds {row['k6a_bound'][0]:.4f}"
-                   f" / {row['k6b_bound'][0]:.4f} [{smi}]" if phi_bf16
+                   f"{row['k6b_library']}; bounds K6a-K7b "
+                   + " / ".join(f"{row[k_ + '_bound'][0]:.4f}"
+                                for k_ in checks) + f" [{smi}]" if phi_bf16
                    else ""))
             del ops, tang, g, gt, go, out, lse, lse7, checks, simt_calls
             torch.cuda.empty_cache()
     report["k6_k7"] = hv_rows
 
-    # K6a/K6b where one sample has every key masked, on each route that
+    # K6a-K7b where one sample has every key masked, on each route that
     # takes the dtype: finite, and the plain version's numbers (lse exactly
-    # NEG_INF on the all-masked rows)
+    # NEG_INF on the all-masked rows, from K6a and from K7a)
+    def rel_abs(got, want):
+        pairs = list(zip(got, want))
+        return dict(rel=max(rel_err(a_, w_) for a_, w_ in pairs),
+                    abs=max(abs_err(a_, w_) for a_, w_ in pairs))
+
     k6_masked = []
     who, b, h, nq, nk, d, l2, masked = K6_ALL_MASKED
     for dtype in (torch.float32, bf16):
         tol = K67_TOL_F32 if dtype == torch.float32 else K67_TOL_BF16
-        ops, _, g, _ = hv_operands(torch, gen, b, h, nq, nk, d, l2, masked,
-                                   dtype, dev)
+        ops, tang, g, gt = hv_operands(torch, gen, b, h, nq, nk, d, l2,
+                                       masked, dtype, dev)
         dead = (ops[3] == k6.NEG_INF).all(-1)
         if not dead.any() or dead.all():
             fail(f"the all-masked K6 row has {int(dead.sum())} dead rows")
         out, lse = k6.flash_attention_fwd_plain(*ops)
-        want_b = k6.flash_attention_bwd_plain(*ops, g, out, lse)
-        routes = ("tc", "simt") if k6_route(dtype, d) == "tc" else ("simt",)
-        for r in routes:
-            got_o, got_l = getattr(k6, f"flash_attention_fwd_{r}")(*ops)
-            got_b = getattr(k6, f"flash_attention_bwd_{r}")(*ops, g, out,
-                                                            lse)
-            torch.cuda.synchronize()
-            got = (got_o, got_l, *got_b)
-            row = dict(
-                who=who, bh=b * h, nq=nq, nk=nk, d=d,
-                dtype=str(dtype).split(".")[-1], route=r,
-                dead_rows=int(dead.sum()),
-                finite=all(bool(torch.isfinite(x).all()) for x in got),
-                lse_dead_exact=bool((got_l[dead] == lse[dead]).all()),
-                k6a=dict(rel=max(rel_err(got_o, out),
-                                 rel_err(got_l[~dead], lse[~dead])),
-                         abs=max(abs_err(got_o, out),
-                                 abs_err(got_l[~dead], lse[~dead]))),
-                k6b=dict(rel=max(rel_err(a_, w_)
-                                 for a_, w_ in zip(got_b, want_b)),
-                         abs=max(abs_err(a_, w_)
-                                 for a_, w_ in zip(got_b, want_b))))
+        jvp = k7.flash_attention_hv_jvp_plain(*ops, *tang)
+        kernels_ = (
+            ("k6", k6, "flash_attention_fwd", "flash_attention_bwd", ops,
+             (*ops, g, out, lse), (out, lse),
+             k6.flash_attention_bwd_plain(*ops, g, out, lse)),
+            ("k7", k7, "flash_attention_hv_jvp", "flash_attention_hv_bwd",
+             (*ops, *tang), (*ops, *tang, jvp[2], g, gt), jvp,
+             k7.flash_attention_hv_bwd_plain(*ops, *tang, jvp[2], g, gt)))
+        for r in ("tc", "simt"):
+            ran = [k_ for k_, *_ in kernels_
+                   if r == "simt" or hv_route(k_ + "a", dtype, d) == "tc"]
+            if not ran:
+                continue
+            row = dict(who=who, bh=b * h, nq=nq, nk=nk, d=d,
+                       dtype=str(dtype).split(".")[-1], route=r,
+                       dead_rows=int(dead.sum()), finite=True,
+                       lse_dead_exact=True)
+            for (k_, mod, fwd, bwd, fwd_args, bwd_args, want_f,
+                 want_b) in kernels_:
+                if k_ not in ran:
+                    continue
+                got_f = getattr(mod, f"{fwd}_{r}")(*fwd_args)
+                got_b = getattr(mod, f"{bwd}_{r}")(*bwd_args)
+                torch.cuda.synchronize()
+                got_l, want_l = got_f[-1], want_f[-1]
+                row["finite"] &= all(bool(torch.isfinite(x).all())
+                                     for x in (*got_f, *got_b))
+                row["lse_dead_exact"] &= bool(
+                    (got_l[dead] == want_l[dead]).all())
+                row[k_ + "a"] = rel_abs((*got_f[:-1], got_l[~dead]),
+                                        (*want_f[:-1], want_l[~dead]))
+                row[k_ + "b"] = rel_abs(got_b, want_b)
+                del got_f, got_b
             k6_masked.append(row)
-            log(f"K6a/K6b {who} bh{b * h} nq{nq} nk{nk} d{d} {row['dtype']} "
+            names = [k_ + x for k_ in ran for x in "ab"]
+            log(f"K6a-K7b {who} bh{b * h} nq{nq} nk{nk} d{d} {row['dtype']} "
                 f"({r}, {row['dead_rows']} all-masked rows): finite "
                 f"{row['finite']}, lse NEG_INF there {row['lse_dead_exact']},"
-                f" rel K6a {row['k6a']['rel']:.2e} K6b {row['k6b']['rel']:.2e}"
-                f" (tol {tol})")
+                + "".join(f" rel {n_.upper()} {row[n_]['rel']:.2e}"
+                          for n_ in names) + f" (tol {tol})")
             if not (row["finite"] and row["lse_dead_exact"]
-                    and max(row["k6a"]["rel"], row["k6b"]["rel"]) <= tol):
-                fail(f"K6a/K6b with all-masked rows failed: {row}")
-            del got_o, got_l, got_b, got
-        del ops, g, out, lse, want_b
+                    and max(row[n_]["rel"] for n_ in names) <= tol):
+                fail(f"K6a-K7b with all-masked rows failed: {row}")
+        del ops, tang, g, gt, out, lse, jvp, kernels_
         torch.cuda.empty_cache()
     report["k6_all_masked"] = k6_masked
 
@@ -1154,8 +1191,8 @@ def main():
             iteration(i, i % R1_EVERY == 0, steps)
         launches = read_counts()
         if any(simt_counts().values()):
-            fail(f"bf16 K1/K3/K4/K5 calls of the {label} path reached the "
-                 f"CUDA-core kernels: {simt_counts()}")
+            fail(f"bf16 calls of the {label} path reached the CUDA-core "
+                 f"kernels: {simt_counts()}")
         for s in steps:
             want = exp_g if s["kind"] == "g" else (exp_d_r1 if s["r1"]
                                                    else exp_d)
@@ -1219,8 +1256,8 @@ def main():
     # --------------------------------------------------------------- 11
     # fp32 steps through the kernels against the same steps on the plain
     # path, each from the same fresh state; then bf16 steps through the
-    # tensor-core K3/K4, and K1/K5, against the CUDA-core ones, each route
-    # also measured from the fp32 plain step
+    # tensor-core K3/K4, K1/K5, K6a/K6b and K7a/K7b against the CUDA-core
+    # ones, each route also held to its distance from the fp32 plain step
     real = torch.from_numpy(np.stack([data[i] for i in range(BATCH)])).to(dev)
 
     def fp32_step(kind, plain, fwd_over_rev=False, amp=False):
@@ -1322,11 +1359,12 @@ def main():
         worst = max(rel, key=rel.get)
         return rel[worst], worst
 
+    for_r1 = (("d_fwd_over_rev", "d_step +R1 forward-over-reverse"),)
     for keys, kinds in (
             (("k3", "k4"), (("d", "d_step +R1"), ("g", "g_step"))),
             (("k1", "k5"), (("d", "d_step +R1"), ("g", "g_step"))),
-            (("k6a", "k6b"), (("d_fwd_over_rev",
-                               "d_step +R1 forward-over-reverse"),))):
+            (("k6a", "k6b"), for_r1),
+            (("k7a", "k7b"), for_r1)):
         names = "/".join(k_.upper() for k_ in keys)
         for kind, label in kinds:
             runs = {r: bf16_step(kind, r, keys) for r in ("tc", "simt")}
@@ -1337,10 +1375,16 @@ def main():
                 stable=step_rel[kind])
             step_rel[key]["from_fp32_plain"] = far = {
                 r: from_plain(kind, res) for r, res in runs.items()}
-            log(f"bf16 {label}, each {names} route vs the fp32 plain step "
-                f"(not gated): tensor-core {far['tc'][0]:.2e} "
-                f"({far['tc'][1]}), CUDA-core {far['simt'][0]:.2e} "
-                f"({far['simt'][1]})")
+            ratio = far["tc"][0] / far["simt"][0]
+            step_rel[key]["from_fp32_plain_ratio"] = ratio
+            log(f"bf16 {label}, each {names} route vs the fp32 plain step: "
+                f"tensor-core {far['tc'][0]:.2e} ({far['tc'][1]}), CUDA-core "
+                f"{far['simt'][0]:.2e} ({far['simt'][1]}): ratio "
+                f"{ratio:.3f} (limit {FROM_PLAIN_RATIO})")
+            if not ratio <= FROM_PLAIN_RATIO:
+                fail(f"bf16 {label}: the tensor-core {names} route sits "
+                     f"{ratio:.3f}x as far from the fp32 plain step as the "
+                     f"CUDA-core one")
             del runs
 
     # --------------------------------------------------------------- 12
@@ -1420,8 +1464,8 @@ def main():
              simt_ms=total(r1_bf16, "simt_ms")),
     ]
     # K6a-K7b: launches from the forward-over-reverse run, times summed
-    # over φ's two attentions in bf16; K6a/K6b on the tensor-core kernels
-    # of K3/K4 there, their CUDA-core kernels beside them
+    # over φ's two attentions in bf16, on the tensor-core kernels (K6a/K6b
+    # on K3's/K4's), their CUDA-core kernels beside them
     phi_bf16 = [r for r in hv_rows if r["who"] == "phi"
                 and r["dtype"] == "bfloat16"]
     for key, name_, source, replaces in (
@@ -1429,15 +1473,15 @@ def main():
          "flash_attention.py:118"),
         ("k6b", "flash_attention_bwd", "flash_attention_fused_bwd_tc",
          "flash_attention.py:143"),
-        ("k7a", "flash_attention_hv_jvp", "flash_attention_hv_jvp",
+        ("k7a", "flash_attention_hv_jvp", "flash_attention_hv_jvp_tc",
          "flash_attention_hv.py:76"),
-        ("k7b", "flash_attention_hv_bwd", "flash_attention_hv_bwd",
+        ("k7b", "flash_attention_hv_bwd", "flash_attention_hv_bwd_tc",
          "flash_attention_hv.py:110"),
     ):
         rows = [(1, dict(r[key], library_ms=r.get(f"{key}_library"),
                          bound_ms=r[f"{key}_bound"][0],
                          bound_by=r[f"{key}_bound"][1])) for r in phi_bf16]
-        entry = dict(
+        kernels.append(dict(
             name=name_, route="cuda",
             source=f"gigagan_tpu_torch/csrc/{source}.cu",
             replaces=f"gigagan_tpu/ops/pallas/{replaces}",
@@ -1445,11 +1489,9 @@ def main():
             max_abs_err=max([r[key]["abs"] for r in hv_rows]
                             + [r[key]["abs"] for r in k6_masked
                                if key in r]),
-            **timing(rows))
-        if key in simt:
-            entry.update(simt_source=f"gigagan_tpu_torch/csrc/{name_}.cu",
-                         simt_ms=total(rows, "simt_ms"))
-        kernels.append(entry)
+            **timing(rows),
+            simt_source=f"gigagan_tpu_torch/csrc/{name_}.cu",
+            simt_ms=total(rows, "simt_ms")))
     cadences = ITERATIONS // R1_EVERY
     for k_ in kernels:
         k_["launches_per_cadence"] = k_["launches"] / cadences

@@ -1,4 +1,6 @@
-// Backward of the attention-and-tangent pair (kernel K7b).
+// Backward of the attention-and-tangent pair (kernel K7b) on CUDA cores:
+// the route for fp32 and every head dim but bf16 at 64, which
+// flash_attention_hv_bwd_tc.cu takes on the tensor cores.
 //
 // Replaces the Pallas TPU kernel `_jvp_bwd_kernel` in
 // gigagan_tpu/ops/pallas/flash_attention_hv.py (called through
@@ -41,8 +43,6 @@
 // TPU kernel casts them for the MXU; ĝk̂ and ĝt̂k are written in fp32, as
 // the TPU kernel writes them.  Shared memory: eight staged tiles and two
 // maps, 172 KB at d = 64 and 219 KB at d = 128, so one block per SM.
-//
-// Simple first version: CUDA-core FMAs, no tensor cores, no TMA.
 
 #include "flash_attention_common.cuh"
 
@@ -517,7 +517,7 @@ cudaError_t dispatch(const Operands& o, int bh, void* gq, float* gk,
 // dtype codes: 0 = float32, 1 = bfloat16.  `go` may be null (no cotangent
 // on out).  gk, gtk, gbias and gtbias are fp32; `stats` is a (bh, nq, 3)
 // fp32 workspace.  Returns a cudaError_t.
-extern "C" int gigagan_flash_attention_hv_bwd(
+extern "C" int gigagan_flash_attention_hv_bwd_simt(
     const void* q, const void* k, const void* v, const void* bias,
     const void* tq, const void* tk, const void* tv, const void* tbias,
     const void* lse, const void* go, const void* gt, void* gq, void* gk,

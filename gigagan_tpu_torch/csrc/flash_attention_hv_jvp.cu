@@ -1,4 +1,6 @@
-// Split-heads attention and its tangent in one kernel (kernel K7a).
+// Split-heads attention and its tangent in one kernel (kernel K7a) on CUDA
+// cores: the route for fp32 and every head dim but bf16 at 64, which
+// flash_attention_hv_jvp_tc.cu takes on the tensor cores.
 //
 // Replaces the Pallas TPU kernel `_jvp_kernel` in
 // gigagan_tpu/ops/pallas/flash_attention_hv.py (called through
@@ -17,7 +19,10 @@
 // b·h), the thread layout of flash_attention_common.cuh, two passes over
 // the key tiles.  Pass 1 forms S and T and keeps an online softmax of S
 // together with the running Σ e·T, which gives lse and μ.  Pass 2 forms
-// the normalized A = exp(S − lse) and A⊙(T − μ), rounds both to the operand
+// the normalized A = exp(S − m) / Σ e from the row's max m and sum (not
+// exp(S − lse): a row whose every key is masked has lse = NEG_INF, where
+// the log of its sum is lost in rounding, and would take A = 1 at every key
+// instead of 1/nk) and A⊙(T − μ), rounds both to the operand
 // dtype (as the TPU kernel casts them for the MXU) and accumulates out and
 // tout.  Two passes cost one more round of the logit products, but keep
 // tout from the cancellation of Σ A T v − μ Σ A v that a one-pass form
@@ -25,8 +30,6 @@
 // (64, d) query tiles, four (KC, d) key tiles and two (64, KC) maps, with
 // KC = 64 keys per tile for d ≤ 64 (137 KB at d = 64) and KC = 32 for
 // 64 < d ≤ 128 (152 KB at d = 128).
-//
-// Simple first version: CUDA-core FMAs, no tensor cores, no TMA.
 
 #include "flash_attention_common.cuh"
 
@@ -122,13 +125,13 @@ hv_jvp_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[i] = m_new;
     }
   }
-  float lse_r[kRpt], mu[kRpt];
+  float inv_l[kRpt], mu[kRpt];
 #pragma unroll
   for (int i = 0; i < kRpt; ++i) {
-    lse_r[i] = m[i] + logf(l[i]);
-    mu[i] = lt[i] / l[i];
+    inv_l[i] = 1.f / l[i];
+    mu[i] = lt[i] * inv_l[i];
     const int row = q0 + ty * kRpt + i;
-    if (row < nq && tx == 0) lse[bh * nq + row] = lse_r[i];
+    if (row < nq && tx == 0) lse[bh * nq + row] = m[i] + logf(l[i]);
   }
 
   // pass 2: out and tout from the normalized A
@@ -149,7 +152,7 @@ hv_jvp_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = (ty * kRpt + i) * KC;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        const float a = expf(s[i][j] - lse_r[i]);  // masked keys: 0
+        const float a = expf(s[i][j] - m[i]) * inv_l[i];  // masked keys: 0
         pa[r + tx + kLanes * j] = round_to<T>(a);
         pta[r + tx + kLanes * j] = round_to<T>(a * (t[i][j] - mu[i]));
       }
@@ -207,7 +210,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
-extern "C" int gigagan_flash_attention_hv_jvp(
+extern "C" int gigagan_flash_attention_hv_jvp_simt(
     const void* q, const void* k, const void* v, const void* bias,
     const void* tq, const void* tk, const void* tv, const void* tbias,
     void* out, void* tout, void* lse, int bh, int nq, int nk, int d,

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
 // (adaptive_conv_fwd_tc.cu, flash_attention_fused_fwd_tc.cu,
-// flash_attention_fused_bwd_tc.cu, flash_attention_so_bwd2_tc.cu): TMA
+// flash_attention_fused_bwd_tc.cu, flash_attention_so_bwd2_tc.cu, and
+// through flash_attention_hv_tc.cuh the K7a/K7b ones): TMA
 // tensor maps and loads, mbarriers, `wgmma` with shared-memory
 // descriptors, and register reallocation between warpgroups.  The conv
 // kernel's tiles of 16- and 32-channel rows use the 32- and 64-byte

@@ -63,7 +63,9 @@ KERNELS = (
     "flash_attention_fwd",
     "flash_attention_bwd",
     "flash_attention_hv_jvp",
+    "flash_attention_hv_jvp_tc",
     "flash_attention_hv_bwd",
+    "flash_attention_hv_bwd_tc",
 )
 
 

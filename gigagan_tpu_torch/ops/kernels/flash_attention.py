@@ -95,12 +95,14 @@ def _logits(q, k_pre, bias):
 def by_rows(kernel, *operands, chunk=None):
     """``kernel`` on chunks of at most ``chunk`` (MAX_ROWS by default) b·h
     rows, its outputs concatenated: every operand and output has b·h rows
-    first."""
+    first, and an operand that is None (K7b's absent ĝo) passes to every
+    chunk as None."""
     chunk = chunk or MAX_ROWS
     bh = operands[0].shape[0]
     if bh <= chunk:
         return kernel(*operands)
-    parts = [kernel(*(t[i:i + chunk] for t in operands))
+    parts = [kernel(*(None if t is None else t[i:i + chunk]
+                      for t in operands))
              for i in range(0, bh, chunk)]
     return tuple(torch.cat(p) for p in zip(*parts))
 

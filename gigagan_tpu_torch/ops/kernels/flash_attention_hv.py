@@ -1,10 +1,15 @@
-"""Kernels K7a (``csrc/flash_attention_hv_jvp.cu``) and K7b
-(``csrc/flash_attention_hv_bwd.cu``): split-heads attention together with
-its tangent, and the backward of that pair; their plain PyTorch versions;
-and the Functions behind ``flash_attend_hv``, the split-heads attention
-of ``ops.attend`` at flash sizes, which the forward-over-reverse R1
-penalty can differentiate (counterpart of
-gigagan_tpu/ops/pallas/flash_attention_hv.py).
+"""Kernels K7a and K7b: split-heads attention together with its tangent,
+and the backward of that pair; their plain PyTorch versions; and the
+Functions behind ``flash_attend_hv``, the split-heads attention of
+``ops.attend`` at flash sizes, which the forward-over-reverse R1 penalty
+can differentiate (counterpart of
+gigagan_tpu/ops/pallas/flash_attention_hv.py).  Each kernel has two
+implementations, picked by ``hv_uses_tensor_cores``: for bf16 at d = 64 the
+tensor-core kernels (``csrc/flash_attention_hv_jvp_tc.cu``,
+``csrc/flash_attention_hv_bwd_tc.cu``), otherwise the CUDA-core kernels
+(``csrc/flash_attention_hv_jvp.cu``, ``csrc/flash_attention_hv_bwd.cu``).
+Both put b·h on a grid axis of at most 65535 blocks, so the dispatchers run
+larger b·h in chunks (``by_rows``).
 
 Math per (b·h), on ``prep_split``'s prepared operands (k̂ = coeff·k) and
 their tangents (t̂k = coeff·tk, tbias = −2·scale·Σ k⊙tk for L2, 0 for dot,
@@ -49,10 +54,12 @@ from gigagan_tpu_torch.ops.kernels.flash_attention import (
     _check,
     _launcher,
     _logits,
+    by_rows,
     flash_attention_bwd,
     flash_attention_fwd,
     prep_split,
 )
+from gigagan_tpu_torch.ops.kernels.flash_attention_fused import check_tc
 from gigagan_tpu_torch.ops.kernels.flash_attention_so import _check_rows, _ptr
 
 # Set while the R1 surrogate φ runs: ``ops.attend`` then routes its
@@ -128,21 +135,40 @@ def flash_attention_hv_jvp_plain(q, k_pre, v, bias, tq, tk_pre, tv, tbias):
             (m + torch.log(tot))[..., 0])
 
 
-def flash_attention_hv_jvp(q, k_pre, v, bias, tq, tk_pre, tv, tbias):
-    """K7a on CUDA tensors, its plain version on CPU tensors.
-    Returns (out, tout, lse)."""
-    if q.device.type == "cpu":
-        return flash_attention_hv_jvp_plain(q, k_pre, v, bias, tq, tk_pre,
-                                            tv, tbias)
-    what = "flash_attention_hv_jvp"
+def hv_uses_tensor_cores(dtype, d: int) -> bool:
+    """K7a's and K7b's dispatch rule: bf16 operands at head dim 64 go to the
+    tensor-core kernels (``csrc/flash_attention_hv_{jvp,bwd}_tc.cu``); fp32
+    and every other head dim up to 128 to the CUDA-core kernels
+    (``*_simt``).  d = 128 does not fit the tensor-core kernels' registers:
+    K7a's two (64 × 128) fp32 accumulators, and K7b's in each of its three
+    kernels, would take 128 of the 168 registers a thread gets."""
+    return dtype == torch.bfloat16 and d == 64
+
+
+def _check_tc(what, q, *tensors):
+    """The tensor-core entries take what ``hv_uses_tensor_cores`` sends
+    them, with every operand 16-byte aligned for TMA; after ``_check``."""
+    if not hv_uses_tensor_cores(q.dtype, q.shape[-1]):
+        raise ValueError(f"{what}: takes bf16 with head dim 64, got "
+                         f"{q.dtype} with {q.shape[-1]}")
+    check_tc(what, (("q", q),) + tuple(
+        (f"operand {i}", t) for i, t in enumerate(tensors, 1)))
+
+
+def _check_jvp(what, q, k_pre, v, bias, tq, tk_pre, tv, tbias):
     _check(what, q, k_pre, v, bias, nq_like=(("tq", tq),),
            nk_like=(("tk_pre", tk_pre), ("tv", tv)),
            bias_like=(("tbias", tbias),))
+
+
+def _jvp_launch(what, source, q, k_pre, v, bias, tq, tk_pre, tv, tbias):
+    """Allocate and call ``gigagan_<what>`` of ``csrc/<source>.cu`` on
+    checked operands: both K7a implementations share one C signature."""
     bh, nq, d = q.shape
     out = torch.empty_like(q)
     tout = torch.empty_like(q)
     lse = torch.empty((bh, nq), dtype=torch.float32, device=q.device)
-    lib, fn = _launcher(what, 11)
+    lib, fn = _launcher(what, 11, source)
     err = fn(q.data_ptr(), k_pre.data_ptr(), v.data_ptr(), bias.data_ptr(),
              tq.data_ptr(), tk_pre.data_ptr(), tv.data_ptr(),
              tbias.data_ptr(), out.data_ptr(), tout.data_ptr(),
@@ -150,11 +176,46 @@ def flash_attention_hv_jvp(q, k_pre, v, bias, tq, tk_pre, tv, tbias):
              _DTYPE_CODES[q.dtype], q.device.index,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, what)
-    flash_attention_hv_jvp.launches += 1
     return out, tout, lse
 
 
-flash_attention_hv_jvp.launches = 0
+def flash_attention_hv_jvp_simt(q, k_pre, v, bias, tq, tk_pre, tv, tbias):
+    """K7a on CUDA cores (``csrc/flash_attention_hv_jvp.cu``): float32 or
+    bf16 with head dim up to 128.  Returns (out, tout, lse)."""
+    what = "flash_attention_hv_jvp_simt"
+    _check_jvp(what, q, k_pre, v, bias, tq, tk_pre, tv, tbias)
+    res = _jvp_launch(what, "flash_attention_hv_jvp", q, k_pre, v, bias, tq,
+                      tk_pre, tv, tbias)
+    flash_attention_hv_jvp_simt.launches += 1
+    return res
+
+
+def flash_attention_hv_jvp_tc(q, k_pre, v, bias, tq, tk_pre, tv, tbias):
+    """K7a on the tensor cores (``csrc/flash_attention_hv_jvp_tc.cu``):
+    bf16 at head dim 64.  Returns (out, tout, lse)."""
+    what = "flash_attention_hv_jvp_tc"
+    _check_jvp(what, q, k_pre, v, bias, tq, tk_pre, tv, tbias)
+    _check_tc(what, q, k_pre, v, tq, tk_pre, tv)
+    res = _jvp_launch(what, what, q, k_pre, v, bias, tq, tk_pre, tv, tbias)
+    flash_attention_hv_jvp_tc.launches += 1
+    return res
+
+
+flash_attention_hv_jvp_simt.launches = 0
+flash_attention_hv_jvp_tc.launches = 0
+
+
+def flash_attention_hv_jvp(q, k_pre, v, bias, tq, tk_pre, tv, tbias):
+    """K7a: its plain version on CPU tensors; on CUDA tensors the
+    tensor-core or the CUDA-core kernel by ``hv_uses_tensor_cores``, in
+    chunks of at most MAX_ROWS b·h rows.  Returns (out, tout, lse)."""
+    if q.device.type == "cpu":
+        return flash_attention_hv_jvp_plain(q, k_pre, v, bias, tq, tk_pre,
+                                            tv, tbias)
+    kernel = (flash_attention_hv_jvp_tc
+              if hv_uses_tensor_cores(q.dtype, q.shape[-1])
+              else flash_attention_hv_jvp_simt)
+    return by_rows(kernel, q, k_pre, v, bias, tq, tk_pre, tv, tbias)
 
 
 # ------------------------------------------------------------------ K7b
@@ -204,23 +265,22 @@ def flash_attention_hv_bwd_plain(q, k_pre, v, bias, tq, tk_pre, tv, tbias,
     )
 
 
-def flash_attention_hv_bwd(q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse,
-                           go, gt):
-    """K7b on CUDA tensors, its plain version on CPU tensors (same returns
-    as the plain version; gk_pre and gtk_pre float32)."""
-    if q.device.type == "cpu":
-        return flash_attention_hv_bwd_plain(q, k_pre, v, bias, tq, tk_pre,
-                                            tv, tbias, lse, go, gt)
-    what = "flash_attention_hv_bwd"
+def _check_bwd(what, q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse, go, gt):
     nq_like = [("tq", tq), ("gt", gt)] + ([("go", go)] if go is not None
                                           else [])
     _check(what, q, k_pre, v, bias, nq_like=nq_like,
            nk_like=(("tk_pre", tk_pre), ("tv", tv)),
            bias_like=(("tbias", tbias),))
+    _check_rows(what, "lse", lse, tuple(q.shape[:2]), q.device)
+
+
+def _bwd_launch(what, source, q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse,
+                go, gt):
+    """Allocate and call ``gigagan_<what>`` of ``csrc/<source>.cu`` on
+    checked operands: both K7b implementations share one C signature."""
     bh, nq, d = q.shape
     nk = k_pre.shape[1]
     dev = q.device
-    _check_rows(what, "lse", lse, (bh, nq), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     gq, gtq = torch.empty_like(q), torch.empty_like(q)
     gv, gtv = torch.empty_like(v), torch.empty_like(v)
@@ -229,7 +289,7 @@ def flash_attention_hv_bwd(q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse,
     gbias = torch.empty((bh, nk), **f32)
     gtbias = torch.empty((bh, nk), **f32)
     stats = torch.empty((bh, nq, 3), **f32)  # μ, r, rowsum(A⊙ĝA) per row
-    lib, fn = _launcher(what, 20)
+    lib, fn = _launcher(what, 20, source)
     err = fn(q.data_ptr(), k_pre.data_ptr(), v.data_ptr(), bias.data_ptr(),
              tq.data_ptr(), tk_pre.data_ptr(), tv.data_ptr(),
              tbias.data_ptr(), lse.data_ptr(), _ptr(go), gt.data_ptr(),
@@ -239,11 +299,54 @@ def flash_attention_hv_bwd(q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse,
              _DTYPE_CODES[q.dtype], dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, what)
-    flash_attention_hv_bwd.launches += 1
     return gq, gk, gv, gbias, gtq, gtk, gtv, gtbias
 
 
-flash_attention_hv_bwd.launches = 0
+def flash_attention_hv_bwd_simt(q, k_pre, v, bias, tq, tk_pre, tv, tbias,
+                                lse, go, gt):
+    """K7b on CUDA cores (``csrc/flash_attention_hv_bwd.cu``): float32 or
+    bf16 with head dim up to 128 (same returns as the plain version; gk_pre
+    and gtk_pre float32)."""
+    what = "flash_attention_hv_bwd_simt"
+    _check_bwd(what, q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse, go, gt)
+    res = _bwd_launch(what, "flash_attention_hv_bwd", q, k_pre, v, bias, tq,
+                      tk_pre, tv, tbias, lse, go, gt)
+    flash_attention_hv_bwd_simt.launches += 1
+    return res
+
+
+def flash_attention_hv_bwd_tc(q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse,
+                              go, gt):
+    """K7b on the tensor cores (``csrc/flash_attention_hv_bwd_tc.cu``): bf16
+    at head dim 64 (same returns as the plain version; gk_pre and gtk_pre
+    float32)."""
+    what = "flash_attention_hv_bwd_tc"
+    _check_bwd(what, q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse, go, gt)
+    _check_tc(what, q, k_pre, v, tq, tk_pre, tv, gt, go)
+    res = _bwd_launch(what, what, q, k_pre, v, bias, tq, tk_pre, tv, tbias,
+                      lse, go, gt)
+    flash_attention_hv_bwd_tc.launches += 1
+    return res
+
+
+flash_attention_hv_bwd_simt.launches = 0
+flash_attention_hv_bwd_tc.launches = 0
+
+
+def flash_attention_hv_bwd(q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse,
+                           go, gt):
+    """K7b: its plain version on CPU tensors; on CUDA tensors the
+    tensor-core or the CUDA-core kernel by ``hv_uses_tensor_cores``, in
+    chunks of at most MAX_ROWS b·h rows (same returns as the plain version;
+    gk_pre and gtk_pre float32)."""
+    if q.device.type == "cpu":
+        return flash_attention_hv_bwd_plain(q, k_pre, v, bias, tq, tk_pre,
+                                            tv, tbias, lse, go, gt)
+    kernel = (flash_attention_hv_bwd_tc
+              if hv_uses_tensor_cores(q.dtype, q.shape[-1])
+              else flash_attention_hv_bwd_simt)
+    return by_rows(kernel, q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse, go,
+                   gt)
 
 
 # -------------------------------------------------------- the Functions

@@ -311,7 +311,8 @@ def test_flash_attend_gradchecks():
 # every implementation of K6a, K6b, K7a and K7b, each with its own count
 HV_ENTRIES = (k6.flash_attention_fwd_tc, k6.flash_attention_fwd_simt,
               k6.flash_attention_bwd_tc, k6.flash_attention_bwd_simt,
-              k7.flash_attention_hv_jvp, k7.flash_attention_hv_bwd)
+              k7.flash_attention_hv_jvp_tc, k7.flash_attention_hv_jvp_simt,
+              k7.flash_attention_hv_bwd_tc, k7.flash_attention_hv_bwd_simt)
 
 
 def test_hv_wrappers_never_fall_back_off_the_cpu():
@@ -336,6 +337,17 @@ def test_hv_wrappers_never_fall_back_off_the_cpu():
         k7.flash_attention_hv_jvp(q, q, q, bias, q, q, q, bias)
     with pytest.raises(ValueError, match="on meta"):
         k7.flash_attention_hv_bwd(q, q, q, bias, q, q, q, bias, lse, None, q)
+    # each K7 implementation called directly, in the dtype it takes, with
+    # and without the cotangent of out
+    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+        qd = q.to(dtype)
+        with pytest.raises(ValueError, match="on meta"):
+            getattr(k7, f"flash_attention_hv_jvp_{route}")(
+                qd, qd, qd, bias, qd, qd, qd, bias)
+        for go in (None, qd):
+            with pytest.raises(ValueError, match="on meta"):
+                getattr(k7, f"flash_attention_hv_bwd_{route}")(
+                    qd, qd, qd, bias, qd, qd, qd, bias, lse, go, qd)
     d128 = torch.empty(2, 16, 128, **meta)  # in range: only the device
     with pytest.raises(ValueError, match="on meta"):
         k7.flash_attention_hv_jvp(d128, d128, d128, bias, d128, d128, d128,
@@ -444,6 +456,124 @@ def test_k6_on_cpu_runs_plain_and_launches_nothing(d):
     for got, want_ in zip(k6.flash_attention_bwd(*ops, g, out, lse),
                           k6.flash_attention_bwd_plain(*ops, g, out, lse)):
         assert torch.equal(got, want_)
+    assert [f.launches for f in HV_ENTRIES] == before
+
+
+def _k7_standins(monkeypatch):
+    """K7a's and K7b's implementations replaced by stand-ins that count
+    their calls (b·h rows, and whether ĝo came) and return outputs of the
+    right shapes; by entry name."""
+    entries = {}
+    for route in ("tc", "simt"):
+        def jvp(q, k_pre, v, bias, tq, tk_pre, tv, tbias,
+                _name=f"flash_attention_hv_jvp_{route}"):
+            entries[_name].append(q.shape[0])
+            return q, tq, torch.empty(q.shape[:2], device=q.device)
+
+        def bwd(q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse, go, gt,
+                _name=f"flash_attention_hv_bwd_{route}"):
+            entries[_name].append((q.shape[0], go is not None))
+            if go is not None:
+                assert go.shape[0] == q.shape[0]
+            return q, k_pre, v, bias, tq, tk_pre, tv, tbias
+
+        for name, fn in ((f"flash_attention_hv_jvp_{route}", jvp),
+                         (f"flash_attention_hv_bwd_{route}", bwd)):
+            entries[name] = []
+            monkeypatch.setattr(k7, name, fn)
+    return entries
+
+
+# K7a and K7b dispatch by their own rule: bf16 at head dim 64 to the tensor
+# cores, everything else (d = 128 among it) to the CUDA cores
+K7_DISPATCH = [(torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "simt"),
+               (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+               (torch.bfloat16, 80, "simt"), (torch.bfloat16, 32, "simt")]
+
+
+@pytest.mark.parametrize(
+    "dtype,d,route", K7_DISPATCH,
+    ids=[f"{str(dt).split('.')[-1]}-d{d}" for dt, d, _ in K7_DISPATCH])
+def test_k7_dispatch_rule(dtype, d, route, monkeypatch):
+    entries = _k7_standins(monkeypatch)
+    assert k7.hv_uses_tensor_cores(dtype, d) == (route == "tc")
+    q = torch.empty(4, 16, d, dtype=dtype, device="meta")
+    bias = torch.empty(4, 16, device="meta")
+    k7.flash_attention_hv_jvp(q, q, q, bias, q, q, q, bias)
+    k7.flash_attention_hv_bwd(q, q, q, bias, q, q, q, bias, bias, None, q)
+    assert entries == {
+        f"flash_attention_hv_{k}_{r}": (
+            ([4] if k == "jvp" else [(4, False)]) if r == route else [])
+        for k in ("jvp", "bwd") for r in ("tc", "simt")}
+
+
+@pytest.mark.parametrize("with_go", [False, True], ids=["no_go", "go"])
+@pytest.mark.parametrize("route", ["tc", "simt"])
+def test_k7_dispatch_splits_rows_past_the_grid_limit(route, with_go,
+                                                     monkeypatch):
+    # b·h past MAX_ROWS runs as launches of at most MAX_ROWS rows each, the
+    # outputs concatenated in order; an absent ĝo stays absent in every
+    # chunk, a given one is split with the rest
+    entries = _k7_standins(monkeypatch)
+    monkeypatch.setattr(k6, "MAX_ROWS", 3)
+    dtype = torch.bfloat16 if route == "tc" else torch.float32
+    q = torch.empty(8, 16, 64, dtype=dtype, device="meta")
+    bias = torch.empty(8, 16, device="meta")
+    out, tout, lse = k7.flash_attention_hv_jvp(q, q, q, bias, q, q, q, bias)
+    assert out.shape == tout.shape == q.shape and lse.shape == (8, 16)
+    grads = k7.flash_attention_hv_bwd(q, q, q, bias, q, q, q, bias, lse,
+                                      q if with_go else None, q)
+    assert [g_.shape for g_ in grads] == (
+        [q.shape] * 3 + [bias.shape] + [q.shape] * 3 + [bias.shape])
+    assert entries[f"flash_attention_hv_jvp_{route}"] == [3, 3, 2]
+    assert entries[f"flash_attention_hv_bwd_{route}"] == [
+        (3, with_go), (3, with_go), (2, with_go)]
+
+
+@pytest.mark.parametrize("with_go", [False, True], ids=["no_go", "go"])
+def test_k7_row_split_matches_one_call(with_go):
+    # the split the dispatchers make past MAX_ROWS, at a chunk of 3 rows on
+    # the plain versions: the same out, tout, lse and cotangents as one call
+    b, h, nq, nk, d = 2, 4, 20, 24, 16
+    q, k, v, tq, tk, tv = qkv(61, b, h, nq, nk, d, tangents=True)
+    mask = t(key_mask(62, b, nk))
+    ops = k6.prep_split(t(q), t(k), t(v), mask, True, d ** -0.5)
+    tang = (*k7.prep_tangents(t(q), t(k), t(tq), t(tk), mask, True,
+                              d ** -0.5), t(tv).reshape(b * h, nk, d))
+    tang = (tang[0], tang[1], tang[3], tang[2])  # tq, t̂k, tv, tbias
+    fwd = k7.flash_attention_hv_jvp_plain(*ops, *tang)
+    split = k6.by_rows(k7.flash_attention_hv_jvp_plain, *ops, *tang, chunk=3)
+    gen = torch.Generator().manual_seed(63)
+    go = torch.randn(fwd[0].shape, generator=gen) if with_go else None
+    gt = torch.randn(fwd[0].shape, generator=gen)
+    grads = k7.flash_attention_hv_bwd_plain(*ops, *tang, fwd[2], go, gt)
+    split_grads = k6.by_rows(k7.flash_attention_hv_bwd_plain, *ops, *tang,
+                             fwd[2], go, gt, chunk=3)
+    for got, want in zip((*split, *split_grads), (*fwd, *grads)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_k7_on_cpu_runs_plain_and_launches_nothing(d):
+    # bf16 CPU tensors, whichever implementation the rule would pick on the
+    # card: the wrappers return the plain versions' results, and no counter
+    # moves
+    before = [f.launches for f in HV_ENTRIES]
+    q, k, v, tq, tk, tv = (t(a).bfloat16() for a in qkv(64, nq=20, nk=24,
+                                                         d=d, tangents=True))
+    mask = t(key_mask(65, 2, 24))
+    ops = k6.prep_split(q, k, v, mask, True, d ** -0.5)
+    tq_, tk_pre, tbias = k7.prep_tangents(q, k, tq, tk, mask, True,
+                                          d ** -0.5)
+    tang = (tq_, tk_pre, tv.reshape(4, 24, d), tbias)
+    got = k7.flash_attention_hv_jvp(*ops, *tang)
+    want = k7.flash_attention_hv_jvp_plain(*ops, *tang)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    for go in (None, got[0]):
+        got_b = k7.flash_attention_hv_bwd(*ops, *tang, got[2], go, got[1])
+        want_b = k7.flash_attention_hv_bwd_plain(*ops, *tang, got[2], go,
+                                                 got[1])
+        assert all(torch.equal(a, w) for a, w in zip(got_b, want_b))
     assert [f.launches for f in HV_ENTRIES] == before
 
 
