@@ -12,8 +12,8 @@ Phases (any failure raises and exits non-zero):
 1. find the card (fails without CUDA) and print its name and power limit;
 2. build the CUDA kernels from ``gigagan_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and check in their SASS that the
-   tensor-core K1, K3, K4, K5, K7a and K7b run ``HGMMA`` (``wgmma``) fed by
-   ``UTMALDG`` (TMA);
+   tensor-core K1, K2, K3, K4, K5, K7a and K7b run ``HGMMA`` (``wgmma``) fed
+   by ``UTMALDG`` (TMA);
 3. hold kernel K1 (adaptive conv) against its plain PyTorch version at
    every 3x3 conv shape of the 256px generator, batch 8: fp32 (TF32 off) on
    the CUDA-core kernel, bf16 with fp32 and with bf16 banks on the
@@ -36,9 +36,15 @@ Phases (any failure raises and exits non-zero):
    against the plain path on the card; batch-1 latency and batch-8
    images/s are timed, with K1's CUDA-core kernel patched in on every
    other request as the yardstick;
-6. hold K2 (weight gradient) and K1 as the input gradient (tensor cores
-   in bf16), through the conv Function's backward, against plain PyTorch
-   at the same 15 shapes, and K2 at 8 banks (two launches of at most 4);
+6. hold K2 (weight gradient; fp32 on the CUDA-core kernel, bf16 on the
+   tensor-core one, every bf16 launch checked to land there) and K1 as the
+   input gradient (tensor cores in bf16), through the conv Function's
+   backward, against plain PyTorch at the same 15 shapes, timing K2's two
+   routes and the plain version beside the bound; K2 at extra rows (ragged
+   12x20 maps at 16 -> 16, 16 -> 32, 32 -> 16 and 64 -> 48, the last on
+   the CUDA cores by the rule; 1, 2 and 4 banks; batch 1), each launch on
+   the route its rule names; and K2 at 8 banks (groups of at most 4 on the
+   CUDA cores, 2 on the tensor cores);
 7. the same for K4 (attention backward; the SDPA yardstick is its
    backward), and K5 (its adjoint; tensor cores in bf16 at d = 64) at the
    d_step's R1 shapes, timed beside its CUDA-core kernel, and at the small
@@ -73,8 +79,9 @@ Phases (any failure raises and exits non-zero):
     gradient), and the forward-over-reverse d_step against the
     reverse-over-reverse one (penalty and every gradient); then bf16: a
     d_step with R1 and a g_step through the tensor-core K3/K4 against the
-    same steps with the CUDA-core ones patched in, the same for K1/K5, and
-    a forward-over-reverse d_step with R1 through the tensor-core K6a/K6b,
+    same steps with the CUDA-core ones patched in, the same for K1/K5, a
+    g_step through the tensor-core K2 against the CUDA-core one, and a
+    forward-over-reverse d_step with R1 through the tensor-core K6a/K6b,
     then K7a/K7b, against the CUDA-core ones; each bf16 route's distance
     from the fp32 plain step is reported, and the tensor-core route's may
     be at most FROM_PLAIN_RATIO times the CUDA-core route's;
@@ -126,6 +133,11 @@ K1_TOL_F32, K1_TOL_BF16, K3_TOL = 0.02, 0.08, 0.03
 K1_EXTRA = [(2, 12, 20, 64, 48, 2), (2, 12, 20, 64, 48, 1),
             (2, 9, 13, 32, 64, 4)]
 K2_TOL_F32, K2_TOL_BF16, K4_TOL, K5_TOL = 0.02, 0.08, 0.03, 0.05
+# a bf16 K2 call against the plain version on the same bf16 inputs: both
+# sum the same products in fp32, only the order differs (every row read
+# within 2e-6 on an H100), so a lost chunk of pixels (1/1024 of a 256²
+# map's sum per sample) stands far above this
+K2_TOL_SAME = 1e-4
 G_TOL_F32, STEP_TOL_F32, STEP_TOL_BF16 = 0.02, 0.02, 0.08
 # a gradient leaf that moves by more than this in fp32 when only the order
 # of summation changes (kernels vs plain path, same step) carries no
@@ -162,6 +174,14 @@ HV_PATH = [("phi", 64, HEADS, 1024, 1025, DIM_HEAD, True, False),
 K6_ALL_MASKED = ("all masked", 2, 2, 300, 200, DIM_HEAD, False, "all")
 # K2 with more banks than one launch takes (b, h, ci, co, banks)
 K2_BANKS = (BATCH, 32, 128, 128, 8)
+# K2's extra rows (b, h, w, ci, co, banks): ragged maps at the thin layers'
+# channel counts and ci != co both ways, 64 -> 48 (three 16-wide co tiles)
+# and 64 -> 40 (the CUDA cores by the rule), one bank, four banks (two
+# tensor-core launches), batch 1
+K2_EXTRA = [(2, 12, 20, 16, 16, 2), (2, 12, 20, 16, 32, 2),
+            (2, 12, 20, 32, 16, 2), (2, 12, 20, 64, 48, 2),
+            (2, 12, 20, 64, 40, 2), (2, 12, 20, 16, 16, 1),
+            (2, 9, 13, 32, 64, 4), (1, 16, 16, 32, 16, 2)]
 # fp32 rows read at most 1.6e-4 and bf16 rows at most 6.7e-3 on an H100
 K67_TOL_F32, K67_TOL_BF16 = 1e-3, 0.03
 # phase 11: a bf16 step's tensor-core route may sit at most this many times
@@ -210,6 +230,73 @@ def time_ms(fn, torch, min_ms=60.0):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, torch, calls=100):
+    """Host time to issue one call: no synchronisation inside the loop, so
+    the device's time is left out while the launch queue has room."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    issue = (time.perf_counter() - t) * 1e3 / calls
+    torch.cuda.synchronize()
+    return issue
+
+
+def device_ms(fn, torch, kernels, reps=20, tries=4):
+    """(mean device time of one call, {kernel name: its share}): the
+    kernels' own time, summed by torch.profiler over `reps` calls, so the
+    host's issue time (which the CUDA events of `time_ms` include when the
+    host falls behind) is left out.  `fn` launches each kernel named in
+    `kernels` once and no other; a trace that does not hold exactly that
+    (the profiler drops events now and then) is taken again, and after
+    `tries` such traces the time is None: a partial trace would undercount
+    it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    fn()
+    torch.cuda.synchronize()
+    want = {k_: reps for k_ in kernels}
+    for _ in range(tries):
+        with prof(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name, counts = {}, {}
+        for e in p.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                found = re.search(r"\w+_kernel", e.key)
+                name = found.group(0) if found else e.key[:40]
+                by_name[name] = (by_name.get(name, 0.0)
+                                 + e.self_device_time_total / 1e3 / reps)
+                counts[name] = counts.get(name, 0) + e.count
+        if counts == want:
+            return sum(by_name.values()), by_name
+        log(f"device_ms: the trace holds launches {counts}, one call "
+            f"launches {want} over {reps} calls; taken again")
+    log(f"device_ms: {tries} traces lost kernels; no device time reported")
+    return None, {}
+
+
+def k2_kernels(k1, route, x, g, w):
+    """The kernels one K2 call on `route` launches: the correlation, the
+    sum of the tensor-core route's pixel splits where it splits, and the
+    reduces of the partials."""
+    if route == "simt":
+        return ("corr_partial_kernel", "corr_reduce_kernel",
+                "da_reduce_kernel")
+    b, h, w_, ci = x.shape
+    splits = k1.bwd_w_workspace("tc", b, h, w_, ci, g.shape[-1], w.shape[0],
+                                x.device.index)[0]
+    return ("corr_tc_kernel",) + (("dw_reduce_kernel",) if splits else ()) \
+        + ("da_reduce_kernel",)
+
+
+def ms_text(v):
+    return "not measured" if v is None else f"{v:.4f}"
 
 
 def nbytes(*tensors):
@@ -381,10 +468,11 @@ def main():
     bf16 = torch.bfloat16
     OUT_DIR.mkdir(exist_ok=True)
 
-    # K1 and K3-K7b count the launches of both implementations; the
+    # every kernel counts the launches of both implementations; the
     # CUDA-core ones alone are read as well, to show that no bf16 call
     # reached them
     simt = {"k1": k1.adaptive_conv_fwd_simt,
+            "k2": k1.adaptive_conv_bwd_w_simt,
             "k3": k3.flash_attention_fused_fwd_simt,
             "k4": so.flash_attention_fused_bwd_simt,
             "k5": so.flash_attention_so_bwd2_simt,
@@ -393,6 +481,7 @@ def main():
             "k7a": k7.flash_attention_hv_jvp_simt,
             "k7b": k7.flash_attention_hv_bwd_simt}
     tc_entry = {"k1": k1.adaptive_conv_fwd_tc,
+                "k2": k1.adaptive_conv_bwd_w_tc,
                 "k3": k3.flash_attention_fused_fwd_tc,
                 "k4": so.flash_attention_fused_bwd_tc,
                 "k5": so.flash_attention_so_bwd2_tc,
@@ -401,7 +490,6 @@ def main():
                 "k7a": k7.flash_attention_hv_jvp_tc,
                 "k7b": k7.flash_attention_hv_bwd_tc}
     counters = {k_: [tc_entry[k_], simt[k_]] for k_ in tc_entry}
-    counters.update(k2=[k1.adaptive_conv_bwd_w])
 
     def reset_counts():
         for fns in counters.values():
@@ -418,6 +506,7 @@ def main():
     # where each kernel's tensor-core entry lives as a module attribute that
     # its dispatcher reads
     tc_home = {"k1": (k1, "adaptive_conv_fwd"),
+               "k2": (k1, "adaptive_conv_bwd_w"),
                "k3": (k3, "flash_attention_fused_fwd"),
                "k4": (so, "flash_attention_fused_bwd"),
                "k5": (so, "flash_attention_so_bwd2"),
@@ -441,6 +530,18 @@ def main():
                 mod, base = tc_home[k_]
                 setattr(mod, f"{base}_tc", tc_entry[k_])
 
+    def launched_on(kname, call):
+        """call() and the route of the kernel it launched on (None if it
+        did not launch exactly once, on one route)."""
+        before = {r: e[kname].launches for r, e in (("tc", tc_entry),
+                                                      ("simt", simt))}
+        res = call()
+        ran = {r: e[kname].launches - before[r]
+               for r, e in (("tc", tc_entry), ("simt", simt))}
+        hit = [r for r, n_ in ran.items() if n_]
+        return res, (hit[0] if len(hit) == 1 and ran[hit[0]] == 1
+                     else None)
+
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
     built = build.build_all(verbose=True)
@@ -463,7 +564,8 @@ def main():
     # loads fails here
     cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
     report["sass"] = {}
-    for kname in ("adaptive_conv_fwd_tc", "flash_attention_fused_fwd_tc",
+    for kname in ("adaptive_conv_fwd_tc", "adaptive_conv_bwd_w_tc",
+                  "flash_attention_fused_fwd_tc",
                   "flash_attention_fused_bwd_tc",
                   "flash_attention_so_bwd2_tc", "flash_attention_hv_jvp_tc",
                   "flash_attention_hv_bwd_tc"):
@@ -771,8 +873,15 @@ def main():
         d = 0.5 + torch.rand(BATCH, co, device=dev, generator=gen)
         xb, gb = x.bfloat16(), g.bfloat16()
         dw_want, da_want = k1.adaptive_conv_bwd_w_plain(x, g, w, a)
-        dw32, da32 = k1.adaptive_conv_bwd_w(x, g, w, a)
-        dw16, da16 = k1.adaptive_conv_bwd_w(xb, gb, w, a)
+        # the plain version on the bf16 call's own inputs
+        dw_same, da_same = k1.adaptive_conv_bwd_w_plain(xb, gb, w, a)
+        (dw32, da32), route32 = launched_on(
+            "k2", lambda: k1.adaptive_conv_bwd_w(x, g, w, a))
+        (dw16, da16), route16 = launched_on(
+            "k2", lambda: k1.adaptive_conv_bwd_w(xb, gb, w, a))
+        if (route32, route16) != ("simt", "tc"):
+            fail(f"K2 at {h}x{h} {ci}->{co} ran fp32 on {route32} and bf16 "
+                 f"on {route16}, the rule names simt and tc")
         # K1 as dx through the conv Function's backward, against autograd
         # of the plain version
         xr = x.clone().requires_grad_()
@@ -798,6 +907,8 @@ def main():
             rel_da_f32=rel_err(da32, da_want),
             rel_dw_bf16=rel_err(dw16, dw_want),
             rel_da_bf16=rel_err(da16, da_want),
+            rel_dw_same=rel_err(dw16, dw_same),
+            rel_da_same=rel_err(da16, da_same),
             rel_dx_f32=rel_err(dx32, dx_want),
             rel_dx_bf16=rel_err(dx16, dx_want),
             abs_f32=max(abs_err(dw32, dw_want), abs_err(da32, da_want)),
@@ -809,6 +920,11 @@ def main():
                 lambda: k1.adaptive_conv_bwd_w_plain(x, g, w, a), torch),
             ms_bf16=time_ms(lambda: k1.adaptive_conv_bwd_w(xb, gb, w, a),
                             torch),
+            simt_ms_bf16=time_ms(
+                lambda: k1.adaptive_conv_bwd_w_simt(xb, gb, w, a), torch),
+            simt_device_ms_bf16=device_ms(
+                lambda: k1.adaptive_conv_bwd_w_simt(xb, gb, w, a), torch,
+                k2_kernels(k1, "simt", xb, gb, w))[0],
             plain_ms_bf16=time_ms(
                 lambda: k1.adaptive_conv_bwd_w_plain(xb, gb, w, a), torch),
             dx_ms_bf16=time_ms(
@@ -820,15 +936,26 @@ def main():
                 lambda: k1.adaptive_conv_fwd_plain(gs16, wft, a, ones),
                 torch),
         )
+        row["device_ms_bf16"], row["device_kernels_bf16"] = device_ms(
+            lambda: k1.adaptive_conv_bwd_w(xb, gb, w, a), torch,
+            k2_kernels(k1, "tc", xb, gb, w))
         row["bound_ms"], row["bound_by"] = bound(
             2.0 * BATCH * h * h * 9 * ci * co,
             nbytes(xb, gb, w, a, dw16, da16))
         k2_rows[(h, ci, co)] = row
         log(f"K2 b{BATCH} {h}x{h} {ci}->{co}: rel dW/da f32 "
             f"{row['rel_dw_f32']:.2e}/{row['rel_da_f32']:.2e} bf16 "
-            f"{row['rel_dw_bf16']:.2e}/{row['rel_da_bf16']:.2e} | ms f32 "
-            f"{row['ms_f32']:.4f} (plain {row['plain_ms_f32']:.4f}) bf16 "
-            f"{row['ms_bf16']:.4f} (plain {row['plain_ms_bf16']:.4f}) | "
+            f"{row['rel_dw_bf16']:.2e}/{row['rel_da_bf16']:.2e} (same "
+            f"inputs {row['rel_dw_same']:.2e}/{row['rel_da_same']:.2e}) | "
+            f"ms f32 {row['ms_f32']:.4f} (plain {row['plain_ms_f32']:.4f}) "
+            f"bf16 {row['ms_bf16']:.4f} (simt {row['simt_ms_bf16']:.4f}, "
+            f"plain {row['plain_ms_bf16']:.4f}, bound {row['bound_ms']:.4f} "
+            f"{row['bound_by']}; device time tc "
+            f"{ms_text(row['device_ms_bf16'])} simt "
+            f"{ms_text(row['simt_device_ms_bf16'])}; tc kernels "
+            + ", ".join(f"{k_} {v:.4f}"
+                        for k_, v in row["device_kernels_bf16"].items())
+            + ") | "
             f"K1-dx rel f32 {row['rel_dx_f32']:.2e} bf16 "
             f"{row['rel_dx_bf16']:.2e} ms bf16 {row['dx_ms_bf16']:.4f} "
             f"(simt {row['dx_simt_ms_bf16']:.4f}, plain "
@@ -836,10 +963,69 @@ def main():
         if not (max(row["rel_dw_f32"], row["rel_da_f32"],
                     row["rel_dx_f32"]) <= K2_TOL_F32
                 and max(row["rel_dw_bf16"], row["rel_da_bf16"],
-                        row["rel_dx_bf16"]) <= K2_TOL_BF16):
+                        row["rel_dx_bf16"]) <= K2_TOL_BF16
+                and max(row["rel_dw_same"],
+                        row["rel_da_same"]) <= K2_TOL_SAME):
             fail(f"K2 / K1-as-dx disagrees at {row}")
     report["k2"] = list(k2_rows.values())
-    # more banks than one K2 launch takes: the wrapper's groups of 4
+    # extra rows for the tensor-core route's edges: fp32 on the CUDA cores,
+    # bf16 (fp32 and bf16 banks) on the route the rule names, each call
+    # one launch per group of that route's banks
+    k2_extra = []
+    for b, h, w_, ci, co, n in K2_EXTRA:
+        x = torch.randn(b, h, w_, ci, device=dev, generator=gen)
+        g = torch.randn(b, h, w_, co, device=dev, generator=gen)
+        w = torch.randn(n, 3, 3, ci, co, device=dev, generator=gen) * (
+            2.0 / (9 * ci)) ** 0.5
+        a = torch.softmax(torch.randn(b, n, device=dev, generator=gen), -1)
+        want = k1.adaptive_conv_bwd_w_plain(x, g, w, a)
+        route = "tc" if k1.bwd_w_uses_tensor_cores(bf16, ci, co) else "simt"
+        per_call = {"tc": -(-n // k1.MAX_BANKS_TC),
+                    "simt": -(-n // k1.MAX_BANKS)}
+        before = {r: e["k2"].launches for r, e in (("tc", tc_entry),
+                                                    ("simt", simt))}
+        xb, gb = x.bfloat16(), g.bfloat16()
+        got32 = k1.adaptive_conv_bwd_w(x, g, w, a)
+        got16 = [k1.adaptive_conv_bwd_w(xb, gb, wb, a)
+                 for wb in (w, w.bfloat16())]
+        torch.cuda.synchronize()
+        same = [k1.adaptive_conv_bwd_w_plain(xb, gb, wb, a)
+                for wb in (w, w.bfloat16())]
+        ran = {r: e["k2"].launches - before[r] for r, e in (("tc", tc_entry),
+                                                            ("simt", simt))}
+        expect = {r: (per_call["simt"] if r == "simt" else 0)
+                  + (2 * per_call[route] if r == route else 0)
+                  for r in ("tc", "simt")}
+        row = dict(b=b, h=h, w=w_, ci=ci, co=co, n=n, route_bf16=route,
+                   launches=ran, launches_expected=expect,
+                   rel_f32=max(rel_err(o, r_) for o, r_ in zip(got32, want)),
+                   rel_bf16=max(rel_err(o, r_) for got in got16
+                                for o, r_ in zip(got, want)),
+                   rel_same=max(rel_err(o, r_) for got, ref in zip(got16, same)
+                                for o, r_ in zip(got, ref)),
+                   abs=max(abs_err(o, r_) for got in (got32, *got16)
+                           for o, r_ in zip(got, want)))
+        if route == "tc" and n <= k1.MAX_BANKS_TC:
+            # each route's event time and host issue time per call
+            for r, entry in (("tc", k1.adaptive_conv_bwd_w_tc),
+                             ("simt", k1.adaptive_conv_bwd_w_simt)):
+                row[f"{r}_ms"] = time_ms(lambda: entry(xb, gb, w, a), torch)
+                row[f"{r}_host_ms"] = host_ms(lambda: entry(xb, gb, w, a),
+                                              torch)
+        k2_extra.append(row)
+        log(f"K2 extra b{b} {h}x{w_} {ci}->{co} n={n}: rel f32 "
+            f"{row['rel_f32']:.2e} bf16 ({route}) {row['rel_bf16']:.2e} "
+            f"(same inputs {row['rel_same']:.2e}), launches {ran}"
+            + (f", ms per call tc {row['tc_ms']:.4f} (host "
+               f"{row['tc_host_ms']:.4f}) simt {row['simt_ms']:.4f} (host "
+               f"{row['simt_host_ms']:.4f})" if "tc_ms" in row else ""))
+        if not (ran == expect and row["rel_f32"] <= K2_TOL_F32
+                and row["rel_bf16"] <= K2_TOL_BF16
+                and row["rel_same"] <= K2_TOL_SAME):
+            fail(f"K2 extra row failed: {row}")
+    report["k2_extra"] = k2_extra
+    # more banks than one K2 launch takes: the wrapper's groups of 4 (CUDA
+    # cores) and 2 (tensor cores)
     b, h, ci, co, n = K2_BANKS
     x = torch.randn(b, h, h, ci, device=dev, generator=gen)
     g = torch.randn(b, h, h, co, device=dev, generator=gen)
@@ -847,24 +1033,32 @@ def main():
         2.0 / (9 * ci)) ** 0.5
     a = torch.softmax(torch.randn(b, n, device=dev, generator=gen), -1)
     want = k1.adaptive_conv_bwd_w_plain(x, g, w, a)
-    before = k1.adaptive_conv_bwd_w.launches
+    before = (simt["k2"].launches, tc_entry["k2"].launches)
+    xb, gb = x.bfloat16(), g.bfloat16()
     got32 = k1.adaptive_conv_bwd_w(x, g, w, a)
-    got16 = k1.adaptive_conv_bwd_w(x.bfloat16(), g.bfloat16(), w, a)
+    got16 = k1.adaptive_conv_bwd_w(xb, gb, w, a)
     torch.cuda.synchronize()
+    same = k1.adaptive_conv_bwd_w_plain(xb, gb, w, a)
     row = dict(b=b, h=h, ci=ci, co=co, n=n,
-               launches=k1.adaptive_conv_bwd_w.launches - before,
+               launches=(simt["k2"].launches - before[0],
+                         tc_entry["k2"].launches - before[1]),
                rel_f32=max(rel_err(o, w_) for o, w_ in zip(got32, want)),
                rel_bf16=max(rel_err(o, w_) for o, w_ in zip(got16, want)),
+               rel_same=max(rel_err(o, w_) for o, w_ in zip(got16, same)),
                abs=max(abs_err(o, w_) for o, w_ in zip((*got32, *got16),
                                                       want * 2)))
     report["k2_banks"] = row
-    log(f"K2 b{b} {h}x{h} {ci}->{co} n={n}: {row['launches']} launches for "
-        f"two calls, rel f32 {row['rel_f32']:.2e} bf16 {row['rel_bf16']:.2e}")
-    if not (row["launches"] == 2 * -(-n // k1.MAX_BANKS)
+    log(f"K2 b{b} {h}x{h} {ci}->{co} n={n}: (CUDA-core, tensor-core) "
+        f"launches {row['launches']} for an fp32 and a bf16 call, rel f32 "
+        f"{row['rel_f32']:.2e} bf16 {row['rel_bf16']:.2e} (same inputs "
+        f"{row['rel_same']:.2e})")
+    if not (row["launches"] == (-(-n // k1.MAX_BANKS),
+                                -(-n // k1.MAX_BANKS_TC))
             and row["rel_f32"] <= K2_TOL_F32
-            and row["rel_bf16"] <= K2_TOL_BF16):
+            and row["rel_bf16"] <= K2_TOL_BF16
+            and row["rel_same"] <= K2_TOL_SAME):
         fail(f"K2 at {n} banks failed: {row}")
-    del x, g, w, a, want, got32, got16
+    del x, g, w, a, want, got32, got16, same
 
     # ---------------------------------------------------------------- 7
     k4_rows, k5_rows = [], []
@@ -960,18 +1154,6 @@ def main():
         rule = (k3.uses_tensor_cores if kname in ("k6a", "k6b")
                 else k7.hv_uses_tensor_cores)
         return "tc" if rule(dtype, d) else "simt"
-
-    def launched_on(kname, call):
-        """call() and the route of the kernel it launched on (None if it
-        did not launch exactly once, on one route)."""
-        before = {r: e[kname].launches for r, e in (("tc", tc_entry),
-                                                      ("simt", simt))}
-        res = call()
-        ran = {r: e[kname].launches - before[r]
-               for r, e in (("tc", tc_entry), ("simt", simt))}
-        hit = [r for r, n_ in ran.items() if n_]
-        return res, (hit[0] if len(hit) == 1 and ran[hit[0]] == 1
-                     else None)
 
     hv_rows = []
     for who, b, h, nq, nk, d, l2, masked in HV_PATH:
@@ -1256,7 +1438,7 @@ def main():
     # --------------------------------------------------------------- 11
     # fp32 steps through the kernels against the same steps on the plain
     # path, each from the same fresh state; then bf16 steps through the
-    # tensor-core K3/K4, K1/K5, K6a/K6b and K7a/K7b against the CUDA-core
+    # tensor-core K3/K4, K1/K5, K2, K6a/K6b and K7a/K7b against the CUDA-core
     # ones, each route also held to its distance from the fp32 plain step
     real = torch.from_numpy(np.stack([data[i] for i in range(BATCH)])).to(dev)
 
@@ -1343,7 +1525,9 @@ def main():
                             amp=True)
         tc = {k_: tc_entry[k_].launches for k_ in keys}
         sc = {k_: simt[k_].launches for k_ in keys}
-        ran = [k_ for k_ in keys if kind[0] == "d" or k_ != "k5"]
+        # K5 runs only in the d_step's R1 double backward, K2 only in the
+        # g_step (G's backward)
+        ran = [k_ for k_ in keys if k_ != ("k2" if kind[0] == "d" else "k5")]
         used, unused = (tc, sc) if route == "tc" else (sc, tc)
         if not all(used[k_] for k_ in ran) or any(unused.values()):
             fail(f"bf16 {kind}_step on the {route} route launched tensor-core "
@@ -1363,6 +1547,7 @@ def main():
     for keys, kinds in (
             (("k3", "k4"), (("d", "d_step +R1"), ("g", "g_step"))),
             (("k1", "k5"), (("d", "d_step +R1"), ("g", "g_step"))),
+            (("k2",), (("g", "g_step"),)),
             (("k6a", "k6b"), for_r1),
             (("k7a", "k7b"), for_r1)):
         names = "/".join(k_.upper() for k_ in keys)
@@ -1416,7 +1601,7 @@ def main():
               for kn, rows in (("k3", k3_rows), ("k4", k4_rows))}
     r1_bf16 = [(1, r) for r in k5_rows if r["dtype"] == "bfloat16"
                and "ms" in r]
-    # K1, K3, K4 and K5: bf16 on the tensor-core kernels, the CUDA-core
+    # K1-K5: bf16 on the tensor-core kernels, the CUDA-core
     # kernels (fp32, other channel counts or head dims) beside them
     kernels = [
         dict(name="adaptive_conv_fwd", route="cuda",
@@ -1430,13 +1615,18 @@ def main():
              simt_source="gigagan_tpu_torch/csrc/adaptive_conv_fwd.cu",
              simt_ms=total(conv_rows, "simt_ms_bf16")),
         dict(name="adaptive_conv_bwd_w", route="cuda",
-             source="gigagan_tpu_torch/csrc/adaptive_conv_bwd_w.cu",
+             source="gigagan_tpu_torch/csrc/adaptive_conv_bwd_w_tc.cu",
              replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:269",
              launches=train_launches["k2"],
              max_abs_err=max([max(r["abs_f32"], r["abs_bf16"])
                               for r in k2_rows.values()]
+                             + [r["abs"] for r in k2_extra]
                              + [report["k2_banks"]["abs"]]),
-             **timing(k2_weighted, "_bf16")),
+             **timing(k2_weighted, "_bf16"),
+             simt_source="gigagan_tpu_torch/csrc/adaptive_conv_bwd_w.cu",
+             simt_ms=total(k2_weighted, "simt_ms_bf16"),
+             device_ms=total(k2_weighted, "device_ms_bf16"),
+             simt_device_ms=total(k2_weighted, "simt_device_ms_bf16")),
         dict(name="flash_attention_fused_fwd", route="cuda",
              source="gigagan_tpu_torch/csrc/flash_attention_fused_fwd_tc.cu",
              replaces="gigagan_tpu/ops/pallas/flash_attention_fused.py:95",

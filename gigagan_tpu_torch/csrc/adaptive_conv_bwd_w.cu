@@ -1,5 +1,8 @@
 // Weight and bank-coefficient gradient of the sample-adaptive 3x3 conv
-// (kernel K2).
+// (kernel K2) on CUDA cores: the route for fp32 operands and for channel
+// counts that are not multiples of 16.  bf16 with ci and co multiples of 16
+// runs on the tensor cores (adaptive_conv_bwd_w_tc.cu); the wrapper's rule
+// `bwd_w_uses_tensor_cores` picks one.
 //
 //   C[b, ky, kx, i, o] = Σ_{r,c} x_pad[b, r+ky, c+kx, i] · g[b, r, c, o]
 //   dW[n] = Σ_b a[b,n] · C[b]          da[b,n] = ⟨Wₙ, C[b]⟩
@@ -32,9 +35,9 @@
 // 3. `da_reduce_kernel`: one block per (b, n) adds those in block order.
 //
 // Every sum runs in a fixed order (no float atomics), so the result is
-// deterministic.  Simple first version: CUDA-core FMAs, no tensor cores,
-// no TMA; the partial C of a wide low-res layer does reach device memory
-// (b·9·ci·co floats), which the TPU kernel avoids.
+// deterministic.  CUDA-core FMAs, no TMA; the partial C of a wide low-res
+// layer does reach device memory (b·9·ci·co floats), which the TPU kernel
+// and the tensor-core route avoid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -298,11 +301,9 @@ int sm_count(int device) {
 
 // Workspace the call needs, in floats: the partial correlations and the
 // per-block partials of da.  Returns a cudaError_t.
-extern "C" int gigagan_adaptive_conv_bwd_w_workspace(int b, int h, int wd,
-                                                     int ci, int co, int n,
-                                                     int device,
-                                                     long* partial_floats,
-                                                     long* da_partial_floats) {
+extern "C" int gigagan_adaptive_conv_bwd_w_simt_workspace(
+    int b, int h, int wd, int ci, int co, int n, int device,
+    long* partial_floats, long* da_partial_floats) {
   const int sms = sm_count(device);
   if (sms <= 0) return cudaErrorInvalidDevice;
   if (b <= 0 || h <= 0 || wd <= 0 || ci <= 0 || co <= 0 || n <= 0) {
@@ -315,9 +316,10 @@ extern "C" int gigagan_adaptive_conv_bwd_w_workspace(int b, int h, int wd,
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16 (x and g share x_dtype).  The
-// workspaces must hold what gigagan_adaptive_conv_bwd_w_workspace says.
+// workspaces must hold what gigagan_adaptive_conv_bwd_w_simt_workspace
+// says.
 // Returns a cudaError_t.
-extern "C" int gigagan_adaptive_conv_bwd_w(
+extern "C" int gigagan_adaptive_conv_bwd_w_simt(
     const void* x, const void* g, const void* w, const void* a, void* dw,
     void* da, void* partial, void* da_partial, int b, int h, int wd, int ci,
     int co, int n, int x_dtype, int w_dtype, int device, void* stream) {

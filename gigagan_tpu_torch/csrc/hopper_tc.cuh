@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
-// (adaptive_conv_fwd_tc.cu, flash_attention_fused_fwd_tc.cu,
-// flash_attention_fused_bwd_tc.cu, flash_attention_so_bwd2_tc.cu, and
-// through flash_attention_hv_tc.cuh the K7a/K7b ones): TMA
-// tensor maps and loads, mbarriers, `wgmma` with shared-memory
-// descriptors, and register reallocation between warpgroups.  The conv
-// kernel's tiles of 16- and 32-channel rows use the 32- and 64-byte
-// swizzles (`swizzle_for`, `desc_rows`), the rest the layout below.
+// (adaptive_conv_fwd_tc.cu, adaptive_conv_bwd_w_tc.cu,
+// flash_attention_fused_fwd_tc.cu, flash_attention_fused_bwd_tc.cu,
+// flash_attention_so_bwd2_tc.cu, and through flash_attention_hv_tc.cuh the
+// K7a/K7b ones): TMA tensor maps and loads, mbarriers, `wgmma` with
+// shared-memory descriptors, and register reallocation between warpgroups.
+// The conv kernels' tiles of 16- and 32-channel rows use the 32- and
+// 64-byte swizzles (`swizzle_for`, `desc_rows`, K-major and MN-major), the
+// rest the layout below.
 //
 // Tile layout.  Every operand tile is a stack of (64 rows, 64 bf16) boxes of
 // 8 KB ("atoms"), each loaded by one TMA copy with the 128-byte swizzle: row
@@ -237,26 +238,28 @@ __device__ __forceinline__ void consumer_sync(int threads) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo_bytes) {
+// wgmma shared-memory descriptor of a tile of RB-byte rows (RB = 32, 64 or
+// 128 with the matching swizzle), SBO = 8 rows.  K-major (the reduced
+// dimension along the row): LBO is unused, and the 16-column step of the
+// reduction is +32 bytes on the address.  MN-major (the reduced dimension
+// down the rows, transpose bit set): the RB / 2 bf16 of a row are one group
+// along M or N, a 64-wide M or N spans 128 / RB such groups LBO bytes apart
+// (so groups may come from separate TMA boxes laid out at one stride), and
+// the 16-row step of the reduction is +16·RB bytes on the address.
+template <int RB>
+__device__ __forceinline__ uint64_t desc_rows(uint32_t addr,
+                                              uint32_t lbo_bytes = 16) {
+  constexpr uint64_t layout = RB == 128 ? 1 : RB == 64 ? 2 : 3;
   uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
   d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
-  d |= (uint64_t)(1024 >> 4) << 32;  // SBO: 8 rows of 128 bytes
-  d |= (uint64_t)1 << 62;            // 128-byte swizzle
+  d |= (uint64_t)((8 * RB) >> 4) << 32;  // SBO: 8 rows
+  d |= layout << 62;
   return d;
 }
 
-// K-major descriptor of a tile of RB-byte rows (RB = 32, 64 or 128 with
-// the matching swizzle), SBO = 8 rows; the 16-column step of the reduction
-// is +32 bytes on the address
-template <int RB>
-__device__ __forceinline__ uint64_t desc_rows(uint32_t addr) {
-  constexpr uint64_t layout = RB == 128 ? 1 : RB == 64 ? 2 : 3;
-  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
-  d |= (uint64_t)1 << 16;                         // LBO: unused here
-  d |= (uint64_t)((8 * RB) >> 4) << 32;           // SBO: 8 rows
-  d |= layout << 62;
-  return d;
+// the same with the 128-byte swizzle, the atoms' layout
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo_bytes) {
+  return desc_rows<128>(addr, lbo_bytes);
 }
 
 // K-major operand at column step kk (16 columns) of a stack of atoms
@@ -304,16 +307,19 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
 
-// d (+)= A·B, m64n64k16, bf16 in, fp32 accumulate; A and B K-major in
-// shared memory.  accumulate = 0 overwrites d.
+// d (+)= A·B, m64n64k16, bf16 in, fp32 accumulate; A and B in shared
+// memory, K-major unless their transpose bit TA / TB is 1 (MN-major: A's M
+// or B's N along the rows, the reduction down them).  accumulate = 0
+// overwrites d.
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b,
                                        int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_REGS32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
       : TC_ACC32(d)
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // d += A·B, m64n64k16: A from registers (four bf16 pairs), B MN-major in
@@ -329,43 +335,46 @@ __device__ __forceinline__ void mma_rs_t(float (&d)[32], const uint32_t* a,
 }
 
 // d (+)= A·B for the narrower N of thin output channels and of half-width
-// attention pieces: m64n16k16 and m64n32k16, A and B K-major in shared
-// memory; accumulate = 0 overwrites d
+// attention pieces: m64n16k16 and m64n32k16, operands and transpose bits as
+// mma_ss's; accumulate = 0 overwrites d
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void mma_ss16(float (&d)[8], uint64_t a,
                                          uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void mma_ss32(float (&d)[16], uint64_t a,
                                          uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      "%15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// d (+)= A·B, m64nNk16 with N = 16, 32 or 64, both operands K-major
-template <int N>
+// d (+)= A·B, m64nNk16 with N = 16, 32 or 64, both operands K-major unless
+// TA / TB set their transpose bits
+template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void mma_ss_n(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int accumulate = 1) {
   if constexpr (N == 16) {
-    mma_ss16(d, a, b, accumulate);
+    mma_ss16<TA, TB>(d, a, b, accumulate);
   } else if constexpr (N == 32) {
-    mma_ss32(d, a, b, accumulate);
+    mma_ss32<TA, TB>(d, a, b, accumulate);
   } else {
-    mma_ss(d, a, b, accumulate);
+    mma_ss<TA, TB>(d, a, b, accumulate);
   }
 }
 

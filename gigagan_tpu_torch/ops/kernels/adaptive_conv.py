@@ -13,15 +13,19 @@ x_mod (b, h, w, ci) float32/bfloat16 with (1+mod) folded in; weights
 (n, 3, 3, ci, co) float32 or x_mod's dtype; attn (b, n) float32; demod
 (b, co) float32; out (b, h, w, co) in x_mod's dtype.
 
-K2 (``csrc/adaptive_conv_bwd_w.cu``), the weight-gradient correlation
-contracted against the selection weights and the banks: with
-``C[b] = Σ_{r,c} x_pad[b, r+ky, c+kx, i]·g[b, r, c, o]``
+K2, the weight-gradient correlation contracted against the selection
+weights and the banks, in two implementations as well
+(``bwd_w_uses_tensor_cores`` picks one by the same rule as K1's): on the
+tensor cores (``csrc/adaptive_conv_bwd_w_tc.cu``) for bf16 with ci and co
+multiples of 16, on CUDA cores (``csrc/adaptive_conv_bwd_w.cu``)
+otherwise.  With ``C[b] = Σ_{r,c} x_pad[b, r+ky, c+kx, i]·g[b, r, c, o]``
 
     dW[n] = Σ_b attn[b,n]·C[b]   (n, 3, 3, ci, co) float32
     da[b,n] = ⟨Wₙ, C[b]⟩          (b, n) float32
 
-x and g share a dtype (float32 or bfloat16); C never reaches device memory
-in the TPU kernel, and reaches it here only as fp32 partial sums.
+x and g share a dtype (float32 or bfloat16).  C never reaches device
+memory in the TPU kernel nor in the tensor-core one, which contracts each
+sample's C on chip; the CUDA-core kernel writes it as fp32 partial sums.
 
 ``pconv2d``/``pcorr2d`` mirror the JAX closure of the same names
 (gigagan_tpu/ops/pallas/adaptive_conv.py): each op's backward is made of
@@ -33,6 +37,7 @@ CUDA tensor, the plain version on a CPU tensor).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -231,8 +236,11 @@ def adaptive_conv_fwd(x_mod, weights, attn, demod):
 
 # ------------------------------------------------------------------ K2
 
-# banks per K2 launch (kMaxBanks of csrc/adaptive_conv_bwd_w.cu)
+# banks per K2 launch: kMaxBanks of csrc/adaptive_conv_bwd_w.cu and kBanks
+# of csrc/adaptive_conv_bwd_w_tc.cu, whose fp32 dW accumulators (one
+# (64, N) tile per bank) live in a warpgroup's registers
 MAX_BANKS = 4
+MAX_BANKS_TC = 2
 
 
 def adaptive_conv_bwd_w_plain(x, g, weights, attn):
@@ -253,10 +261,10 @@ def adaptive_conv_bwd_w_plain(x, g, weights, attn):
     return dw, da
 
 
-def _check_bwd_w(x, g, weights, attn):
+def _check_bwd_w(what, x, g, weights, attn, max_banks):
     if x.dim() != 4 or g.dim() != 4 or weights.dim() != 5:
         raise ValueError(
-            f"adaptive_conv_bwd_w: x {tuple(x.shape)}, g {tuple(g.shape)}, "
+            f"{what}: x {tuple(x.shape)}, g {tuple(g.shape)}, "
             f"weights {tuple(weights.shape)} must be (b,h,w,ci), (b,h,w,co), "
             "(n,3,3,ci,co)"
         )
@@ -264,87 +272,152 @@ def _check_bwd_w(x, g, weights, attn):
     n, kh, kw, wci, co = weights.shape
     if (kh, kw) != (3, 3) or wci != ci or tuple(g.shape) != (b, h, w, co):
         raise ValueError(
-            f"adaptive_conv_bwd_w: x {tuple(x.shape)}, g {tuple(g.shape)} "
+            f"{what}: x {tuple(x.shape)}, g {tuple(g.shape)} "
             f"and weights {tuple(weights.shape)} do not agree"
         )
     if tuple(attn.shape) != (b, n) or attn.dtype != torch.float32:
-        raise ValueError(f"adaptive_conv_bwd_w: attn must be float32 "
-                         f"({b}, {n})")
-    if n > MAX_BANKS:
-        raise ValueError(f"adaptive_conv_bwd_w: {n} banks, one launch "
-                         f"takes at most {MAX_BANKS}")
+        raise ValueError(f"{what}: attn must be float32 ({b}, {n})")
+    if n > max_banks:
+        raise ValueError(f"{what}: {n} banks, one launch takes at most "
+                         f"{max_banks}")
     if x.dtype not in _DTYPE_CODES or g.dtype != x.dtype or (
         weights.dtype not in (torch.float32, x.dtype)
     ):
         raise TypeError(
-            f"adaptive_conv_bwd_w: x {x.dtype} / g {g.dtype} / weights "
+            f"{what}: x {x.dtype} / g {g.dtype} / weights "
             f"{weights.dtype}: x and g share a float32 or bfloat16 dtype, "
             "weights are float32 or that dtype"
         )
-    _check_on_device("adaptive_conv_bwd_w", x.device,
+    _check_on_device(what, x.device,
                      (("x", x), ("g", g), ("weights", weights),
                       ("attn", attn)))
 
 
-def by_banks(kernel, x, g, weights, attn):
-    """``kernel`` on groups of at most MAX_BANKS banks, its outputs
+def bwd_w_uses_tensor_cores(dtype, ci: int, co: int) -> bool:
+    """K2's dispatch rule: bf16 operands with ci and co multiples of 16 go
+    to the tensor-core kernel (``csrc/adaptive_conv_bwd_w_tc.cu``); fp32
+    and other channel counts to the CUDA-core kernel (``*_simt``)."""
+    return dtype == torch.bfloat16 and ci % 16 == 0 and co % 16 == 0
+
+
+def by_banks(kernel, x, g, weights, attn, max_banks=MAX_BANKS):
+    """``kernel`` on groups of at most ``max_banks`` banks, its outputs
     concatenated: dW[n] and da[:, n] depend on bank n alone, so this is
     exact."""
     n = weights.shape[0]
-    if n <= MAX_BANKS:
+    if n <= max_banks:
         return kernel(x, g, weights, attn)
-    parts = [kernel(x, g, weights[i:i + MAX_BANKS],
-                    attn[:, i:i + MAX_BANKS].contiguous())
-             for i in range(0, n, MAX_BANKS)]
+    parts = [kernel(x, g, weights[i:i + max_banks],
+                    attn[:, i:i + max_banks].contiguous())
+             for i in range(0, n, max_banks)]
     return (torch.cat([dw for dw, _ in parts]),
             torch.cat([da for _, da in parts], 1))
 
 
 def adaptive_conv_bwd_w(x, g, weights, attn):
-    """K2 on a CUDA tensor, one launch per group of at most MAX_BANKS
-    banks; its plain version on a CPU tensor.  Returns (dW, da) in float32
-    (float64 for float64 CPU operands)."""
+    """K2: its plain version on a CPU tensor; on a CUDA tensor the
+    tensor-core or the CUDA-core kernel by ``bwd_w_uses_tensor_cores``, one
+    launch per group of at most that route's banks.  Returns (dW, da) in
+    float32 (float64 for float64 CPU operands)."""
     if x.device.type == "cpu":
         return adaptive_conv_bwd_w_plain(x, g, weights, attn)
-    return by_banks(_launch_bwd_w, x, g, weights, attn)
+    if bwd_w_uses_tensor_cores(x.dtype, x.shape[-1], weights.shape[-1]):
+        return by_banks(adaptive_conv_bwd_w_tc, x, g, weights, attn,
+                        MAX_BANKS_TC)
+    return by_banks(adaptive_conv_bwd_w_simt, x, g, weights, attn)
 
 
-def _launch_bwd_w(x, g, weights, attn):
-    """One K2 launch on at most MAX_BANKS banks."""
-    _check_bwd_w(x, g, weights, attn)
-    b, h, w, ci = x.shape
-    n, co = weights.shape[0], weights.shape[-1]
-    dev = x.device
-    lib = build.load("adaptive_conv_bwd_w")
-    plan = lib.gigagan_adaptive_conv_bwd_w_workspace
+# K2's two routes: the library of each and the number of dtype arguments
+# its C entry, gigagan_adaptive_conv_bwd_w_<route>, takes
+BWD_W_ROUTES = {"simt": ("adaptive_conv_bwd_w", 2),
+                "tc": ("adaptive_conv_bwd_w_tc", 1)}
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_w_entry(route: str):
+    """(library, workspace query, launch) of K2's ``route``, the argument
+    types set once."""
+    name, codes = BWD_W_ROUTES[route]
+    lib = build.load(name)
+    symbol = f"gigagan_adaptive_conv_bwd_w_{route}"
+    plan = getattr(lib, f"{symbol}_workspace")
     plan.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_long)] * 2
     plan.restype = ctypes.c_int
-    part_n, da_part_n = ctypes.c_long(), ctypes.c_long()
-    err = plan(b, h, w, ci, co, n, dev.index, ctypes.byref(part_n),
-               ctypes.byref(da_part_n))
-    build.check(lib, err, "adaptive_conv_bwd_w")
-    partial = torch.empty(part_n.value, dtype=torch.float32, device=dev)
-    da_partial = torch.empty(da_part_n.value, dtype=torch.float32, device=dev)
-    dw = torch.empty((n, 3, 3, ci, co), dtype=torch.float32, device=dev)
-    da = torch.empty((b, n), dtype=torch.float32, device=dev)
-    fn = lib.gigagan_adaptive_conv_bwd_w
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * (7 + codes) + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
+    return lib, plan, fn
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_w_workspace(route: str, b: int, h: int, w: int, ci: int, co: int,
+                    n: int, device: int) -> tuple[int, int]:
+    """(dW partial floats, da partial floats) one K2 launch on ``route``
+    needs at this shape; the tensor-core route needs no dW partials when it
+    does not split the pixels."""
+    lib, plan, _ = _bwd_w_entry(route)
+    part_n, da_part_n = ctypes.c_long(), ctypes.c_long()
+    err = plan(b, h, w, ci, co, n, device, ctypes.byref(part_n),
+               ctypes.byref(da_part_n))
+    build.check(lib, err, f"adaptive_conv_bwd_w_{route}")
+    return part_n.value, da_part_n.value
+
+
+def _launch_bwd_w(route, x, g, weights, attn, codes):
+    """Allocate the workspace of K2's ``route`` and the outputs, and launch;
+    ``codes`` are the dtype arguments the C entry takes."""
+    b, h, w, ci = x.shape
+    n, co = weights.shape[0], weights.shape[-1]
+    dev = x.device
+    lib, _, fn = _bwd_w_entry(route)
+    part_n, da_part_n = bwd_w_workspace(route, b, h, w, ci, co, n, dev.index)
+    work = torch.empty(part_n + da_part_n, dtype=torch.float32, device=dev)
+    dw = torch.empty((n, 3, 3, ci, co), dtype=torch.float32, device=dev)
+    da = torch.empty((b, n), dtype=torch.float32, device=dev)
     err = fn(
         x.data_ptr(), g.data_ptr(), weights.data_ptr(), attn.data_ptr(),
-        dw.data_ptr(), da.data_ptr(), partial.data_ptr(),
-        da_partial.data_ptr(), b, h, w, ci, co, n, _DTYPE_CODES[x.dtype],
-        _DTYPE_CODES[weights.dtype], dev.index,
+        dw.data_ptr(), da.data_ptr(), work.data_ptr() if part_n else None,
+        work.data_ptr() + 4 * part_n, b, h, w, ci, co, n, *codes, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check(lib, err, "adaptive_conv_bwd_w")
-    adaptive_conv_bwd_w.launches += 1
+    build.check(lib, err, f"adaptive_conv_bwd_w_{route}")
     return dw, da
 
 
-adaptive_conv_bwd_w.launches = 0
+def adaptive_conv_bwd_w_simt(x, g, weights, attn):
+    """K2 on CUDA cores (``csrc/adaptive_conv_bwd_w.cu``), one launch on at
+    most MAX_BANKS banks: float32 or bf16 x and g with any channel
+    counts."""
+    _check_bwd_w("adaptive_conv_bwd_w_simt", x, g, weights, attn, MAX_BANKS)
+    out = _launch_bwd_w("simt", x, g, weights, attn,
+                        (_DTYPE_CODES[x.dtype], _DTYPE_CODES[weights.dtype]))
+    adaptive_conv_bwd_w_simt.launches += 1
+    return out
+
+
+def adaptive_conv_bwd_w_tc(x, g, weights, attn):
+    """K2 on the tensor cores (``csrc/adaptive_conv_bwd_w_tc.cu``), one
+    launch on at most MAX_BANKS_TC banks: bf16 x and g with ci and co
+    multiples of 16, float32 or bf16 weights."""
+    what = "adaptive_conv_bwd_w_tc"
+    ci, co = x.shape[-1], weights.shape[-1]
+    if not bwd_w_uses_tensor_cores(x.dtype, ci, co):
+        raise ValueError(f"{what}: takes bf16 with ci and co multiples of "
+                         f"16, got {x.dtype} with {ci} -> {co}")
+    _check_bwd_w(what, x, g, weights, attn, MAX_BANKS_TC)
+    if x.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError(f"{what}: x and g must be 16-byte aligned (the "
+                         "tensor-core kernel reads them by TMA)")
+    out = _launch_bwd_w("tc", x, g, weights, attn,
+                        (_DTYPE_CODES[weights.dtype],))
+    adaptive_conv_bwd_w_tc.launches += 1
+    return out
+
+
+adaptive_conv_bwd_w_simt.launches = 0
+adaptive_conv_bwd_w_tc.launches = 0
 
 
 # ------------------------------------------------- the AD-closed op pair

@@ -54,6 +54,7 @@ KERNELS = (
     "adaptive_conv_fwd",
     "adaptive_conv_fwd_tc",
     "adaptive_conv_bwd_w",
+    "adaptive_conv_bwd_w_tc",
     "flash_attention_fused_fwd",
     "flash_attention_fused_fwd_tc",
     "flash_attention_fused_bwd",

@@ -303,13 +303,79 @@ def test_k2_takes_any_bank_count_off_the_cpu(n, monkeypatch):
         return (torch.empty(weights.shape, device="meta"),
                 torch.empty(attn.shape, device="meta"))
 
-    monkeypatch.setattr(k1, "_launch_bwd_w", launch, raising=False)
+    # float32 operands: the CUDA-core route, at most MAX_BANKS a launch
+    monkeypatch.setattr(k1, "adaptive_conv_bwd_w_simt", launch)
     meta = dict(device="meta")
     dw, da = k1.adaptive_conv_bwd_w(
         torch.empty(2, 4, 4, 8, **meta), torch.empty(2, 4, 4, 16, **meta),
         torch.empty(n, 3, 3, 8, 16, **meta), torch.empty(2, n, **meta))
     assert calls == [min(4, n - i) for i in range(0, n, 4)]
     assert dw.shape == (n, 3, 3, 8, 16) and da.shape == (2, n)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+def test_k2_tc_route_groups_banks_at_its_limit(n, monkeypatch):
+    # bf16 with channel multiples of 16 goes to the tensor-core route, one
+    # launch per group of at most MAX_BANKS_TC banks
+    calls = []
+
+    def launch(x, g, weights, attn):
+        assert attn.shape == (x.shape[0], weights.shape[0])
+        assert attn.is_contiguous()
+        calls.append(weights.shape[0])
+        return (torch.empty(weights.shape, device="meta"),
+                torch.empty(attn.shape, device="meta"))
+
+    monkeypatch.setattr(k1, "adaptive_conv_bwd_w_tc", launch)
+    monkeypatch.setattr(k1, "adaptive_conv_bwd_w_simt", None)
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    dw, da = k1.adaptive_conv_bwd_w(
+        torch.empty(2, 4, 4, 16, **meta), torch.empty(2, 4, 4, 32, **meta),
+        torch.empty(n, 3, 3, 16, 32, device="meta"),
+        torch.empty(2, n, device="meta"))
+    lim = k1.MAX_BANKS_TC
+    assert calls == [min(lim, n - i) for i in range(0, n, lim)]
+    assert dw.shape == (n, 3, 3, 16, 32) and da.shape == (2, n)
+
+
+@pytest.mark.parametrize("n", [3, 4])
+def test_k2_bank_split_at_the_tc_limit_matches_one_call(n):
+    # the tensor-core route's groups of MAX_BANKS_TC, on the plain version
+    # with bf16 operands, give the unsplit result
+    rng = np.random.default_rng(22)
+    b, h, w, ci, co = 2, 5, 6, 16, 32
+    x = t(rng.standard_normal((b, h, w, ci)).astype(np.float32)).bfloat16()
+    g = t(rng.standard_normal((b, h, w, co)).astype(np.float32)).bfloat16()
+    weights = t(rng.standard_normal((n, 3, 3, ci, co)).astype(np.float32))
+    a = t(rng.random((b, n)).astype(np.float32))
+    dw, da = k1.by_banks(k1.adaptive_conv_bwd_w_plain, x, g, weights, a,
+                         k1.MAX_BANKS_TC)
+    want_dw, want_da = k1.adaptive_conv_bwd_w_plain(x, g, weights, a)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(da, want_da, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("ci,co", [(16, 16), (32, 16)])
+def test_k2_plain_matches_pallas_pcorr2d_bf16(ci, co):
+    # the shapes the tensor-core route takes: bf16 x and g (the Pallas
+    # kernel in interpret mode accumulates them in fp32, as the plain
+    # version does) on a map that no 8- or 16-pixel box tiles evenly
+    rng = np.random.default_rng(23)
+    b, h, w, n = 2, 7, 13, 2
+    x = rng.standard_normal((b, h, w, ci)).astype(np.float32)
+    g = rng.standard_normal((b, h, w, co)).astype(np.float32)
+    weights = (rng.standard_normal((n, 3, 3, ci, co)) * 0.2).astype(
+        np.float32)
+    a = rng.random((b, n)).astype(np.float32)
+    xb, gb = (jnp.asarray(v, jnp.bfloat16) for v in (x, g))
+    dw_j, da_j = jax_pcorr2d(xb, gb, jnp.asarray(weights), jnp.asarray(a),
+                             128, True)
+    to_t = (lambda v: torch.from_numpy(np.asarray(v, np.float32))
+            .bfloat16())
+    dw, da = k1.adaptive_conv_bwd_w(to_t(xb), to_t(gb), t(weights), t(a))
+    assert dw.dtype == torch.float32 and da.dtype == torch.float32
+    assert rel_max(dw.numpy(), dw_j) <= 1e-4
+    assert rel_max(da.numpy(), da_j) <= 1e-4
 
 
 def graph_nodes(out):
@@ -644,6 +710,39 @@ def test_adaptive_conv_dispatch_rule(dtype, ci, co, route, monkeypatch):
         r: int(r == route) for r in ("tc", "simt")}
 
 
+# K2's rule is K1's: the generator's 12 distinct (map, ci, co) shapes in
+# bf16 go to the tensor cores; fp32 and channel counts that are not
+# multiples of 16 to the CUDA cores
+K2_DISPATCH = [(torch.bfloat16, h, ci, co, "tc")
+               for h, ci, co in ((4, 512, 512), (8, 512, 512),
+                                 (16, 512, 256), (16, 256, 256),
+                                 (32, 256, 128), (32, 128, 128),
+                                 (64, 128, 64), (64, 64, 64), (128, 64, 32),
+                                 (128, 32, 32), (256, 32, 16),
+                                 (256, 16, 16))] + [
+    (torch.float32, 4, 512, 512, "simt"), (torch.float32, 256, 16, 16, "simt"),
+    (torch.bfloat16, 8, 24, 16, "simt"), (torch.bfloat16, 8, 16, 40, "simt")]
+
+
+@pytest.mark.parametrize(
+    "dtype,h,ci,co,route", K2_DISPATCH,
+    ids=[f"{str(dt).split('.')[-1]}-{h}-{ci}-{co}" for dt, h, ci, co, _ in
+         K2_DISPATCH])
+def test_adaptive_conv_bwd_w_dispatch_rule(dtype, h, ci, co, route,
+                                           monkeypatch):
+    # a tensor off the CPU goes to the implementation the rule names, once
+    # for the path's two banks
+    entries = _counting_standins(monkeypatch, k1, "adaptive_conv_bwd_w")
+    assert k1.bwd_w_uses_tensor_cores(dtype, ci, co) == (route == "tc")
+    meta = dict(device="meta")
+    k1.adaptive_conv_bwd_w(torch.empty(2, h, h, ci, dtype=dtype, **meta),
+                           torch.empty(2, h, h, co, dtype=dtype, **meta),
+                           torch.empty(2, 3, 3, ci, co, **meta),
+                           torch.empty(2, 2, **meta))
+    assert {r: e.launches for r, e in entries.items()} == {
+        r: int(r == route) for r in ("tc", "simt")}
+
+
 K5_DISPATCH = [(torch.bfloat16, 64, "tc"), (torch.float32, 64, "simt"),
                (torch.bfloat16, 80, "simt"), (torch.bfloat16, 128, "simt"),
                (torch.float32, 128, "simt"), (torch.bfloat16, 32, "simt")]
@@ -662,16 +761,24 @@ def test_so_bwd2_dispatch_rule(dtype, d, route, monkeypatch):
         r: int(r == route) for r in ("tc", "simt")}
 
 
-@pytest.mark.parametrize("entry", ["k1_tc", "k1_simt", "k5_tc", "k5_simt"])
+@pytest.mark.parametrize("entry", ["k1_tc", "k1_simt", "k5_tc", "k5_simt",
+                                   "k2_tc", "k2_simt"])
 def test_new_entries_never_fall_back_off_the_cpu(entry):
     # each implementation, called directly on a tensor that is not on the
     # CPU, reaches the device check and raises; none counts a launch
     counted = (k1.adaptive_conv_fwd_tc, k1.adaptive_conv_fwd_simt,
-               so.flash_attention_so_bwd2_tc, so.flash_attention_so_bwd2_simt)
+               so.flash_attention_so_bwd2_tc, so.flash_attention_so_bwd2_simt,
+               k1.adaptive_conv_bwd_w_tc, k1.adaptive_conv_bwd_w_simt)
     before = [f.launches for f in counted]
     meta = dict(device="meta")
     with pytest.raises(ValueError, match="on meta"):
-        if entry.startswith("k1"):
+        if entry.startswith("k2"):
+            fn = getattr(k1, "adaptive_conv_bwd_w_" + entry[3:])
+            fn(torch.empty(1, 4, 4, 16, dtype=torch.bfloat16, **meta),
+               torch.empty(1, 4, 4, 16, dtype=torch.bfloat16, **meta),
+               torch.empty(1, 3, 3, 16, 16, **meta),
+               torch.empty(1, 1, **meta))
+        elif entry.startswith("k1"):
             fn = getattr(k1, "adaptive_conv_fwd_" + entry[3:])
             fn(torch.empty(1, 4, 4, 16, dtype=torch.bfloat16, **meta),
                torch.empty(1, 3, 3, 16, 16, **meta),
@@ -694,6 +801,19 @@ def test_tensor_core_entries_refuse_what_they_do_not_take():
             torch.empty(1, 4, 4, 24, dtype=torch.bfloat16, **meta),
             torch.empty(1, 3, 3, 24, 16, **meta), torch.empty(1, 1, **meta),
             torch.empty(1, 16, **meta))
+    # K2's takes the same channel counts in bf16, and at most MAX_BANKS_TC
+    # banks a launch (its dispatcher groups more)
+    for dtype, ci, n, msg in (
+            (torch.bfloat16, 24, 1, "multiples of 16"),
+            (torch.float32, 16, 1, "multiples of 16"),
+            (torch.bfloat16, 16, k1.MAX_BANKS_TC + 1,
+             f"at most {k1.MAX_BANKS_TC}")):
+        with pytest.raises(ValueError, match=msg):
+            k1.adaptive_conv_bwd_w_tc(
+                torch.empty(1, 4, 4, ci, dtype=dtype, **meta),
+                torch.empty(1, 4, 4, 16, dtype=dtype, **meta),
+                torch.empty(n, 3, 3, ci, 16, **meta),
+                torch.empty(1, n, **meta))
     for d, msg in ((128, "head dim 64"), (136, "head dim 136 > 128")):
         q, lse, heads = _meta_attention(torch.bfloat16, d)
         with pytest.raises(ValueError, match=msg):
@@ -709,7 +829,7 @@ def test_pconv2d_bf16_on_cpu_runs_plain_and_launches_nothing(ci, co):
     # card: the conv pair (K1 forward, K1 as dx, K2) runs the plain
     # versions, and no counter moves
     counters = (k1.adaptive_conv_fwd_tc, k1.adaptive_conv_fwd_simt,
-                k1.adaptive_conv_bwd_w)
+                k1.adaptive_conv_bwd_w_tc, k1.adaptive_conv_bwd_w_simt)
     before = [f.launches for f in counters]
     rng = np.random.default_rng(41)
     x = t(rng.standard_normal((2, 5, 6, ci)).astype(np.float32)).bfloat16()
