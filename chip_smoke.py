@@ -85,7 +85,26 @@ Phases (any failure raises and exits non-zero):
     then K7a/K7b, against the CUDA-core ones; each bf16 route's distance
     from the fp32 plain step is reported, and the tensor-core route's may
     be at most FROM_PLAIN_RATIO times the CUDA-core route's;
-12. print the kernel table as one JSON line (time, plain version, library
+12. the rest of the trainer at the quickstart's full width (bf16 unless
+    named fp32): (a) 4 iterations with ``grad_accum_every=2`` (2
+    microbatches of 4, R1 on one), finite losses and every step's launch
+    counts those the path implies, every launch on the tensor cores; an
+    fp32 accumulated d_step with R1 through the kernels against
+    ``plain_reference()``; (b) the fp32 R1 penalty with ``gp_chunk=4`` at
+    b = 8 and every D gradient against the unchunked step (no flips: the
+    chunked penalty runs on the un-augmented pipeline); (c) fp32 d_step+R1
+    and g_step gradients with ``remat`` and D's ``remat_stages`` against
+    none, same seed (REMAT_TOL); then peak device memory and ms of
+    d_step+R1 at microbatch 16 unchunked, with ``gp_chunk=8``, with
+    ``remat_stages`` and with both recomputations, and of the g_step with
+    and without (launch counts checked; the chunked peak must be lower);
+    (d) ``train(24)`` with ``log_steps_every=8`` and a ``log_hook`` (JAX's
+    record keys), both sample grids under ``chiprun_out/samples``, then
+    ``save``, ``load`` into two fresh trainers (state equal), and one more
+    iteration of each from the restored RNG (the continued and the resumed
+    trainer within 3 times the distance of the two resumed copies, the
+    card's own noise, since its bf16 steps are not bitwise repeatable);
+13. print the kernel table as one JSON line (time, plain version, library
     call where one computes the same function, bound, launches) and, last,
     the device line.
 
@@ -95,9 +114,11 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -190,6 +211,11 @@ K67_TOL_F32, K67_TOL_BF16 = 1e-3, 0.03
 # still catches a route that drifts
 FROM_PLAIN_RATIO = 1.5
 ITERATIONS, R1_EVERY = 8, 4
+# phase 12: microbatches of the accumulation run, the R1 chunk at b = 8, the
+# microbatch of the memory rows and its chunk; fp32 gradients with and
+# without recomputation differ only by the order of the backward's atomic
+# sums (the recomputed forward is the same arithmetic on the same draws)
+ACCUM, CHUNK, MEM_BATCH, MEM_CHUNK, REMAT_TOL = 2, 4, 16, 8, 1e-4
 KERNEL_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6a", "k6b", "k7a", "k7b")
 # one H100 SXM: dense bf16 tensor-core rate and HBM3 rate (NVIDIA's data
 # sheet); a bound is the larger of operations and bytes over these
@@ -376,7 +402,8 @@ def path_convs(cfg):
     return convs
 
 
-def expected_step_launches(n_convs, n_g_attn, n_d_attn):
+def expected_step_launches(n_convs, n_g_attn, n_d_attn, accum=1, chunks=0,
+                           remat=False, remat_stages=False):
     """Launches per step the training path implies.  d_step: G forward
     without gradient (K1 per conv, K3 per G attention), D's attention
     forward (K3) and backward (K4); with R1, K4 once more for the penalty's
@@ -386,15 +413,37 @@ def expected_step_launches(n_convs, n_g_attn, n_d_attn):
     in the backward K7b (through the tangent) and K6b (through the primal,
     which later layers' tangents read).  g_step: G forward and backward (K1
     forward and as dx, K2 per conv), G's and D's attention forward and
-    backward."""
+    backward.
+
+    ``accum``: each microbatch launches the step's kernels.  ``chunks``:
+    the R1 penalty over that many chunks: the d_step's own D call without
+    R1, then per chunk D's attention forward (K3), the input gradient (K4)
+    and, in the chunk's backward, K5 and K4.  Recomputation adds D
+    attention forwards (K3): ``remat`` reruns the microbatch's loss in each
+    backward that reaches it (the R1 step's inner input gradient reaches
+    it too, and the rerun takes that gradient again: one more K4; the
+    g_step reruns G's forward too: one more K1 and G K3), ``remat_stages``
+    reruns each D stage core in each backward through it (two with R1:
+    the input gradient and the step's backward, and one more in each rerun
+    of the loss that takes the input gradient).  Forward-over-reverse is
+    counted without recomputation."""
+    r, s = int(remat), int(remat_stages)
     none = dict(k5=0, k6a=0, k6b=0, k7a=0, k7b=0)
-    d = dict(none, k1=n_convs, k2=0, k3=n_g_attn + n_d_attn, k4=n_d_attn)
-    d_r1 = dict(d, k4=2 * n_d_attn, k5=n_d_attn)
+    d = dict(none, k1=n_convs, k2=0, k3=n_g_attn + (1 + r + s) * n_d_attn,
+             k4=n_d_attn)
+    if chunks:
+        d_r1 = dict(d, k3=d["k3"] + chunks * (1 + 2 * s) * n_d_attn,
+                    k4=(1 + 2 * chunks) * n_d_attn, k5=chunks * n_d_attn)
+    else:
+        d_r1 = dict(d, k3=n_g_attn + (1 + 2 * r + 2 * s + r * s) * n_d_attn,
+                    k4=(2 + r) * n_d_attn, k5=n_d_attn)
     d_for = dict(d, k4=2 * n_d_attn, k6a=n_d_attn, k6b=n_d_attn,
                  k7a=n_d_attn, k7b=n_d_attn)
-    g = dict(none, k1=2 * n_convs, k2=n_convs, k3=n_g_attn + n_d_attn,
+    g = dict(none, k1=(2 + r) * n_convs, k2=n_convs,
+             k3=(1 + r) * n_g_attn + (1 + r + s) * n_d_attn,
              k4=n_g_attn + n_d_attn)
-    return d, d_r1, d_for, g
+    return tuple({k: v * accum for k, v in row.items()}
+                 for row in (d, d_r1, d_for, g))
 
 
 def hv_operands(torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev):
@@ -444,7 +493,8 @@ def main():
                          "false — this check runs on a CUDA device only")
     sys.path.insert(0, str(REPO))
     from gigagan_tpu_torch import GigaGAN, ops
-    from gigagan_tpu_torch.data import MockImageDataset
+    from gigagan_tpu_torch.data import MockImageDataset, SyntheticShapesDataset
+    from gigagan_tpu_torch.train.steps import StepDraws
     from gigagan_tpu_torch.models.layers import AdaptiveConv
     from gigagan_tpu_torch.ops.kernels import build, plain_reference
     from gigagan_tpu_torch.ops.kernels import adaptive_conv as k1
@@ -1573,6 +1623,298 @@ def main():
             del runs
 
     # --------------------------------------------------------------- 12
+    # the rest of the trainer at the quickstart's full width: gradient
+    # accumulation, the chunked R1, recomputation, and train() with its
+    # log record, sample grids, save and load
+    t_phase = time.perf_counter()
+    trainer_report = report["trainer"] = {}
+    shapes = SyntheticShapesDataset(QUICKSTART["image_size"],
+                                    length=MEM_BATCH, seed=7)
+    pool = torch.from_numpy(np.stack([shapes[i] for i in range(MEM_BATCH)])
+                            ).to(dev)
+
+    def quickstart(**kw):
+        d_cfg = dict(QUICKSTART_D, remat_stages=kw.pop("remat_stages", False))
+        kw.setdefault("seed", 0)
+        return GigaGAN(generator=QUICKSTART, discriminator=d_cfg,
+                       device="cuda", **kw)
+
+    def counted(fn):
+        """(fn(), launches of K1-K7b, host ms around it, synchronised)."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, read_counts(), (time.perf_counter() - t) * 1e3
+
+    def with_grads(model, metrics):
+        return ({k: float(v) for k, v in metrics.items()},
+                {n_: p.grad.detach().clone()
+                 for n_, p in model.named_parameters()})
+
+    # (a) accumulation: 4 iterations of 2 microbatches of 4, R1 on one
+    gan = quickstart(amp=True)
+    n_g_attn = sum(st.self_attn is not None for st in gan.G.stages)
+    n_d_attn = sum(st.core.attn is not None for st in gan.D.stages)
+    exp_d, exp_d_r1, _, exp_g = expected_step_launches(
+        len(convs), n_g_attn, n_d_attn, accum=ACCUM)
+    mb = BATCH // ACCUM
+    accum_steps = []
+    reset_counts()
+    for i in range(4):
+        apply_gp = i == 2
+        for kind in ("d", "g"):
+            if kind == "d":
+                m, got, ms = counted(lambda: gan.train_discriminator_step(
+                    pool[:BATCH].reshape(ACCUM, mb, *pool.shape[1:]),
+                    grad_accum_every=ACCUM, apply_gradient_penalty=apply_gp,
+                    calc_multiscale_loss=True, seed=3000 + i))
+                want = exp_d_r1 if apply_gp else exp_d
+            else:
+                m, got, ms = counted(lambda: gan.train_generator_step(
+                    mb, grad_accum_every=ACCUM, calc_multiscale_loss=True,
+                    seed=4000 + i))
+                want = exp_g
+            row = dict(kind=kind, r1=apply_gp, ms=ms, launches=got,
+                       losses={k: float(v) for k, v in m.items()})
+            accum_steps.append(row)
+            log(f"accumulation {ACCUM}x{mb} {kind}_step r1={apply_gp}: "
+                f"{ms:.3f} ms, launches {got}, losses "
+                + ", ".join(f"{k} {v:.4g}" for k, v in row["losses"].items()))
+            if not all(np.isfinite(v) for v in row["losses"].values()):
+                fail(f"non-finite losses with accumulation: {row}")
+            if got != want:
+                fail(f"{kind}_step with accumulation (r1={apply_gp}) launched "
+                     f"{got}, the path implies {want}")
+            if any(simt_counts().values()):
+                fail(f"bf16 calls with accumulation reached the CUDA-core "
+                     f"kernels: {simt_counts()}")
+    trainer_report["accumulation_steps"] = accum_steps
+    del gan
+    torch.cuda.empty_cache()
+
+    def accum_step(plain):
+        g32 = quickstart()
+        with (plain_reference() if plain else contextlib.nullcontext()):
+            m = g32.train_discriminator_step(
+                pool[:BATCH], grad_accum_every=ACCUM,
+                apply_gradient_penalty=True, calc_multiscale_loss=True,
+                seed=7)
+        res = with_grads(g32.D, m)
+        del g32
+        torch.cuda.empty_cache()
+        return res
+
+    trainer_report["accum_vs_plain_f32"] = compare(
+        f"fp32 d_step +R1 with accumulation {ACCUM}x{mb}, kernels vs plain "
+        "path", accum_step(False), accum_step(True))
+
+    # (b) the chunked R1 against the unchunked one: the penalty runs on the
+    # un-augmented pipeline, equal to the unchunked penalty of an unflipped
+    # step
+    def r1_step(amp=False, batch=BATCH, **kw):
+        g_ = quickstart(amp=amp, **kw)
+        m = g_.train_discriminator_step(
+            pool[:batch], apply_gradient_penalty=True,
+            calc_multiscale_loss=True, seed=7,
+            draws=StepDraws(fake_flip=False, real_flip=False))
+        res = with_grads(g_.D, m)
+        del g_
+        torch.cuda.empty_cache()
+        return res
+
+    trainer_report["chunk_vs_unchunked_f32"] = compare(
+        f"fp32 d_step +R1 gp_chunk={CHUNK} vs unchunked, b={BATCH}",
+        r1_step(gp_chunk=CHUNK), r1_step(),
+        loss_keys=["gradient_penalty"])
+
+    # (c) recomputation (remat, and D's remat_stages) against none, the
+    # draws taken from the same seed: a recomputation that drew its noise
+    # again would move the gradients far past REMAT_TOL
+    for kind in ("d", "g"):
+        runs = []
+        for kw in ({}, dict(remat=True, remat_stages=True)):
+            g_ = quickstart(**kw)
+            if kind == "d":
+                m = g_.train_discriminator_step(
+                    pool[:BATCH], apply_gradient_penalty=True,
+                    calc_multiscale_loss=True, seed=11)
+            else:
+                m = g_.train_generator_step(BATCH, calc_multiscale_loss=True,
+                                            seed=11)
+            runs.append(with_grads(g_.D if kind == "d" else g_.G, m))
+            del g_
+            torch.cuda.empty_cache()
+        trainer_report[f"remat_vs_none_f32_{kind}"] = compare(
+            f"fp32 {kind}_step{' +R1' if kind == 'd' else ''} remat + "
+            "remat_stages vs none, same seed", runs[1], runs[0],
+            tol=REMAT_TOL)
+        del runs
+
+    # peak memory and ms of a bf16 step at microbatch MEM_BATCH: R1
+    # unchunked, chunked, recomputed; and the g_step with and without
+    # recomputation
+    mem_rows = []
+    for kind, label, kw in (
+            ("d", "R1", {}),
+            ("d", f"R1 gp_chunk={MEM_CHUNK}", dict(gp_chunk=MEM_CHUNK)),
+            ("d", "R1 remat_stages", dict(remat_stages=True)),
+            ("d", "R1 remat + remat_stages",
+             dict(remat=True, remat_stages=True)),
+            ("g", "g_step", {}),
+            ("g", "g_step remat + remat_stages",
+             dict(remat=True, remat_stages=True))):
+        g_ = quickstart(amp=True, **kw)
+        want = expected_step_launches(
+            len(convs), n_g_attn, n_d_attn,
+            chunks=MEM_BATCH // kw.get("gp_chunk", MEM_BATCH)
+            if "gp_chunk" in kw else 0,
+            remat=kw.get("remat", False),
+            remat_stages=kw.get("remat_stages", False))
+        want = want[1] if kind == "d" else want[3]
+
+        def step(i):
+            if kind == "d":
+                return g_.train_discriminator_step(
+                    pool, apply_gradient_penalty=True,
+                    calc_multiscale_loss=True, seed=20 + i)
+            return g_.train_generator_step(MEM_BATCH,
+                                           calc_multiscale_loss=True,
+                                           seed=20 + i)
+
+        step(0)  # warm-up: allocator, cuDNN plans
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times, launches = [], None
+        for i in range(1, 4):
+            m, launches, ms = counted(lambda: step(i))
+            times.append(ms)
+        row = dict(kind=kind, label=label, batch=MEM_BATCH,
+                   ms=statistics.median(times), ms_all=times,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   base_gib=base / 2 ** 30, launches=launches,
+                   expected=want,
+                   losses={k: float(v) for k, v in m.items()})
+        mem_rows.append(row)
+        log(f"memory b{MEM_BATCH} bf16 {kind}_step {label}: peak "
+            f"{row['peak_gib']:.3f} GiB (held before the step "
+            f"{row['base_gib']:.3f}), {row['ms']:.3f} ms (median of 3: "
+            + ", ".join(f"{t_:.3f}" for t_ in times)
+            + f"), launches {launches} [{smi}]")
+        del g_, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        if launches != want:
+            fail(f"b{MEM_BATCH} {kind}_step {label} launched {launches}, "
+                 f"the path implies {want}")
+        if any(simt_counts().values()):
+            fail(f"bf16 calls of {label} reached the CUDA-core kernels: "
+                 f"{simt_counts()}")
+        if not all(np.isfinite(v) for v in row["losses"].values()):
+            fail(f"non-finite losses: {row}")
+    trainer_report["memory"] = mem_rows
+    peak = {r["label"]: r["peak_gib"] for r in mem_rows}
+    if not peak[f"R1 gp_chunk={MEM_CHUNK}"] < peak["R1"]:
+        fail(f"the chunked R1's peak is not lower than the unchunked one's: "
+             f"{peak}")
+
+    # (d) train() with its log record, then save, load into a fresh
+    # trainer, and one more iteration of each from the restored RNG
+    models_dir = REPO / "gigagan-models" / "chip_smoke"
+    samples_dir = OUT_DIR / "samples"
+    records = []
+    gan = quickstart(amp=True, log_steps_every=8, log_hook=records.append,
+                     num_samples=9, model_folder=str(models_dir),
+                     results_folder=str(samples_dir))
+    gan.set_dataloader(shapes.get_dataloader(BATCH))
+    reset_counts()
+    _, train_launches_24, train_ms = counted(lambda: gan.train(24))
+    if any(train_launches_24[k] == 0 for k in ("k1", "k2", "k3", "k4", "k5")):
+        fail(f"a kernel of the train() path was never launched: "
+             f"{train_launches_24}")
+    if any(simt_counts().values()):
+        fail(f"bf16 calls of train() reached the CUDA-core kernels: "
+             f"{simt_counts()}")
+    pngs = sorted(p_.name for p_ in samples_dir.glob("*.png"))
+    keys = ["step", "G", "MSG", "VG", "D", "MSD", "VD", "GP", "SSL", "CL",
+            "MAL", "ms_per_step", "images_per_sec"]
+    trainer_report["train"] = dict(records=records, pngs=pngs,
+                                   launches=train_launches_24,
+                                   wall_ms=train_ms)
+    for r_ in records:
+        log(f"train() record: {r_} [{smi}]")
+    if [r_["step"] for r_ in records] != [1, 8, 16, 24] or any(
+            list(r_) != keys for r_ in records):
+        fail(f"train() log records: {records}")
+    if not all(np.isfinite(v) for r_ in records for v in r_.values()):
+        fail("non-finite values in the train() log records")
+    if pngs != ["ema-sample-0.png", "sample-0.png"]:
+        fail(f"save_sample wrote {pngs}")
+    ckpt = models_dir / "resume.ckpt"
+    t = time.perf_counter()
+    gan.save(ckpt)
+    save_s = time.perf_counter() - t
+    copies = []
+    for _ in range(2):  # the second copy measures the step's own noise
+        other = quickstart(amp=True, seed=1, model_folder=str(models_dir),
+                           results_folder=str(samples_dir))
+        t = time.perf_counter()
+        other.load(ckpt)
+        load_s = time.perf_counter() - t
+        copies.append(other)
+    state_equal = all(
+        all(torch.equal(a_, b_) for a_, b_ in zip(
+            getattr(gan, mod).state_dict().values(),
+            getattr(other, mod).state_dict().values()))
+        for other in copies for mod in ("G", "G_ema", "D"))
+    state_equal &= all(other.steps == gan.steps and other.ema.step ==
+                       gan.ema.step and other._rng.bit_generator.state ==
+                       gan._rng.bit_generator.state for other in copies)
+    for trainer_ in (gan, *copies):
+        trainer_.train_discriminator_step(
+            pool[:BATCH], apply_gradient_penalty=True,
+            calc_multiscale_loss=True)
+        trainer_.train_generator_step(BATCH, calc_multiscale_loss=True)
+    torch.cuda.synchronize()
+
+    def max_diff(a_, b_):
+        return max(float((p_ - q_).detach().abs().max())
+                   for mod in ("G", "D")
+                   for p_, q_ in zip(getattr(a_, mod).parameters(),
+                                     getattr(b_, mod).parameters()))
+
+    resumed, floor = max_diff(gan, copies[0]), max_diff(copies[0], copies[1])
+    lr = gan.g_opt.param_groups[0]["lr"]
+    trainer_report["resume"] = dict(
+        state_equal=state_equal, max_diff_after_step=resumed,
+        max_diff_between_loaded=floor, lr=lr, save_s=save_s, load_s=load_s,
+        ckpt_gib=ckpt.stat().st_size / 2 ** 30)
+    log(f"resume: state equal after load {state_equal}; after one more "
+        f"iteration max |continued - resumed| {resumed:.3e}, between two "
+        f"resumed copies {floor:.3e} (lr {lr}); checkpoint "
+        f"{trainer_report['resume']['ckpt_gib']:.3f} GiB, save "
+        f"{save_s:.2f} s, load {load_s:.2f} s")
+    del gan, copies, other
+    shutil.rmtree(models_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if not state_equal:
+        fail("a loaded trainer's state differs from the saved one's")
+    # the card's bf16 steps are not bitwise repeatable (atomic sums in the
+    # upsample and index backwards, which Adam's 1/sqrt(v) magnifies where v
+    # is small): two resumed copies of one state part by 0.087 lr at most
+    # (measured on one H100).  A resumed step is held to 3 times that floor of
+    # this run; a load that lost the optimizer state or the RNG moves the
+    # parameters by about a whole learning-rate step
+    if not resumed <= max(3.0 * floor, 1e-2 * lr):
+        fail(f"a resumed iteration departs by {resumed:.3e}, more than 3 "
+             f"times the floor {floor:.3e} of two resumed copies")
+    log(f"phase 12 (the rest of the trainer): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # --------------------------------------------------------------- 13
     mult = {}
     for _, h, ci, co in convs:
         mult[(h, ci, co)] = mult.get((h, ci, co), 0) + 1

@@ -1,7 +1,10 @@
 from gigagan_tpu_torch.data.datasets import (
     DataLoader,
+    ImageDataset,
     MockImageDataset,
+    SyntheticShapesDataset,
     cycle,
 )
 
-__all__ = ["DataLoader", "MockImageDataset", "cycle"]
+__all__ = ["DataLoader", "ImageDataset", "MockImageDataset",
+           "SyntheticShapesDataset", "cycle"]

@@ -14,6 +14,12 @@ exists only for the TPU's lane layout).
 Random draws (the decoder's dropout mask and patch choice) come from an
 explicit ``torch.Generator``, or are passed in (``recon_draws``) so a
 caller can reproduce another run's draws.
+
+``remat_stages`` recomputes each stage core (``DStageCore``) in the
+backward (``utils.remat``: a non-reentrant checkpoint), as the JAX
+discriminator wraps it in ``nn.remat``: the R1 double backward then holds
+one stage's activations at a time.  A core draws nothing, so its
+recomputation is exact.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from gigagan_tpu_torch.models.layers import (
 )
 from gigagan_tpu_torch.ops.adaptive_conv import expand_batch
 from gigagan_tpu_torch.utils import exists, is_power_of_two
+from gigagan_tpu_torch.utils.remat import remat
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, item {item})"
 
@@ -228,11 +235,6 @@ class Discriminator(nn.Module):
                 "a text-conditioned discriminator "
                 + _NOT_PORTED.format(item="4, conditional path")
             )
-        if remat_stages:
-            raise NotImplementedError(
-                "remat_stages (activation checkpointing) "
-                + _NOT_PORTED.format(item="2, the rest of training")
-            )
         assert is_power_of_two(image_size)
         assert all(map(is_power_of_two, attn_resolutions))
         self.image_size = image_size
@@ -240,6 +242,7 @@ class Discriminator(nn.Module):
         self.resize_mode = resize_mode
         self.num_skip_layers_excite = num_skip_layers_excite
         self.unconditional = unconditional
+        self.remat_stages = remat_stages
         self.dtype = dtype
 
         ms_input = tuple(
@@ -384,7 +387,10 @@ class Discriminator(nn.Module):
                     batch * 2 * num_groups, *x.shape[1:])
                 num_groups *= 2
 
-            x, residual = stage.core(x)
+            if self.remat_stages:
+                x, residual = remat(stage.core, x)
+            else:
+                x, residual = stage.core(x)
 
             if exists(stage.predictor) and return_multiscale_outputs:
                 multiscale_outputs.append(stage.predictor(

@@ -7,7 +7,8 @@ gigagan_tpu/models/generator.py with the same config keys).
 - ONE projection of the style vector to every layer's modulation and
   kernel selection, consumed in order through ``ModTable``;
 - skip-layer squeeze-excitation push/pop gating;
-- per stage: upsample → excite → 2×(adaptive conv + noise + leaky) →
+- per stage: upsample (bilinear + blur, or ``PixelShuffleUpsample`` with
+  ``pixel_shuffle_upsample``) → excite → 2×(adaptive conv + noise + leaky) →
   self-attn? → to_rgb (no demod); rgb accumulated, then upsampled;
 - ``return_all_rgbs`` collects the per-stage accumulated rgbs.
 
@@ -29,6 +30,7 @@ from gigagan_tpu_torch.models.conditioning import StyleNetwork
 from gigagan_tpu_torch.models.layers import (
     AdaptiveConv,
     Noise,
+    PixelShuffleUpsample,
     SelfAttentionBlock,
     SqueezeExcite,
     Upsample,
@@ -42,10 +44,19 @@ _NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, {item})"
 
 class _Stage(nn.Module):
     def __init__(self, *, dim_in, dim_out, channels, num_conv_kernels,
-                 upsample, upsample_rgb, dim_excite, self_attn, dtype):
+                 upsample, upsample_rgb, dim_excite, self_attn,
+                 pixel_shuffle, dtype):
         super().__init__()
-        self.upsample = Upsample() if upsample else None
-        self.upsample_rgb = Upsample() if upsample_rgb else None
+
+        def make_upsample(dim):
+            # the reference's post-init kaiming pass overwrites ICNR inside
+            # the generator, so the JAX generator passes use_icnr=False
+            if pixel_shuffle:
+                return PixelShuffleUpsample(dim, use_icnr=False, dtype=dtype)
+            return Upsample()
+
+        self.upsample = make_upsample(dim_in) if upsample else None
+        self.upsample_rgb = make_upsample(channels) if upsample_rgb else None
         self.squeeze_excite = (
             SqueezeExcite(dim_in, dim_excite, dtype=dtype)
             if exists(dim_excite) else None
@@ -97,11 +108,6 @@ class Generator(nn.Module):
             raise NotImplementedError(
                 "text conditioning (text_encoder, cross_attn) "
                 + _NOT_PORTED.format(item="item 4, conditional path")
-            )
-        if pixel_shuffle_upsample:
-            raise NotImplementedError(
-                "pixel_shuffle_upsample=True "
-                + _NOT_PORTED.format(item="item 2, PixelShuffleUpsample")
             )
 
         self.image_size = image_size
@@ -163,7 +169,8 @@ class Generator(nn.Module):
                 upsample_rgb=ind + 1 < len(dim_pairs),
                 dim_excite=(dim_pairs[ind + num_skip_layers_excite][0]
                             if excite else None),
-                self_attn=self_attn, dtype=dtype,
+                self_attn=self_attn, pixel_shuffle=pixel_shuffle_upsample,
+                dtype=dtype,
             ))
             split_dims.extend([
                 dim_in,          # conv1 modulation

@@ -21,7 +21,10 @@ from torch import nn
 
 from gigagan_tpu_torch import ops
 from gigagan_tpu_torch.utils import exists
-from gigagan_tpu_torch.utils.init import kaiming_normal_leaky_
+from gigagan_tpu_torch.utils.init import (
+    kaiming_normal_leaky_,
+    pixel_shuffle_icnr_,
+)
 
 
 def init_parameters(module: nn.Module, generator=None) -> None:
@@ -169,6 +172,32 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         return ops.resample.upsample_2x_blur(x)
+
+
+class _ICNRDense(Dense):
+    """A Dense whose init is ICNR: its pixel shuffle starts as a
+    nearest-neighbour upsample."""
+
+    def reset_own_parameters(self, generator=None):
+        pixel_shuffle_icnr_(self.weight, 4, generator)
+        nn.init.zeros_(self.bias)
+
+
+class PixelShuffleUpsample(nn.Module):
+    """1x1 conv to 4× the channels, SiLU, pixel shuffle; ICNR init unless
+    ``use_icnr=False`` (then the Dense's own kaiming init, as the
+    generator asks for: the reference's post-hoc re-init overwrites
+    ICNR)."""
+
+    def __init__(self, dim: int, dim_out=None, use_icnr: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        dim_out = dim if dim_out is None else dim_out
+        self.conv = (_ICNRDense if use_icnr else Dense)(dim, dim_out * 4,
+                                                         dtype=dtype)
+
+    def forward(self, x):
+        return ops.resample.pixel_shuffle(F.silu(self.conv(x)), 2)
 
 
 class SqueezeExcite(nn.Module):

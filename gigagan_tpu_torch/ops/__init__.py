@@ -9,6 +9,7 @@ from gigagan_tpu_torch.ops.adaptive_conv import (
 from gigagan_tpu_torch.ops.attention import attend, attend_fused
 from gigagan_tpu_torch.ops.resample import (
     blur_2d,
+    pixel_shuffle,
     resize_image_to,
     upsample_2x,
     upsample_2x_blur,
@@ -23,6 +24,7 @@ __all__ = [
     "demod_scale",
     "expand_batch",
     "kernel_gram",
+    "pixel_shuffle",
     "resample",
     "resize_image_to",
     "upsample_2x",

@@ -16,8 +16,8 @@ Every 2-D 3x3 stride-1 conv goes through ``pconv2d``
 (``ops/kernels/adaptive_conv.py``): kernel K1, which mixes the banks per
 sample on chip, forward and as the input gradient, and K2 for the weight
 and selection gradients — their plain versions on a CPU tensor.  The 1x1
-``to_rgb`` conv, as in JAX, and everything under ``plain_reference()`` run
-the plain path: steps (2)+(3) as one conv with n·o output channels and a
+``to_rgb`` conv and strided or dilated convs, as in JAX, and everything
+under ``plain_reference()`` run the plain path: steps (2)+(3) as one conv with n·o output channels and a
 per-sample mix.
 
 Feature maps are channels-last ``(b, h, w, c)``; banks are
@@ -106,14 +106,10 @@ def adaptive_conv(x, weights, mod, kernel_mod=None, *, demod: bool = True,
     else:
         attn = None
 
-    fused = use_fused() and (kh, kw) == (3, 3)
-    if fused and (stride != 1 or dilation != 1):
-        if x.is_cuda:
-            raise NotImplementedError(
-                "adaptive_conv: the CUDA kernel K1 takes stride-1, "
-                "dilation-1 3x3 convs only"
-            )
-        fused = False
+    # K1 takes stride-1, dilation-1 3x3 convs; any other runs step (2)
+    # below on every device, as JAX runs it on its XLA conv
+    fused = (use_fused() and (kh, kw) == (3, 3) and stride == 1
+             and dilation == 1)
     if fused:
         a = attn if adaptive else torch.ones(
             (b, 1), dtype=torch.float32, device=x.device

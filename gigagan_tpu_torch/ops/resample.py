@@ -1,6 +1,6 @@
 """Blur / resample primitives, channels-last (counterpart of
 gigagan_tpu/ops/resample.py: ``blur_2d``, ``upsample_2x``,
-``upsample_2x_blur``, ``resize_image_to``).
+``upsample_2x_blur``, ``pixel_shuffle``, ``resize_image_to``).
 
 Feature maps are ``(b, h, w, c)``; torch's spatial ops want ``(b, c, h, w)``,
 so each op works on a permuted view and permutes back.
@@ -47,6 +47,15 @@ def upsample_2x(x):
 def upsample_2x_blur(x):
     """The reference Upsample: bilinear 2x then binomial blur."""
     return blur_2d(upsample_2x(x))
+
+
+def pixel_shuffle(x, r: int = 2):
+    """(b, h, w, c·r²) → (b, h·r, w·r, c) with torch ``PixelShuffle``'s
+    channel order (c, r1, r2)."""
+    b, h, w, crr = x.shape
+    c = crr // (r * r)
+    x = x.reshape(b, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(b, h * r, w * r, c)
 
 
 def resize_image_to(images, size: int, method: str = "bilinear"):

@@ -19,16 +19,30 @@ inside the R1 double backward (K6a, K6b, K7a and K7b in the
 forward-over-reverse surrogate instead of K5), and G's adaptive convs
 K1/K2 — all through the autograd Functions of ``ops/kernels``.
 
+Options, as in JAX:
+
+- ``grad_accum_every``: the batch arrives as (accum, mb, h, w, c); each
+  microbatch runs its losses and their backward into the ``.grad``
+  buffers, its gradients and losses scaled by 1/accum (JAX's ``lax.scan``
+  body), with draws of its own; then one optimizer step.  With accum = 1
+  the step is the plain one.
+- ``gp_chunk=c``: the reverse-over-reverse R1 penalty on the un-augmented
+  pipeline over chunks of c samples (``_r1_chunked``), each chunk's share
+  backpropagated before the next, so one chunk's double-backward graph is
+  alive at a time: JAX's ``lax.scan(jax.checkpoint(gp_body))``.
+- ``remat``: the microbatch's loss, R1 included (without a chunk), is
+  recomputed in the backward (``utils.remat``), replaying the draws.
+
 Every random draw of a step comes from explicit generators — the tensors
 (latents, pixel noise, the decoder's dropout mask and patch choice) from
 ``generator`` on the step's device, the host-side flip decisions from the
-CPU ``host_generator`` — or is given in ``StepDraws`` so that a run can
-reproduce another's.  Options of the JAX steps this port does not have
-raise ``NotImplementedError``.
+CPU ``host_generator`` — or is given in ``StepDraws`` (one per microbatch)
+so that a run can reproduce another's.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -37,8 +51,7 @@ import torch
 from gigagan_tpu_torch import losses as L
 from gigagan_tpu_torch.ops.kernels.flash_attention_hv import flash_hv_mode
 from gigagan_tpu_torch.utils import exists
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, item 2)"
+from gigagan_tpu_torch.utils.remat import remat
 
 
 @dataclass
@@ -54,6 +67,22 @@ class StepDraws:
     recon: Optional[list] = None
 
 
+def _micro_draws(draws, accum: int) -> list:
+    """One StepDraws per microbatch."""
+    if draws is None:
+        return [StepDraws() for _ in range(accum)]
+    if isinstance(draws, StepDraws):
+        draws = [draws]
+    assert len(draws) == accum, (
+        f"{len(draws)} StepDraws for {accum} microbatches")
+    return list(draws)
+
+
+def _scaled(losses: dict, accum: int) -> dict:
+    return {k: v.detach() / accum if accum > 1 else v.detach()
+            for k, v in losses.items()}
+
+
 class TrainStepBuilder:
     """The d/g steps of one unconditional (G, D) pair and its optimizers."""
 
@@ -61,10 +90,7 @@ class TrainStepBuilder:
                  ema=None, multiscale_divergence_loss_weight: float = 0.1,
                  discr_aux_recon_loss_weight: float = 1.0,
                  diff_augment=None, gp_chunk: Optional[int] = None,
-                 gp_fwd_over_rev: bool = False):
-        if exists(gp_chunk):
-            raise NotImplementedError(f"gp_chunk (the chunked R1) "
-                                      f"{_NOT_PORTED}")
+                 gp_fwd_over_rev: bool = False, remat: bool = False):
         self.G = generator
         self.D = discriminator
         self.g_opt = g_opt
@@ -73,7 +99,9 @@ class TrainStepBuilder:
         self.ms_w = multiscale_divergence_loss_weight
         self.aux_w = discr_aux_recon_loss_weight
         self.diff_augment = diff_augment
+        self.gp_chunk = gp_chunk
         self.gp_fwd_over_rev = gp_fwd_over_rev
+        self.remat = remat
 
     def _generate(self, batch_size, draws, generator):
         return self.G(
@@ -89,13 +117,30 @@ class TrainStepBuilder:
                                  generator=host_generator)
 
     def d_step(self, real_images, *, apply_gp: bool, calc_ms: bool,
-               draws: Optional[StepDraws] = None, generator=None,
-               host_generator=None) -> dict:
-        """One discriminator update on a (b, h, w, c) batch of reals.
-        Returns the step's losses as 0-d tensors (no device sync)."""
-        draws = draws or StepDraws()
+               draws=None, generator=None, host_generator=None) -> dict:
+        """One discriminator update on a (b, h, w, c) batch of reals, or on
+        (accum, mb, h, w, c) microbatches.  ``draws``: a StepDraws, or one
+        per microbatch.  Returns the step's losses (averaged over the
+        microbatches) as 0-d tensors (no device sync)."""
+        micro = real_images if real_images.dim() == 5 else real_images[None]
+        accum = micro.shape[0]
+        params = [p for p in self.D.parameters() if p.requires_grad]
+        self.d_opt.zero_grad(set_to_none=True)
+        metrics = {}
+        for real, d in zip(micro, _micro_draws(draws, accum)):
+            m = self._d_micro(real, d, apply_gp, calc_ms, params, accum,
+                              generator, host_generator)
+            metrics = {k: metrics[k] + v if k in metrics else v
+                       for k, v in m.items()}
+        self.d_opt.step()
+        return metrics
+
+    def _d_micro(self, real_images, draws, apply_gp, calc_ms, params, accum,
+                 generator, host_generator):
+        """One microbatch's losses and their backward into ``.grad``."""
         b = real_images.shape[0]
         dtype = self.D.dtype
+        chunked = apply_gp and exists(self.gp_chunk)
 
         with torch.no_grad():
             fake, fake_rgbs = self._generate(b, draws, generator)
@@ -105,7 +150,7 @@ class TrainStepBuilder:
 
         real = real_images.to(dtype)
         fake_aug = fake_aug.to(dtype)
-        if apply_gp:
+        if apply_gp and not chunked:
             real = real.detach().requires_grad_()
             fake_aug = fake_aug.detach().requires_grad_()
         real_flip = draws.real_flip
@@ -123,50 +168,94 @@ class TrainStepBuilder:
                          for r in self.D.multiscale_input_resolutions]
             return torch.cat((real_aug, fake_)), pair_rgbs
 
-        logits, ms, aux_losses = self.D(
-            *pair_inputs(real, fake_aug), return_multiscale_outputs=calc_ms,
-            calc_aux_loss=True, aux_recon_samples=b,
-            recon_draws=draws.recon, generator=generator,
-        )
+        def loss(real, fake_aug):
+            logits, ms, aux_losses = self.D(
+                *pair_inputs(real, fake_aug),
+                return_multiscale_outputs=calc_ms, calc_aux_loss=True,
+                aux_recon_samples=b, recon_draws=draws.recon,
+                generator=generator,
+            )
 
-        divergence = L.discriminator_hinge_loss(logits[:, :b], logits[:, b:])
-        total = divergence
-        ms_div = torch.zeros((), device=logits.device)
-        if self.ms_w > 0.0 and calc_ms and ms:
-            for m in ms:
-                half = m.shape[0] // 2
-                ms_div = ms_div + L.discriminator_hinge_loss(m[:half],
-                                                             m[half:])
-            total = total + ms_div * self.ms_w
+            divergence = L.discriminator_hinge_loss(logits[:, :b],
+                                                    logits[:, b:])
+            total = divergence
+            ms_div = torch.zeros((), device=logits.device)
+            if self.ms_w > 0.0 and calc_ms and ms:
+                for m in ms:
+                    half = m.shape[0] // 2
+                    ms_div = ms_div + L.discriminator_hinge_loss(m[:half],
+                                                                 m[half:])
+                total = total + ms_div * self.ms_w
 
-        gp = torch.zeros((), device=logits.device)
-        if apply_gp:
-            # R1 on the same call; aux losses are outside its graph
-            outputs = [logits, *ms]
+            gp = torch.zeros((), device=logits.device)
+            if apply_gp and not chunked:
+                # R1 on the same call; aux losses are outside its graph
+                outputs = [logits, *ms]
+                cots = [torch.ones_like(logits),
+                        *[torch.ones_like(m) * self.ms_w for m in ms]]
+                g_real, g_fake = torch.autograd.grad(
+                    outputs, [real, fake_aug], cots,
+                    create_graph=not self.gp_fwd_over_rev,
+                    retain_graph=True)
+                gp = 10.0 * (L.sample_sq_norms(g_real).mean()
+                             + L.sample_sq_norms(g_fake).mean())
+                if self.gp_fwd_over_rev:
+                    gp = gp + self._r1_fwd_over_rev(
+                        pair_inputs, real, fake_aug, g_real, g_fake, calc_ms)
+                total = total + gp
+
+            aux = torch.zeros((), device=logits.device)
+            if self.aux_w > 0.0 and aux_losses:
+                aux = sum(aux_losses)
+                total = total + aux * self.aux_w
+            return total, dict(divergence=divergence,
+                               multiscale_divergence=ms_div,
+                               gradient_penalty=gp, aux_reconstruction=aux)
+
+        if self.remat:
+            total, metrics = remat(loss, real, fake_aug,
+                                   generators=(generator,))
+        else:
+            total, metrics = loss(real, fake_aug)
+        if accum > 1:
+            total = total / accum
+        total.backward(inputs=params)
+        if chunked:
+            metrics["gradient_penalty"] = self._r1_chunked(
+                real, fake, fake_rgbs, calc_ms, params, accum)
+        return _scaled(metrics, accum)
+
+    def _r1_chunked(self, real, fake, fake_rgbs, calc_ms, params, accum):
+        """The R1 penalty 10·Σ‖∇‖²/b over chunks of ``gp_chunk`` samples,
+        each chunk's share backpropagated into ``.grad`` at once; returns
+        its value.  As JAX's chunked penalty it runs on the un-augmented
+        pipeline (the reals and the fakes before DiffAugment): D is per
+        sample, so it equals the unchunked penalty of an unflipped step.
+        A chunk is one D call on its 2c images, without the aux losses."""
+        b = real.shape[0]
+        c = min(self.gp_chunk, b)
+        assert b % c == 0, f"gp_chunk {c} must divide microbatch {b}"
+        dtype = self.D.dtype
+        total_sq = torch.zeros((), device=real.device)
+        for i in range(0, b, c):
+            r = real[i:i + c].detach().requires_grad_()
+            f = fake[i:i + c].to(dtype).detach().requires_grad_()
+            by_res = [{t.shape[1]: t for t in lst}
+                      for lst in (self.D.real_images_to_rgbs(r),
+                                  [t[i:i + c] for t in fake_rgbs])]
+            rgbs = [torch.cat([ix[res].to(dtype) for ix in by_res])
+                    for res in self.D.multiscale_input_resolutions]
+            logits, ms, _ = self.D(torch.cat((r, f)), rgbs,
+                                   return_multiscale_outputs=calc_ms,
+                                   calc_aux_loss=False)
             cots = [torch.ones_like(logits),
                     *[torch.ones_like(m) * self.ms_w for m in ms]]
-            g_real, g_fake = torch.autograd.grad(
-                outputs, [real, fake_aug], cots,
-                create_graph=not self.gp_fwd_over_rev,
-                retain_graph=True)
-            gp = 10.0 * (L.sample_sq_norms(g_real).mean()
-                         + L.sample_sq_norms(g_fake).mean())
-            if self.gp_fwd_over_rev:
-                gp = gp + self._r1_fwd_over_rev(
-                    pair_inputs, real, fake_aug, g_real, g_fake, calc_ms)
-            total = total + gp
-
-        aux = torch.zeros((), device=logits.device)
-        if self.aux_w > 0.0 and aux_losses:
-            aux = sum(aux_losses)
-            total = total + aux * self.aux_w
-
-        params = [p for p in self.D.parameters() if p.requires_grad]
-        self.d_opt.zero_grad(set_to_none=True)
-        total.backward(inputs=params)
-        self.d_opt.step()
-        return _detached(divergence=divergence, multiscale_divergence=ms_div,
-                         gradient_penalty=gp, aux_reconstruction=aux)
+            g_r, g_f = torch.autograd.grad([logits, *ms], [r, f], cots,
+                                           create_graph=True)
+            sq = L.sample_sq_norms(g_r).sum() + L.sample_sq_norms(g_f).sum()
+            (sq * (10.0 / (b * accum))).backward(inputs=params)
+            total_sq = total_sq + sq.detach()
+        return 10.0 * total_sq / b
 
     def _r1_fwd_over_rev(self, pair_inputs, real, fake, v_real, v_fake,
                          calc_ms):
@@ -198,10 +287,34 @@ class TrainStepBuilder:
         return surrogate - surrogate.detach()
 
     def g_step(self, batch_size: int, *, calc_ms: bool,
-               draws: Optional[StepDraws] = None, generator=None,
+               grad_accum_every: int = 1, draws=None, generator=None,
                host_generator=None) -> dict:
-        """One generator update (and the EMA update after it)."""
-        draws = draws or StepDraws()
+        """One generator update on ``grad_accum_every`` microbatches of
+        ``batch_size`` fakes (and the EMA update after it)."""
+        params = [p for p in self.G.parameters() if p.requires_grad]
+        self.g_opt.zero_grad(set_to_none=True)
+        metrics = {}
+        for d in _micro_draws(draws, grad_accum_every):
+            loss = functools.partial(self._g_loss, batch_size, d, calc_ms,
+                                     generator, host_generator)
+            if self.remat:
+                total, m = remat(loss,
+                                 generators=(generator, host_generator))
+            else:
+                total, m = loss()
+            if grad_accum_every > 1:
+                total = total / grad_accum_every
+            total.backward(inputs=params)
+            m = _scaled(m, grad_accum_every)
+            metrics = {k: metrics[k] + v if k in metrics else v
+                       for k, v in m.items()}
+        self.g_opt.step()
+        if exists(self.ema):
+            self.ema.update(self.G)
+        return metrics
+
+    def _g_loss(self, batch_size, draws, calc_ms, generator, host_generator):
+        """One microbatch's generator losses: (total, losses)."""
         fake, rgbs = self._generate(batch_size, draws, generator)
         fake_aug, rgbs_aug = self._augment(fake, rgbs, draws.fake_flip,
                                            host_generator)
@@ -217,16 +330,5 @@ class TrainStepBuilder:
             for m in ms:
                 ms_div = ms_div + L.generator_hinge_loss(m)
             total = total + ms_div * self.ms_w
-
-        params = [p for p in self.G.parameters() if p.requires_grad]
-        self.g_opt.zero_grad(set_to_none=True)
-        total.backward(inputs=params)
-        self.g_opt.step()
-        if exists(self.ema):
-            self.ema.update(self.G)
-        return _detached(divergence=divergence, multiscale_divergence=ms_div)
-
-
-def _detached(**losses):
-    return {k: v.detach() for k, v in losses.items()}
-
+        return total, dict(divergence=divergence,
+                           multiscale_divergence=ms_div)

@@ -3,22 +3,35 @@ EMA copy and, for training, the unconditional discriminator from the same
 ``generator=dict(...)``, ``discriminator=dict(...)``, ``amp=`` and
 ``seed=`` arguments; both optimizers (the JAX trainer's defaults: Adam,
 lr 2e-4, betas (0.5, 0.9), no weight decay); ``train_discriminator_step``,
-``train_generator_step`` and a ``train(steps)`` loop with R1 every 4th
-step; JAX parameters through the weight bridge; and sampling.
+``train_generator_step`` and the ``forward(steps=)``/``train(steps)`` loop
+with R1 every 4th step, gradient accumulation, the 10-loss log line and
+``log_hook`` record timed by ``StepTimer``, and the save-and-sample
+cadence; ``save``/``load`` of the whole train state with the JAX trainer's
+tolerant load; sample grids; JAX parameters through the weight bridge;
+and sampling.
 
-Options of the JAX trainer that this port does not have yet raise
-``NotImplementedError`` (ROADMAP.md Queue 1)."""
+``fused_dg_step=True`` gives the G step the D step's batch, as JAX's fused
+D+G program does, so the numbers are JAX's; the steps still run as two
+sequences of kernel launches here (capturing them as one CUDA graph is
+ROADMAP.md Queue 2, item B).  The conditional path, the vision-aided
+discriminator and the upsampler raise ``NotImplementedError``
+(ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
 import copy
+import struct
 import time
+import zlib
 from collections.abc import Mapping
+from math import sqrt
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+import gigagan_tpu_torch
 from gigagan_tpu_torch.convert import convert_params
 from gigagan_tpu_torch.data import cycle
 from gigagan_tpu_torch.losses import DiffAugment
@@ -28,9 +41,12 @@ from gigagan_tpu_torch.models.layers import init_parameters
 from gigagan_tpu_torch.train.ema import EMA
 from gigagan_tpu_torch.train.optimizer import get_optimizer
 from gigagan_tpu_torch.train.steps import TrainStepBuilder
-from gigagan_tpu_torch.utils import exists
+from gigagan_tpu_torch.utils import StepTimer, exists, num_to_groups
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, item {item})"
+# the EMA's schedule, saved with its counters
+_EMA_KWARGS = ("beta", "update_every", "update_after_step", "inv_gamma",
+               "power", "min_value")
 
 
 def _promote(value, klass, **extra):
@@ -48,16 +64,19 @@ class GigaGAN:
                  calc_multiscale_loss_every: int = 1,
                  apply_gradient_penalty_every: int = 4,
                  create_ema_generator_at_init: bool = True,
-                 log_steps_every: int = 20, amp: bool = False,
+                 log_steps_every: int = 20,
+                 save_and_sample_every: int = 1000,
+                 early_save_thres_steps: int = 2500,
+                 early_save_and_sample_every: int = 100,
+                 num_samples: int = 25,
+                 model_folder: str = "./gigagan-models",
+                 results_folder: str = "./gigagan-results",
+                 amp: bool = False, remat: bool = False,
                  gp_chunk: Optional[int] = None,
                  gp_fwd_over_rev: bool = False, fused_dg_step: bool = False,
                  vision_aided_discriminator=None,
                  train_upsampler: bool = False, seed: int = 42,
-                 device=None):
-        if fused_dg_step:
-            raise NotImplementedError(
-                "fused_dg_step (one D+G program) "
-                + _NOT_PORTED.format(item="2"))
+                 log_hook=None, device=None):
         if exists(vision_aided_discriminator):
             raise NotImplementedError(
                 "the vision-aided discriminator "
@@ -89,6 +108,14 @@ class GigaGAN:
         self.log_steps_every = log_steps_every
         self.apply_gradient_penalty_every = apply_gradient_penalty_every
         self.calc_multiscale_loss_every = calc_multiscale_loss_every
+        self.fused_dg_step = fused_dg_step
+        self.log_hook = log_hook
+        self.save_and_sample_every = save_and_sample_every
+        self.early_save_thres_steps = early_save_thres_steps
+        self.early_save_and_sample_every = early_save_and_sample_every
+        self.num_samples = num_samples
+        self.model_folder = Path(model_folder)
+        self.results_folder = Path(results_folder)
         self.train_dl = None
         if not exists(discriminator):
             return
@@ -108,6 +135,7 @@ class GigaGAN:
             discr_aux_recon_loss_weight=discr_aux_recon_loss_weight,
             diff_augment=_promote(diff_augment, DiffAugment),
             gp_chunk=gp_chunk, gp_fwd_over_rev=gp_fwd_over_rev,
+            remat=remat,
         )
 
     # ------------------------------------------------------------ weights
@@ -123,6 +151,17 @@ class GigaGAN:
         if exists(d_params):
             self.D.load_state_dict(convert_params(d_params, self.D))
 
+    def create_ema_generator(self, update_every: int = 10,
+                             update_after_step: int = 100,
+                             decay: float = 0.995):
+        """Start an EMA of G from its current parameters."""
+        assert not exists(self.ema), "EMA generator already created"
+        self.G_ema.load_state_dict(self.G.state_dict())
+        self.ema = EMA(self.G_ema, beta=decay, update_every=update_every,
+                       update_after_step=update_after_step)
+        if exists(self.builder):
+            self.builder.ema = self.ema
+
     # -------------------------------------------------------------- steps
 
     def _generators(self, seed: Optional[int]):
@@ -133,25 +172,29 @@ class GigaGAN:
         return (torch.Generator(device=self.device).manual_seed(int(s_dev)),
                 torch.Generator().manual_seed(int(s_host)))
 
-    def _check_trainable(self, grad_accum_every):
+    def _check_trainable(self):
         if not exists(self.builder):
             raise RuntimeError("GigaGAN was built without a discriminator")
-        if grad_accum_every != 1:
-            raise NotImplementedError(
-                "grad_accum_every > 1 " + _NOT_PORTED.format(item="2"))
 
     def train_discriminator_step(self, batch, *, grad_accum_every: int = 1,
                                  apply_gradient_penalty: bool,
                                  calc_multiscale_loss: bool, draws=None,
                                  seed: Optional[int] = None) -> dict:
-        """One D update on a (b, h, w, c) batch of real images in [0, 1]
-        (numpy array or tensor).  ``draws`` fixes the step's random draws
-        (``train.steps.StepDraws``)."""
-        self._check_trainable(grad_accum_every)
+        """One D update on a batch of real images in [0, 1] (numpy array or
+        tensor): (b, h, w, c), split into ``grad_accum_every``
+        microbatches, or (grad_accum_every, mb, h, w, c).  ``draws`` fixes
+        the step's random draws (``train.steps.StepDraws``, one per
+        microbatch)."""
+        self._check_trainable()
+        batch = torch.as_tensor(batch, device=self.device)
+        if batch.dim() == 4 and grad_accum_every > 1:
+            batch = batch.reshape(grad_accum_every, -1, *batch.shape[1:])
+        assert batch.dim() == 4 or batch.shape[0] == grad_accum_every, (
+            f"batch leading dim {batch.shape[0]} != grad_accum "
+            f"{grad_accum_every}")
         gen, host = self._generators(seed)
         return self.builder.d_step(
-            torch.as_tensor(batch, device=self.device),
-            apply_gp=apply_gradient_penalty,
+            batch, apply_gp=apply_gradient_penalty,
             calc_ms=calc_multiscale_loss, draws=draws, generator=gen,
             host_generator=host,
         )
@@ -160,13 +203,15 @@ class GigaGAN:
                              grad_accum_every: int = 1,
                              calc_multiscale_loss: bool, draws=None,
                              seed: Optional[int] = None) -> dict:
-        """One G update on a batch of ``batch_size`` fakes, then the EMA
-        update; advances the step counter."""
-        self._check_trainable(grad_accum_every)
+        """One G update on ``grad_accum_every`` microbatches of
+        ``batch_size`` fakes each, then the EMA update; advances the step
+        counter."""
+        self._check_trainable()
         gen, host = self._generators(seed)
         metrics = self.builder.g_step(
-            batch_size, calc_ms=calc_multiscale_loss, draws=draws,
-            generator=gen, host_generator=host,
+            batch_size, calc_ms=calc_multiscale_loss,
+            grad_accum_every=grad_accum_every, draws=draws, generator=gen,
+            host_generator=host,
         )
         self.steps += 1
         return metrics
@@ -176,51 +221,117 @@ class GigaGAN:
             "training dataloader has already been set")
         self.train_dl = dl
 
-    def train(self, steps: int, grad_accum_every: int = 1):
-        """The alternating loop: a D step then a G step per iteration, R1
-        on every ``apply_gradient_penalty_every``-th step, the multiscale
-        losses on every ``calc_multiscale_loss_every``-th.  Returns the
-        losses of each logged step as floats."""
+    @staticmethod
+    def _collect_batch(dl_iter, grad_accum_every: int):
+        """``grad_accum_every`` batches of the loader, stacked as
+        (grad_accum_every, mb, h, w, c)."""
+        images = []
+        for _ in range(grad_accum_every):
+            result = next(dl_iter)
+            (real,) = result if isinstance(result, tuple) else (result,)
+            images.append(np.asarray(real))
+        return np.stack(images)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def forward(self, *, steps: int, grad_accum_every: int = 1):
+        """The alternating loop: a D step then a G step per iteration, each
+        on a batch of its own (the G step on the D step's with
+        ``fused_dg_step``), R1 on every ``apply_gradient_penalty_every``-th
+        step, the multiscale losses on every
+        ``calc_multiscale_loss_every``-th.  On logging steps it
+        synchronises, prints the 10-loss line (the last R1 and multiscale
+        values carried over, as JAX prints them) and hands ``log_hook``
+        JAX's record; it saves samples and a checkpoint on the JAX
+        trainer's cadence.  Returns the losses of each logged step as
+        floats."""
         assert exists(self.train_dl), (
             "set the dataloader first with .set_dataloader(dl)")
-        self._check_trainable(grad_accum_every)
+        self._check_trainable()
         dl_iter = cycle(self.train_dl)
+        last = dict(gp=0.0, msd=0.0, msg=0.0)
+        self.step_timer = StepTimer()
+        steps_since_sync = 0
         log = []
         t0 = time.perf_counter()
         for _ in range(steps):
             step = self.steps
+            is_first = step == 1
+            self.step_timer.start()
             apply_gp = (self.apply_gradient_penalty_every > 0
                         and step % self.apply_gradient_penalty_every == 0)
             calc_ms = (self.calc_multiscale_loss_every > 0
                        and step % self.calc_multiscale_loss_every == 0)
+
+            d_batch = self._collect_batch(dl_iter, grad_accum_every)
             d = self.train_discriminator_step(
-                next(dl_iter), apply_gradient_penalty=apply_gp,
+                d_batch, grad_accum_every=grad_accum_every,
+                apply_gradient_penalty=apply_gp,
                 calc_multiscale_loss=calc_ms)
-            # a batch of its own for the g_step, as the JAX trainer draws
-            # one; the unconditional g_step reads only its size
+            # the unconditional g_step reads only the batch's size
+            g_batch = (d_batch if self.fused_dg_step
+                       else self._collect_batch(dl_iter, grad_accum_every))
             g = self.train_generator_step(
-                next(dl_iter).shape[0], calc_multiscale_loss=calc_ms)
-            if step == 1 or step % self.log_steps_every == 0:
-                record = {"step": step,
-                          **{f"d_{k}": float(v) for k, v in d.items()},
-                          **{f"g_{k}": float(v) for k, v in g.items()},
-                          "seconds": time.perf_counter() - t0}
-                log.append(record)
-                print(" | ".join(f"{k}: {v:.4g}" if isinstance(v, float)
-                                 else f"{k}: {v}" for k, v in record.items()))
+                g_batch.shape[1], grad_accum_every=grad_accum_every,
+                calc_multiscale_loss=calc_ms)
+
+            steps_since_sync += 1
+            if is_first or step % self.log_steps_every == 0:
+                self._sync()
+                self.step_timer.stop(steps_since_sync)
+                steps_since_sync = 0
+                d = {k: float(v) for k, v in d.items()}
+                g = {k: float(v) for k, v in g.items()}
+                if apply_gp:
+                    last["gp"] = d["gradient_penalty"]
+                if calc_ms:
+                    last["msd"] = d["multiscale_divergence"]
+                    last["msg"] = g["multiscale_divergence"]
+                # the conditional and vision-aided terms are not ported: 0
+                pairs = (("G", g["divergence"]), ("MSG", last["msg"]),
+                         ("VG", 0.0), ("D", d["divergence"]),
+                         ("MSD", last["msd"]), ("VD", 0.0),
+                         ("GP", last["gp"]),
+                         ("SSL", d["aux_reconstruction"]), ("CL", 0.0),
+                         ("MAL", 0.0))
+                bs = d_batch.shape[0] * d_batch.shape[1]
+                print(f"step {step}: "
+                      + " | ".join(f"{k}: {v:.2f}" for k, v in pairs)
+                      + f" | {self.step_timer.summary(bs)}", flush=True)
+                timing = {"ms_per_step": self.step_timer.mean_s * 1e3,
+                          "images_per_sec":
+                              self.step_timer.images_per_sec(bs)}
+                if exists(self.log_hook):
+                    self.log_hook({"step": step, **dict(pairs), **timing})
+                log.append({"step": step,
+                            **{f"d_{k}": v for k, v in d.items()},
+                            **{f"g_{k}": v for k, v in g.items()},
+                            "seconds": time.perf_counter() - t0, **timing})
+
+            if is_first or step % self.save_and_sample_every == 0 or (
+                    step <= self.early_save_thres_steps
+                    and step % self.early_save_and_sample_every == 0):
+                self.save_sample(d_batch.shape[1])
+        print(f"complete {self.steps} training steps", flush=True)
         return log
 
+    def train(self, steps: int, grad_accum_every: int = 1):
+        return self.forward(steps=steps, grad_accum_every=grad_accum_every)
+
     def __call__(self, *, steps: int, grad_accum_every: int = 1):
-        return self.train(steps, grad_accum_every)
+        return self.forward(steps=steps, grad_accum_every=grad_accum_every)
 
     # ----------------------------------------------------------- sampling
 
     @property
     def has_ema_generator(self) -> bool:
         """Whether ``G_ema`` holds an EMA generator: a trainer's when it
-        keeps one (``create_ema_generator_at_init``), and a sampler's
-        (built without a discriminator), whose ``G_ema`` is what
-        ``load_jax_params`` loaded."""
+        keeps one (``create_ema_generator_at_init`` or
+        ``create_ema_generator``), and a sampler's (built without a
+        discriminator), whose ``G_ema`` is what ``load_jax_params``
+        loaded."""
         return exists(self.ema) or not exists(self.D)
 
     @torch.inference_mode()
@@ -246,3 +357,187 @@ class GigaGAN:
         out = g(styles=styles, noise=noise, batch_size=batch_size,
                 latent_generator=latent_gen, noise_generator=noise_gen)
         return out.float().cpu().numpy()
+
+    def _sample_images(self, batch_size: int, use_ema: bool):
+        rows = [self.generate(batch_size=n, use_ema=use_ema)
+                for n in num_to_groups(self.num_samples, batch_size)]
+        return np.clip(np.concatenate(rows, axis=0), 0.0, 1.0)
+
+    def save_sample(self, batch_size: int):
+        """Grids of ``num_samples`` samples from the trained generator
+        (``sample-{m}.png``) and, with an EMA, from the EMA generator
+        (``ema-sample-{m}.png``) into ``results_folder``, then a
+        checkpoint ``model-{m}.ckpt`` into ``model_folder``, m being the
+        save milestone."""
+        milestone = self.steps // self.save_and_sample_every
+        nrow = int(sqrt(self.num_samples))
+        variants = [("sample", False)]
+        if self.has_ema_generator:
+            variants.append(("ema-sample", True))
+        self.results_folder.mkdir(parents=True, exist_ok=True)
+        for prefix, use_ema in variants:
+            save_image_grid(self._sample_images(batch_size, use_ema),
+                            self.results_folder / f"{prefix}-{milestone}.png",
+                            nrow=nrow)
+        self.save(self.model_folder / f"model-{milestone}.ckpt")
+
+    # -------------------------------------------------------- checkpoints
+
+    def _state(self) -> dict:
+        """Everything a resume needs, by name."""
+        state = {"G": self.G.state_dict(), "G_ema": self.G_ema.state_dict(),
+                 "steps": self.steps,
+                 "rng": self._rng.bit_generator.state,
+                 "version": gigagan_tpu_torch.__version__}
+        if exists(self.D):
+            state.update(D=self.D.state_dict(),
+                         g_opt=self.g_opt.state_dict(),
+                         d_opt=self.d_opt.state_dict())
+        if exists(self.ema):
+            state["ema"] = {"step": self.ema.step,
+                            "initted": self.ema.initted,
+                            **{k: getattr(self.ema, k)
+                               for k in _EMA_KWARGS}}
+        return state
+
+    def save(self, path, overwrite: bool = True):
+        """One ``torch.save`` file of the train state: G, G_ema, D, both
+        optimizers, the EMA's counters and schedule, the step counter, the
+        numpy RNG's ``bit_generator.state`` and the package version.
+        Written to a temporary file and renamed over ``path``, so that a
+        crash mid-save leaves an earlier checkpoint whole."""
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        assert overwrite or not path.exists()
+        tmp = path.with_name(path.name + ".tmp")
+        torch.save(self._state(), tmp)
+        tmp.replace(path)
+
+    def load(self, path, strict: bool = False):
+        """Restore a checkpoint.
+
+        Tolerant by default, as the JAX trainer's ``load``: model and EMA
+        tensors that match by name and shape are loaded; on a mismatch
+        the live value is kept and the count and the first name are
+        printed.  An optimizer state that does not fit as a whole is reset
+        fresh.  ``strict=True`` raises on any mismatch instead."""
+        path = Path(path)
+        assert path.exists(), path
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        version = saved.get("version")
+        if version is not None and version != gigagan_tpu_torch.__version__:
+            print(f"trying to load from version {version}")
+        skipped = []
+        loads = [(module, _matching(module, saved.get(key), key, skipped))
+                 for key, module in (("G", self.G), ("G_ema", self.G_ema),
+                                     ("D", self.D)) if exists(module)]
+        if not exists(self.D) and "D" in saved:
+            skipped.append("D (unexpected in checkpoint)")
+        if exists(self.ema) != ("ema" in saved):
+            skipped.append("ema (missing from checkpoint)" if exists(self.ema)
+                           else "ema (unexpected in checkpoint)")
+        opts = [(key, getattr(self, key)) for key in ("g_opt", "d_opt")
+                if exists(self.D)]
+        misfits = [key for key, opt in opts
+                   if not _optimizer_fits(opt, saved.get(key))]
+        if strict and (skipped or misfits):
+            raise RuntimeError(f"checkpoint {path} does not match: "
+                               + "; ".join(skipped + [
+                                   f"{k} does not fit" for k in misfits]))
+        if skipped:
+            print(f"checkpoint load: kept live values for {len(skipped)} "
+                  f"incompatible entries (first: {skipped[0]})")
+        for module, tensors in loads:
+            module.load_state_dict(tensors, strict=False)
+        if exists(self.ema) and "ema" in saved:
+            for k in ("step", "initted", *_EMA_KWARGS):
+                setattr(self.ema, k, saved["ema"][k])
+        # optimizer states are all-or-nothing: reset when one does not fit
+        for key, opt in opts:
+            if key in misfits:
+                print(f"unable to load {key} state; {key} will be reset to "
+                      "a fresh optimizer")
+                opt.state.clear()
+            else:
+                opt.load_state_dict(saved[key])
+        self.steps = int(saved["steps"])
+        self._rng.bit_generator.state = saved["rng"]
+
+
+def _matching(module, saved, name, skipped) -> dict:
+    """The tensors of ``saved`` that match ``module``'s by name and shape;
+    the others are recorded in ``skipped``."""
+    if saved is None:
+        skipped.append(f"{name} (missing from checkpoint)")
+        return {}
+    live = module.state_dict()
+    keep = {}
+    for k, v in live.items():
+        if k not in saved:
+            skipped.append(f"{name}.{k} (missing from checkpoint)")
+        elif tuple(saved[k].shape) != tuple(v.shape):
+            skipped.append(f"{name}.{k} (shape {tuple(saved[k].shape)} != "
+                           f"{tuple(v.shape)})")
+        else:
+            keep[k] = saved[k]
+    skipped.extend(f"{name}.{k} (unexpected in checkpoint)"
+                   for k in saved if k not in live)
+    return keep
+
+
+def _optimizer_fits(opt, saved) -> bool:
+    """Whether a saved optimizer state_dict fits ``opt`` as a whole: the
+    same groups of the same sizes, and every state tensor of a parameter
+    either a scalar or of the parameter's shape."""
+    if not isinstance(saved, Mapping) or "param_groups" not in saved:
+        return False
+    groups = opt.param_groups
+    if [len(g["params"]) for g in groups] != [
+            len(g["params"]) for g in saved["param_groups"]]:
+        return False
+    params = [p for g in groups for p in g["params"]]
+    ids = [i for g in saved["param_groups"] for i in g["params"]]
+    for p, i in zip(params, ids):
+        for v in saved["state"].get(i, {}).values():
+            if torch.is_tensor(v) and v.dim() and v.shape != p.shape:
+                return False
+    return True
+
+
+def _png(array) -> bytes:
+    """An 8-bit PNG (no filter, one zlib stream) of a (h, w) grey, (h, w,
+    3) RGB or (h, w, 4) RGBA uint8 array."""
+    h, w = array.shape[:2]
+    channels = 1 if array.ndim == 2 else array.shape[2]
+    color_type = {1: 0, 3: 2, 4: 6}[channels]
+    rows = np.ascontiguousarray(array).reshape(h, w * channels)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def save_image_grid(images, path, nrow: int):
+    """(n, h, w, c) float [0, 1] → a PNG grid with the JAX trainer's
+    pixels (torchvision ``save_image``'s layout: 2-pixel borders on a
+    background of ones), written by the standard library alone."""
+    n, h, w, c = images.shape
+    ncol = nrow
+    nrows = -(-n // ncol)
+    grid = np.ones((nrows * h + (nrows + 1) * 2,
+                    ncol * w + (ncol + 1) * 2, c), np.float32)
+    for i in range(n):
+        r, cl = divmod(i, ncol)
+        top = r * h + (r + 1) * 2
+        left = cl * w + (cl + 1) * 2
+        grid[top:top + h, left:left + w] = images[i]
+    arr = (grid * 255).astype(np.uint8)
+    if c == 1:
+        arr = arr[..., 0]
+    Path(path).write_bytes(_png(arr))

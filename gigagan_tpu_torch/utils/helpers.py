@@ -21,6 +21,12 @@ def is_power_of_two(n) -> bool:
     return log2(n).is_integer()
 
 
+def num_to_groups(num: int, divisor: int):
+    """``num`` split into groups of ``divisor`` and a remainder."""
+    groups, remainder = divmod(num, divisor)
+    return [divisor] * groups + ([remainder] if remainder > 0 else [])
+
+
 class ModTable:
     """Indexed access into the style→modulation projection.
 

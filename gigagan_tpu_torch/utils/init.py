@@ -10,7 +10,9 @@ for three parameter layouts:
 - ``bank``: ``(n, *spatial, in, out)`` adaptive-conv kernel banks, kept in
   the JAX layout so the weight bridge copies them as they are;
 - ``oihw``: a torch conv weight ``(out, in, *spatial)`` — flax ``nn.Conv``'s
-  HWIO kernel, transposed, same fan_in.
+  HWIO kernel, transposed, same fan_in;
+
+and the ICNR init of a pixel-shuffle projection.
 """
 
 from __future__ import annotations
@@ -46,3 +48,21 @@ def kaiming_normal_leaky_(tensor, layout: str = "conv", generator=None):
     fan_in, _ = _fan_in_out(tensor.shape, layout)
     std = math.sqrt(2.0) / math.sqrt(max(fan_in, 1))
     return tensor.normal_(0.0, std, generator=generator)
+
+
+@torch.no_grad()
+def pixel_shuffle_icnr_(tensor, upsample_factor: int = 4, generator=None):
+    """In place, ICNR init of a torch Linear weight ``(out, in)`` that feeds
+    a pixel shuffle: a kaiming-uniform (a = √5, torch's default) kernel for
+    out / r output channels, each row repeated r times in a row, so that
+    the shuffle starts as a nearest-neighbour upsample (the JAX package's
+    ``pixel_shuffle_icnr_init``, whose flax kernel ``(in, out)`` repeats
+    along its last axis)."""
+    out, fan_in = tensor.shape
+    assert out % upsample_factor == 0
+    # torch kaiming_uniform_'s default: gain sqrt(2 / (1 + 5)) = 1/sqrt(3)
+    bound = math.sqrt(2.0 / 6.0) * math.sqrt(3.0) / math.sqrt(max(fan_in, 1))
+    base = torch.empty(out // upsample_factor, fan_in, dtype=tensor.dtype,
+                       device=tensor.device)
+    base.uniform_(-bound, bound, generator=generator)
+    return tensor.copy_(base.repeat_interleave(upsample_factor, dim=0))

@@ -271,6 +271,48 @@ def test_discriminator_matches_flax(jax_d_run):
     assert rel_err(aux[0].numpy(), aux_j[0]) <= 1e-4
 
 
+def test_remat_stages_matches_flax_remat(jax_d_run):
+    # each stage core recomputed in the backward, on both sides (flax's
+    # nn.remat(DStageCore)): the values, and the parameter gradients of the
+    # outputs plus an R1 penalty on the input, whose double backward reruns
+    # every stage
+    params, images, _, _, (logits_j, _, _) = jax_d_run
+    jdisc = jd.Discriminator(**D_CONFIG, s2d_trunk=False, remat_stages=True)
+
+    def jax_outputs(p, x):
+        lg, ms, _ = jdisc.apply({"params": p}, x,
+                                jdisc.real_images_to_rgbs(x),
+                                calc_aux_loss=False)
+        return lg.sum() + sum(m.sum() for m in ms), lg
+
+    def jax_loss(p, x):
+        out, lg = jax_outputs(p, x)
+        g = jax.grad(lambda x_: jax_outputs(p, x_)[0])(x)
+        return out + jnp.sum(g * g), lg
+
+    (loss_j, lg_j), grads_j = jax.jit(jax.value_and_grad(
+        jax_loss, has_aux=True))(params, jnp.asarray(images))
+    np.testing.assert_allclose(np.asarray(lg_j), logits_j, rtol=1e-5,
+                               atol=1e-5)
+
+    disc = td.Discriminator(**D_CONFIG, remat_stages=True)
+    disc.load_state_dict(convert_params(params, disc))
+    x = t(images).requires_grad_()
+    lg, ms, _ = disc(x, disc.real_images_to_rgbs(x), calc_aux_loss=False)
+    out = lg.sum() + sum(m.sum() for m in ms)
+    (g,) = torch.autograd.grad(out, x, create_graph=True)
+    loss = out + (g * g).sum()
+    loss.backward()
+    assert rel_err(lg.detach().numpy(), logits_j) <= 1e-4
+    assert rel_err(loss.item(), float(loss_j)) <= 1e-4
+    want = convert_params(grads_j, disc)
+    for name, p in disc.named_parameters():
+        if p.grad is None:  # the reconstruction decoder, not run here
+            assert "recon_decoder" in name and not want[name].any(), name
+            continue
+        assert rel_err(p.grad.numpy(), want[name].numpy()) <= 1e-3, name
+
+
 def test_discriminator_bf16_runs_and_tracks_fp32(jax_d_run):
     params, images, rgbs, record, (logits_j, _, _) = jax_d_run
     disc = td.Discriminator(**D_CONFIG, dtype=torch.bfloat16)
@@ -286,7 +328,6 @@ def test_discriminator_bf16_runs_and_tracks_fp32(jax_d_run):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(unconditional=False), "text-conditioned discriminator"),
-    (dict(remat_stages=True), "remat_stages"),
 ])
 def test_unported_discriminator_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -96,6 +96,8 @@ LAYER_CASES = {
         [FMAP]),
     "style_network": (lambda: jc.StyleNetwork(dim=C, depth=2),
                       lambda: tc.StyleNetwork(dim=C, depth=2), [(B, C)]),
+    "pixel_shuffle_upsample": (lambda: jl.PixelShuffleUpsample(),
+                               lambda: tl.PixelShuffleUpsample(C), [FMAP]),
 }
 
 
@@ -141,9 +143,36 @@ def feed_noise_torch(module, noises):
             for m in module.modules() if isinstance(m, tl.Noise)]
 
 
-@pytest.fixture(scope="module")
-def jax_generator_run():
-    jg = JaxGenerator(**G_CONFIG, s2d_trunk=False)
+def test_pixel_shuffle_icnr_init_matches_jax():
+    # the same ×4-tiled kaiming-uniform kernel: JAX's flax (in, out) kernel
+    # repeats each column four times, the port's Linear (out, in) weight
+    # each row; the same bound, and one seed's spread alike
+    from gigagan_tpu.utils.init import pixel_shuffle_icnr_init
+
+    dim_in, dim_out = 64, 64
+    want = np.asarray(pixel_shuffle_icnr_init(4)(
+        jax.random.PRNGKey(0), (dim_in, 4 * dim_out))).T
+    layer = tl.PixelShuffleUpsample(dim_in, dim_out)
+    tl.init_parameters(layer, torch.Generator().manual_seed(0))
+    got = layer.conv.weight.detach().numpy()
+    bound = np.sqrt(1.0 / dim_in)  # gain 1/sqrt(3) · sqrt(3 / fan_in)
+    for w in (want, got):
+        assert w.shape == (4 * dim_out, dim_in)
+        tiles = w.reshape(dim_out, 4, dim_in)
+        assert (tiles == tiles[:, :1]).all()
+        assert np.abs(w).max() <= bound and np.abs(w).max() > 0.95 * bound
+    assert 0.9 < got.std() / want.std() < 1.1
+    assert not layer.conv.bias.detach().any()
+    # the generator's upsamplers keep kaiming (use_icnr=False), as in JAX
+    plain = tl.PixelShuffleUpsample(dim_in, dim_out, use_icnr=False)
+    tl.init_parameters(plain, torch.Generator().manual_seed(0))
+    w = plain.conv.weight.detach().numpy().reshape(dim_out, 4, dim_in)
+    assert not (w == w[:, :1]).all()
+
+
+def run_jax_generator(config):
+    """(params, latents, pixel noises, out, rgbs) of one flax forward."""
+    jg = JaxGenerator(**config, s2d_trunk=False)
     keys = {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1),
             "latent": jax.random.PRNGKey(2)}
     params = randomize(jg.init(keys, batch_size=2)["params"], seed=3,
@@ -153,6 +182,9 @@ def jax_generator_run():
         if "weights" in leaf:
             fan_in = np.prod(leaf["weights"].shape[1:-1])
             leaf["weights"] *= np.sqrt(2.0 / fan_in) / 0.5
+        if "upsample" in name:  # the pixel shuffle's Dense
+            kernel = leaf["conv"]["kernel"]
+            kernel *= np.sqrt(2.0 / kernel.shape[0]) / 0.5
     rng = np.random.default_rng(4)
     latents = rng.standard_normal((2, 16)).astype(np.float32)
     noises = []
@@ -174,8 +206,13 @@ def jax_generator_run():
                                                       for r in rgbs]
 
 
-def port_forward(params, latents, noises, amp):
-    gan = GigaGAN(generator=G_CONFIG, amp=amp, device="cpu", seed=0)
+@pytest.fixture(scope="module")
+def jax_generator_run():
+    return run_jax_generator(G_CONFIG)
+
+
+def port_forward(params, latents, noises, amp, config=G_CONFIG):
+    gan = GigaGAN(generator=config, amp=amp, device="cpu", seed=0)
     gan.load_jax_params(params)
     hooks = feed_noise_torch(gan.G, noises)
     with torch.no_grad():
@@ -189,6 +226,21 @@ def test_generator_matches_jax_fp32(jax_generator_run):
     params, latents, noises, out_j, rgbs_j = jax_generator_run
     out, rgbs = port_forward(params, latents, noises, amp=False)
     assert len(rgbs) == len(rgbs_j) == 4
+    np.testing.assert_allclose(out, out_j, rtol=5e-3, atol=5e-4)
+    for i, (a, b) in enumerate(zip(rgbs, rgbs_j)):
+        np.testing.assert_allclose(a, b, rtol=5e-3, atol=5e-4,
+                                   err_msg=f"rgb pyramid level {i}")
+
+
+def test_pixel_shuffle_generator_matches_jax():
+    # every upsample (features and rgb) a 1x1 conv to 4x, SiLU and a pixel
+    # shuffle; the weight bridge moves their Dense kernels
+    config = dict(G_CONFIG, pixel_shuffle_upsample=True)
+    params, latents, noises, out_j, rgbs_j = run_jax_generator(config)
+    assert "conv" in params["stages_1_upsample"]
+    assert "conv" in params["stages_0_upsample_rgb"]
+    out, rgbs = port_forward(params, latents, noises, amp=False,
+                             config=config)
     np.testing.assert_allclose(out, out_j, rtol=5e-3, atol=5e-4)
     for i, (a, b) in enumerate(zip(rgbs, rgbs_j)):
         np.testing.assert_allclose(a, b, rtol=5e-3, atol=5e-4,

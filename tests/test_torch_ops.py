@@ -151,6 +151,47 @@ def test_adaptive_conv_batch_expanded_mod():
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+class CudaStandIn(torch.Tensor):
+    """A CPU tensor that says it lies on the card, as the ops see a CUDA
+    tensor (``is_cuda``); what is computed from it is one too."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("stride,dilation", [(2, 1), (1, 2)])
+def test_strided_adaptive_conv_on_the_card_takes_the_grouped_conv(
+        stride, dilation, monkeypatch):
+    # K1 takes stride-1, dilation-1 3x3 convs; on the card any other runs
+    # the unfused grouped conv, as JAX runs it on its XLA conv
+    # the module, which the package's function of the same name shadows
+    op = importlib.import_module("gigagan_tpu_torch.ops.adaptive_conv")
+    x, weights, mod, kmod = conv_inputs(6, h=9, w=9)
+    calls = []
+
+    def k1_stand_in(*args):  # K1's autograd Function, which would launch
+        calls.append(args)
+        return "K1"
+
+    monkeypatch.setattr(op, "pconv2d", k1_stand_in)
+    xc = t(x).as_subclass(CudaStandIn)
+    assert xc.is_cuda
+    kw = dict(stride=stride, dilation=dilation)
+    got = adaptive_conv(xc, t(weights), t(mod), t(kmod), **kw)
+    assert not calls
+    got = got.as_subclass(torch.Tensor)
+    want = adaptive_conv_reference(t(x), t(weights), t(mod), t(kmod), **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    want_jax = jax_adaptive_conv(
+        jnp.asarray(x), jnp.asarray(weights), jnp.asarray(mod),
+        jnp.asarray(kmod), use_pallas=False, **kw)
+    np.testing.assert_allclose(got.numpy(), want_jax, **TOL)
+    # a stride-1, dilation-1 3x3 conv on the card still goes to K1
+    assert adaptive_conv(xc, t(weights), t(mod), t(kmod)) == "K1"
+    assert len(calls) == 1
+
+
 def test_k1_plain_rounds_the_mix_like_the_kernel():
     # bf16 operands: the mixed bank is rounded to bf16, accumulation fp32
     x, weights, mod, kmod = conv_inputs(5)

@@ -60,6 +60,14 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def in_tmp_dir(tmp_path, monkeypatch):
+    """train() saves sample grids and a checkpoint at its first step, into
+    ./gigagan-results and ./gigagan-models by default: not into the
+    checkout the tests run from."""
+    monkeypatch.chdir(tmp_path)
+
+
 def random_params(shapes, seed):
     """Random values at the scale of each leaf's initializer."""
     rng = np.random.default_rng(seed)
@@ -513,19 +521,200 @@ def test_fwd_over_rev_matches_reverse_over_reverse(jax_setup):
                                    rtol=5e-3, atol=3e-6, err_msg=n)
 
 
-@pytest.mark.parametrize("option", ["gp_chunk", "fused_dg_step",
-                                    "grad_accum_every", "conditional"])
+@pytest.mark.parametrize("option", ["conditional"])
 def test_unported_training_options_raise(option):
-    kwargs = dict(generator=G_CFG, discriminator=D_CFG, device="cpu")
-    if option == "gp_chunk":
-        kwargs["gp_chunk"] = 1
-    elif option == "fused_dg_step":
-        kwargs[option] = True
-    elif option == "conditional":
-        kwargs["discriminator"] = dict(D_CFG, unconditional=False)
-    with pytest.raises(NotImplementedError, match=option.split("_every")[0]
-                       if option != "conditional" else "conditioned"):
-        gan = GigaGAN(**kwargs)
-        gan.train_discriminator_step(
-            np.zeros((2, 32, 32, 3), np.float32), grad_accum_every=2,
-            apply_gradient_penalty=False, calc_multiscale_loss=False)
+    kwargs = dict(generator=G_CFG, discriminator=dict(D_CFG,
+                                                      unconditional=False),
+                  device="cpu")
+    with pytest.raises(NotImplementedError, match="conditioned"):
+        GigaGAN(**kwargs)
+
+
+# ------------------------------------------- accumulation, chunked R1, remat
+
+def capture_tx():
+    """An optax transformation whose state is the last gradient it saw."""
+    return optax.GradientTransformation(
+        lambda params: jax.tree.map(jnp.zeros_like, params),
+        lambda grads, state, params=None: (grads, grads))
+
+
+ACCUM = 2
+ACCUM_REAL = np.random.default_rng(13).random(
+    (ACCUM * BATCH, 32, 32, 3)).astype(np.float32)
+
+
+def jax_accum_step(builder, kind, g_params, d_params, seed, **flags):
+    """JAX's jitted accumulating step (``d_step_fn``/``g_step_fn`` with
+    ``grad_accum_every=ACCUM``) with a capturing optimizer: (metrics, the
+    averaged gradients, the draws of one microbatch).  The scan traces its
+    body once, so every microbatch gets the same numpy draws."""
+    from gigagan_tpu.train.steps import GANState
+
+    tx = capture_tx()
+    state = GANState(g_params=g_params, d_params=d_params,
+                     g_opt=tx.init(g_params), d_opt=tx.init(d_params),
+                     ema=None, steps=jnp.asarray(1, jnp.int32))
+    builder.g_tx = builder.d_tx = tx
+    batch = {"real_images": jnp.asarray(ACCUM_REAL.reshape(
+        ACCUM, BATCH, 32, 32, 3))}
+    if kind == "d":
+        fn = builder.d_step_fn(grad_accum_every=ACCUM, calc_ms=True, **flags)
+    else:
+        fn = builder.g_step_fn(grad_accum_every=ACCUM, calc_ms=True)
+    replay = D_PIPELINE_DRAWS if builder.gp_fwd_over_rev else None
+    with numpy_draws(seed, replay=replay) as record:
+        new_state, metrics = fn(state, batch, jax.random.PRNGKey(seed), {})
+    grads = new_state.d_opt if kind == "d" else new_state.g_opt
+    return metrics, grads, record
+
+
+@pytest.mark.parametrize("apply_gp,fwd_over_rev",
+                         [(False, False), (True, False), (True, True)],
+                         ids=["no_r1", "r1", "r1_fwd_over_rev"])
+def test_d_step_with_accumulation_matches_jax(jax_setup, apply_gp,
+                                              fwd_over_rev):
+    _, tx, g_params, d_params, _ = jax_setup
+    builder = JaxTrainStepBuilder(
+        JaxGenerator(**G_CFG, s2d_trunk=False),
+        JaxDiscriminator(**D_CFG, s2d_trunk=False), tx, tx,
+        diff_augment=jlosses.DiffAugment(**DIFF_AUGMENT),
+        gp_fwd_over_rev=fwd_over_rev)
+    metrics, grads, record = jax_accum_step(
+        builder, "d", g_params, d_params, 40 + apply_gp + fwd_over_rev,
+        apply_gp=apply_gp)
+    new_params = jax_adam_update(tx, grads, d_params)
+
+    gan = port_gan(g_params, d_params, gp_fwd_over_rev=fwd_over_rev)
+    seed_adam_state(gan.d_opt, gan.D, grads)
+    draws = port_draws(record)
+    got = gan.train_discriminator_step(
+        ACCUM_REAL, grad_accum_every=ACCUM, apply_gradient_penalty=apply_gp,
+        calc_multiscale_loss=True, draws=[draws] * ACCUM)
+    names = ["divergence", "multiscale_divergence", "aux_reconstruction"]
+    check_losses(got, metrics, names + (["gradient_penalty"]
+                                        if apply_gp else []))
+    check_leaves(gan.D, grads, "d grads", grads_within)
+    check_leaves(gan.D, new_params, "d params", params_within)
+
+
+def test_g_step_with_accumulation_matches_jax(jax_setup):
+    # the draws of test_g_step_matches_jax (numpy seed 30).  The g_step's
+    # noise-weight and modulation gradients are sums over pixels that
+    # cancel: with some draws (seed 50) a 1e-6 relative change of the
+    # parameters moves them by 1.5e-4 of their largest element, and the
+    # port and JAX then differ by up to 4.2e-3 in one microbatch alone, with
+    # or without accumulation (which changes neither side by more than
+    # 5e-6); the accumulation itself is what this test holds
+    builder, tx, g_params, d_params, _ = jax_setup
+    builder = JaxTrainStepBuilder(
+        builder.G, builder.D, tx, tx,
+        diff_augment=jlosses.DiffAugment(**DIFF_AUGMENT))
+    metrics, grads, record = jax_accum_step(builder, "g", g_params,
+                                            d_params, 30)
+    new_params = jax_adam_update(tx, grads, g_params)
+
+    gan = port_gan(g_params, d_params)
+    seed_adam_state(gan.g_opt, gan.G, grads)
+    got = gan.train_generator_step(BATCH, grad_accum_every=ACCUM,
+                                   calc_multiscale_loss=True,
+                                   draws=[port_draws(record)] * ACCUM)
+    check_losses(got, metrics, ["divergence", "multiscale_divergence"])
+    check_leaves(gan.G, grads, "g grads", grads_within)
+    check_leaves(gan.G, new_params, "g params", params_within)
+
+
+def test_chunked_r1_matches_jax(jax_setup):
+    # JAX's gp_chunk scan at one sample a chunk (two chunks)
+    builder, tx, g_params, d_params, real = jax_setup
+    builder = JaxTrainStepBuilder(
+        builder.G, builder.D, tx, tx,
+        diff_augment=jlosses.DiffAugment(**DIFF_AUGMENT), gp_chunk=1)
+    fn = jax.jit(jax.value_and_grad(
+        lambda d, key: builder._d_micro_loss(
+            {"d": d}, g_params, None, {}, real, None, None, None, key,
+            apply_gp=True, calc_ms=True),
+        has_aux=True))
+    with numpy_draws(60) as record:
+        (_, metrics), grads = fn(d_params, jax.random.PRNGKey(6))
+    new_params = jax_adam_update(tx, grads, d_params)
+
+    gan = GigaGAN(generator=G_CFG, discriminator=D_CFG,
+                  diff_augment=DIFF_AUGMENT, learning_rate=LR, betas=BETAS,
+                  device="cpu", seed=0, gp_chunk=1)
+    gan.load_jax_params(g_params, d_params=d_params)
+    seed_adam_state(gan.d_opt, gan.D, grads)
+    got = gan.train_discriminator_step(
+        real, apply_gradient_penalty=True, calc_multiscale_loss=True,
+        draws=port_draws(record))
+    check_losses(got, metrics, ["divergence", "multiscale_divergence",
+                                "aux_reconstruction", "gradient_penalty"])
+    check_leaves(gan.D, grads, "d grads", grads_within)
+    check_leaves(gan.D, new_params, "d params", params_within)
+
+
+def d_grads(gan, real, **kwargs):
+    m = gan.train_discriminator_step(real, apply_gradient_penalty=True,
+                                     calc_multiscale_loss=True, **kwargs)
+    return ({k: float(v) for k, v in m.items()},
+            {n: p.grad.detach().clone() for n, p in gan.D.named_parameters()})
+
+
+def test_chunked_r1_matches_the_unchunked_one(jax_setup):
+    # the chunked penalty runs on the un-augmented pipeline, so it equals
+    # the unchunked penalty of a step whose flips are both off
+    _, _, g_params, d_params, _ = jax_setup
+    draws = StepDraws(fake_flip=False, real_flip=False)
+    out = {}
+    for chunk in (None, 1, 2):
+        gan = GigaGAN(generator=G_CFG, discriminator=D_CFG,
+                      diff_augment=DIFF_AUGMENT, device="cpu", seed=0,
+                      gp_chunk=chunk)
+        gan.load_jax_params(g_params, d_params=d_params)
+        out[chunk] = d_grads(gan, ACCUM_REAL, seed=8, draws=draws)
+    (want_m, want_g) = out[None]
+    for chunk in (1, 2):
+        got_m, got_g = out[chunk]
+        for k, w in want_m.items():
+            assert abs(got_m[k] - w) <= 1e-5 * abs(w), (chunk, k, got_m[k], w)
+        for n, g in got_g.items():
+            err = float((g - want_g[n]).abs().max())
+            assert err <= 1e-3 * float(want_g[n].abs().max()), (chunk, n, err)
+    gan = GigaGAN(generator=G_CFG, discriminator=D_CFG, device="cpu",
+                  gp_chunk=3)
+    with pytest.raises(AssertionError, match="must divide"):
+        d_grads(gan, ACCUM_REAL, seed=8)
+
+
+@pytest.mark.parametrize("case", ["d_r1", "d_r1_fwd_over_rev",
+                                  "d_r1_remat_stages", "g"])
+def test_remat_matches_no_remat(jax_setup, case):
+    # the same seed and no explicit draws: the recomputation must replay the
+    # generators' draws (latents, pixel noise, flips, the decoder's mask)
+    _, _, g_params, d_params, _ = jax_setup
+    out = []
+    for remat in (False, True):
+        kwargs = dict(gp_fwd_over_rev=case == "d_r1_fwd_over_rev")
+        d_cfg = D_CFG
+        if case == "d_r1_remat_stages":
+            d_cfg = dict(D_CFG, remat_stages=remat)
+        else:
+            kwargs["remat"] = remat
+        gan = GigaGAN(generator=G_CFG, discriminator=d_cfg,
+                      diff_augment=DIFF_AUGMENT, device="cpu", seed=0,
+                      **kwargs)
+        gan.load_jax_params(g_params, d_params=d_params)
+        if case == "g":
+            m = gan.train_generator_step(BATCH, calc_multiscale_loss=True,
+                                         seed=9)
+            out.append(({k: float(v) for k, v in m.items()},
+                        {n: p.grad.detach().clone()
+                         for n, p in gan.G.named_parameters()}))
+        else:
+            out.append(d_grads(gan, ACCUM_REAL[:BATCH], seed=9))
+    (want_m, want_g), (got_m, got_g) = out
+    for k, w in want_m.items():
+        assert abs(got_m[k] - w) <= 1e-5 * abs(w), (k, got_m[k], w)
+    for n, g in got_g.items():
+        err = float((g - want_g[n]).abs().max())
+        assert err <= 1e-5 * float(want_g[n].abs().max()), (n, err)
