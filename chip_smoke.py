@@ -104,9 +104,31 @@ Phases (any failure raises and exits non-zero):
     iteration of each from the restored RNG (the continued and the resumed
     trainer within 3 times the distance of the two resumed copies, the
     card's own noise, since its bf16 steps are not bitwise repeatable);
-13. print the kernel table as one JSON line (time, plain version, library
-    call where one computes the same function, bound, launches) and, last,
-    the device line.
+13. the text-to-image recipe of examples/train_text_to_image.py at full
+    width (256px, batch 8, bf16; CLIP ViT-B/32 from seed 0 with the hash
+    tokenizer, a 512-wide TextEncoder of depth 4 in G and D, cross-attention
+    in G at 32² and 16², the vision-aided D over CLIP's last three taps,
+    ``MockTextImageDataset`` images with eight distinct captions): 8
+    iterations with R1 on 0 and 4, then 2 with R1 forward-over-reverse;
+    every loss finite, the vision-aided, matching-aware, contrastive and R1
+    terms non-zero, every step's K1-K7b launch counts those
+    ``expected_t2i_launches`` names, every bf16 launch on the tensor
+    cores; ms per step, images/s over the cadence and each step's peak
+    memory; ``generate(texts=...)`` at batch 1 and 8 (latency, images/s,
+    launch counts); fp32 d_steps (matching rows folded in; R1 in both
+    forms) and a g_step against ``plain_reference()`` with its attention
+    in float64 (losses and every D, VD or G gradient, 0.02; the plain fp32
+    path's distance from it is reported as the control, and the q-side and
+    k-side terms of D's shared-q/k ``to_q`` gradients); K1 and K2 at every shape and dtype the run and
+    the sampling gave them (recorded at their dispatchers) against their
+    plain versions, as called and in fp32, on the routes their rules name;
+    the calls the generator does not make (the VD's 7x7 maps at 512
+    channels, the predictors' rows at 32², 16², 8² and 4² for b, 2b and 4b
+    images) timed;
+14. print the kernel table as one JSON line (time, plain version, library
+    call where one computes the same function, bound, launches on the
+    text-to-image path, and on the quickstart's) and, last, the device
+    line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -146,6 +168,20 @@ QUICKSTART_D = dict(
     unconditional=True,
 )
 BATCH = 8
+# the text-to-image recipe of examples/train_text_to_image.py at its full
+# width: CLIP ViT-B/32 (random weights from seed 0, the hash tokenizer), a
+# 512-wide TextEncoder of depth 4 in G and in D, cross-attention in G at 32²
+# and 16², and the vision-aided D over CLIP's last three visual taps
+TEXT_ENCODER = dict(dim=512, depth=4, clip_dim=512)
+T2I_G = dict(QUICKSTART, style_network=dict(dim=512, depth=4,
+                                            dim_text_latent=512),
+             text_encoder=TEXT_ENCODER, unconditional=False)
+T2I_D = dict(QUICKSTART_D, text_encoder=TEXT_ENCODER, unconditional=False)
+T2I_VD = dict(layer_indices=(-1, -2, -3), conv_dim=512, unconditional=False)
+T2I_CAPTIONS = ["a cherry blossom tree", "a red sports car",
+                "a bowl of fruit on a table", "a lighthouse at dusk",
+                "two dogs in the snow", "a city skyline at night",
+                "a sailing boat on a lake", "an owl on a branch"]
 # the generator's default self-attention: 32² and 16² maps, 8 heads of 64
 SELF_ATTN_RES, HEADS, DIM_HEAD = (32, 16), 8, 64
 K1_TOL_F32, K1_TOL_BF16, K3_TOL = 0.02, 0.08, 0.03
@@ -446,6 +482,46 @@ def expected_step_launches(n_convs, n_g_attn, n_d_attn, accum=1, chunks=0,
                  for row in (d, d_r1, d_for, g))
 
 
+def expected_t2i_launches(n_g, n_ga, n_da, n_p, n_v, accum=1):
+    """Launches per step the text-conditioned path implies, for n_g 3x3
+    adaptive convs in G, n_ga and n_da self-attentions in G and D, n_p
+    adaptive convs in D's predictors and n_v in the vision-aided D (one per
+    tap).  Every adaptive conv in a differentiated graph launches K1 as its
+    dx (its input is modulated by a trained projection) and K2 (the
+    Function's ``needs_input_grad`` is fixed when its forward runs, so K2
+    runs even where only the input gradient is asked for: in R1's first
+    backward, the VD penalty's, and for D's and the VD's convs in the
+    g_step).
+
+    d_step: G forward (K1 n_g, K3 n_ga); one D call whose rows include the
+    matching-aware pairs (K1 n_p, K3 n_da) and its backward (K1 + K2 per
+    predictor conv, K4 n_da); the VD on the real and the fake taps, and
+    their backward.  With R1 reverse-over-reverse: the matching rows take
+    a D call of their own, without multiscale outputs (K3 n_da, K4 n_da);
+    the penalty's first backward (K1 + K2 per predictor conv, K4 n_da),
+    whose nodes the step's backward runs again (K1 + K2 each, K5 n_da);
+    the VD penalty alike over the real taps' convs.  Forward-over-reverse:
+    the first backward without a graph, φ's convs on the unfused path (no
+    K1/K2), K6a, K7a, K7b, K6b per D attention.  g_step: G forward and
+    backward (K1 2·n_g, K2 n_g), D's and the VD's forward and backward to
+    G; with accumulation the contrastive pool's pass runs G's forward once
+    more per microbatch."""
+    none = dict(k5=0, k6a=0, k6b=0, k7a=0, k7b=0)
+    d = dict(none, k1=n_g + 2 * n_p + 4 * n_v, k2=n_p + 2 * n_v,
+             k3=n_ga + n_da, k4=n_da)
+    d_r1 = dict(d, k1=n_g + 4 * n_p + 6 * n_v, k2=3 * n_p + 4 * n_v,
+                k3=n_ga + 2 * n_da, k4=3 * n_da, k5=n_da)
+    d_for = dict(d, k1=n_g + 3 * n_p + 6 * n_v, k2=2 * n_p + 4 * n_v,
+                 k3=n_ga + 2 * n_da, k4=3 * n_da, k6a=n_da, k6b=n_da,
+                 k7a=n_da, k7b=n_da)
+    pool = int(accum > 1)
+    g = dict(none, k1=(2 + pool) * n_g + 2 * n_p + 2 * n_v,
+             k2=n_g + n_p + n_v, k3=(1 + pool) * n_ga + n_da,
+             k4=n_ga + n_da)
+    return tuple({k: v * accum for k, v in row.items()}
+                 for row in (d, d_r1, d_for, g))
+
+
 def hv_operands(torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev):
     """Prepared operands of K6a-K7b as the surrogate φ gives them:
     (q, k̂, v, bias), their tangents (tq, t̂k, tv, tbias), and the
@@ -492,10 +568,16 @@ def main():
         raise SystemExit("chip_smoke: FAIL: torch.cuda.is_available() is "
                          "false — this check runs on a CUDA device only")
     sys.path.insert(0, str(REPO))
-    from gigagan_tpu_torch import GigaGAN, ops
-    from gigagan_tpu_torch.data import MockImageDataset, SyntheticShapesDataset
+    from gigagan_tpu_torch import GigaGAN, OpenClipAdapter, ops
+    from gigagan_tpu_torch.data import (
+        MockImageDataset,
+        MockTextImageDataset,
+        SyntheticShapesDataset,
+        cycle,
+    )
     from gigagan_tpu_torch.train.steps import StepDraws
-    from gigagan_tpu_torch.models.layers import AdaptiveConv
+    from gigagan_tpu_torch.models.layers import AdaptiveConv, SelfAttention
+    from gigagan_tpu_torch.ops import attention as ops_attention
     from gigagan_tpu_torch.ops.kernels import build, plain_reference
     from gigagan_tpu_torch.ops.kernels import adaptive_conv as k1
     from gigagan_tpu_torch.ops.kernels import flash_attention as k6
@@ -1209,32 +1291,34 @@ def main():
     for who, b, h, nq, nk, d, l2, masked in HV_PATH:
         for dtype in (torch.float32, torch.bfloat16):
             tol = K67_TOL_F32 if dtype == torch.float32 else K67_TOL_BF16
-            ops, tang, g, gt = hv_operands(torch, gen, b, h, nq, nk, d, l2,
-                                           masked, dtype, dev)
+            operands, tang, g, gt = hv_operands(
+                torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev)
             go = g if masked else None  # φ puts no cotangent on out
-            out, lse = k6.flash_attention_fwd_plain(*ops)
-            lse7 = k7.flash_attention_hv_jvp_plain(*ops, *tang)[2]
+            out, lse = k6.flash_attention_fwd_plain(*operands)
+            lse7 = k7.flash_attention_hv_jvp_plain(*operands, *tang)[2]
             checks = {
-                "k6a": (lambda: k6.flash_attention_fwd(*ops),
-                        lambda: k6.flash_attention_fwd_plain(*ops)),
-                "k6b": (lambda: k6.flash_attention_bwd(*ops, g, out, lse),
-                        lambda: k6.flash_attention_bwd_plain(*ops, g, out,
-                                                             lse)),
-                "k7a": (lambda: k7.flash_attention_hv_jvp(*ops, *tang),
-                        lambda: k7.flash_attention_hv_jvp_plain(*ops,
+                "k6a": (lambda: k6.flash_attention_fwd(*operands),
+                        lambda: k6.flash_attention_fwd_plain(*operands)),
+                "k6b": (lambda: k6.flash_attention_bwd(*operands, g, out,
+                                                       lse),
+                        lambda: k6.flash_attention_bwd_plain(*operands, g,
+                                                             out, lse)),
+                "k7a": (lambda: k7.flash_attention_hv_jvp(*operands, *tang),
+                        lambda: k7.flash_attention_hv_jvp_plain(*operands,
                                                                 *tang)),
-                "k7b": (lambda: k7.flash_attention_hv_bwd(*ops, *tang, lse7,
-                                                          go, gt),
+                "k7b": (lambda: k7.flash_attention_hv_bwd(
+                            *operands, *tang, lse7, go, gt),
                         lambda: k7.flash_attention_hv_bwd_plain(
-                            *ops, *tang, lse7, go, gt)),
+                            *operands, *tang, lse7, go, gt)),
             }
             simt_calls = {
-                "k6a": lambda: k6.flash_attention_fwd_simt(*ops),
-                "k6b": lambda: k6.flash_attention_bwd_simt(*ops, g, out,
-                                                           lse),
-                "k7a": lambda: k7.flash_attention_hv_jvp_simt(*ops, *tang),
+                "k6a": lambda: k6.flash_attention_fwd_simt(*operands),
+                "k6b": lambda: k6.flash_attention_bwd_simt(*operands, g,
+                                                           out, lse),
+                "k7a": lambda: k7.flash_attention_hv_jvp_simt(*operands,
+                                                              *tang),
                 "k7b": lambda: k7.flash_attention_hv_bwd_simt(
-                    *ops, *tang, lse7, go, gt)}
+                    *operands, *tang, lse7, go, gt)}
             row = dict(who=who, bh=b * h, nq=nq, nk=nk, d=d, l2=l2,
                        masked=masked, dtype=str(dtype).split(".")[-1],
                        route_k6=hv_route("k6a", dtype, d),
@@ -1247,7 +1331,7 @@ def main():
                 # cotangents of q, tq, k, tk, v, tv
                 # (bytes: the outputs of K6b and K7b are the size of their
                 # operands, each row's out the size of g, lse 4 b·h·nq)
-                ob, tb, rb = nbytes(*ops), nbytes(*tang), nbytes(g)
+                ob, tb, rb = nbytes(*operands), nbytes(*tang), nbytes(g)
                 lb = 4 * b * h * nq
                 for kname, products, moved in (
                         ("k6a", 2, ob + rb + lb),
@@ -1256,8 +1340,8 @@ def main():
                         ("k7b", 13, 2 * (ob + tb) + rb + lb)):
                     row[kname + "_bound"] = attn_bound(products, b * h, nq,
                                                        nk, d, moved)
-                qh, kh, vh = (t[:, None] for t in ops[:3])
-                mask = ops[3][:, None, None, :].to(dtype)
+                qh, kh, vh = (t[:, None] for t in operands[:3])
+                mask = operands[3][:, None, None, :].to(dtype)
                 fwd_ms, bwd_ms, note = sdpa_times(torch, qh, kh, vh, mask, g)
                 row["k6a_library"], row["k6b_library"] = fwd_ms, bwd_ms
                 row["library_note"] = note
@@ -1296,7 +1380,7 @@ def main():
                    + " / ".join(f"{row[k_ + '_bound'][0]:.4f}"
                                 for k_ in checks) + f" [{smi}]" if phi_bf16
                    else ""))
-            del ops, tang, g, gt, go, out, lse, lse7, checks, simt_calls
+            del operands, tang, g, gt, go, out, lse, lse7, checks, simt_calls
             torch.cuda.empty_cache()
     report["k6_k7"] = hv_rows
 
@@ -1312,20 +1396,20 @@ def main():
     who, b, h, nq, nk, d, l2, masked = K6_ALL_MASKED
     for dtype in (torch.float32, bf16):
         tol = K67_TOL_F32 if dtype == torch.float32 else K67_TOL_BF16
-        ops, tang, g, gt = hv_operands(torch, gen, b, h, nq, nk, d, l2,
-                                       masked, dtype, dev)
-        dead = (ops[3] == k6.NEG_INF).all(-1)
+        operands, tang, g, gt = hv_operands(torch, gen, b, h, nq, nk, d,
+                                            l2, masked, dtype, dev)
+        dead = (operands[3] == k6.NEG_INF).all(-1)
         if not dead.any() or dead.all():
             fail(f"the all-masked K6 row has {int(dead.sum())} dead rows")
-        out, lse = k6.flash_attention_fwd_plain(*ops)
-        jvp = k7.flash_attention_hv_jvp_plain(*ops, *tang)
+        out, lse = k6.flash_attention_fwd_plain(*operands)
+        jvp = k7.flash_attention_hv_jvp_plain(*operands, *tang)
         kernels_ = (
-            ("k6", k6, "flash_attention_fwd", "flash_attention_bwd", ops,
-             (*ops, g, out, lse), (out, lse),
-             k6.flash_attention_bwd_plain(*ops, g, out, lse)),
+            ("k6", k6, "flash_attention_fwd", "flash_attention_bwd", operands,
+             (*operands, g, out, lse), (out, lse),
+             k6.flash_attention_bwd_plain(*operands, g, out, lse)),
             ("k7", k7, "flash_attention_hv_jvp", "flash_attention_hv_bwd",
-             (*ops, *tang), (*ops, *tang, jvp[2], g, gt), jvp,
-             k7.flash_attention_hv_bwd_plain(*ops, *tang, jvp[2], g, gt)))
+             (*operands, *tang), (*operands, *tang, jvp[2], g, gt), jvp,
+             k7.flash_attention_hv_bwd_plain(*operands, *tang, jvp[2], g, gt)))
         for r in ("tc", "simt"):
             ran = [k_ for k_, *_ in kernels_
                    if r == "simt" or hv_route(k_ + "a", dtype, d) == "tc"]
@@ -1361,7 +1445,7 @@ def main():
             if not (row["finite"] and row["lse_dead_exact"]
                     and max(row[n_]["rel"] for n_ in names) <= tol):
                 fail(f"K6a-K7b with all-masked rows failed: {row}")
-        del ops, tang, g, gt, out, lse, jvp, kernels_
+        del operands, tang, g, gt, out, lse, jvp, kernels_
         torch.cuda.empty_cache()
     report["k6_all_masked"] = k6_masked
 
@@ -1515,10 +1599,10 @@ def main():
 
     def compare(label, got, want, loss_keys=None, tol=STEP_TOL_F32,
                 stable=None):
-        """Losses and every gradient leaf, max-rel, all held to `tol` or,
-        given `stable` (an fp32 comparison of the same step), the leaves
-        whose fp32 gradient moved by at most STABLE_F32 there; the others
-        are reported by name."""
+        """Losses and every gradient leaf, max-rel, all held to `tol` (None:
+        only reported) or, given `stable` (an fp32 comparison of the same
+        step), the leaves whose fp32 gradient moved by at most STABLE_F32
+        there; the others are reported by name."""
         (l_got, g_got), (l_want, g_want) = got, want
         loss_keys = loss_keys or list(l_want)
         loss_rel = max(abs(l_got[k] - l_want[k]) / (abs(l_want[k]) + 1e-6)
@@ -1543,8 +1627,9 @@ def main():
         log(f"{label}: losses rel {loss_rel:.2e} "
             f"({', '.join(loss_keys)}), gradients max rel "
             f"{gated[worst]:.2e} ({worst}) over {len(gated)} leaves "
-            f"(tol {tol})")
-        if not (loss_rel <= tol and gated[worst] <= tol):
+            + (f"(tol {tol})" if tol is not None else "(not gated)"))
+        if tol is not None and not (loss_rel <= tol
+                                    and gated[worst] <= tol):
             fail(f"{label} disagrees: {out}")
         return out
 
@@ -1915,6 +2000,468 @@ def main():
         f"{time.perf_counter() - t_phase:.1f} s")
 
     # --------------------------------------------------------------- 13
+    # the text-conditioned recipe at full width: CLIP, the text encoders,
+    # cross-attention, the conditional D, the vision-aided D, the
+    # matching-aware and contrastive losses
+    t_phase = time.perf_counter()
+    t2i = report["t2i"] = {}
+    t0 = time.perf_counter()
+    clip = OpenClipAdapter(seed=0, device="cuda")
+
+    def t2i_gan(**kw):
+        kw.setdefault("seed", 0)
+        return GigaGAN(generator=T2I_G, discriminator=T2I_D,
+                       vision_aided_discriminator=T2I_VD, clip=clip,
+                       allow_mock_clip=True, device="cuda", **kw)
+
+    gan = t2i_gan(amp=True)
+    sizes = {name: sum(p.numel() for p in mod.parameters()) / 1e6
+             for name, mod in (("G", gan.G), ("D", gan.D), ("VD", gan.VD),
+                               ("CLIP", clip.model))}
+    n_g = len(convs)
+    n_ga = sum(st.self_attn is not None for st in gan.G.stages)
+    n_da = sum(st.core.attn is not None for st in gan.D.stages)
+    n_p = sum(isinstance(m, AdaptiveConv) for st in gan.D.stages
+              if st.predictor is not None for m in st.predictor.modules())
+    n_v = sum(isinstance(m, AdaptiveConv) for m in gan.VD.modules())
+    n_x = sum(st.cross_attn is not None for st in gan.G.stages)
+    t2i.update(params_m=sizes, structure=dict(
+        g_convs=n_g, g_attn=n_ga, g_cross_attn=n_x, d_attn=n_da,
+        predictor_convs=n_p, vd_convs=n_v))
+    log(f"text-to-image G+D+VD (+ frozen CLIP): "
+        + ", ".join(f"{k} {v:.2f}M" for k, v in sizes.items())
+        + f" params; built in {time.perf_counter() - t0:.2f} s; "
+        f"{n_x} cross-attention blocks, {n_p} predictor and {n_v} VD "
+        "adaptive convs")
+    exp_d, exp_d_r1, exp_d_for, exp_g = expected_t2i_launches(
+        n_g, n_ga, n_da, n_p, n_v)
+    text_data = MockTextImageDataset(T2I_G["image_size"],
+                                     length=8 * BATCH, seed=0)
+    text_iter = cycle(text_data.get_dataloader(BATCH))
+    t2i_batches = []
+    for i in range(4):  # each batch's captions embedded once, as train()
+        b_ = gan._collect_batch(text_iter, 1)
+        b_["real_images"] = torch.from_numpy(b_["real_images"]).to(dev)
+        # distinct captions: the matching-aware rows and the contrastive
+        # pool then pair each image with another text
+        b_["text_embeds"], b_["text_encodings"] = (
+            t_[None] for t_ in clip.embed_texts(
+                (T2I_CAPTIONS[i:] + T2I_CAPTIONS[:i])[:BATCH]))
+        t2i_batches.append(b_)
+
+    def t2i_iteration(i, apply_gp, record=None):
+        steps_ = []
+        for kind in ("d", "g"):
+            batch_ = t2i_batches[(2 * i + (kind == "g")) % len(t2i_batches)]
+            before = read_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            if kind == "d":
+                m = gan.train_discriminator_step(
+                    batch_, apply_gradient_penalty=apply_gp,
+                    calc_multiscale_loss=True, seed=5000 + i)
+            else:
+                m = gan.train_generator_step(
+                    batch_, calc_multiscale_loss=True, seed=6000 + i)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            after = read_counts()
+            steps_.append(dict(
+                kind=kind, r1=apply_gp, ms=ms,
+                fwd_over_rev=gan.builder.gp_fwd_over_rev,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                base_gib=base / 2 ** 30,
+                losses={k: float(v) for k, v in m.items()},
+                launches={k: after[k] - before[k] for k in after}))
+        if record is not None:
+            record.extend(steps_)
+        return steps_
+
+    t2i_iteration(0, True)  # warm-up: allocator, cuDNN plans, both variants
+    t2i_iteration(1, False)
+    # every K1 and K2 call of the path's run and of its sampling, by the
+    # shapes and dtypes of its operands (the dispatchers, which the
+    # kernels' autograd Functions look up in their module, are wrapped):
+    # each distinct call is held against its plain version below
+    path_calls = {}
+    k1_dispatch, k2_dispatch = k1.adaptive_conv_fwd, k1.adaptive_conv_bwd_w
+
+    def seen(kname, dispatch):
+        def call(*operands):
+            key = (kname, *((tuple(t_.shape), t_.dtype) for t_ in operands))
+            path_calls[key] = path_calls.get(key, 0) + 1
+            return dispatch(*operands)
+        return call
+
+    k1.adaptive_conv_fwd = seen("k1", k1_dispatch)
+    k1.adaptive_conv_bwd_w = seen("k2", k2_dispatch)
+    reset_counts()
+    t2i_steps = []
+    for i in range(ITERATIONS):
+        t2i_iteration(i, i % R1_EVERY == 0, t2i_steps)
+    gan.builder.gp_fwd_over_rev = True
+    for i in range(2):
+        t2i_iteration(ITERATIONS + i, True, t2i_steps)
+    t2i_launches = read_counts()
+    gan.builder.gp_fwd_over_rev = False
+    if any(simt_counts().values()):
+        fail(f"bf16 calls of the text-to-image path reached the CUDA-core "
+             f"kernels: {simt_counts()}")
+    nonzero = {"d": ["vision_aided_divergence", "matching_aware_loss"],
+               "g": ["total_vd_divergence", "contrastive_loss"]}
+    for s_ in t2i_steps:
+        want = exp_g if s_["kind"] == "g" else (
+            exp_d if not s_["r1"] else exp_d_for if s_["fwd_over_rev"]
+            else exp_d_r1)
+        log(f"text-to-image {s_['kind']}_step r1={s_['r1']}"
+            f"{' (forward-over-reverse)' if s_['fwd_over_rev'] else ''}: "
+            f"{s_['ms']:.3f} ms, peak {s_['peak_gib']:.3f} GiB, launches "
+            f"{s_['launches']}, losses "
+            + ", ".join(f"{k} {v:.4g}" for k, v in s_["losses"].items()))
+        if not all(np.isfinite(v) for v in s_["losses"].values()):
+            fail(f"non-finite losses in {s_}")
+        zero = [k for k in nonzero[s_["kind"]]
+                + (["gradient_penalty"] if s_["r1"] and s_["kind"] == "d"
+                   else [])
+                if s_["losses"][k] == 0.0]
+        if zero:
+            fail(f"text-to-image {s_['kind']}_step: {zero} are zero")
+        if s_["launches"] != want:
+            fail(f"text-to-image {s_['kind']}_step (r1={s_['r1']}) launched "
+                 f"{s_['launches']}, the path implies {want}")
+    if any(n_ == 0 for n_ in t2i_launches.values()):
+        fail(f"a kernel of the text-to-image path was never launched: "
+             f"{t2i_launches}")
+    log(f"text-to-image path: {ITERATIONS} iterations (R1 on 0 and 4) and "
+        f"2 forward-over-reverse R1 iterations, launches {t2i_launches}")
+    ror = t2i_steps[:2 * ITERATIONS]
+    d_plain = [s_["ms"] for s_ in ror if s_["kind"] == "d" and not s_["r1"]]
+    d_r1 = [s_["ms"] for s_ in ror if s_["kind"] == "d" and s_["r1"]]
+    g_ms = [s_["ms"] for s_ in ror if s_["kind"] == "g"]
+    d_for = [s_["ms"] for s_ in t2i_steps[2 * ITERATIONS:]
+             if s_["kind"] == "d"]
+    cadence_ms = sum(s_["ms"] for s_ in ror[2 * R1_EVERY:4 * R1_EVERY])
+    peak = {key: max(s_["peak_gib"] for s_ in ror if sel(s_))
+            for key, sel in (
+                ("d_step_r1", lambda s_: s_["kind"] == "d" and s_["r1"]),
+                ("d_step", lambda s_: s_["kind"] == "d" and not s_["r1"]),
+                ("g_step", lambda s_: s_["kind"] == "g"))}
+    t2i["timing"] = dict(
+        d_step_ms=statistics.median(d_plain),
+        d_step_r1_ms=statistics.median(d_r1),
+        d_step_r1_fwd_over_rev_ms=d_for,
+        g_step_ms=statistics.median(g_ms), cadence_ms=cadence_ms,
+        images_per_s=R1_EVERY * BATCH / (cadence_ms / 1e3),
+        peak_gib=peak,
+        held_gib=min(s_["base_gib"] for s_ in ror))
+    t2i["steps"], t2i["launches"] = t2i_steps, t2i_launches
+    tm = t2i["timing"]
+    log(f"text-to-image b{BATCH} bf16: d_step {tm['d_step_ms']:.3f} ms "
+        f"(median of {len(d_plain)}), d_step+R1 {tm['d_step_r1_ms']:.3f} ms "
+        f"(median of {len(d_r1)}; forward-over-reverse "
+        + ", ".join(f"{v:.3f}" for v in d_for)
+        + f" ms), g_step {tm['g_step_ms']:.3f} ms (median of {len(g_ms)}); "
+        f"iterations 4-7 (one R1) {cadence_ms:.3f} ms -> "
+        f"{tm['images_per_s']:.2f} images/s; peak memory "
+        + ", ".join(f"{k} {v:.3f} GiB" for k, v in peak.items())
+        + f" (held before a step {tm['held_gib']:.3f} GiB) [{smi}]")
+    if profile:
+        profiled("t2i_iter", lambda: t2i_iteration(1, False))
+        profiled("t2i_iter_r1", lambda: t2i_iteration(0, True))
+
+    # sampling from captions, batch 1 and 8: K1 per G conv and K3 per G
+    # attention per forward; cross-attention and the text encoder run no
+    # kernel (77 keys: the plain attention)
+    gen_ms = {1: [], BATCH: []}
+    reset_counts()
+    for i in range(4):
+        for bs in (1, BATCH):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            img = gan.generate(texts=T2I_CAPTIONS[:bs], seed=i)
+            gen_ms[bs].append((time.perf_counter() - t) * 1e3)
+            size = T2I_G["image_size"]
+            if img.shape != (bs, size, size, 3) or not np.isfinite(
+                    img).all():
+                fail(f"text-to-image sampling gave {img.shape} / non-finite")
+    counts = read_counts()
+    per = {k: 0 for k in counts}
+    per.update(k1=8 * n_g, k3=8 * n_ga)
+    if counts != per:
+        fail(f"text-to-image sampling launched {counts}, the path implies "
+             f"{per}")
+    t2i["sampling"] = dict(
+        latency_ms_b1=statistics.median(gen_ms[1][1:]),
+        images_per_s_b8=BATCH / (statistics.median(gen_ms[BATCH][1:]) / 1e3),
+        ms=gen_ms, launches=counts)
+    log(f"text-to-image sampling: batch-1 latency "
+        f"{t2i['sampling']['latency_ms_b1']:.3f} ms, batch-{BATCH} "
+        f"{t2i['sampling']['images_per_s_b8']:.2f} images/s (medians of 3 "
+        f"after one warm-up; caption embedding included) [{smi}]")
+    k1.adaptive_conv_fwd, k1.adaptive_conv_bwd_w = k1_dispatch, k2_dispatch
+    del gan
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32 steps through the kernels against the plain path, from one fresh
+    # state: the d_step with the matching rows folded in, d_step + R1 (both
+    # forms) and g_step; D's and the VD's gradients, or G's.  The reference
+    # is the plain path with its attention in float64: D's self-attention
+    # shares q and k, so each to_q gradient is the sum of a q-side and a
+    # k-side term several times its size that cancel (measured below), and
+    # an fp32 attention leaves a part of that leaf in doubt, in the plain
+    # path as in the kernels.  Two fp32 paths would be held to the sum of
+    # their roundings; against float64 attention each is held to its own.
+    # The plain fp32 path's distance from it is the control
+    def attend_f64(q, k, v, *, mask=None, l2_dist=False, scale=None):
+        """The plain ``attend``'s algebra (|q|² dropped, |k|² and the key
+        mask in one bias row) in float64, rounded back to q's dtype."""
+        if scale is None:
+            scale = q.shape[-1] ** -0.5
+        out_dtype = q.dtype
+        q, k, v = q.double(), k.double(), v.double()
+        sim = torch.einsum("bhid,bhjd->bhij",
+                           q * (2.0 * scale if l2_dist else scale), k)
+        if l2_dist:
+            sim = sim - scale * (k * k).sum(-1)[..., None, :]
+        if mask is not None:
+            sim = sim + torch.where(mask, 0.0, ops_attention.NEG_INF)[
+                :, None, None, :].double()
+        e = torch.exp(sim - sim.amax(-1, keepdim=True).detach())
+        out = torch.einsum("bhij,bhjd->bhid", e, v) / e.sum(-1, keepdim=True)
+        return out.to(out_dtype)
+
+    @contextlib.contextmanager
+    def float64_attention():
+        """Every plain attention (``attend``, and ``attend_fused``'s plain
+        branch through it) in float64."""
+        base = ops.attend
+        ops.attend = ops_attention.attend = attend_f64
+        try:
+            yield
+        finally:
+            ops.attend = ops_attention.attend = base
+
+    def t2i_fp32_step(kind, plain, fwd_over_rev=False, r1=True,
+                      f64_attention=False):
+        g32 = t2i_gan(gp_fwd_over_rev=fwd_over_rev)
+        with (plain_reference() if plain else contextlib.nullcontext()), \
+                (float64_attention() if f64_attention
+                 else contextlib.nullcontext()):
+            if kind == "d":
+                m = g32.train_discriminator_step(
+                    t2i_batches[0], apply_gradient_penalty=r1,
+                    calc_multiscale_loss=True, seed=7)
+                models = (("D", g32.D), ("VD", g32.VD))
+            else:
+                m = g32.train_generator_step(t2i_batches[0],
+                                             calc_multiscale_loss=True,
+                                             seed=7)
+                models = (("G", g32.G),)
+        res = ({k: float(v) for k, v in m.items()},
+               {f"{name_}.{n_}": (p.grad if p.grad is not None else
+                                  torch.zeros_like(p)).detach().clone()
+                for name_, mod in models
+                for n_, p in mod.named_parameters()})
+        del g32
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    def shared_qk_terms():
+        """The plain fp32 d_step+R1's q-side and k-side terms of each
+        shared-q/k to_q gradient of D (k through a copy of the weight)."""
+        g32 = t2i_gan()
+        attns = {n_: m_ for n_, m_ in g32.D.named_modules()
+                 if isinstance(m_, SelfAttention) and not m_.dot_product}
+        for m_ in attns.values():
+            m_.k_weight = torch.nn.Parameter(m_.to_q.weight.detach().clone())
+        base = SelfAttention.forward
+
+        def split_forward(self, fmap):
+            if not hasattr(self, "k_weight"):
+                return base(self, fmap)
+            b_, h_, w_, _ = fmap.shape
+            inner = self.dim_head * self.heads
+            fmap = self.norm(fmap)
+            q, v = self.to_q(fmap), self.to_v(fmap)
+            k = torch.nn.functional.linear(fmap, self.k_weight)
+            q, k, v = (t_.reshape(b_, h_ * w_, inner) for t_ in (q, k, v))
+            out = ops.attend_fused(q, k, v, heads=self.heads,
+                                   null_kv=self.null_kv, l2_dist=True,
+                                   scale=self.dim_head ** -0.5)
+            return self.to_out(out.reshape(b_, h_, w_, inner))
+
+        SelfAttention.forward = split_forward
+        try:
+            with plain_reference():
+                g32.train_discriminator_step(
+                    t2i_batches[0], apply_gradient_penalty=True,
+                    calc_multiscale_loss=True, seed=7)
+        finally:
+            SelfAttention.forward = base
+        terms = {}
+        for n_, m_ in attns.items():
+            qg, kg = m_.to_q.weight.grad, m_.k_weight.grad
+            terms[f"D.{n_}.to_q.weight"] = dict(
+                norm_q_side=float(qg.norm()), norm_k_side=float(kg.norm()),
+                norm_sum=float((qg + kg).norm()),
+                max_q_side=float(qg.abs().max()),
+                max_k_side=float(kg.abs().max()),
+                max_sum=float((qg + kg).abs().max()))
+        del g32
+        gc.collect()
+        torch.cuda.empty_cache()
+        return terms
+
+    t2i["shared_qk_terms"] = shared_qk_terms()
+    for n_, r_ in t2i["shared_qk_terms"].items():
+        log(f"fp32 d_step+R1 (plain), {n_} = q-side + k-side: norms "
+            f"{r_['norm_q_side']:.4e} + {r_['norm_k_side']:.4e} -> "
+            f"{r_['norm_sum']:.4e}, largest elements {r_['max_q_side']:.4e}"
+            f", {r_['max_k_side']:.4e} -> {r_['max_sum']:.4e}")
+    t2i["fp32_vs_plain"] = {}
+    for kind, label, fwd_over_rev, r1 in (
+            ("d", "d_step (matching rows folded)", False, False),
+            ("d", "d_step +R1", False, True),
+            ("d", "d_step +R1 forward-over-reverse", True, True),
+            ("g", "g_step", False, False)):
+        ref = t2i_fp32_step(kind, True, fwd_over_rev, r1, True)
+        kernels = t2i_fp32_step(kind, False, fwd_over_rev, r1)
+        plain32 = t2i_fp32_step(kind, True, fwd_over_rev, r1)
+        t2i["fp32_vs_plain"][label] = dict(
+            control=compare(
+                f"text-to-image fp32 {label}, plain path vs plain with "
+                "float64 attention (control)", plain32, ref, tol=None),
+            kernels_vs_plain=compare(
+                f"text-to-image fp32 {label}, kernels vs plain path",
+                kernels, plain32, tol=None),
+            kernels=compare(
+                f"text-to-image fp32 {label}, kernels vs plain path with "
+                "float64 attention", kernels, ref))
+        del ref, kernels, plain32
+
+    # K1 and K2 at every shape and dtype the path gave them (the run and the
+    # sampling above), against their plain versions on fresh operands of
+    # those shapes: the call as the path made it, on the route the rule
+    # names, and in fp32 on its route.  The calls the generator does not
+    # make (it runs on the batch, or on 1 image when sampling) are timed
+    # too: the VD's on 7x7 maps, and the predictors' on images x groups
+    # rows (64/h groups at h², as the multiscale expansion gives them),
+    # with b images in the g_step, 2b in the main and the matching call of
+    # a d_step+R1, 4b in a d_step with the matching rows folded in
+
+    def route_of(kname, call):
+        """call() and the one route all its launches took (None if it
+        launched nothing or on both)."""
+        entries = (("tc", tc_entry), ("simt", simt))
+        before = {r: e[kname].launches for r, e in entries}
+        res = call()
+        ran = [r for r, e in entries if e[kname].launches > before[r]]
+        return res, (ran[0] if len(ran) == 1 else None)
+
+    t2i_conv_rows, held = [], []
+    for key, n_calls in sorted(path_calls.items(), key=lambda kv: (
+            kv[0][0], -kv[0][1][0][1], kv[0][1][0][0], str(kv[0]))):
+        kname, (xs, xdt), *rest = key
+        rows_, h, w_, ci = xs
+        if kname == "k1":
+            (ws, wdt), (_, adt), (_, ddt) = rest
+        else:
+            (_, gdt), (ws, wdt), (_, adt) = rest
+        banks, co = ws[0], ws[-1]
+        xm, w, a, d = conv_operands(rows_, h, w_, ci, co, banks)
+        if kname == "k1":
+            operands = (xm.to(xdt), w.to(wdt), a.to(adt), d.to(ddt))
+            want = k1.adaptive_conv_fwd_plain(xm, w, a, d)
+            got, route = route_of("k1", lambda: k1.adaptive_conv_fwd(
+                *operands))
+            got32, route32 = route_of("k1", lambda: k1.adaptive_conv_fwd(
+                xm, w, a, d))
+            rel, rel32 = rel_err(got, want), rel_err(got32, want)
+            err = max(abs_err(got, want), abs_err(got32, want))
+            same, rule = None, k1.conv_uses_tensor_cores
+            tol = K1_TOL_BF16 if xdt == bf16 else K1_TOL_F32
+            tol32, out = K1_TOL_F32, (got,)
+            plain_fn, kernel_fn = (k1.adaptive_conv_fwd_plain,
+                                   k1.adaptive_conv_fwd)
+        else:
+            g = torch.randn(rows_, h, w_, co, device=dev, generator=gen)
+            operands = (xm.to(xdt), g.to(gdt), w.to(wdt), a.to(adt))
+            want = k1.adaptive_conv_bwd_w_plain(xm, g, w, a)
+            got, route = route_of("k2", lambda: k1.adaptive_conv_bwd_w(
+                *operands))
+            got32, route32 = route_of("k2", lambda: k1.adaptive_conv_bwd_w(
+                xm, g, w, a))
+            rel = max(map(rel_err, got, want))
+            rel32 = max(map(rel_err, got32, want))
+            err = max(*map(abs_err, got, want), *map(abs_err, got32, want))
+            same = (max(map(rel_err, got, k1.adaptive_conv_bwd_w_plain(
+                *operands))) if xdt == bf16 else None)
+            rule = k1.bwd_w_uses_tensor_cores
+            tol = K2_TOL_BF16 if xdt == bf16 else K2_TOL_F32
+            tol32, out = K2_TOL_F32, got
+            plain_fn, kernel_fn = (k1.adaptive_conv_bwd_w_plain,
+                                   k1.adaptive_conv_bwd_w)
+        routes = (route, route32)
+        want_routes = tuple("tc" if rule(dt_, ci, co) else "simt"
+                            for dt_ in (xdt, torch.float32))
+        entry = dict(kernel=kname, rows=rows_, h=h, w=w_, ci=ci, co=co,
+                     banks=banks, dtype=str(xdt).split(".")[-1],
+                     calls=n_calls, routes=routes, rel=rel, rel_f32=rel32,
+                     rel_same=same, max_abs_err=err)
+        held.append(entry)
+        if routes != want_routes:
+            fail(f"{kname} at a text-to-image shape ran on {routes}; the "
+                 f"rule names {want_routes}: {entry}")
+        if not (rel <= tol and rel32 <= tol32
+                and (same is None or same <= K2_TOL_SAME)):
+            fail(f"{kname} disagrees with its plain version at a "
+                 f"text-to-image shape: {entry}")
+        if (h == 7 or rows_ not in (1, BATCH)) and banks == 2 \
+                and xdt == bf16:
+            flops = 2.0 * rows_ * h * w_ * 9 * ci * co
+            entry.update(
+                who="VD" if h == 7 else "predictor",
+                images=rows_ if h == 7 else rows_ * h // 64,
+                ms=time_ms(lambda: kernel_fn(*operands), torch),
+                plain_ms=time_ms(lambda: plain_fn(*operands), torch),
+                bound=bound(flops, nbytes(*operands, *out)))
+            t2i_conv_rows.append(entry)
+            log(f"{kname} text-to-image {entry['who']} ({entry['images']} "
+                f"images) b{rows_} {h}x{w_} {ci}->{co} bf16 x{n_calls}: "
+                f"route {route}, rel {rel:.2e} (fp32 {rel32:.2e}"
+                + (f", same inputs {same:.2e}" if same is not None else "")
+                + f") | {entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f}, "
+                f"bound {entry['bound'][0]:.4f})")
+        del xm, w, a, d, operands, want, got, got32
+        torch.cuda.empty_cache()
+    worst = {k_: max((e_ for e_ in held if e_["kernel"] == k_),
+                     key=lambda e_: e_["rel"]) for k_ in ("k1", "k2")}
+    log(f"K1/K2 held at every call of the text-to-image path: "
+        f"{len(held)} distinct shapes and dtypes "
+        f"({sum(e_['calls'] for e_ in held)} calls), each on the route its "
+        f"rule names; worst K1 rel {worst['k1']['rel']:.2e} "
+        f"(b{worst['k1']['rows']} {worst['k1']['h']}² {worst['k1']['ci']}->"
+        f"{worst['k1']['co']} x{worst['k1']['banks']} "
+        f"{worst['k1']['dtype']}), worst K2 rel {worst['k2']['rel']:.2e} "
+        f"(b{worst['k2']['rows']} {worst['k2']['h']}² {worst['k2']['ci']}->"
+        f"{worst['k2']['co']} x{worst['k2']['banks']} "
+        f"{worst['k2']['dtype']}); fp32 at most "
+        f"{max(e_['rel_f32'] for e_ in held):.2e}, bf16 K2 on its own "
+        f"inputs at most "
+        f"{max(e_['rel_same'] or 0.0 for e_ in held):.2e}")
+    t2i["conv_calls"] = held
+    t2i["conv_rows"] = t2i_conv_rows
+    del t2i_batches, clip
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 13 (the text-to-image path): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # --------------------------------------------------------------- 14
     mult = {}
     for _, h, ci, co in convs:
         mult[(h, ci, co)] = mult.get((h, ci, co), 0) + 1
@@ -1949,7 +2496,8 @@ def main():
         dict(name="adaptive_conv_fwd", route="cuda",
              source="gigagan_tpu_torch/csrc/adaptive_conv_fwd_tc.cu",
              replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:86",
-             launches=train_launches["k1"],
+             launches=t2i_launches["k1"],
+             launches_unconditional=train_launches["k1"],
              max_abs_err=max([max(r["abs_f32"], r["abs_bf16"])
                               for r in k1_rows.values()]
                              + [r["abs"] for r in k1_extra]),
@@ -1959,7 +2507,8 @@ def main():
         dict(name="adaptive_conv_bwd_w", route="cuda",
              source="gigagan_tpu_torch/csrc/adaptive_conv_bwd_w_tc.cu",
              replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:269",
-             launches=train_launches["k2"],
+             launches=t2i_launches["k2"],
+             launches_unconditional=train_launches["k2"],
              max_abs_err=max([max(r["abs_f32"], r["abs_bf16"])
                               for r in k2_rows.values()]
                              + [r["abs"] for r in k2_extra]
@@ -1972,7 +2521,8 @@ def main():
         dict(name="flash_attention_fused_fwd", route="cuda",
              source="gigagan_tpu_torch/csrc/flash_attention_fused_fwd_tc.cu",
              replaces="gigagan_tpu/ops/pallas/flash_attention_fused.py:95",
-             launches=train_launches["k3"],
+             launches=t2i_launches["k3"],
+             launches_unconditional=train_launches["k3"],
              max_abs_err=max(max(r["abs_out"], r["abs_lse"])
                              for r in k3_rows),
              **timing(d_step["k3"]),
@@ -1981,7 +2531,8 @@ def main():
         dict(name="flash_attention_fused_bwd", route="cuda",
              source="gigagan_tpu_torch/csrc/flash_attention_fused_bwd_tc.cu",
              replaces="gigagan_tpu/ops/pallas/flash_attention_so.py:191",
-             launches=train_launches["k4"],
+             launches=t2i_launches["k4"],
+             launches_unconditional=train_launches["k4"],
              max_abs_err=max(r["abs"] for r in k4_rows),
              **timing(d_step["k4"]),
              simt_source="gigagan_tpu_torch/csrc/flash_attention_fused_bwd.cu",
@@ -1989,7 +2540,8 @@ def main():
         dict(name="flash_attention_so_bwd2", route="cuda",
              source="gigagan_tpu_torch/csrc/flash_attention_so_bwd2_tc.cu",
              replaces="gigagan_tpu/ops/pallas/flash_attention_so.py:297",
-             launches=train_launches["k5"],
+             launches=t2i_launches["k5"],
+             launches_unconditional=train_launches["k5"],
              max_abs_err=max(r["abs"] for r in k5_rows),
              **timing(r1_bf16),
              simt_source="gigagan_tpu_torch/csrc/flash_attention_so_bwd2.cu",
@@ -2017,16 +2569,18 @@ def main():
             name=name_, route="cuda",
             source=f"gigagan_tpu_torch/csrc/{source}.cu",
             replaces=f"gigagan_tpu/ops/pallas/{replaces}",
-            launches=for_launches[key],
+            launches=t2i_launches[key],
+            launches_unconditional=for_launches[key],
             max_abs_err=max([r[key]["abs"] for r in hv_rows]
                             + [r[key]["abs"] for r in k6_masked
                                if key in r]),
             **timing(rows),
             simt_source=f"gigagan_tpu_torch/csrc/{name_}.cu",
             simt_ms=total(rows, "simt_ms")))
-    cadences = ITERATIONS // R1_EVERY
-    for k_ in kernels:
-        k_["launches_per_cadence"] = k_["launches"] / cadences
+    # launches: the text-to-image path's run (phase 13: 8 iterations, R1
+    # reverse-over-reverse on two, then 2 forward-over-reverse R1
+    # iterations); launches_unconditional: phase 9's (K1-K5) or phase 10's
+    # (K6a-K7b) 8 iterations of the quickstart pair
     report["kernels"] = kernels
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

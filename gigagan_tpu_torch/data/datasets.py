@@ -1,11 +1,14 @@
-"""Datasets and a batch loader for the unconditional trainer (counterpart
-of gigagan_tpu/data/datasets.py): ``MockImageDataset`` (random pixels),
+"""Datasets and a batch loader for the trainer (counterpart of
+gigagan_tpu/data/datasets.py): ``MockImageDataset`` (random pixels),
 ``SyntheticShapesDataset`` (a learnable distribution for health runs),
-``ImageDataset`` (a local folder of images) and ``DataLoader``.
+``ImageDataset`` (a local folder of images), ``TextImageDataset`` (the base
+of (image, caption) datasets), ``MockTextImageDataset`` and
+``DataLoader``.
 
 Images are float32 (h, w, c) numpy arrays in [0, 1]; batches are stacked
-(b, h, w, c) arrays.  The loader decodes on ``num_workers`` threads under a
-background prefetch producer, so the next batches load while the device
+(b, h, w, c) arrays, and (images, captions) tuples for text datasets
+(``collate_tensors_or_str``).  The loader decodes on ``num_workers``
+threads under a background prefetch producer, so the next batches load while the device
 runs the current step.  Per-process sharding (data parallel) is not
 ported.
 """
@@ -25,6 +28,15 @@ import numpy as np
 from gigagan_tpu_torch.utils import exists
 
 
+def collate_tensors_or_str(data):
+    """Stack arrays, collect strings into a list: a batch of (image,
+    caption) items → (images, [captions]); of arrays → (images,)."""
+    if not isinstance(data[0], tuple):
+        return (np.stack(data),)
+    return tuple(list(datum) if isinstance(datum[0], str)
+                 else np.stack(datum) for datum in zip(*data))
+
+
 class DataLoader:
     """Batches of a map-style dataset: optional shuffle from a seeded
     numpy generator (a new permutation each pass), optional drop of the
@@ -33,13 +45,15 @@ class DataLoader:
     batch boundary) and a producer thread that keeps ``prefetch`` batches
     ready.  ``num_workers <= 1`` decodes on the producer thread,
     ``prefetch <= 0`` on the caller's.  The order of the batches does not
-    depend on either."""
+    depend on either.  ``collate_fn`` turns a batch's items into the batch
+    (``np.stack`` by default)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, *,
-                 num_workers: int = 4, prefetch: int = 2):
+                 num_workers: int = 4, prefetch: int = 2, collate_fn=None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.collate_fn = collate_fn or np.stack
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = num_workers
@@ -62,7 +76,7 @@ class DataLoader:
         index_batches = self._index_batches()
         if self.num_workers <= 1:
             for idx in index_batches:
-                yield np.stack([self.dataset[int(i)] for i in idx])
+                yield self.collate_fn([self.dataset[int(i)] for i in idx])
             return
         depth = max(self.prefetch, 1) + 1  # batches of items in flight
         with ThreadPoolExecutor(self.num_workers) as pool:
@@ -77,7 +91,7 @@ class DataLoader:
                 if idx is not None:
                     pending.append([pool.submit(self.dataset.__getitem__,
                                                 int(i)) for i in idx])
-                yield np.stack(items)
+                yield self.collate_fn(items)
 
     def __iter__(self):
         if self.prefetch <= 0:
@@ -160,6 +174,47 @@ class MockImageDataset:
         return rng.random(
             (self.image_size, self.image_size, self.channels)
         ).astype(np.float32)
+
+
+class TextImageDataset:
+    """The base of text-image datasets: a subclass returns (image (h, w, c)
+    float32 in [0, 1], caption) per index."""
+
+    def __init__(self):
+        raise NotImplementedError
+
+    def get_dataloader(self, batch_size, **kwargs):
+        kwargs.setdefault("collate_fn", collate_tensors_or_str)
+        return _loader(self, batch_size, kwargs)
+
+    def __len__(self):
+        raise NotImplementedError
+
+    def __getitem__(self, index):
+        raise NotImplementedError
+
+
+class MockTextImageDataset(TextImageDataset):
+    """Random (standard normal, as the JAX package's) images with the
+    caption 'mock text'; the same pixels as the JAX package's for the same
+    (seed, index)."""
+
+    def __init__(self, image_size: int, length: int = int(1e5),
+                 channels: int = 3, seed: int = 0):
+        self.image_size = image_size
+        self.channels = channels
+        self.length = length
+        self.seed = seed
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, index):
+        rng = np.random.default_rng((self.seed, index))
+        img = rng.standard_normal(
+            (self.image_size, self.image_size, self.channels)
+        ).astype(np.float32)
+        return img, "mock text"
 
 
 class SyntheticShapesDataset:

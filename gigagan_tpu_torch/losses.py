@@ -1,5 +1,5 @@
 """GAN losses and regularizers (counterpart of gigagan_tpu/losses.py, the
-parts the unconditional training step uses).
+parts the training steps use).
 
 The hinge losses keep the reference's inverted polarity: the
 discriminator emits LOW for real and HIGH for fake, and the generator
@@ -20,6 +20,21 @@ def generator_hinge_loss(fake):
 
 def discriminator_hinge_loss(real, fake):
     return (F.relu(1.0 + real.float()) + F.relu(1.0 - fake.float())).mean()
+
+
+def aux_matching_loss(real, fake):
+    """softplus(-x) averaged over both halves: pushes D to reject
+    mismatched (image, text) pairs."""
+    return (F.softplus(-real.float()) + F.softplus(-fake.float())).mean()
+
+
+def clip_contrastive_loss(image_embeds, text_embeds, logit_scale):
+    """Symmetric InfoNCE between l2-normalised embeds over the whole
+    pool."""
+    sim = text_embeds.float() @ image_embeds.float().t() * logit_scale
+    labels = torch.arange(sim.shape[0], device=sim.device)
+    return (F.cross_entropy(sim, labels) + F.cross_entropy(sim.t(),
+                                                           labels)) / 2
 
 
 def sample_sq_norms(grads, eps: float = 1e-12):

@@ -1,4 +1,4 @@
-"""Multiscale discriminator, unconditional and dense (counterpart of
+"""Multiscale discriminator, dense (counterpart of
 gigagan_tpu/models/discriminator.py with ``s2d_trunk=False``; the JAX
 package's space-to-depth trunk has identical parameters and exact math and
 exists only for the TPU's lane layout).
@@ -9,7 +9,11 @@ exists only for the TPU's lane layout).
   ``i*s + g`` is sample ``i``, scale group ``g``;
 - predictor heads read only the rows of the groups that existed before
   the stage; the aux reconstruction decoder reads scale-group-0 rows;
-- final logits in the ``(s, b)`` layout.
+- final logits in the ``(s, b)`` layout;
+- conditional (``unconditional=False``): the text embedding (from its own
+  TextEncoder over CLIP token encodings, or given as ``text_embeds``) is
+  projected once to one (mod, kernel_mod) pair per predictor, whose
+  stacked convs are adaptive convs sharing that pair.
 
 Random draws (the decoder's dropout mask and patch choice) come from an
 explicit ``torch.Generator``, or are passed in (``recon_draws``) so a
@@ -24,6 +28,7 @@ recomputation is exact.
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from math import log2
 from typing import Optional, Sequence, Tuple
 
@@ -31,7 +36,9 @@ import torch
 from torch import nn
 
 from gigagan_tpu_torch import ops
+from gigagan_tpu_torch.models.conditioning import TextEncoder
 from gigagan_tpu_torch.models.layers import (
+    AdaptiveConv,
     Conv,
     Downsample,
     SelfAttentionBlock,
@@ -41,10 +48,13 @@ from gigagan_tpu_torch.models.layers import (
     leaky_relu,
 )
 from gigagan_tpu_torch.ops.adaptive_conv import expand_batch
-from gigagan_tpu_torch.utils import exists, is_power_of_two
+from gigagan_tpu_torch.utils import (
+    ModTable,
+    default,
+    exists,
+    is_power_of_two,
+)
 from gigagan_tpu_torch.utils.remat import remat
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, item {item})"
 
 
 def _patches(t, p):
@@ -133,25 +143,35 @@ class SimpleDecoder(nn.Module):
 
 
 class Predictor(nn.Module):
-    """Per-scale output head, unconditional: 1x1 residual, a stack of
-    3x3 conv pairs with scaled residuals, 1x1 logits."""
+    """Per-scale output head: 1x1 residual, a stack of 3x3 conv pairs with
+    scaled residuals, 1x1 logits.  Conditional, the convs are adaptive
+    convs that all share one (mod, kernel_mod) pair."""
 
-    def __init__(self, dim: int, depth: int = 4, dtype=torch.float32):
+    def __init__(self, dim: int, depth: int = 4, num_conv_kernels: int = 2,
+                 unconditional: bool = False, dtype=torch.float32):
         super().__init__()
         self.depth = depth
+        self.unconditional = unconditional
         self.residual_fn = conv1x1(dim, dim, dtype=dtype)
         for i in range(depth):
-            self.add_module(f"conv1_{i}", conv3x3(dim, dim, dtype=dtype))
-            self.add_module(f"conv2_{i}", conv3x3(dim, dim, dtype=dtype))
+            for j in (1, 2):
+                self.add_module(
+                    f"conv{j}_{i}",
+                    conv3x3(dim, dim, dtype=dtype) if unconditional
+                    else AdaptiveConv(dim, dim, kernel=3,
+                                      num_conv_kernels=num_conv_kernels,
+                                      dtype=dtype))
         self.to_logits = conv1x1(dim, 1, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, mod=None, kernel_mod=None):
         residual = self.residual_fn(x)
         scale = 2 ** -0.5
         for i in range(self.depth):
             inner_residual = x
-            x = leaky_relu(getattr(self, f"conv1_{i}")(x))
-            x = leaky_relu(getattr(self, f"conv2_{i}")(x))
+            for j in (1, 2):
+                conv = getattr(self, f"conv{j}_{i}")
+                x = leaky_relu(conv(x) if self.unconditional
+                               else conv(x, mod=mod, kernel_mod=kernel_mod))
             x = (x + inner_residual) * scale
         return self.to_logits(x + residual)
 
@@ -230,11 +250,7 @@ class Discriminator(nn.Module):
         dtype=torch.float32,
     ):
         super().__init__()
-        if not unconditional or exists(text_encoder) or exists(text_dim):
-            raise NotImplementedError(
-                "a text-conditioned discriminator "
-                + _NOT_PORTED.format(item="4, conditional path")
-            )
+        assert not (unconditional and exists(text_encoder))
         assert is_power_of_two(image_size)
         assert all(map(is_power_of_two, attn_resolutions))
         self.image_size = image_size
@@ -276,8 +292,10 @@ class Discriminator(nn.Module):
         dim_layers = [channels, *dim_layers]
         dim_last = dim_layers[-1]
         dim_pairs = list(zip(dim_layers[:-1], dim_layers[1:]))
+        dim_kernel_mod = num_conv_kernels if num_conv_kernels > 1 else 0
 
         upsample_dims = []
+        predictor_dims = []
         stages = []
         for ind, ((dim_in, dim_out), resolution) in enumerate(
             zip(dim_pairs, resolutions)
@@ -299,6 +317,8 @@ class Discriminator(nn.Module):
                     frac_patches=frac, dropout=aux_recon_fmap_dropout,
                     dtype=dtype,
                 )
+            if resolution in ms_output:
+                predictor_dims.extend([dim_out, dim_kernel_mod])
             stages.append(_DStage(
                 resolution=resolution,
                 has_multiscale_input=resolution in ms_input,
@@ -313,6 +333,8 @@ class Discriminator(nn.Module):
                     dtype=dtype,
                 ),
                 predictor=(Predictor(dim_out, depth=predictor_depth,
+                                     num_conv_kernels=num_conv_kernels,
+                                     unconditional=unconditional,
                                      dtype=dtype)
                            if resolution in ms_output else None),
                 recon_decoder=recon_decoder,
@@ -322,6 +344,23 @@ class Discriminator(nn.Module):
         self.stages = nn.ModuleList(stages)
         self.to_logits_conv = conv3x3(dim_last, dim_last, dtype=dtype)
         self.to_logits_dense = conv1x1(dim_last * 4 * 4, 1, dtype=dtype)
+
+        # text conditioning of the predictors: one projection of the text
+        # embedding to every predictor's (mod, kernel_mod)
+        assert unconditional or exists(text_dim) ^ exists(text_encoder), (
+            "a conditional discriminator needs exactly one of text_dim and "
+            "text_encoder")
+        self.text_enc = None
+        self.text_to_conv_conditioning = None
+        if not unconditional:
+            if isinstance(text_encoder, Mapping):
+                text_encoder = TextEncoder(**text_encoder)
+            self.text_enc = text_encoder
+            self.predictor_dims = tuple(predictor_dims)
+            self.text_to_conv_conditioning = conv1x1(
+                default(text_dim, text_encoder.dim if exists(text_encoder)
+                        else None),
+                sum(predictor_dims), dtype=dtype)
 
     @property
     def recon_decoders(self):
@@ -333,18 +372,31 @@ class Discriminator(nn.Module):
         return [ops.resize_image_to(images, r, self.resize_mode)
                 for r in self.multiscale_input_resolutions]
 
-    def forward(self, images, rgbs, return_multiscale_outputs: bool = True,
+    def forward(self, images, rgbs, text_encodings=None, text_embeds=None,
+                return_multiscale_outputs: bool = True,
                 calc_aux_loss: bool = True,
                 aux_recon_samples: Optional[int] = None,
                 deterministic: bool = False, recon_draws=None,
                 generator=None):
         """images (b, s, s, c) and rgbs (a list holding every multiscale
         input resolution) → (logits (groups, b), multiscale logits, aux
-        losses).  ``aux_recon_samples`` keeps the reconstruction loss to
-        the first N samples (the trainer batches [real; fake] and only
-        reals carry the target).  ``recon_draws``: one (keep, patch_idx)
-        pair per reconstruction decoder, in stage order; without it the
-        decoders draw from ``generator``."""
+        losses).  Conditional: CLIP ``text_encodings`` (b, n, clip_dim)
+        for the text encoder, or ``text_embeds`` (b, text_dim).
+        ``aux_recon_samples`` keeps the reconstruction loss to the first N
+        samples (the trainer batches [real; fake] and only reals carry the
+        target).  ``recon_draws``: one (keep, patch_idx) pair per
+        reconstruction decoder, in stage order; without it the decoders
+        draw from ``generator``."""
+        conv_mods = None
+        if not self.unconditional:
+            assert exists(text_encodings) ^ exists(text_embeds)
+            if exists(text_encodings):
+                assert exists(self.text_enc)
+                text_embeds = self.text_enc(text_encodings)[0]
+            conv_mods = ModTable(self.text_to_conv_conditioning(text_embeds),
+                                 self.predictor_dims)
+        else:
+            assert not exists(text_embeds) and not exists(text_encodings)
         x = images
         assert x.shape[1] == x.shape[2] == self.image_size
         batch = x.shape[0]
@@ -392,9 +444,14 @@ class Discriminator(nn.Module):
             else:
                 x, residual = stage.core(x)
 
-            if exists(stage.predictor) and return_multiscale_outputs:
-                multiscale_outputs.append(stage.predictor(
-                    rows_of_first_groups(x, groups_prev_stage)))
+            if exists(stage.predictor):
+                mod = kernel_mod = None
+                if exists(conv_mods):
+                    mod, kernel_mod = conv_mods.next(), conv_mods.next()
+                if return_multiscale_outputs:
+                    multiscale_outputs.append(stage.predictor(
+                        rows_of_first_groups(x, groups_prev_stage),
+                        mod=mod, kernel_mod=kernel_mod))
 
             if exists(stage.downsample):
                 x = stage.downsample(x)
@@ -412,6 +469,8 @@ class Discriminator(nn.Module):
                     keep=keep, patch_idx=idx, generator=generator,
                 ))
 
+        if exists(conv_mods):
+            conv_mods.assert_exhausted()
         logits = self.to_logits_conv(x)
         logits = self.to_logits_dense(logits.reshape(logits.shape[0], -1))
         # (b·s,) batch-major → (s, b)

@@ -1,4 +1,4 @@
-"""The base synthesis Generator, unconditional (counterpart of
+"""The base synthesis Generator (counterpart of
 gigagan_tpu/models/generator.py with the same config keys).
 
 - learned 4x4 init block + init adaptive conv;
@@ -9,7 +9,11 @@ gigagan_tpu/models/generator.py with the same config keys).
 - skip-layer squeeze-excitation push/pop gating;
 - per stage: upsample (bilinear + blur, or ``PixelShuffleUpsample`` with
   ``pixel_shuffle_upsample``) → excite → 2×(adaptive conv + noise + leaky) →
-  self-attn? → to_rgb (no demod); rgb accumulated, then upsampled;
+  self-attn? → cross-attn to the text tokens? → to_rgb (no demod); rgb
+  accumulated, then upsampled;
+- conditional (``unconditional=False``): the TextEncoder turns CLIP token
+  encodings into a global token, which the style network takes beside the
+  latent, and fine tokens, which the cross-attention blocks attend to;
 - ``return_all_rgbs`` collects the per-stage accumulated rgbs.
 
 ``s2d_trunk`` is accepted for config compatibility and computes the dense
@@ -26,9 +30,10 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from gigagan_tpu_torch.models.conditioning import StyleNetwork
+from gigagan_tpu_torch.models.conditioning import StyleNetwork, TextEncoder
 from gigagan_tpu_torch.models.layers import (
     AdaptiveConv,
+    CrossAttentionBlock,
     Noise,
     PixelShuffleUpsample,
     SelfAttentionBlock,
@@ -39,12 +44,11 @@ from gigagan_tpu_torch.models.layers import (
 )
 from gigagan_tpu_torch.utils import ModTable, default, exists, is_power_of_two
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, {item})"
 
 
 class _Stage(nn.Module):
     def __init__(self, *, dim_in, dim_out, channels, num_conv_kernels,
-                 upsample, upsample_rgb, dim_excite, self_attn,
+                 upsample, upsample_rgb, dim_excite, self_attn, cross_attn,
                  pixel_shuffle, dtype):
         super().__init__()
 
@@ -73,6 +77,7 @@ class _Stage(nn.Module):
                                    num_conv_kernels=1, demod=False,
                                    dtype=dtype)
         self.self_attn = self_attn
+        self.cross_attn = cross_attn
 
 
 class Generator(nn.Module):
@@ -104,11 +109,6 @@ class Generator(nn.Module):
     ):
         super().__init__()
         assert is_power_of_two(image_size)
-        if exists(text_encoder) or not unconditional:
-            raise NotImplementedError(
-                "text conditioning (text_encoder, cross_attn) "
-                + _NOT_PORTED.format(item="item 4, conditional path")
-            )
 
         self.image_size = image_size
         self.channels = channels
@@ -118,7 +118,11 @@ class Generator(nn.Module):
 
         if isinstance(style_network, Mapping):
             style_network = StyleNetwork(**style_network)
+        if isinstance(text_encoder, Mapping):
+            text_encoder = TextEncoder(**text_encoder)
         self.style_net = style_network
+        self.text_enc = text_encoder
+        self.unconditional = unconditional
         assert exists(self.style_net) ^ exists(style_network_dim), (
             "style_network_dim must be given to the generator if "
             "StyleNetwork not passed in"
@@ -126,6 +130,16 @@ class Generator(nn.Module):
         self.style_network_dim = default(
             style_network_dim,
             self.style_net.dim if exists(self.style_net) else None,
+        )
+        assert not (unconditional and exists(self.text_enc))
+        assert not (unconditional and exists(self.style_net)
+                    and self.style_net.dim_text_latent > 0)
+        assert unconditional or (
+            exists(self.text_enc)
+            and self.text_enc.dim == self.style_net.dim_text_latent
+        ), (
+            "the `dim_text_latent` on your StyleNetwork must equal the "
+            "`dim` of the TextEncoder"
         )
 
         num_layers = int(log2(image_size) - 1)
@@ -162,6 +176,15 @@ class Generator(nn.Module):
                 )
                 if resolution in self_attn_resolutions else None
             )
+            cross_attn = (
+                CrossAttentionBlock(
+                    dim_out, self.text_enc.dim, dim_head=cross_attn_dim_head,
+                    heads=cross_attn_heads, ff_mult=cross_attn_ff_mult,
+                    dtype=dtype,
+                )
+                if resolution in cross_attn_resolutions and not unconditional
+                else None
+            )
             stages.append(_Stage(
                 dim_in=dim_in, dim_out=dim_out, channels=channels,
                 num_conv_kernels=num_conv_kernels,
@@ -169,7 +192,8 @@ class Generator(nn.Module):
                 upsample_rgb=ind + 1 < len(dim_pairs),
                 dim_excite=(dim_pairs[ind + num_skip_layers_excite][0]
                             if excite else None),
-                self_attn=self_attn, pixel_shuffle=pixel_shuffle_upsample,
+                self_attn=self_attn, cross_attn=cross_attn,
+                pixel_shuffle=pixel_shuffle_upsample,
                 dtype=dtype,
             ))
             split_dims.extend([
@@ -189,13 +213,31 @@ class Generator(nn.Module):
     def reset_own_parameters(self, generator=None):
         self.init_block.data.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, styles=None, noise=None, batch_size: int = 1,
+    def forward(self, styles=None, noise=None, text_encodings=None,
+                global_text_tokens=None, fine_text_tokens=None,
+                text_mask=None, batch_size: int = 1,
                 return_all_rgbs: bool = False, latent_generator=None,
                 noise_generator=None, pixel_noise=None):
         """``noise`` is the style latent (b, style_network_dim); without it
-        the latent is drawn from ``latent_generator``.  Pixel noise comes
-        from ``pixel_noise`` (one (b, h, w, 1) tensor per Noise layer, in
-        call order) or is drawn from ``noise_generator``."""
+        the latent is drawn from ``latent_generator``, one per text when
+        conditional.  Pixel noise comes from ``pixel_noise`` (one (b, h, w,
+        1) tensor per Noise layer, in call order) or is drawn from
+        ``noise_generator``.  Conditional: CLIP ``text_encodings`` (b, n,
+        clip_dim), or the text encoder's (``global_text_tokens``,
+        ``fine_text_tokens``, ``text_mask``)."""
+        if not self.unconditional:
+            if exists(text_encodings):
+                assert exists(self.text_enc)
+                global_text_tokens, fine_text_tokens, text_mask = (
+                    self.text_enc(text_encodings))
+            else:
+                assert all(map(exists, (global_text_tokens, fine_text_tokens,
+                                        text_mask))), (
+                    "text encodings or tokens must be passed in for "
+                    "conditional training")
+        else:
+            assert not any(map(exists, (text_encodings, global_text_tokens,
+                                        fine_text_tokens)))
         pixel_noise = iter(pixel_noise) if exists(pixel_noise) else None
 
         def next_noise():
@@ -205,12 +247,14 @@ class Generator(nn.Module):
         if not exists(styles):
             assert exists(self.style_net)
             if not exists(noise):
+                if exists(global_text_tokens):
+                    batch_size = global_text_tokens.shape[0]
                 noise = torch.randn(
                     (batch_size, self.style_network_dim),
                     generator=latent_generator, device=device,
                     dtype=self.dtype,
                 )
-            styles = self.style_net(noise)
+            styles = self.style_net(noise, global_text_tokens)
 
         batch_size = styles.shape[0]
         conv_mods = ModTable(self.style_to_conv_modulations(styles),
@@ -246,6 +290,8 @@ class Generator(nn.Module):
 
             if exists(stage.self_attn):
                 x = stage.self_attn(x)
+            if exists(stage.cross_attn):
+                x = stage.cross_attn(x, fine_text_tokens, mask=text_mask)
 
             rgb = rgb + stage.to_rgb(x, mod=conv_mods.next(),
                                      kernel_mod=conv_mods.next())

@@ -350,3 +350,113 @@ class SelfAttentionBlock(nn.Module):
     def forward(self, x):
         x = self.attn(x) + x
         return self.ff(x) + x
+
+
+class CrossAttention(nn.Module):
+    """Feature-map queries attend to text tokens under the tokens' padding
+    mask (no null token)."""
+
+    def __init__(self, dim: int, dim_context: int, dim_head: int = 64,
+                 heads: int = 8, dtype=torch.float32):
+        super().__init__()
+        inner = dim_head * heads
+        self.heads = heads
+        self.dim_head = dim_head
+        self.norm = RMSNorm(dim)
+        self.norm_context = RMSNorm(dim_context)
+        self.to_q = conv1x1(dim, inner, bias=False, dtype=dtype)
+        self.to_kv = conv1x1(dim_context, inner * 2, bias=False, dtype=dtype)
+        self.to_out = conv1x1(inner, dim, bias=False, dtype=dtype)
+
+    def forward(self, fmap, context, mask=None):
+        b, h, w, _ = fmap.shape
+        q = self.to_q(self.norm(fmap)).reshape(b, h * w, self.heads, -1)
+        k, v = self.to_kv(self.norm_context(context)).chunk(2, dim=-1)
+        k, v = (t.reshape(b, t.shape[1], self.heads, -1) for t in (k, v))
+        out = ops.attend(*(t.transpose(1, 2) for t in (q, k, v)), mask=mask,
+                         scale=self.dim_head ** -0.5)
+        return self.to_out(out.transpose(1, 2).reshape(b, h, w, -1))
+
+
+class TextAttention(nn.Module):
+    """Token self-attention with a learned null key/value and the tokens'
+    padding mask (the null token always attended)."""
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
+                 dtype=torch.float32):
+        super().__init__()
+        inner = dim_head * heads
+        self.heads = heads
+        self.dim_head = dim_head
+        self.norm = RMSNorm(dim)
+        self.to_qkv = conv1x1(dim, inner * 3, bias=False, dtype=dtype)
+        self.null_kv = nn.Parameter(torch.empty(2, heads, dim_head))
+        self.to_out = conv1x1(inner, dim, bias=False, dtype=dtype)
+
+    def reset_own_parameters(self, generator=None):
+        self.null_kv.data.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, encodings, mask=None):
+        b, n, _ = encodings.shape
+        q, k, v = (t.reshape(b, n, self.heads, -1).transpose(1, 2)
+                   for t in self.to_qkv(self.norm(encodings)).chunk(3, -1))
+        nk, nv = (t[None, :, None, :].expand(b, -1, 1, -1).to(q.dtype)
+                  for t in self.null_kv)
+        k, v = torch.cat((nk, k), dim=-2), torch.cat((nv, v), dim=-2)
+        if exists(mask):
+            mask = F.pad(mask, (1, 0), value=True)
+        out = ops.attend(q, k, v, mask=mask, scale=self.dim_head ** -0.5)
+        return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
+
+
+class CrossAttentionBlock(nn.Module):
+    def __init__(self, dim: int, dim_context: int, dim_head: int = 64,
+                 heads: int = 8, ff_mult: int = 4, dtype=torch.float32):
+        super().__init__()
+        self.attn = CrossAttention(dim, dim_context, dim_head=dim_head,
+                                   heads=heads, dtype=dtype)
+        self.ff = FeedForward(dim, mult=ff_mult, dtype=dtype)
+
+    def forward(self, x, context, mask=None):
+        x = self.attn(x, context, mask=mask) + x
+        return self.ff(x) + x
+
+
+class Transformer(nn.Module):
+    """Text transformer: depth × (TextAttention, FeedForward), each
+    residual, then a final RMSNorm."""
+
+    def __init__(self, dim: int, depth: int, dim_head: int = 64,
+                 heads: int = 8, ff_mult: int = 4, dtype=torch.float32):
+        super().__init__()
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"attn_{i}", TextAttention(
+                dim, dim_head=dim_head, heads=heads, dtype=dtype))
+            self.add_module(f"ff_{i}", FeedForward(dim, mult=ff_mult,
+                                                   dtype=dtype))
+        self.norm = RMSNorm(dim)
+
+    def forward(self, x, mask=None):
+        for i in range(self.depth):
+            x = getattr(self, f"attn_{i}")(x, mask=mask) + x
+            x = getattr(self, f"ff_{i}")(x) + x
+        return self.norm(x)
+
+
+class RandomFixedProjection(nn.Module):
+    """A frozen random projection (the projected-GAN trick): a buffer
+    ``fixed_weights`` (in, out), kaiming-normal on fan_out with gain 1,
+    that no optimizer sees."""
+
+    def __init__(self, dim_in: int, dim_out: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("fixed_weights", torch.empty(dim_in, dim_out))
+
+    def reset_own_parameters(self, generator=None):
+        self.fixed_weights.normal_(
+            0.0, self.fixed_weights.shape[1] ** -0.5, generator=generator)
+
+    def forward(self, x):
+        return x.to(self.dtype) @ self.fixed_weights.to(self.dtype)

@@ -17,8 +17,10 @@ Every 2-D 3x3 stride-1 conv goes through ``pconv2d``
 sample on chip, forward and as the input gradient, and K2 for the weight
 and selection gradients — their plain versions on a CPU tensor.  The 1x1
 ``to_rgb`` conv and strided or dilated convs, as in JAX, and everything
-under ``plain_reference()`` run the plain path: steps (2)+(3) as one conv with n·o output channels and a
-per-sample mix.
+under ``plain_reference()`` run the plain path: steps (2)+(3) as one conv
+with n·o output channels and a per-sample mix.  So does every conv inside
+the forward-over-reverse R1 surrogate (``flash_hv_mode()``), as JAX runs
+its convs on XLA there: K1's autograd Function has no jvp.
 
 Feature maps are channels-last ``(b, h, w, c)``; banks are
 ``(n, kh, kw, in, out)``.
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 
 from gigagan_tpu_torch.ops.kernels import use_fused
 from gigagan_tpu_torch.ops.kernels.adaptive_conv import pconv2d
+from gigagan_tpu_torch.ops.kernels.flash_attention_hv import hv_mode
 from gigagan_tpu_torch.utils import exists
 
 
@@ -106,10 +109,11 @@ def adaptive_conv(x, weights, mod, kernel_mod=None, *, demod: bool = True,
     else:
         attn = None
 
-    # K1 takes stride-1, dilation-1 3x3 convs; any other runs step (2)
-    # below on every device, as JAX runs it on its XLA conv
-    fused = (use_fused() and (kh, kw) == (3, 3) and stride == 1
-             and dilation == 1)
+    # K1 takes stride-1, dilation-1 3x3 convs outside the jvp of the
+    # forward-over-reverse R1; any other runs step (2) below on every
+    # device, as JAX runs it on its XLA conv
+    fused = (use_fused() and not hv_mode() and (kh, kw) == (3, 3)
+             and stride == 1 and dilation == 1)
     if fused:
         a = attn if adaptive else torch.ones(
             (b, 1), dtype=torch.float32, device=x.device

@@ -1,9 +1,11 @@
 """``GigaGAN`` (counterpart of gigagan_tpu/train/trainer.py): builds G, its
-EMA copy and, for training, the unconditional discriminator from the same
-``generator=dict(...)``, ``discriminator=dict(...)``, ``amp=`` and
-``seed=`` arguments; both optimizers (the JAX trainer's defaults: Adam,
-lr 2e-4, betas (0.5, 0.9), no weight decay); ``train_discriminator_step``,
-``train_generator_step`` and the ``forward(steps=)``/``train(steps)`` loop
+EMA copy and, for training, the discriminator and the optional
+vision-aided discriminator from the same ``generator=dict(...)``,
+``discriminator=dict(...)``, ``vision_aided_discriminator=dict(...)``,
+``amp=`` and ``seed=`` arguments; the optimizers (the JAX trainer's
+defaults: Adam, lr 2e-4, betas (0.5, 0.9), no weight decay);
+``train_discriminator_step``, ``train_generator_step`` and the
+``forward(steps=)``/``train(steps)`` loop
 with R1 every 4th step, gradient accumulation, the 10-loss log line and
 ``log_hook`` record timed by ``StepTimer``, and the save-and-sample
 cadence; ``save``/``load`` of the whole train state with the JAX trainer's
@@ -13,9 +15,15 @@ and sampling.
 ``fused_dg_step=True`` gives the G step the D step's batch, as JAX's fused
 D+G program does, so the numbers are JAX's; the steps still run as two
 sequences of kernel launches here (capturing them as one CUDA graph is
-ROADMAP.md Queue 2, item B).  The conditional path, the vision-aided
-discriminator and the upsampler raise ``NotImplementedError``
-(ROADMAP.md Queue 1)."""
+ROADMAP.md Queue 2, item B).
+
+Text conditioning (``unconditional=False`` in G and D) takes a CLIP
+adapter (``clip=OpenClipAdapter(...)``), which moves to the trainer's
+device and is neither trained nor saved.  A random-init CLIP or the hash
+tokenizer is refused unless ``allow_mock_clip=True``.  The loader then
+yields (images, captions); each batch's captions are embedded once, and
+``generate(texts=[...])`` samples for captions.  Training the upsampler
+raises ``NotImplementedError`` (ROADMAP.md Queue 1, item 6)."""
 
 from __future__ import annotations
 
@@ -38,12 +46,12 @@ from gigagan_tpu_torch.losses import DiffAugment
 from gigagan_tpu_torch.models.discriminator import Discriminator
 from gigagan_tpu_torch.models.generator import Generator
 from gigagan_tpu_torch.models.layers import init_parameters
+from gigagan_tpu_torch.models.vision_aided import VisionAidedDiscriminator
 from gigagan_tpu_torch.train.ema import EMA
 from gigagan_tpu_torch.train.optimizer import get_optimizer
 from gigagan_tpu_torch.train.steps import TrainStepBuilder
 from gigagan_tpu_torch.utils import StepTimer, exists, num_to_groups
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, item {item})"
 # the EMA's schedule, saved with its counters
 _EMA_KWARGS = ("beta", "update_every", "update_after_step", "inv_gamma",
                "power", "min_value")
@@ -61,6 +69,9 @@ class GigaGAN:
                  weight_decay: float = 0.0,
                  discr_aux_recon_loss_weight: float = 1.0,
                  multiscale_divergence_loss_weight: float = 0.1,
+                 vision_aided_divergence_loss_weight: float = 0.5,
+                 generator_contrastive_loss_weight: float = 0.1,
+                 matching_awareness_loss_weight: float = 0.1,
                  calc_multiscale_loss_every: int = 1,
                  apply_gradient_penalty_every: int = 4,
                  create_ema_generator_at_init: bool = True,
@@ -74,16 +85,14 @@ class GigaGAN:
                  amp: bool = False, remat: bool = False,
                  gp_chunk: Optional[int] = None,
                  gp_fwd_over_rev: bool = False, fused_dg_step: bool = False,
-                 vision_aided_discriminator=None,
+                 vision_aided_discriminator=None, clip=None,
+                 allow_mock_clip: bool = False,
                  train_upsampler: bool = False, seed: int = 42,
                  log_hook=None, device=None):
-        if exists(vision_aided_discriminator):
-            raise NotImplementedError(
-                "the vision-aided discriminator "
-                + _NOT_PORTED.format(item="4, conditional path"))
         if train_upsampler:
             raise NotImplementedError(
-                "training the upsampler " + _NOT_PORTED.format(item="5"))
+                "training the upsampler is not ported yet (ROADMAP.md "
+                "Queue 1, item 6)")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -100,8 +109,34 @@ class GigaGAN:
         self.G.to(self.device)
         self.G_ema = copy.deepcopy(self.G).eval()
         self.G_ema.requires_grad_(False)
+        self.unconditional = self.G.unconditional
+        self.clip = clip
+        if exists(clip):
+            clip.to(self.device)
+        # conditional training on a degraded CLIP (random init and/or the
+        # hash tokenizer) runs end to end while learning from garbage: it
+        # is loud and opt-in
+        mock_reasons = list(getattr(clip, "mock_reasons", ()))
+        if not self.unconditional and mock_reasons:
+            details = "; ".join(mock_reasons)
+            if not allow_mock_clip:
+                raise ValueError(
+                    "Conditional training requested but the CLIP adapter "
+                    f"is a mock: {details}.  Text conditioning and the "
+                    "contrastive/matching/vision-aided losses would train "
+                    "against meaningless embeddings.  Provide a real "
+                    "open_clip torch checkpoint via OpenClipAdapter("
+                    "pretrained='/path/to/vit_b_32-laion400m_e32.pt') and "
+                    "the BPE vocab via bpe_path='/path/to/"
+                    "bpe_simple_vocab_16e6.txt.gz', or pass "
+                    "allow_mock_clip=True to proceed anyway (tests/smoke "
+                    "runs).")
+            print(f"[gigagan_tpu_torch] WARNING: conditional training on a "
+                  f"MOCK CLIP ({details}) — results will not be meaningful",
+                  flush=True)
 
         self.D = None
+        self.VD = None
         self.ema = None
         self.builder = None
         self.steps = 1
@@ -121,17 +156,39 @@ class GigaGAN:
             return
 
         self.D = _promote(discriminator, Discriminator, dtype=self.dtype)
+        assert self.D.unconditional == self.unconditional, (
+            "the discriminator's conditioning (unconditional=...) must be "
+            "the generator's")
         init_parameters(self.D, init_gen)
         self.D.to(self.device)
-        self.g_opt = get_optimizer(self.G.parameters(), lr=learning_rate,
-                                   wd=weight_decay, betas=betas)
-        self.d_opt = get_optimizer(self.D.parameters(), lr=learning_rate,
-                                   wd=weight_decay, betas=betas)
+        opt_kwargs = dict(lr=learning_rate, wd=weight_decay, betas=betas)
+        self.g_opt = get_optimizer(self.G.parameters(), **opt_kwargs)
+        self.d_opt = get_optimizer(self.D.parameters(), **opt_kwargs)
+        self.vd_opt = None
+        if exists(vision_aided_discriminator):
+            assert exists(clip), (
+                "a CLIP adapter (clip=...) is required for the vision-aided "
+                "discriminator")
+            self.VD = _promote(vision_aided_discriminator,
+                               VisionAidedDiscriminator, dtype=self.dtype)
+            assert self.VD.unconditional == self.unconditional, (
+                "the vision-aided discriminator's conditioning "
+                "(unconditional=...) must be the generator's")
+            init_parameters(self.VD, init_gen)
+            self.VD.to(self.device)
+            self.vd_opt = get_optimizer(self.VD.parameters(), **opt_kwargs)
         self.ema = EMA(self.G_ema) if create_ema_generator_at_init else None
         self.builder = TrainStepBuilder(
             self.G, self.D, self.g_opt, self.d_opt, ema=self.ema,
+            vision_aided_discriminator=self.VD, vd_opt=self.vd_opt,
+            clip=clip,
             multiscale_divergence_loss_weight=(
                 multiscale_divergence_loss_weight),
+            vision_aided_divergence_loss_weight=(
+                vision_aided_divergence_loss_weight),
+            generator_contrastive_loss_weight=(
+                generator_contrastive_loss_weight),
+            matching_awareness_loss_weight=matching_awareness_loss_weight,
             discr_aux_recon_loss_weight=discr_aux_recon_loss_weight,
             diff_augment=_promote(diff_augment, DiffAugment),
             gp_chunk=gp_chunk, gp_fwd_over_rev=gp_fwd_over_rev,
@@ -140,16 +197,21 @@ class GigaGAN:
 
     # ------------------------------------------------------------ weights
 
-    def load_jax_params(self, g_params, ema_params=None, d_params=None):
+    def load_jax_params(self, g_params, ema_params=None, d_params=None,
+                        vd_params=None, vd_buffers=None):
         """Load JAX parameter trees (nested mappings of arrays): the
-        generator's, its EMA copy's (``g_params`` without one) and the
-        discriminator's."""
+        generator's, its EMA copy's (``g_params`` without one), the
+        discriminator's and the vision-aided discriminator's (its
+        ``params`` and ``buffers`` collections)."""
         self.G.load_state_dict(convert_params(g_params, self.G))
         self.G_ema.load_state_dict(convert_params(
             g_params if ema_params is None else ema_params, self.G_ema
         ))
         if exists(d_params):
             self.D.load_state_dict(convert_params(d_params, self.D))
+        if exists(vd_params):
+            self.VD.load_state_dict(convert_params(vd_params, self.VD,
+                                                   buffers=vd_buffers))
 
     def create_ema_generator(self, update_every: int = 10,
                              update_after_step: int = 100,
@@ -176,42 +238,72 @@ class GigaGAN:
         if not exists(self.builder):
             raise RuntimeError("GigaGAN was built without a discriminator")
 
+    def _device_batch(self, batch, grad_accum_every: int):
+        """(reals, text encodings, text embeds) on the device: the reals
+        (b, h, w, c) split into ``grad_accum_every`` microbatches, or
+        already (grad_accum_every, mb, h, w, c); a conditional batch is a
+        mapping with ``real_images`` and the CLIP ``text_encodings`` and
+        ``text_embeds`` of its samples, laid out alike."""
+        if isinstance(batch, Mapping):
+            parts = [batch.get(k) for k in ("real_images", "text_encodings",
+                                            "text_embeds")]
+        else:
+            parts = [batch, None, None]
+        if not self.unconditional:
+            assert exists(parts[1]), (
+                "a conditional step needs the batch's text_encodings")
+        real = torch.as_tensor(parts[0], device=self.device)
+        accumulated = real.dim() == 5
+        if not accumulated and grad_accum_every > 1:
+            accumulated = True
+            parts = [None if p is None else torch.as_tensor(p).reshape(
+                grad_accum_every, -1, *p.shape[1:]) for p in parts]
+            real = torch.as_tensor(parts[0], device=self.device)
+        assert not accumulated or real.shape[0] == grad_accum_every, (
+            f"batch leading dim {real.shape[0]} != grad_accum "
+            f"{grad_accum_every}")
+        return (real, *(None if p is None else
+                        torch.as_tensor(p, device=self.device)
+                        for p in parts[1:]))
+
     def train_discriminator_step(self, batch, *, grad_accum_every: int = 1,
                                  apply_gradient_penalty: bool,
                                  calc_multiscale_loss: bool, draws=None,
                                  seed: Optional[int] = None) -> dict:
-        """One D update on a batch of real images in [0, 1] (numpy array or
-        tensor): (b, h, w, c), split into ``grad_accum_every``
-        microbatches, or (grad_accum_every, mb, h, w, c).  ``draws`` fixes
-        the step's random draws (``train.steps.StepDraws``, one per
-        microbatch)."""
+        """One D (and vision-aided D) update on a batch of real images in
+        [0, 1] (numpy array or tensor): (b, h, w, c), split into
+        ``grad_accum_every`` microbatches, or (grad_accum_every, mb, h, w,
+        c); conditional, a mapping as ``_collect_batch`` returns.
+        ``draws`` fixes the step's random draws (``train.steps.StepDraws``,
+        one per microbatch)."""
         self._check_trainable()
-        batch = torch.as_tensor(batch, device=self.device)
-        if batch.dim() == 4 and grad_accum_every > 1:
-            batch = batch.reshape(grad_accum_every, -1, *batch.shape[1:])
-        assert batch.dim() == 4 or batch.shape[0] == grad_accum_every, (
-            f"batch leading dim {batch.shape[0]} != grad_accum "
-            f"{grad_accum_every}")
+        real, text, embeds = self._device_batch(batch, grad_accum_every)
         gen, host = self._generators(seed)
         return self.builder.d_step(
-            batch, apply_gp=apply_gradient_penalty,
-            calc_ms=calc_multiscale_loss, draws=draws, generator=gen,
-            host_generator=host,
+            real, text_encodings=text, text_embeds=embeds,
+            apply_gp=apply_gradient_penalty, calc_ms=calc_multiscale_loss,
+            draws=draws, generator=gen, host_generator=host,
         )
 
-    def train_generator_step(self, batch_size: int, *,
-                             grad_accum_every: int = 1,
+    def train_generator_step(self, batch, *, grad_accum_every: int = 1,
                              calc_multiscale_loss: bool, draws=None,
                              seed: Optional[int] = None) -> dict:
-        """One G update on ``grad_accum_every`` microbatches of
-        ``batch_size`` fakes each, then the EMA update; advances the step
-        counter."""
+        """One G update on ``grad_accum_every`` microbatches of ``batch``
+        fakes each (an int), or, conditional, on the texts of a batch as
+        ``train_discriminator_step`` takes it; then the EMA update;
+        advances the step counter."""
         self._check_trainable()
+        text = embeds = None
+        if isinstance(batch, int):
+            batch_size = batch
+        else:
+            real, text, embeds = self._device_batch(batch, grad_accum_every)
+            batch_size = real.shape[-4]
         gen, host = self._generators(seed)
         metrics = self.builder.g_step(
-            batch_size, calc_ms=calc_multiscale_loss,
-            grad_accum_every=grad_accum_every, draws=draws, generator=gen,
-            host_generator=host,
+            batch_size, text_encodings=text, text_embeds=embeds,
+            calc_ms=calc_multiscale_loss, grad_accum_every=grad_accum_every,
+            draws=draws, generator=gen, host_generator=host,
         )
         self.steps += 1
         return metrics
@@ -221,16 +313,41 @@ class GigaGAN:
             "training dataloader has already been set")
         self.train_dl = dl
 
-    @staticmethod
-    def _collect_batch(dl_iter, grad_accum_every: int):
+    def embed_texts(self, texts):
+        """Captions → CLIP token encodings (b, n, d) on the device."""
+        return self._embed_texts_full(texts)[1]
+
+    def _embed_texts_full(self, texts):
+        """(global embed, token encodings) of the captions."""
+        assert exists(self.clip), (
+            "a CLIP adapter must be attached (clip=...) to embed raw texts")
+        return self.clip.embed_texts(list(texts))
+
+    def _collect_batch(self, dl_iter, grad_accum_every: int):
         """``grad_accum_every`` batches of the loader, stacked as
-        (grad_accum_every, mb, h, w, c)."""
-        images = []
+        (grad_accum_every, mb, h, w, c); conditional, a mapping with the
+        CLIP ``text_encodings`` and ``text_embeds`` of the batches'
+        captions, each batch's embedded once, laid out alike."""
+        images, encodings, embeds = [], [], []
         for _ in range(grad_accum_every):
             result = next(dl_iter)
-            (real,) = result if isinstance(result, tuple) else (result,)
+            if self.unconditional:
+                (real,) = result if isinstance(result, tuple) else (result,)
+            else:
+                assert isinstance(result, tuple), (
+                    "dataset should return (images, texts) for text-"
+                    "conditioned training")
+                real, texts = result
+                embed, enc = self._embed_texts_full(texts)
+                encodings.append(enc)
+                embeds.append(embed)
             images.append(np.asarray(real))
-        return np.stack(images)
+        images = np.stack(images)
+        if self.unconditional:
+            return images
+        return {"real_images": images,
+                "text_encodings": torch.stack(encodings),
+                "text_embeds": torch.stack(embeds)}
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -266,15 +383,18 @@ class GigaGAN:
                        and step % self.calc_multiscale_loss_every == 0)
 
             d_batch = self._collect_batch(dl_iter, grad_accum_every)
+            reals = d_batch if self.unconditional else d_batch["real_images"]
             d = self.train_discriminator_step(
                 d_batch, grad_accum_every=grad_accum_every,
                 apply_gradient_penalty=apply_gp,
                 calc_multiscale_loss=calc_ms)
-            # the unconditional g_step reads only the batch's size
-            g_batch = (d_batch if self.fused_dg_step
+            # the fused step is unconditional only, as in JAX
+            g_batch = (d_batch if self.fused_dg_step and self.unconditional
                        else self._collect_batch(dl_iter, grad_accum_every))
+            # the unconditional g_step reads only the batch's size
             g = self.train_generator_step(
-                g_batch.shape[1], grad_accum_every=grad_accum_every,
+                g_batch.shape[1] if self.unconditional else g_batch,
+                grad_accum_every=grad_accum_every,
                 calc_multiscale_loss=calc_ms)
 
             steps_since_sync += 1
@@ -289,14 +409,15 @@ class GigaGAN:
                 if calc_ms:
                     last["msd"] = d["multiscale_divergence"]
                     last["msg"] = g["multiscale_divergence"]
-                # the conditional and vision-aided terms are not ported: 0
                 pairs = (("G", g["divergence"]), ("MSG", last["msg"]),
-                         ("VG", 0.0), ("D", d["divergence"]),
-                         ("MSD", last["msd"]), ("VD", 0.0),
+                         ("VG", g["total_vd_divergence"]),
+                         ("D", d["divergence"]), ("MSD", last["msd"]),
+                         ("VD", d["vision_aided_divergence"]),
                          ("GP", last["gp"]),
-                         ("SSL", d["aux_reconstruction"]), ("CL", 0.0),
-                         ("MAL", 0.0))
-                bs = d_batch.shape[0] * d_batch.shape[1]
+                         ("SSL", d["aux_reconstruction"]),
+                         ("CL", g["contrastive_loss"]),
+                         ("MAL", d["matching_aware_loss"]))
+                bs = reals.shape[0] * reals.shape[1]
                 print(f"step {step}: "
                       + " | ".join(f"{k}: {v:.2f}" for k, v in pairs)
                       + f" | {self.step_timer.summary(bs)}", flush=True)
@@ -313,7 +434,7 @@ class GigaGAN:
             if is_first or step % self.save_and_sample_every == 0 or (
                     step <= self.early_save_thres_steps
                     and step % self.early_save_and_sample_every == 0):
-                self.save_sample(d_batch.shape[1])
+                self.save_sample(reals.shape[1], dl_iter)
         print(f"complete {self.steps} training steps", flush=True)
         return log
 
@@ -336,12 +457,19 @@ class GigaGAN:
 
     @torch.inference_mode()
     def generate(self, batch_size: int = 4, styles=None, noise=None,
-                 seed: Optional[int] = None, use_ema: bool = True):
+                 texts=None, text_encodings=None, seed: Optional[int] = None,
+                 use_ema: bool = True):
         """Sample from the EMA generator, or from the trained one with
         ``use_ema=False`` or when there is no EMA generator (as JAX's
         ``_generate_params``).  ``styles``/``noise`` (the style latent)
-        override the drawn latent.  Returns a float32 (b, h, w, 3) numpy
-        array."""
+        override the drawn latent.  Conditional: one sample per caption of
+        ``texts`` (embedded by the CLIP adapter) or per row of CLIP
+        ``text_encodings``.  Returns a float32 (b, h, w, 3) numpy array."""
+        if exists(texts):
+            text_encodings = self.embed_texts(texts)
+        if exists(text_encodings):
+            text_encodings = torch.as_tensor(text_encodings,
+                                             device=self.device)
         g = self.G_ema if use_ema and self.has_ema_generator else self.G
         if seed is None:
             seed = int(self._rng.integers(2 ** 63))
@@ -354,21 +482,29 @@ class GigaGAN:
             styles = torch.as_tensor(styles, device=self.device)
         if exists(noise):
             noise = torch.as_tensor(noise, device=self.device)
-        out = g(styles=styles, noise=noise, batch_size=batch_size,
-                latent_generator=latent_gen, noise_generator=noise_gen)
+        out = g(styles=styles, noise=noise, text_encodings=text_encodings,
+                batch_size=batch_size, latent_generator=latent_gen,
+                noise_generator=noise_gen)
         return out.float().cpu().numpy()
 
-    def _sample_images(self, batch_size: int, use_ema: bool):
-        rows = [self.generate(batch_size=n, use_ema=use_ema)
-                for n in num_to_groups(self.num_samples, batch_size)]
+    def _sample_images(self, batch_size: int, use_ema: bool, dl_iter=None):
+        rows = []
+        for n in num_to_groups(self.num_samples, batch_size):
+            texts = None
+            if not self.unconditional:  # the captions of a loader batch
+                texts = list(next(dl_iter)[1])[:n]
+            rows.append(self.generate(batch_size=n, texts=texts,
+                                      use_ema=use_ema))
         return np.clip(np.concatenate(rows, axis=0), 0.0, 1.0)
 
-    def save_sample(self, batch_size: int):
+    def save_sample(self, batch_size: int, dl_iter=None):
         """Grids of ``num_samples`` samples from the trained generator
         (``sample-{m}.png``) and, with an EMA, from the EMA generator
         (``ema-sample-{m}.png``) into ``results_folder``, then a
         checkpoint ``model-{m}.ckpt`` into ``model_folder``, m being the
-        save milestone."""
+        save milestone.  Conditional, the captions come from ``dl_iter``'s
+        batches."""
+        assert self.unconditional or exists(dl_iter)
         milestone = self.steps // self.save_and_sample_every
         nrow = int(sqrt(self.num_samples))
         variants = [("sample", False)]
@@ -376,7 +512,8 @@ class GigaGAN:
             variants.append(("ema-sample", True))
         self.results_folder.mkdir(parents=True, exist_ok=True)
         for prefix, use_ema in variants:
-            save_image_grid(self._sample_images(batch_size, use_ema),
+            save_image_grid(self._sample_images(batch_size, use_ema,
+                                                dl_iter),
                             self.results_folder / f"{prefix}-{milestone}.png",
                             nrow=nrow)
         self.save(self.model_folder / f"model-{milestone}.ckpt")
@@ -393,6 +530,9 @@ class GigaGAN:
             state.update(D=self.D.state_dict(),
                          g_opt=self.g_opt.state_dict(),
                          d_opt=self.d_opt.state_dict())
+        if exists(self.VD):  # the CLIP is frozen and not saved
+            state.update(VD=self.VD.state_dict(),
+                         vd_opt=self.vd_opt.state_dict())
         if exists(self.ema):
             state["ema"] = {"step": self.ema.step,
                             "initted": self.ema.initted,
@@ -401,9 +541,10 @@ class GigaGAN:
         return state
 
     def save(self, path, overwrite: bool = True):
-        """One ``torch.save`` file of the train state: G, G_ema, D, both
-        optimizers, the EMA's counters and schedule, the step counter, the
-        numpy RNG's ``bit_generator.state`` and the package version.
+        """One ``torch.save`` file of the train state: G, G_ema, D, the
+        vision-aided D, their optimizers, the EMA's counters and schedule,
+        the step counter, the numpy RNG's ``bit_generator.state`` and the
+        package version.
         Written to a temporary file and renamed over ``path``, so that a
         crash mid-save leaves an earlier checkpoint whole."""
         path = Path(path)
@@ -428,16 +569,19 @@ class GigaGAN:
         if version is not None and version != gigagan_tpu_torch.__version__:
             print(f"trying to load from version {version}")
         skipped = []
+        modules = (("G", self.G), ("G_ema", self.G_ema), ("D", self.D),
+                   ("VD", self.VD))
         loads = [(module, _matching(module, saved.get(key), key, skipped))
-                 for key, module in (("G", self.G), ("G_ema", self.G_ema),
-                                     ("D", self.D)) if exists(module)]
-        if not exists(self.D) and "D" in saved:
-            skipped.append("D (unexpected in checkpoint)")
+                 for key, module in modules if exists(module)]
+        skipped.extend(f"{key} (unexpected in checkpoint)"
+                       for key, module in modules
+                       if not exists(module) and key in saved)
         if exists(self.ema) != ("ema" in saved):
             skipped.append("ema (missing from checkpoint)" if exists(self.ema)
                            else "ema (unexpected in checkpoint)")
-        opts = [(key, getattr(self, key)) for key in ("g_opt", "d_opt")
-                if exists(self.D)]
+        opts = [(key, getattr(self, key))
+                for key in ("g_opt", "d_opt", "vd_opt")
+                if exists(getattr(self, key, None))]
         misfits = [key for key, opt in opts
                    if not _optimizer_fits(opt, saved.get(key))]
         if strict and (skipped or misfits):

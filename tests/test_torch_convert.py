@@ -130,11 +130,18 @@ def test_generate_seeds_and_ema(jax_params):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(unconditional=False), "conditional path"),
+    (dict(unconditional=False), "dim_text_latent"),
 ])
 def test_unported_generator_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Generator(**{**G_CONFIG, **kwargs})
+    # the conditional generator is ported; one without a text encoder fails
+    # as JAX's setup assertion does
+    config = {**G_CONFIG, **kwargs}
+    with pytest.raises(AssertionError, match=match):
+        Generator(**config)
+    with pytest.raises(AssertionError, match=match):
+        JaxGenerator(**config, s2d_trunk=False).init(
+            {"params": jax.random.PRNGKey(0),
+             "latent": jax.random.PRNGKey(1)}, batch_size=1)
 
 
 def test_gigagan_runs_on_the_card_unless_asked(monkeypatch):
@@ -147,8 +154,16 @@ def test_gigagan_runs_on_the_card_unless_asked(monkeypatch):
 
 
 def test_discriminator_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="discriminator"):
+    # a conditional discriminator (the default) needs a text encoder or a
+    # text dim, and its conditioning must be the generator's, as JAX asserts
+    with pytest.raises(AssertionError,
+                       match="exactly one of text_dim and text_encoder"):
         GigaGAN(generator=G_CONFIG, discriminator=dict(image_size=16),
+                device="cpu")
+    with pytest.raises(AssertionError,
+                       match="conditioning .* must be the generator's"):
+        GigaGAN(generator=G_CONFIG, discriminator=dict(image_size=16,
+                                                       text_dim=8),
                 device="cpu")
 
 
