@@ -103,7 +103,14 @@ Phases (any failure raises and exits non-zero):
     ``save``, ``load`` into two fresh trainers (state equal), and one more
     iteration of each from the restored RNG (the continued and the resumed
     trainer within 3 times the distance of the two resumed copies, the
-    card's own noise, since its bf16 steps are not bitwise repeatable);
+    card's own noise in the default mode, where cuDNN may pick algorithms
+    that sum in any order); then the same resume in a child process
+    (``--deterministic-resume``) under
+    ``torch.use_deterministic_algorithms(True)`` with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: the continued trainer and two
+    resumed copies bitwise equal after one more iteration, parameters and
+    optimizer state alike, two upsampler trainers' steps from one seed
+    bitwise equal, and nothing refused by the mode;
 13. the text-to-image recipe of examples/train_text_to_image.py at full
     width (256px, batch 8, bf16; CLIP ViT-B/32 from seed 0 with the hash
     tokenizer, a 512-wide TextEncoder of depth 4 in G and D, cross-attention
@@ -125,10 +132,28 @@ Phases (any failure raises and exits non-zero):
     the calls the generator does not make (the VD's 7x7 maps at 512
     channels, the predictors' rows at 32², 16², 8² and 4² for b, 2b and 4b
     images) timed;
-14. print the kernel table as one JSON line (time, plain version, library
+14. the UNet upsampler recipe of examples/train_upsampler.py at full
+    width (64 -> 256, dim 32, five stages, 47.89M-parameter G; its D reads
+    G's rgbs at 128; batch 8, bf16, ``MockImageDataset(256, seed=0)``): 8
+    iterations with R1 on 0 and 4, then 2 with R1 forward-over-reverse,
+    every loss finite and every step's K1-K7b launch counts those
+    ``expected_upsampler_launches`` derives from the configuration, every
+    bf16 launch on the tensor cores; ms per step, images/s over the
+    cadence and each step's peak memory; ``generate(lowres)`` at batch 1
+    and 8 (46 K1 and 5 K3 per image) and a batch-1 256 -> 1024 request
+    with the same widths (latency, peak memory); fp32 d_steps with R1 in
+    both forms and a g_step against ``plain_reference()`` with float64
+    attention (0.02); a video forward (4 frames, fp32, four stages) against
+    the plain path, its 65536-row temporal attention split at K3's grid
+    limit; K3, K4 and K5 at a batch of 65536 + 8 against their plain
+    versions, two launches each; K1 and K2 at every shape and dtype of the
+    run and the sampling against their plain versions, the bf16 shapes
+    timed beside the plain version and cuDNN's grouped conv; K3/K4 at G's
+    attention shapes beside SDPA;
+15. print the kernel table as one JSON line (time, plain version, library
     call where one computes the same function, bound, launches on the
-    text-to-image path, and on the quickstart's) and, last, the device
-    line.
+    text-to-image path, on the quickstart's and on the upsampler's) and,
+    last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -138,6 +163,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -145,6 +171,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 REPO = pathlib.Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
@@ -182,6 +209,27 @@ T2I_CAPTIONS = ["a cherry blossom tree", "a red sports car",
                 "a bowl of fruit on a table", "a lighthouse at dusk",
                 "two dogs in the snow", "a city skyline at night",
                 "a sailing boat on a lake", "an owl on a branch"]
+# the UNet upsampler recipe of examples/train_upsampler.py at its full
+# width: 64 -> 256, dim 32, the default five stages (dim_mults (1, 2, 4, 8,
+# 16), full attention at the two deepest, 2 kernel banks), a style network
+# of dim 64 and depth 4; its D reads G's rgbs at 128
+UPSAMPLER_G = dict(dim=32, image_size=256, input_image_size=64,
+                   unconditional=True, style_network=dict(dim=64, depth=4))
+UPSAMPLER_D = dict(QUICKSTART_D, multiscale_input_resolutions=(128,))
+# the same widths for a 256 -> 1024 request (K1 on 1024² maps, K3 at 16384
+# tokens), and the video net: five stages pool time three times, which
+# takes 4 frames to none (in JAX too), so the video forward cuts the depth
+# to four stages (4 frames -> 1 at the middle -> 16 out, the last up
+# stage's temporal attention on 256² = 65536 rows of 16 frames)
+UPSAMPLER_1K = dict(UPSAMPLER_G, image_size=1024, input_image_size=256)
+UPSAMPLER_VIDEO = dict(UPSAMPLER_G, has_temporal_layers=True,
+                       dim_mults=(1, 2, 4, 8),
+                       full_attn=(False,) * 3 + (True,),
+                       cross_attn=(False,) * 4, attn_depths=(1,) * 4,
+                       temporal_attn_depths=(1,) * 4)
+VIDEO_FRAMES, VIDEO_TOL = 4, 0.02
+# phase 14: the fp32 steps' batch, and the batch past K3-K5's grid limit
+UP_FP32_BATCH, SPLIT_ROWS = 4, 65536 + 8
 # the generator's default self-attention: 32² and 16² maps, 8 heads of 64
 SELF_ATTN_RES, HEADS, DIM_HEAD = (32, 16), 8, 64
 K1_TOL_F32, K1_TOL_BF16, K3_TOL = 0.02, 0.08, 0.03
@@ -201,6 +249,31 @@ G_TOL_F32, STEP_TOL_F32, STEP_TOL_BF16 = 0.02, 0.02, 0.08
 # information at bf16's 2^16 times coarser rounding: the bf16 comparison of
 # the two K3/K4 routes reports it and holds the other leaves to 0.08
 STABLE_F32 = 1e-3
+# The fp32 reading of a few ill-conditioned leaves of G sits at the edge
+# of STABLE_F32 and moved across it once the resample backwards stopped
+# summing with atomics in any order; they stay out of the bf16 gate, as
+# they were while those backwards used atomics.  Noise weights: each
+# gradient contracts the upstream gradient with the step's N(0, 1) pixel
+# noise over every pixel, a sum that cancels to about 1/sqrt(pixels) of
+# its terms (fp32 1.13e-3 to 1.14e-2 before, 7.7e-4 to 9.6e-3 after; bf16
+# 0.02-0.34 before and 0.02-0.55 after between the two K3/K4 or K1/K5
+# routes).  The
+# style network's weight matrices and first bias sum the modulation
+# gradients of every conv (fp32 1.05e-3 to 1.72e-3 before, 7.8e-4 to
+# 1.5e-3 after; bf16 0.05-0.14 before, 0.06-0.19 after).  Measured on an
+# H100 at phase 11's g_steps.
+NOISE_WEIGHT = re.compile(r"\.noise\d+\.weight$")
+STYLE_NET_UNRESOLVED = re.compile(
+    r"^style_net\.(linear_\d+\.weight|linear_0\.bias)$")
+
+
+def informative(name, rel_f32):
+    """Whether a gradient leaf that moved by `rel_f32` in fp32 (kernels vs
+    plain path) is held to the bf16 limit."""
+    return (rel_f32 <= STABLE_F32 and not NOISE_WEIGHT.search(name)
+            and not STYLE_NET_UNRESOLVED.match(name))
+
+
 # the training path's attention (batch, tokens, L2 similarity?): G's dot
 # product at batch 8; D's L2 in the d_step on the [real; fake] batch of
 # 16 grown by the multiscale groups (×4 at 32², ×8 at 16²), and in the
@@ -522,6 +595,30 @@ def expected_t2i_launches(n_g, n_ga, n_da, n_p, n_v, accum=1):
                  for row in (d, d_r1, d_for, g))
 
 
+def upsampler_structure(cfg):
+    """(3x3 adaptive convs, full-attention layers) of a UnetUpsampler
+    config's image forward: two convs in each ResnetBlock (two per down
+    and per up stage, two in the middle, one at the end), the full
+    attention of the down and up stages marked in ``full_attn`` and the
+    middle's."""
+    mults = cfg.get("dim_mults", (1, 2, 4, 8, 16))
+    full = cfg.get("full_attn", (False, False, False, True, True))
+    depths = cfg.get("attn_depths", (1,) * len(mults))
+    n_attn = 2 * sum(d_ for f_, d_ in zip(full, depths) if f_) \
+        + cfg.get("mid_attn_depth", 1)
+    return 2 * (4 * len(mults) + 3), n_attn
+
+
+def expected_upsampler_launches(cfg, n_d_attn):
+    """Launches per step of the upsampler's training path: the
+    quickstart's structure (``expected_step_launches``) for the adaptive
+    convs and full attentions ``upsampler_structure`` counts in G (K1 per
+    conv in the d_step's no-grad forward; forward, dx and K2 in the
+    g_step; K3/K4 per attention, no null token) and D's ``n_d_attn``."""
+    n_convs, n_g_attn = upsampler_structure(cfg)
+    return expected_step_launches(n_convs, n_g_attn, n_d_attn)
+
+
 def hv_operands(torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev):
     """Prepared operands of K6a-K7b as the surrogate φ gives them:
     (q, k̂, v, bias), their tangents (tq, t̂k, tv, tbias), and the
@@ -554,6 +651,132 @@ def hv_operands(torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev):
     tvf = tv.reshape(b * h, nk, d).contiguous()
     g, gt = (rnd(b * h, nq, d).to(dtype) for _ in range(2))
     return prepped, (tq_, tk_pre, tvf, tbias), g, gt
+
+
+def deterministic_resume():
+    """Phase 12(d)'s resume under ``torch.use_deterministic_algorithms``,
+    run as a child process (``--deterministic-resume``) whose parent set
+    ``CUBLAS_WORKSPACE_CONFIG`` before CUDA started: the quickstart pair
+    takes 2 iterations (R1 on the second), is saved and loaded into two
+    fresh trainers, and all three take one more iteration with R1; their
+    parameters and optimizer states must be bitwise equal.  Then two fresh
+    upsampler trainers of the recipe take a d_step with R1 and a g_step
+    from one seed (bitwise equal), and a small video upsampler's forward
+    and backward run once (what the mode refuses there is reported).
+    Prints one ``DETERMINISTIC {json}`` line; exits 1 when something
+    differs or is refused."""
+    import numpy as np
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, str(REPO))
+    from gigagan_tpu_torch import GigaGAN
+    from gigagan_tpu_torch.data import MockImageDataset
+    from gigagan_tpu_torch.models.layers import init_parameters
+    from gigagan_tpu_torch.models.unet_upsampler import UnetUpsampler
+
+    dev = torch.device("cuda", 0)
+    out = dict(refused=None)
+    models_dir = REPO / "gigagan-models" / "chip_smoke_deterministic"
+
+    def pool_of(size, n):
+        data = MockImageDataset(size, length=n, seed=0)
+        return torch.from_numpy(np.stack([data[i] for i in range(n)])).to(
+            dev)
+
+    def same_state(a, b):
+        """Names of the parameters, buffers and optimizer state entries in
+        which two trainers differ."""
+        diff = []
+        for mod in ("G", "G_ema", "D"):
+            for (n_, x), y in zip(getattr(a, mod).state_dict().items(),
+                                  getattr(b, mod).state_dict().values()):
+                if not torch.equal(x, y):
+                    diff.append(f"{mod}.{n_}")
+        for opt in ("g_opt", "d_opt"):
+            sa, sb = (getattr(t_, opt).state_dict()["state"] for t_ in (a, b))
+            for i, st in sa.items():
+                for k, v in st.items():
+                    if torch.is_tensor(v) and not torch.equal(v, sb[i][k]):
+                        diff.append(f"{opt}.{i}.{k}")
+        return diff
+
+    try:
+        pool = pool_of(256, BATCH)
+        gan = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D,
+                      amp=True, seed=0, device="cuda",
+                      model_folder=str(models_dir))
+        for i in range(2):
+            gan.train_discriminator_step(pool, apply_gradient_penalty=i == 1,
+                                         calc_multiscale_loss=True)
+            gan.train_generator_step(BATCH, calc_multiscale_loss=True)
+        ckpt = models_dir / "resume.ckpt"
+        gan.save(ckpt)
+        copies = []
+        for _ in range(2):
+            other = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D,
+                            amp=True, seed=1, device="cuda")
+            other.load(ckpt, strict=True)
+            copies.append(other)
+        for trainer in (gan, *copies):
+            trainer.train_discriminator_step(
+                pool, apply_gradient_penalty=True, calc_multiscale_loss=True)
+            trainer.train_generator_step(BATCH, calc_multiscale_loss=True)
+        torch.cuda.synchronize()
+        out["resume_differs"] = {
+            "continued_vs_resumed": same_state(gan, copies[0]),
+            "resumed_vs_resumed": same_state(copies[0], copies[1])}
+        n_state = sum(len(getattr(gan, m_).state_dict())
+                      for m_ in ("G", "G_ema", "D"))
+        out["resume_compared"] = n_state
+        del gan, copies, other
+        torch.cuda.empty_cache()
+
+        up_pool = pool_of(UPSAMPLER_G["image_size"], 2)
+        ups = []
+        for _ in range(2):
+            up = GigaGAN(generator=UPSAMPLER_G, discriminator=UPSAMPLER_D,
+                         train_upsampler=True, amp=True, seed=0,
+                         device="cuda")
+            up.train_discriminator_step(up_pool, apply_gradient_penalty=True,
+                                        calc_multiscale_loss=True, seed=1)
+            up.train_generator_step(up_pool, calc_multiscale_loss=True,
+                                    seed=2)
+            ups.append(up)
+        torch.cuda.synchronize()
+        out["upsampler_differs"] = same_state(*ups)
+        del ups, up
+        torch.cuda.empty_cache()
+    except Exception as e:  # noqa: BLE001 (reported in the JSON line)
+        out["refused"] = f"{type(e).__name__}: {str(e)[:400]}"
+        out["traceback"] = traceback.format_exc()[-2000:]
+    finally:
+        shutil.rmtree(models_dir, ignore_errors=True)
+
+    # the video net's HF shuttle pools time with F.max_pool3d; its backward
+    # is not on a train step (the trainer trains on images)
+    try:
+        small = dict(dim=16, image_size=32, input_image_size=8,
+                     dim_mults=(1, 2, 4), full_attn=(False, False, True),
+                     cross_attn=(False,) * 3, attn_depths=(1,) * 3,
+                     temporal_attn_depths=(1,) * 3, has_temporal_layers=True,
+                     style_network=dict(dim=16, depth=1))
+        vid = UnetUpsampler(**small)
+        init_parameters(vid, torch.Generator().manual_seed(0))
+        vid.to(dev)
+        clip = torch.rand(1, 4, 8, 8, 3, device=dev)
+        vid(clip, noise=torch.randn(1, 16, device=dev)).sum().backward()
+        torch.cuda.synchronize()
+        out["video_backward"] = "ran"
+    except Exception as e:  # noqa: BLE001 (reported in the JSON line)
+        out["video_backward"] = f"{type(e).__name__}: {str(e)[:300]}"
+    ok = out["refused"] is None and not any(
+        out["resume_differs"].values()) and not out["upsampler_differs"]
+    out["ok"] = ok
+    print("DETERMINISTIC " + json.dumps(out), flush=True)
+    return 0 if ok else 1
 
 
 def main():
@@ -1601,8 +1824,9 @@ def main():
                 stable=None):
         """Losses and every gradient leaf, max-rel, all held to `tol` (None:
         only reported) or, given `stable` (an fp32 comparison of the same
-        step), the leaves whose fp32 gradient moved by at most STABLE_F32
-        there; the others are reported by name."""
+        step), the leaves ``informative`` names (moved by at most
+        STABLE_F32 there, G's Noise weights and the style network's
+        unresolved leaves excepted); the others are reported by name."""
         (l_got, g_got), (l_want, g_want) = got, want
         loss_keys = loss_keys or list(l_want)
         loss_rel = max(abs(l_got[k] - l_want[k]) / (abs(l_want[k]) + 1e-6)
@@ -1611,11 +1835,12 @@ def main():
         gated = grad_rel
         if stable is not None:
             gated = {n_: r for n_, r in grad_rel.items()
-                     if stable["grad_rel"][n_] <= STABLE_F32}
+                     if informative(n_, stable["grad_rel"][n_])}
             loose = {n_: (r, stable["grad_rel"][n_])
                      for n_, r in grad_rel.items() if n_ not in gated}
             log(f"{label}: {len(loose)} leaves not gated, moved by more than "
-                f"{STABLE_F32} in fp32 (leaf: rel here, rel in fp32): "
+                f"{STABLE_F32} in fp32 or unresolved at bf16 (leaf: rel here, "
+                "rel in fp32): "
                 + ", ".join(f"{n_}: {a:.2e}, {b:.2e}"
                             for n_, (a, b) in loose.items()))
         worst = max(gated, key=gated.get)
@@ -1674,7 +1899,7 @@ def main():
         step: the bf16 noise floor that the route comparison sits on."""
         want = plain_step[kind][1]
         rel = {n_: rel_err(res[1][n_], want[n_]) for n_ in want
-               if step_rel[kind]["grad_rel"][n_] <= STABLE_F32}
+               if informative(n_, step_rel[kind]["grad_rel"][n_])}
         worst = max(rel, key=rel.get)
         return rel[worst], worst
 
@@ -1996,6 +2221,28 @@ def main():
     if not resumed <= max(3.0 * floor, 1e-2 * lr):
         fail(f"a resumed iteration departs by {resumed:.3e}, more than 3 "
              f"times the floor {floor:.3e} of two resumed copies")
+    # the same resume under torch.use_deterministic_algorithms, in a child
+    # process that sets CUBLAS_WORKSPACE_CONFIG before CUDA starts: every
+    # op of the step has a backward without float atomics, so the
+    # continued and the resumed trainers must be bitwise equal
+    t = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         "--deterministic-resume"],
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+        capture_output=True, text=True, timeout=600)
+    lines = [ln_ for ln_ in child.stdout.splitlines()
+             if ln_.startswith("DETERMINISTIC ")]
+    det = json.loads(lines[-1][len("DETERMINISTIC "):]) if lines else None
+    trainer_report["deterministic_resume"] = dict(
+        result=det, rc=child.returncode, s=time.perf_counter() - t)
+    log(f"deterministic resume (child process, rc {child.returncode}, "
+        f"{time.perf_counter() - t:.1f} s): {det}")
+    if child.returncode != 0 or not det or not det["ok"]:
+        log(child.stdout[-3000:])
+        log(child.stderr[-3000:])
+        fail("the deterministic resume is not bitwise equal, or the mode "
+             f"refused an op: {det}")
     log(f"phase 12 (the rest of the trainer): "
         f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -2362,9 +2609,12 @@ def main():
         ran = [r for r, e in entries if e[kname].launches > before[r]]
         return res, (ran[0] if len(ran) == 1 else None)
 
-    t2i_conv_rows, held = [], []
-    for key, n_calls in sorted(path_calls.items(), key=lambda kv: (
-            kv[0][0], -kv[0][1][0][1], kv[0][1][0][0], str(kv[0]))):
+    def check_conv_call(key, n_calls, where):
+        """One distinct K1 or K2 call of a path (its operands' shapes and
+        dtypes, as recorded at the dispatcher) on fresh operands: as the
+        path made it and in fp32, each on the route the rule names, against
+        the plain version.  Returns (entry, operands, outputs, plain
+        function, kernel function)."""
         kname, (xs, xdt), *rest = key
         rows_, h, w_, ci = xs
         if kname == "k1":
@@ -2412,16 +2662,46 @@ def main():
                      banks=banks, dtype=str(xdt).split(".")[-1],
                      calls=n_calls, routes=routes, rel=rel, rel_f32=rel32,
                      rel_same=same, max_abs_err=err)
-        held.append(entry)
         if routes != want_routes:
-            fail(f"{kname} at a text-to-image shape ran on {routes}; the "
-                 f"rule names {want_routes}: {entry}")
+            fail(f"{kname} at a {where} shape ran on {routes}; the rule "
+                 f"names {want_routes}: {entry}")
         if not (rel <= tol and rel32 <= tol32
                 and (same is None or same <= K2_TOL_SAME)):
-            fail(f"{kname} disagrees with its plain version at a "
-                 f"text-to-image shape: {entry}")
+            fail(f"{kname} disagrees with its plain version at a {where} "
+                 f"shape: {entry}")
+        del want, got32
+        return entry, operands, out, plain_fn, kernel_fn
+
+    def conv_key_order(kv):
+        return kv[0][0], -kv[0][1][0][1], kv[0][1][0][0], str(kv[0])
+
+    def log_held(held, where):
+        worst = {k_: max((e_ for e_ in held if e_["kernel"] == k_),
+                         key=lambda e_: e_["rel"]) for k_ in ("k1", "k2")}
+        log(f"K1/K2 held at every call of the {where}: "
+            f"{len(held)} distinct shapes and dtypes "
+            f"({sum(e_['calls'] for e_ in held)} calls), each on the route "
+            f"its rule names; "
+            + ", ".join(
+                f"worst {k_.upper()} rel {e_['rel']:.2e} (b{e_['rows']} "
+                f"{e_['h']}x{e_['w']} {e_['ci']}->{e_['co']} x{e_['banks']} "
+                f"{e_['dtype']})" for k_, e_ in worst.items())
+            + f"; fp32 at most {max(e_['rel_f32'] for e_ in held):.2e}, "
+            f"bf16 K2 on its own inputs at most "
+            f"{max(e_['rel_same'] or 0.0 for e_ in held):.2e}")
+
+    t2i_conv_rows, held = [], []
+    for key, n_calls in sorted(path_calls.items(), key=conv_key_order):
+        entry, operands, out, plain_fn, kernel_fn = check_conv_call(
+            key, n_calls, "text-to-image")
+        held.append(entry)
+        kname, rows_, h, w_, ci, co, banks = (
+            entry[k_] for k_ in ("kernel", "rows", "h", "w", "ci", "co",
+                                 "banks"))
+        route, n_calls = entry["routes"][0], entry["calls"]
+        rel, rel32, same = entry["rel"], entry["rel_f32"], entry["rel_same"]
         if (h == 7 or rows_ not in (1, BATCH)) and banks == 2 \
-                and xdt == bf16:
+                and entry["dtype"] == "bfloat16":
             flops = 2.0 * rows_ * h * w_ * 9 * ci * co
             entry.update(
                 who="VD" if h == 7 else "predictor",
@@ -2436,23 +2716,9 @@ def main():
                 + (f", same inputs {same:.2e}" if same is not None else "")
                 + f") | {entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f}, "
                 f"bound {entry['bound'][0]:.4f})")
-        del xm, w, a, d, operands, want, got, got32
+        del operands, out
         torch.cuda.empty_cache()
-    worst = {k_: max((e_ for e_ in held if e_["kernel"] == k_),
-                     key=lambda e_: e_["rel"]) for k_ in ("k1", "k2")}
-    log(f"K1/K2 held at every call of the text-to-image path: "
-        f"{len(held)} distinct shapes and dtypes "
-        f"({sum(e_['calls'] for e_ in held)} calls), each on the route its "
-        f"rule names; worst K1 rel {worst['k1']['rel']:.2e} "
-        f"(b{worst['k1']['rows']} {worst['k1']['h']}² {worst['k1']['ci']}->"
-        f"{worst['k1']['co']} x{worst['k1']['banks']} "
-        f"{worst['k1']['dtype']}), worst K2 rel {worst['k2']['rel']:.2e} "
-        f"(b{worst['k2']['rows']} {worst['k2']['h']}² {worst['k2']['ci']}->"
-        f"{worst['k2']['co']} x{worst['k2']['banks']} "
-        f"{worst['k2']['dtype']}); fp32 at most "
-        f"{max(e_['rel_f32'] for e_ in held):.2e}, bf16 K2 on its own "
-        f"inputs at most "
-        f"{max(e_['rel_same'] or 0.0 for e_ in held):.2e}")
+    log_held(held, "text-to-image path")
     t2i["conv_calls"] = held
     t2i["conv_rows"] = t2i_conv_rows
     del t2i_batches, clip
@@ -2462,6 +2728,497 @@ def main():
         f"{time.perf_counter() - t_phase:.1f} s")
 
     # --------------------------------------------------------------- 14
+    # the UNet upsampler recipe of examples/train_upsampler.py at full
+    # width: its training iterations, sampling (and a 256 -> 1024
+    # request), fp32 steps against the plain path, a video forward, the
+    # fused attention chain past its grid limit, and K1-K4 at its shapes
+    t_phase = time.perf_counter()
+    up = report["upsampler"] = {}
+    from gigagan_tpu_torch.models.layers import init_parameters
+    from gigagan_tpu_torch.models.unet_upsampler import (
+        Attention2D,
+        UnetUpsampler,
+    )
+
+    def up_gan(**kw):
+        kw.setdefault("seed", 0)
+        return GigaGAN(generator=UPSAMPLER_G, discriminator=UPSAMPLER_D,
+                       train_upsampler=True, device="cuda", **kw)
+
+    t0 = time.perf_counter()
+    gan = up_gan(amp=True)
+    sizes = {n_: sum(p.numel() for p in m_.parameters()) / 1e6
+             for n_, m_ in (("G", gan.G), ("D", gan.D))}
+    n_g, n_ga = upsampler_structure(UPSAMPLER_G)
+    n_da = sum(st.core.attn is not None for st in gan.D.stages)
+    built = (sum(isinstance(m, AdaptiveConv) for m in gan.G.modules()),
+             sum(isinstance(m, Attention2D) for m in gan.G.modules()))
+    up.update(params_m=sizes, structure=dict(g_convs=n_g, g_attn=n_ga,
+                                             d_attn=n_da))
+    log(f"upsampler G+D: " + ", ".join(f"{k} {v:.2f}M" for k, v in
+                                       sizes.items())
+        + f" params; built in {time.perf_counter() - t0:.2f} s; {n_g} "
+        f"adaptive convs and {n_ga} full attentions in G, {n_da} "
+        "attentions in D")
+    if built != (n_g, n_ga):
+        fail(f"the upsampler holds {built} adaptive convs and attentions, "
+             f"its configuration implies {(n_g, n_ga)}")
+    exp_d, exp_d_r1, exp_d_for, exp_g = expected_upsampler_launches(
+        UPSAMPLER_G, n_da)
+    size = UPSAMPLER_G["image_size"]
+    data = MockImageDataset(size, length=4 * BATCH, seed=0)
+    up_pool = torch.from_numpy(np.stack(
+        [data[i] for i in range(4 * BATCH)])).to(dev)
+
+    def up_iteration(i, apply_gp, record=None):
+        steps_ = []
+        for kind in ("d", "g"):
+            j = (2 * i + (kind == "g")) % 4
+            batch_ = up_pool[j * BATCH:(j + 1) * BATCH]
+            before = read_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            if kind == "d":
+                m = gan.train_discriminator_step(
+                    batch_, apply_gradient_penalty=apply_gp,
+                    calc_multiscale_loss=True, seed=9000 + i)
+            else:
+                m = gan.train_generator_step(
+                    batch_, calc_multiscale_loss=True, seed=9500 + i)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            after = read_counts()
+            steps_.append(dict(
+                kind=kind, r1=apply_gp, ms=ms,
+                fwd_over_rev=gan.builder.gp_fwd_over_rev,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                base_gib=base / 2 ** 30,
+                losses={k: float(v) for k, v in m.items()},
+                launches={k: after[k] - before[k] for k in after}))
+        if record is not None:
+            record.extend(steps_)
+        return steps_
+
+    up_iteration(0, True)  # warm-up: allocator, cuDNN plans
+    up_iteration(1, False)
+    path_calls = {}
+    k1.adaptive_conv_fwd = seen("k1", k1_dispatch)
+    k1.adaptive_conv_bwd_w = seen("k2", k2_dispatch)
+    reset_counts()
+    up_steps = []
+    for i in range(ITERATIONS):
+        up_iteration(i, i % R1_EVERY == 0, up_steps)
+    gan.builder.gp_fwd_over_rev = True
+    for i in range(2):
+        up_iteration(ITERATIONS + i, True, up_steps)
+    up_launches = read_counts()
+    gan.builder.gp_fwd_over_rev = False
+    if any(simt_counts().values()):
+        fail(f"bf16 calls of the upsampler path reached the CUDA-core "
+             f"kernels: {simt_counts()}")
+    for s_ in up_steps:
+        want = exp_g if s_["kind"] == "g" else (
+            exp_d if not s_["r1"] else exp_d_for if s_["fwd_over_rev"]
+            else exp_d_r1)
+        log(f"upsampler {s_['kind']}_step r1={s_['r1']}"
+            f"{' (forward-over-reverse)' if s_['fwd_over_rev'] else ''}: "
+            f"{s_['ms']:.3f} ms, peak {s_['peak_gib']:.3f} GiB, launches "
+            f"{s_['launches']}, losses "
+            + ", ".join(f"{k} {v:.4g}" for k, v in s_["losses"].items()))
+        if not all(np.isfinite(v) for v in s_["losses"].values()):
+            fail(f"non-finite losses in {s_}")
+        if s_["kind"] == "d" and s_["r1"] and \
+                s_["losses"]["gradient_penalty"] == 0.0:
+            fail(f"upsampler d_step: the R1 penalty is zero: {s_}")
+        if s_["launches"] != want:
+            fail(f"upsampler {s_['kind']}_step (r1={s_['r1']}) launched "
+                 f"{s_['launches']}, the path implies {want}")
+    if any(n_ == 0 for n_ in up_launches.values()):
+        fail(f"a kernel of the upsampler path was never launched: "
+             f"{up_launches}")
+    log(f"upsampler path: {ITERATIONS} iterations (R1 on 0 and 4) and 2 "
+        f"forward-over-reverse R1 iterations, launches {up_launches}")
+    ror = up_steps[:2 * ITERATIONS]
+    d_plain = [s_["ms"] for s_ in ror if s_["kind"] == "d" and not s_["r1"]]
+    d_r1 = [s_["ms"] for s_ in ror if s_["kind"] == "d" and s_["r1"]]
+    g_ms = [s_["ms"] for s_ in ror if s_["kind"] == "g"]
+    d_for = [s_["ms"] for s_ in up_steps[2 * ITERATIONS:]
+             if s_["kind"] == "d"]
+    cadence_ms = sum(s_["ms"] for s_ in ror[2 * R1_EVERY:4 * R1_EVERY])
+    peak = {key: max(s_["peak_gib"] for s_ in up_steps if sel(s_))
+            for key, sel in (
+                ("d_step_r1", lambda s_: s_["kind"] == "d" and s_["r1"]
+                 and not s_["fwd_over_rev"]),
+                ("d_step_r1_fwd_over_rev",
+                 lambda s_: s_["kind"] == "d" and s_["fwd_over_rev"]),
+                ("d_step", lambda s_: s_["kind"] == "d" and not s_["r1"]),
+                ("g_step", lambda s_: s_["kind"] == "g"))}
+    up["timing"] = tm = dict(
+        d_step_ms=statistics.median(d_plain),
+        d_step_r1_ms=statistics.median(d_r1),
+        d_step_r1_fwd_over_rev_ms=d_for,
+        g_step_ms=statistics.median(g_ms), cadence_ms=cadence_ms,
+        images_per_s=R1_EVERY * BATCH / (cadence_ms / 1e3), peak_gib=peak,
+        held_gib=min(s_["base_gib"] for s_ in ror))
+    up["steps"], up["launches"] = up_steps, up_launches
+    log(f"upsampler b{BATCH} bf16: d_step {tm['d_step_ms']:.3f} ms "
+        f"(median of {len(d_plain)}), d_step+R1 {tm['d_step_r1_ms']:.3f} ms "
+        f"(median of {len(d_r1)}; forward-over-reverse "
+        + ", ".join(f"{v:.3f}" for v in d_for)
+        + f" ms), g_step {tm['g_step_ms']:.3f} ms (median of {len(g_ms)}); "
+        f"iterations 4-7 (one R1) {cadence_ms:.3f} ms -> "
+        f"{tm['images_per_s']:.2f} images/s; peak memory "
+        + ", ".join(f"{k} {v:.3f} GiB" for k, v in peak.items())
+        + f" (held before a step {tm['held_gib']:.3f} GiB) [{smi}]")
+    if profile:
+        profiled("upsampler_iter", lambda: up_iteration(1, False))
+        profiled("upsampler_iter_r1", lambda: up_iteration(0, True))
+
+    # sampling, batch 1 and 8: K1 per adaptive conv and K3 per attention of
+    # G per forward
+    lowres = ops.resize_image_to(up_pool[:BATCH], UPSAMPLER_G[
+        "input_image_size"], "nearest").cpu().numpy()
+    gen_ms = {1: [], BATCH: []}
+    reset_counts()
+    for i in range(4):
+        for bs in (1, BATCH):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            img = gan.generate(lowres[:bs], seed=i)
+            gen_ms[bs].append((time.perf_counter() - t) * 1e3)
+            if img.shape != (bs, size, size, 3) or not np.isfinite(
+                    img).all():
+                fail(f"upsampler sampling gave {img.shape} / non-finite")
+    counts = read_counts()
+    per = {k: 0 for k in counts}
+    per.update(k1=8 * n_g, k3=8 * n_ga)
+    if counts != per:
+        fail(f"upsampler sampling launched {counts}, the path implies {per}")
+    up["sampling"] = dict(
+        latency_ms_b1=statistics.median(gen_ms[1][1:]),
+        images_per_s_b8=BATCH / (statistics.median(gen_ms[BATCH][1:]) / 1e3),
+        ms=gen_ms, launches=counts)
+    log(f"upsampler sampling 64 -> 256: batch-1 latency "
+        f"{up['sampling']['latency_ms_b1']:.3f} ms, batch-{BATCH} "
+        f"{up['sampling']['images_per_s_b8']:.2f} images/s (medians of 3 "
+        f"after one warm-up) [{smi}]")
+    del gan
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a 256 -> 1024 request with the same widths: K1 on 1024² maps, K3 at
+    # 16384 tokens
+    big = GigaGAN(generator=UPSAMPLER_1K, train_upsampler=True, amp=True,
+                  device="cuda", seed=0)
+    lowres_1k = np.random.default_rng(0).random(
+        (1, 256, 256, 3)).astype(np.float32)
+    big.generate(lowres_1k, seed=0)  # warm-up
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    big_ms = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img = big.generate(lowres_1k, seed=1 + i)
+        big_ms.append((time.perf_counter() - t) * 1e3)
+    counts = read_counts()
+    if img.shape != (1, 1024, 1024, 3) or not np.isfinite(img).all():
+        fail(f"the 256 -> 1024 request gave {img.shape} / non-finite")
+    per = {k: 0 for k in counts}
+    per.update(k1=3 * n_g, k3=3 * n_ga)
+    if counts != per:
+        fail(f"the 256 -> 1024 request launched {counts}, the path implies "
+             f"{per}")
+    up["sampling_1k"] = dict(
+        latency_ms=statistics.median(big_ms), ms=big_ms,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        held_gib=base / 2 ** 30, launches=counts)
+    log(f"upsampler 256 -> 1024, batch 1: latency "
+        f"{up['sampling_1k']['latency_ms']:.3f} ms (median of 3: "
+        + ", ".join(f"{v:.3f}" for v in big_ms)
+        + f"), peak {up['sampling_1k']['peak_gib']:.3f} GiB (held "
+        f"{up['sampling_1k']['held_gib']:.3f}) [{smi}]")
+    k1.adaptive_conv_fwd, k1.adaptive_conv_bwd_w = k1_dispatch, k2_dispatch
+    del big
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32 steps through the kernels against the plain path with float64
+    # attention (phase 13's reference; the plain fp32 path is the
+    # control), from one fresh state: d_step+R1 in both forms and g_step
+    def up_fp32_step(kind, plain, fwd_over_rev=False, f64_attention=False):
+        g32 = up_gan(gp_fwd_over_rev=fwd_over_rev)
+        batch_ = up_pool[:UP_FP32_BATCH]
+        with (plain_reference() if plain else contextlib.nullcontext()), \
+                (float64_attention() if f64_attention
+                 else contextlib.nullcontext()):
+            if kind == "d":
+                m = g32.train_discriminator_step(
+                    batch_, apply_gradient_penalty=True,
+                    calc_multiscale_loss=True, seed=7)
+                models = (("D", g32.D),)
+            else:
+                m = g32.train_generator_step(batch_,
+                                             calc_multiscale_loss=True,
+                                             seed=7)
+                models = (("G", g32.G),)
+        res = ({k: float(v) for k, v in m.items()},
+               {f"{name_}.{n_}": (p.grad if p.grad is not None else
+                                  torch.zeros_like(p)).detach().clone()
+                for name_, mod in models
+                for n_, p in mod.named_parameters()})
+        del g32
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    up["fp32_vs_plain"] = {}
+    for kind, label, fwd_over_rev in (
+            ("d", "d_step +R1", False),
+            ("d", "d_step +R1 forward-over-reverse", True),
+            ("g", "g_step", False)):
+        ref = up_fp32_step(kind, True, fwd_over_rev, True)
+        kernels = up_fp32_step(kind, False, fwd_over_rev)
+        plain32 = up_fp32_step(kind, True, fwd_over_rev)
+        up["fp32_vs_plain"][label] = dict(
+            control=compare(
+                f"upsampler fp32 b{UP_FP32_BATCH} {label}, plain path vs "
+                "plain with float64 attention (control)", plain32, ref,
+                tol=None),
+            kernels_vs_plain=compare(
+                f"upsampler fp32 b{UP_FP32_BATCH} {label}, kernels vs plain "
+                "path", kernels, plain32, tol=None),
+            kernels=compare(
+                f"upsampler fp32 b{UP_FP32_BATCH} {label}, kernels vs plain "
+                "path with float64 attention", kernels, ref))
+        del ref, kernels, plain32
+
+    # the video net, fp32, one clip: every K3 launch of the forward takes
+    # at most MAX_BATCH rows, and the last up stage's temporal attention
+    # (256² rows) splits
+    k3_batches = []
+    k3_entries = {r: getattr(k3, f"flash_attention_fused_fwd_{r}")
+                  for r in ("tc", "simt")}
+
+    def k3_batch_of(entry):
+        def call(q, *rest):
+            k3_batches.append(q.shape[0])
+            return entry(q, *rest)
+        call.launches = 0  # the entry counts on the name it is called by
+        return call
+
+    vid = UnetUpsampler(**UPSAMPLER_VIDEO)
+    init_parameters(vid, torch.Generator().manual_seed(0))
+    vid.to(dev)
+    vgen = torch.Generator(device=dev).manual_seed(3)
+    inp = UPSAMPLER_VIDEO["input_image_size"]
+    clip_in = torch.rand(1, VIDEO_FRAMES, inp, inp, 3, device=dev,
+                         generator=vgen)
+    vnoise = torch.randn(1, UPSAMPLER_VIDEO["style_network"]["dim"],
+                         device=dev, generator=vgen)
+    for r_, e_ in k3_entries.items():
+        setattr(k3, f"flash_attention_fused_fwd_{r_}", k3_batch_of(e_))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    try:
+        with torch.no_grad():
+            got = vid(clip_in, noise=vnoise)
+        torch.cuda.synchronize()
+        video_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        for r_, e_ in k3_entries.items():
+            setattr(k3, f"flash_attention_fused_fwd_{r_}", e_)
+    video_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.no_grad(), plain_reference():
+        want = vid(clip_in, noise=vnoise)
+    # frames double at every up stage and halve at every down stage that
+    # pools
+    stages = len(UPSAMPLER_VIDEO["dim_mults"])
+    pools = stages - int(np.log2(UPSAMPLER_VIDEO["image_size"] // inp))
+    frames = VIDEO_FRAMES * 2 ** stages // 2 ** pools
+    rel = rel_err(got, want)
+    up["video"] = dict(shape=list(got.shape), rel=rel, ms=video_ms,
+                       peak_gib=video_peak,
+                       k3_batches=sorted(set(k3_batches)),
+                       k3_launches=len(k3_batches))
+    log(f"upsampler video fp32, {VIDEO_FRAMES} frames {inp}² -> "
+        f"{tuple(got.shape)}: kernels vs plain path rel {rel:.2e} (tol "
+        f"{VIDEO_TOL}), {video_ms:.1f} ms, peak {video_peak:.3f} GiB, "
+        f"{len(k3_batches)} K3 launches, batches "
+        f"{sorted(set(k3_batches))} [{smi}]")
+    if tuple(got.shape) != (1, frames, 256, 256, 3) or not bool(
+            torch.isfinite(got).all()) or not rel <= VIDEO_TOL:
+        fail(f"the video forward disagrees: {up['video']}")
+    if max(k3_batches, default=0) > k3.MAX_BATCH or \
+            k3.MAX_BATCH not in k3_batches:
+        fail(f"the video forward's K3 launches took batches "
+             f"{sorted(set(k3_batches))}: the 65536-row temporal attention "
+             "did not split at the grid limit")
+    del vid, got, want, clip_in
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K3, K4 and K5 past the grid limit: a batch of 65536 + 8 at the video
+    # temporal attention's size (16 tokens), with and without the null
+    # token, fp32 and bf16; each call must run as two launches
+    split_rows = []
+    for null in (False, True):
+        for dtype in (torch.float32, bf16):
+            args = attn_operands(SPLIT_ROWS, HEADS, 16, 16, DIM_HEAD, null,
+                                 null, dtype)
+            q, k_pre, v, bias, nullk, nullv, null_bias, _ = args
+            route = "tc" if k3.uses_tensor_cores(dtype, DIM_HEAD) else "simt"
+            route5 = ("tc" if so.so_uses_tensor_cores(dtype, DIM_HEAD)
+                      else "simt")
+            entries = {k_: (tc_entry if r_ == "tc" else simt)[k_]
+                       for k_, r_ in (("k3", route), ("k4", route),
+                                      ("k5", route5))}
+            before = {k_: e_.launches for k_, e_ in entries.items()}
+            out, lse = k3.flash_attention_fused_fwd(*args)
+            o_want, l_want = k3.flash_attention_fused_fwd_plain(*args)
+            g = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
+            bargs = (q, k_pre, v, bias, nullk, nullv, null_bias, g, out,
+                     lse, HEADS)
+            got4 = so.flash_attention_fused_bwd(*bargs)
+            want4 = so.flash_attention_fused_bwd_plain(*bargs)
+            cots = [None if w_ is None else torch.randn(
+                w_.shape, device=dev, generator=gen).to(w_.dtype)
+                for w_ in want4]
+            args5 = (*bargs[:8], lse, *cots, HEADS)
+            got5 = so.flash_attention_so_bwd2(*args5)
+            want5 = so.flash_attention_so_bwd2_plain(*args5)
+            torch.cuda.synchronize()
+            ran = {k_: e_.launches - before[k_] for k_, e_ in entries.items()}
+            row = dict(
+                b=SPLIT_ROWS, n=16, null=null, dtype=dtype_name(dtype),
+                route=route, route_k5=route5, launches=ran,
+                rel_k3=max(rel_err(out, o_want), rel_err(lse, l_want)),
+                rel_k4=max(rel_err(a_, w_) for a_, w_ in zip(got4, want4)
+                           if w_ is not None),
+                rel_k5=max(rel_err(a_, w_) for a_, w_ in zip(got5, want5)
+                           if w_ is not None))
+            split_rows.append(row)
+            log(f"K3-K5 at b{SPLIT_ROWS} n16 null={null} {row['dtype']} "
+                f"({route}, K5 {route5}): launches {ran}, rel K3 "
+                f"{row['rel_k3']:.2e} K4 {row['rel_k4']:.2e} K5 "
+                f"{row['rel_k5']:.2e}")
+            if ran != {"k3": 2, "k4": 2, "k5": 2} or not (
+                    row["rel_k3"] <= K3_TOL and row["rel_k4"] <= K4_TOL
+                    and row["rel_k5"] <= K5_TOL):
+                fail(f"K3-K5 past the grid limit: {row}")
+            del args, bargs, args5, out, lse, o_want, l_want, got4, want4
+            del got5, want5, cots, q, k_pre, v, g
+            torch.cuda.empty_cache()
+    up["split"] = split_rows
+
+    # K1 and K2 at every shape and dtype of the run, the sampling and the
+    # 1024 request, against their plain versions; the bf16 shapes timed
+    # beside the plain version and (K1) cuDNN's grouped conv
+    up_conv_rows, held = [], []
+    for key, n_calls in sorted(path_calls.items(), key=conv_key_order):
+        entry, operands, out, plain_fn, kernel_fn = check_conv_call(
+            key, n_calls, "upsampler")
+        held.append(entry)
+        if entry["dtype"] == "bfloat16" and entry["banks"] == 2:
+            rows_, h, w_, ci, co = (entry[k_] for k_ in (
+                "rows", "h", "w", "ci", "co"))
+            flops = 2.0 * rows_ * h * w_ * 9 * ci * co
+            entry.update(
+                ms=time_ms(lambda: kernel_fn(*operands), torch),
+                plain_ms=time_ms(lambda: plain_fn(*operands), torch),
+                bound=bound(flops, nbytes(*operands, *out)))
+            if entry["kernel"] == "k1":
+                xb, w, a, d = operands
+                wg = torch.einsum("bn,nijcd,bd->bdcij", a, w.float(),
+                                  d).reshape(rows_ * co, ci, 3, 3).to(bf16)
+                xg = xb.permute(0, 3, 1, 2).reshape(1, rows_ * ci, h, w_)
+                entry["library_ms"] = time_ms(
+                    lambda: torch.nn.functional.conv2d(
+                        xg, wg, padding=1, groups=rows_), torch)
+                del wg, xg
+            up_conv_rows.append(entry)
+            log(f"{entry['kernel']} upsampler b{rows_} {h}x{w_} {ci}->{co} "
+                f"bf16 x{entry['calls']}: route {entry['routes'][0]}, rel "
+                f"{entry['rel']:.2e} | {entry['ms']:.4f} ms (plain "
+                f"{entry['plain_ms']:.4f}"
+                + (f", cuDNN grouped conv {entry['library_ms']:.4f}"
+                   if "library_ms" in entry else "")
+                + f", bound {entry['bound'][0]:.4f}) [{smi}]")
+        del operands, out
+        torch.cuda.empty_cache()
+    log_held(held, "upsampler path")
+    up["conv_calls"], up["conv_rows"] = held, up_conv_rows
+
+    # K3 and K4 at G's three attention shapes (8 heads of 64, dot product,
+    # no null token; 5 layers at 1024, 256, 64, 256 and 1024 tokens), and
+    # K3 at the 1024 request's 16384 tokens, beside SDPA
+    up_attn_rows = []
+    for b, n in ((BATCH, 1024), (BATCH, 256), (BATCH, 64), (1, 16384)):
+        args = attn_operands(b, HEADS, n, n, DIM_HEAD, False, False, bf16)
+        q = args[0]
+        o_want, l_want = k3.flash_attention_fused_fwd_plain(*args)
+        out, lse = k3.flash_attention_fused_fwd(*args)
+        row = dict(b=b, n=n, rel_k3=max(rel_err(out, o_want),
+                                        rel_err(lse, l_want)),
+                   k3_ms=time_ms(lambda: k3.flash_attention_fused_fwd(
+                       *args), torch),
+                   k3_plain_ms=time_ms(
+                       lambda: k3.flash_attention_fused_fwd_plain(*args),
+                       torch),
+                   k3_bound=attn_bound(2, b * HEADS, n, n, DIM_HEAD,
+                                       nbytes(*args[:-1], out, lse)))
+        sd = sdpa_operands(torch, *args)
+        del o_want, l_want
+        if n <= 1024:
+            g = torch.randn(q.shape, device=dev, generator=gen).to(bf16)
+            bargs = (*args[:7], g, out, lse, HEADS)
+            want4 = so.flash_attention_fused_bwd_plain(*bargs)
+            got4 = so.flash_attention_fused_bwd(*bargs)
+            row.update(
+                rel_k4=max(rel_err(a_, w_) for a_, w_ in zip(got4, want4)
+                           if w_ is not None),
+                k4_ms=time_ms(lambda: so.flash_attention_fused_bwd(*bargs),
+                              torch),
+                k4_plain_ms=time_ms(
+                    lambda: so.flash_attention_fused_bwd_plain(*bargs),
+                    torch),
+                k4_bound=attn_bound(5, b * HEADS, n, n, DIM_HEAD, nbytes(
+                    *bargs[:-1], *(t_ for t_ in got4 if t_ is not None))))
+            row["sdpa_ms"], row["sdpa_bwd_ms"], row["sdpa_note"] = \
+                sdpa_times(torch, *sd, g)
+            del g, bargs, want4, got4
+        else:
+            row["sdpa_ms"], _, row["sdpa_note"] = sdpa_times(torch, *sd)
+        up_attn_rows.append(row)
+        log(f"K3/K4 upsampler G b{b} H{HEADS} n{n} d{DIM_HEAD} bf16: rel K3 "
+            f"{row['rel_k3']:.2e}"
+            + (f" K4 {row['rel_k4']:.2e}" if "rel_k4" in row else "")
+            + f" | K3 {row['k3_ms']:.4f} ms (plain {row['k3_plain_ms']:.4f}"
+            f", SDPA {row['sdpa_ms']}, bound {row['k3_bound'][0]:.4f})"
+            + (f", K4 {row['k4_ms']:.4f} ms (plain "
+               f"{row['k4_plain_ms']:.4f}, SDPA backward "
+               f"{row['sdpa_bwd_ms']}, bound {row['k4_bound'][0]:.4f})"
+               if "k4_ms" in row else "") + f" [{smi}]")
+        if not (row["rel_k3"] <= K3_TOL
+                and row.get("rel_k4", 0.0) <= K4_TOL):
+            fail(f"K3/K4 disagree at an upsampler shape: {row}")
+        del args, out, lse, sd, q
+        torch.cuda.empty_cache()
+    up["attention"] = up_attn_rows
+    del up_pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    up["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14 (the upsampler path): {up['seconds']:.1f} s")
+
+    # --------------------------------------------------------------- 15
     mult = {}
     for _, h, ci, co in convs:
         mult[(h, ci, co)] = mult.get((h, ci, co), 0) + 1
@@ -2498,6 +3255,7 @@ def main():
              replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:86",
              launches=t2i_launches["k1"],
              launches_unconditional=train_launches["k1"],
+             launches_upsampler=up_launches["k1"],
              max_abs_err=max([max(r["abs_f32"], r["abs_bf16"])
                               for r in k1_rows.values()]
                              + [r["abs"] for r in k1_extra]),
@@ -2509,6 +3267,7 @@ def main():
              replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:269",
              launches=t2i_launches["k2"],
              launches_unconditional=train_launches["k2"],
+             launches_upsampler=up_launches["k2"],
              max_abs_err=max([max(r["abs_f32"], r["abs_bf16"])
                               for r in k2_rows.values()]
                              + [r["abs"] for r in k2_extra]
@@ -2523,6 +3282,7 @@ def main():
              replaces="gigagan_tpu/ops/pallas/flash_attention_fused.py:95",
              launches=t2i_launches["k3"],
              launches_unconditional=train_launches["k3"],
+             launches_upsampler=up_launches["k3"],
              max_abs_err=max(max(r["abs_out"], r["abs_lse"])
                              for r in k3_rows),
              **timing(d_step["k3"]),
@@ -2533,6 +3293,7 @@ def main():
              replaces="gigagan_tpu/ops/pallas/flash_attention_so.py:191",
              launches=t2i_launches["k4"],
              launches_unconditional=train_launches["k4"],
+             launches_upsampler=up_launches["k4"],
              max_abs_err=max(r["abs"] for r in k4_rows),
              **timing(d_step["k4"]),
              simt_source="gigagan_tpu_torch/csrc/flash_attention_fused_bwd.cu",
@@ -2542,6 +3303,7 @@ def main():
              replaces="gigagan_tpu/ops/pallas/flash_attention_so.py:297",
              launches=t2i_launches["k5"],
              launches_unconditional=train_launches["k5"],
+             launches_upsampler=up_launches["k5"],
              max_abs_err=max(r["abs"] for r in k5_rows),
              **timing(r1_bf16),
              simt_source="gigagan_tpu_torch/csrc/flash_attention_so_bwd2.cu",
@@ -2571,6 +3333,7 @@ def main():
             replaces=f"gigagan_tpu/ops/pallas/{replaces}",
             launches=t2i_launches[key],
             launches_unconditional=for_launches[key],
+            launches_upsampler=up_launches[key],
             max_abs_err=max([r[key]["abs"] for r in hv_rows]
                             + [r[key]["abs"] for r in k6_masked
                                if key in r]),
@@ -2580,7 +3343,8 @@ def main():
     # launches: the text-to-image path's run (phase 13: 8 iterations, R1
     # reverse-over-reverse on two, then 2 forward-over-reverse R1
     # iterations); launches_unconditional: phase 9's (K1-K5) or phase 10's
-    # (K6a-K7b) 8 iterations of the quickstart pair
+    # (K6a-K7b) 8 iterations of the quickstart pair; launches_upsampler:
+    # phase 14's run of the upsampler recipe (as phase 13's)
     report["kernels"] = kernels
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2590,4 +3354,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--deterministic-resume" in sys.argv[1:]:
+        sys.exit(deterministic_resume())
     main()

@@ -3,10 +3,11 @@ Hopper.
 
 Module paths mirror the JAX package.  Feature maps are channels-last
 ``(b, h, w, c)`` at every public function, as in the JAX package.  Ported:
-the generator's sampling path, the G+D training steps and trainer, and the
+the generator's sampling path, the G+D training steps and trainer, the
 text-conditioned path (CLIP and its adapter, the text encoders,
 cross-attention, the conditional discriminator, the vision-aided
-discriminator, the matching-aware and contrastive losses).
+discriminator, the matching-aware and contrastive losses), and the UNet
+upsampler (image and video) with its trainer.
 On the card the adaptive convs run the hand-written CUDA kernels K1
 (forward and input gradient) and K2 (weight gradient), and the fused-heads
 self-attention K3 (forward), K4 (backward) and K5 (its adjoint, in the R1
@@ -25,10 +26,11 @@ from gigagan_tpu_torch.models import (  # noqa: F401
     OpenClipAdapter,
     StyleNetwork,
     TextEncoder,
+    UnetUpsampler,
     VisionAidedDiscriminator,
 )
 from gigagan_tpu_torch.train import GigaGAN  # noqa: F401
 
 __all__ = ["Discriminator", "GigaGAN", "Generator", "MockTextImageDataset",
            "OpenClipAdapter", "StyleNetwork", "TextEncoder",
-           "VisionAidedDiscriminator", "ops", "utils"]
+           "UnetUpsampler", "VisionAidedDiscriminator", "ops", "utils"]

@@ -8,12 +8,15 @@ Input: the flax ``params`` tree as nested mappings of arrays (for example
 ``jax.device_get(params)``; anything ``np.asarray`` accepts).  Naming and
 layout map as follows:
 
-- ``stages_{s}_{name}/...``   → ``stages.{s}.{name}....``
+- ``stages_{s}_{name}/...``   → ``stages.{s}.{name}....`` (and the
+  upsampler's ``downs_{s}_{name}``, ``ups_{s}_{name}``)
 - Dense ``kernel`` (in, out)  → Linear ``weight`` (out, in) (also the
   discriminator's Downsample ``proj``, which runs it as a 2×2 conv)
-- Conv ``kernel`` (kh, kw, in, out) → conv ``weight`` (out, in, kh, kw)
+- Conv ``kernel`` (kh, kw, in, out) → conv ``weight`` (out, in, kh, kw),
+  and a 1-D Conv ``kernel`` (k, in, out) → (out, in, k)
 - EqualLinear ``weight`` (in, out) (``style_net/linear_i``) → (out, in)
-- kernel banks ``weights`` (n, kh, kw, in, out), ``init_block`` (4, 4, c),
+- kernel banks ``weights`` (n, kh, kw, in, out) or (n, k, in, out),
+  ``init_block`` (4, 4, c),
   Noise ``weight``, RMSNorm ``gamma``, ``null_kv``,
   ``learned_global_token``, ``fixed_weights`` buffers (in, out) and
   biases: as they are.
@@ -30,7 +33,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-_STAGE = re.compile(r"^stages_(\d+)_(\w+)$")
+_STAGE = re.compile(r"^(stages|downs|ups)_(\d+)_(\w+)$")
 
 
 def _flatten(tree, prefix=()):
@@ -45,15 +48,15 @@ def _flatten(tree, prefix=()):
 def _torch_key_and_value(path, arr):
     head, *rest = path
     m = _STAGE.match(head)
-    segments = ["stages", m.group(1), m.group(2)] if m else [head]
+    segments = list(m.groups()) if m else [head]
     segments += rest
     leaf = segments[-1]
     if leaf == "kernel":
-        if arr.ndim not in (2, 4):
+        if arr.ndim not in (2, 3, 4):
             raise ValueError(f"{'/'.join(path)}: a kernel must be a 2-D "
-                             f"Dense or 4-D Conv kernel, got {arr.shape}")
+                             f"Dense or 3-D/4-D Conv kernel, got {arr.shape}")
         segments[-1] = "weight"
-        arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+        arr = arr.T if arr.ndim == 2 else np.moveaxis(arr, (-1, -2), (0, 1))
     elif leaf == "weight" and arr.ndim == 2:  # EqualLinear (in, out)
         arr = arr.T
     return ".".join(segments), arr

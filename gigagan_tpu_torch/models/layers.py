@@ -22,6 +22,7 @@ from torch import nn
 from gigagan_tpu_torch import ops
 from gigagan_tpu_torch.utils import exists
 from gigagan_tpu_torch.utils.init import (
+    dirac_1d_,
     kaiming_normal_leaky_,
     pixel_shuffle_icnr_,
 )
@@ -107,6 +108,30 @@ def conv3x3(dim_in: int, dim_out: int, dtype=torch.float32):
     return Conv(dim_in, dim_out, kernel=3, dtype=dtype)
 
 
+class DiracConv1d(nn.Module):
+    """flax ``nn.Conv(features, (k,), padding="SAME")`` on (b, t, c) with
+    the identity init (a torch conv1d weight (out, in, k), zero bias): the
+    upsampler's temporal conv starts as a no-op."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel: int = 3,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(dim_out, dim_in, kernel))
+        self.bias = nn.Parameter(torch.empty(dim_out))
+
+    def reset_own_parameters(self, generator=None):
+        dirac_1d_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        out = F.conv1d(x.transpose(1, 2), self.weight.to(self.dtype),
+                       self.bias.to(self.dtype),
+                       padding=self.weight.shape[-1] // 2)
+        return out.transpose(1, 2)
+
+
 class Blur(nn.Module):
     """Binomial [1,2,1] blur.  Parameter-free."""
 
@@ -174,12 +199,18 @@ class Upsample(nn.Module):
         return ops.resample.upsample_2x_blur(x)
 
 
-class _ICNRDense(Dense):
-    """A Dense whose init is ICNR: its pixel shuffle starts as a
+class ICNRDense(Dense):
+    """A Dense whose init is ICNR for a shuffle of ``factor`` (4 for a 2x
+    pixel shuffle, 2 for a 2x temporal one): the shuffle starts as a
     nearest-neighbour upsample."""
 
+    def __init__(self, dim_in: int, dim_out: int, factor: int = 4,
+                 dtype=torch.float32):
+        super().__init__(dim_in, dim_out, dtype=dtype)
+        self.factor = factor
+
     def reset_own_parameters(self, generator=None):
-        pixel_shuffle_icnr_(self.weight, 4, generator)
+        pixel_shuffle_icnr_(self.weight, self.factor, generator)
         nn.init.zeros_(self.bias)
 
 
@@ -193,8 +224,8 @@ class PixelShuffleUpsample(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         dim_out = dim if dim_out is None else dim_out
-        self.conv = (_ICNRDense if use_icnr else Dense)(dim, dim_out * 4,
-                                                         dtype=dtype)
+        self.conv = (ICNRDense if use_icnr else Dense)(dim, dim_out * 4,
+                                                        dtype=dtype)
 
     def forward(self, x):
         return ops.resample.pixel_shuffle(F.silu(self.conv(x)), 2)
@@ -258,18 +289,19 @@ class EqualLinear(nn.Module):
 
 
 class AdaptiveConv(nn.Module):
-    """Style-modulated, sample-adaptive 2-D conv over
-    ``ops.adaptive_conv``; banks ``(n, k, k, dim_in, dim_out)``."""
+    """Style-modulated, sample-adaptive conv over ``ops.adaptive_conv``:
+    2-D on (b, h, w, c) with banks ``(n, k, k, dim_in, dim_out)``, or with
+    ``rank=1`` 1-D on (b, t, c) with banks ``(n, k, dim_in, dim_out)``."""
 
     def __init__(self, dim_in: int, dim_out: int, kernel: int = 3,
                  demod: bool = True, num_conv_kernels: int = 1,
-                 dtype=torch.float32):
+                 rank: int = 2, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.demod = demod
         n = max(num_conv_kernels, 1)
         self.weights = nn.Parameter(
-            torch.empty(n, kernel, kernel, dim_in, dim_out)
+            torch.empty(n, *(kernel,) * rank, dim_in, dim_out)
         )
 
     def reset_own_parameters(self, generator=None):

@@ -22,6 +22,10 @@ with n·o output channels and a per-sample mix.  So does every conv inside
 the forward-over-reverse R1 surrogate (``flash_hv_mode()``), as JAX runs
 its convs on XLA there: K1's autograd Function has no jvp.
 
+Rank 1 (the upsampler's temporal blocks: ``(b, t, c)`` with banks
+``(n, k, in, out)``) runs step (2) on every device, as JAX runs it on XLA:
+its Pallas kernel takes rank 2 only.
+
 Feature maps are channels-last ``(b, h, w, c)``; banks are
 ``(n, kh, kw, in, out)``.
 """
@@ -71,26 +75,33 @@ def demod_scale(weights, scale_in, attn=None, eps: float = 1e-8):
     return torch.rsqrt(torch.clamp(d_sq, min=eps))
 
 
-def _conv2d(x, w, *, stride: int, dilation: int):
-    """SAME-padded conv on channels-last x (b,h,w,i) with HWIO w."""
+def _conv(x, w, *, stride: int, dilation: int):
+    """SAME-padded conv on channels-last x (b, *spatial, i) with w
+    (*k, i, o), rank 1 or 2."""
     pad = dilation * (w.shape[0] - 1) // 2
-    out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                   stride=stride, padding=pad, dilation=dilation)
-    return out.permute(0, 2, 3, 1)
+    conv = F.conv2d if w.dim() == 4 else F.conv1d
+    out = conv(x.movedim(-1, 1), w.movedim((-1, -2), (0, 1)),
+               stride=stride, padding=pad, dilation=dilation)
+    return out.movedim(1, -1)
 
 
 def adaptive_conv(x, weights, mod, kernel_mod=None, *, demod: bool = True,
                   stride: int = 1, dilation: int = 1, eps: float = 1e-8):
-    """Adaptive modulated 2-D conv.
+    """Adaptive modulated conv, 2-D or 1-D by the input's rank.
 
-    x:          (b, h, w, i) feature map, channels last
-    weights:    (n, kh, kw, i, o) kernel banks
+    x:          (b, h, w, i) or (b, t, i) feature map, channels last
+    weights:    (n, kh, kw, i, o) or (n, k, i, o) kernel banks
     mod:        (b or b/s, i) style modulation of input channels
     kernel_mod: (b or b/s, n) kernel-selection logits (None if n == 1)
     """
-    assert x.dim() == 4 and weights.dim() == 5, "2-D adaptive conv only"
+    rank = x.dim() - 2
+    assert rank in (1, 2) and weights.dim() == rank + 3, (
+        f"a rank-{rank} map needs (n, *k, i, o) banks of rank {rank}, got "
+        f"{tuple(weights.shape)}")
     b = x.shape[0]
-    n, kh, kw = weights.shape[:3]
+    n = weights.shape[0]
+    k_spatial = tuple(weights.shape[1:-2])
+    spatial = (slice(None),) + (None,) * rank
     adaptive = n > 1
     assert adaptive == exists(kernel_mod), (
         "kernel_mod must be given iff num_conv_kernels > 1"
@@ -101,7 +112,7 @@ def adaptive_conv(x, weights, mod, kernel_mod=None, *, demod: bool = True,
     scale_in = (mod + 1.0).float()  # (b, i)
 
     # (1) fold input-channel modulation into the activations
-    x = x * scale_in[:, None, None, :].to(compute_dtype)
+    x = x * scale_in[spatial].to(compute_dtype)
 
     if adaptive:
         kernel_mod = expand_batch(kernel_mod, b)
@@ -112,7 +123,7 @@ def adaptive_conv(x, weights, mod, kernel_mod=None, *, demod: bool = True,
     # K1 takes stride-1, dilation-1 3x3 convs outside the jvp of the
     # forward-over-reverse R1; any other runs step (2) below on every
     # device, as JAX runs it on its XLA conv
-    fused = (use_fused() and not hv_mode() and (kh, kw) == (3, 3)
+    fused = (use_fused() and not hv_mode() and k_spatial == (3, 3)
              and stride == 1 and dilation == 1)
     if fused:
         a = attn if adaptive else torch.ones(
@@ -128,22 +139,22 @@ def adaptive_conv(x, weights, mod, kernel_mod=None, *, demod: bool = True,
 
     # (2) one conv with n·o output channels, then per-sample bank mixing
     o = weights.shape[-1]
-    w_flat = weights.permute(1, 2, 3, 0, 4).reshape(kh, kw, -1, n * o)
+    w_flat = weights.movedim(0, -2).reshape(*k_spatial, -1, n * o)
     w_c = w_flat.to(compute_dtype)
     if adaptive:
         # fp32 per-bank outputs: bf16 rounding of the per-bank outputs
         # would blow up the relative error of the mix (see JAX notes)
-        out = _conv2d(x.float(), w_c.float(), stride=stride,
-                      dilation=dilation)
+        out = _conv(x.float(), w_c.float(), stride=stride,
+                    dilation=dilation)
         out = out.reshape(*out.shape[:-1], n, o)
-        out = torch.einsum("bn,bhwno->bhwo", attn, out).to(compute_dtype)
+        out = torch.einsum("bn,b...no->b...o", attn, out).to(compute_dtype)
     else:
-        out = _conv2d(x, w_c, stride=stride, dilation=dilation)
+        out = _conv(x, w_c, stride=stride, dilation=dilation)
 
     # (3) demodulation as an output-channel scale from the Gram matrix
     if demod:
         d = demod_scale(weights, scale_in, attn, eps)
-        out = out * d[:, None, None, :].to(compute_dtype)
+        out = out * d[spatial].to(compute_dtype)
     return out
 
 
@@ -154,18 +165,20 @@ def adaptive_conv_reference(x, weights, mod, kernel_mod=None, *,
     one conv per sample.  A numerics oracle for `adaptive_conv`."""
     b = x.shape[0]
     n = weights.shape[0]
+    rank = weights.dim() - 3
     mod = expand_batch(mod, b)
     if n > 1:
         kernel_mod = expand_batch(kernel_mod, b)
         attn = torch.softmax(kernel_mod, dim=-1)
-        w = torch.einsum("bn,n...->b...", attn, weights)  # (b, kh, kw, i, o)
+        w = torch.einsum("bn,n...->b...", attn, weights)  # (b, *k, i, o)
     else:
         w = weights[0].expand(b, *weights.shape[1:])
-    w = w * (mod + 1.0)[:, None, None, :, None]
+    w = w * (mod + 1.0)[(slice(None),) + (None,) * rank + (slice(None),
+                                                           None)]
     if demod:
-        sq = (w * w).sum(dim=(1, 2, 3), keepdim=True)
+        sq = (w * w).sum(dim=tuple(range(1, rank + 2)), keepdim=True)
         w = w * torch.rsqrt(torch.clamp(sq, min=eps))
     return torch.cat([
-        _conv2d(x[i : i + 1], w[i], stride=stride, dilation=dilation)
+        _conv(x[i : i + 1], w[i], stride=stride, dilation=dilation)
         for i in range(b)
     ])

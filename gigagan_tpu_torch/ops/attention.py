@@ -1,5 +1,6 @@
 """Attention primitives (counterpart of gigagan_tpu/ops/attention.py:
-``attend`` and ``attend_fused``).
+``attend``, ``attend_fused``, ``linear_attend`` and
+``linear_attend_fused``).
 
 The plain paths keep the JAX package's algebra:
 
@@ -25,6 +26,10 @@ package:
   ``attend``.
 
 ``plain_reference()`` takes the plain math everywhere.
+
+The upsampler's linear attention (``linear_attend``,
+``linear_attend_fused``) is plain PyTorch on every device, as it is XLA,
+not Pallas, in JAX.
 """
 
 from __future__ import annotations
@@ -101,3 +106,47 @@ def attend_fused(q, k, v, *, heads: int, null_kv=None, l2_dist: bool = False,
         vh = torch.cat((nv_tok.to(vh.dtype), vh), dim=-2)
     out = attend(qh, kh, vh, l2_dist=l2_dist, scale=scale)
     return out.permute(0, 2, 1, 3).reshape(b, nq, heads * d)
+
+
+def _softmax_over(x, dim: int):
+    """fp32 softmax of x along ``dim``, from plain reductions: torch's
+    softmax along an axis that is not the last runs a kernel that takes
+    seconds at a million tokens.  The row max is a constant (it cancels)."""
+    x = x.float()
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True).detach())
+    return e / e.sum(dim=dim, keepdim=True)
+
+
+def linear_attend(q, k, v, *, scale=None):
+    """Linear attention (the upsampler's LinearAttention2D): q, k, v (b, h,
+    n, d); q softmaxes over d, k over n, so the d×d context keeps the cost
+    linear in n.  Softmax statistics in fp32; both context products in the
+    operand dtype with fp32 accumulation."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf = torch.softmax(q.float(), dim=-1) * scale
+    kf = _softmax_over(k, -2)
+    context = torch.einsum("bhnd,bhne->bhde", kf.to(v.dtype), v)
+    out = torch.einsum("bhde,bhnd->bhne", context.to(q.dtype),
+                       qf.to(q.dtype))
+    return out.to(q.dtype)
+
+
+def linear_attend_fused(q, k, v, *, heads: int, scale=None):
+    """``linear_attend`` in the network's fused-heads layout: q, k, v (b, n,
+    H·d) → (b, n, H·d), each head a slice of the last dimension (a (b, n,
+    H, d) view), with no (b, H, n, d) copy."""
+    b, n, hd = q.shape
+    assert hd % heads == 0, (hd, heads)
+    d = hd // heads
+    if scale is None:
+        scale = d ** -0.5
+    qf = torch.softmax(q.float().reshape(b, n, heads, d), dim=-1) * scale
+    kf = _softmax_over(k.reshape(b, n, heads, d), 1)
+    vh = v.reshape(b, n, heads, d)
+    # (b, n, H, d)ᵀ(b, n, H, e) → (b, H, d, e): contraction over n
+    context = torch.einsum("bnhd,bnhe->bhde", kf.to(v.dtype), vh)
+    # (b, n, H, d)·(b, H, d, e) → (b, n, H, e)
+    out = torch.einsum("bnhd,bhde->bnhe", qf.to(q.dtype),
+                       context.to(q.dtype))
+    return out.reshape(b, n, hd).to(q.dtype)

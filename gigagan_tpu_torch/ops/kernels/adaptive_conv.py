@@ -447,7 +447,10 @@ class _PConv2d(torch.autograd.Function):
     def backward(ctx, g):
         x, weights, coeff, demod, out = ctx.saved_tensors
         acc = acc_dtype(x)
-        g_s = (g.to(acc) * demod.to(acc)[:, None, None, :]).to(x.dtype)
+        # the kernels take contiguous operands; a cotangent that comes
+        # back through a permute (the video path's space folding) is not
+        g_s = (g.to(acc) * demod.to(acc)[:, None, None, :]).to(
+            x.dtype).contiguous()
         dx = dw = dcoeff = ddemod = None
         if ctx.needs_input_grad[0]:
             ones = torch.ones((x.shape[0], x.shape[-1]), dtype=demod.dtype,

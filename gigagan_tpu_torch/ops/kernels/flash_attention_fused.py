@@ -14,6 +14,11 @@ similarity, scale for dot product), a ``(b, H, nk)`` fp32 bias row
 −scale·|k|² for L2 (None for dot product: the |q|² term is constant per
 row and cancels in the softmax), and the null token as per-head
 k_pre / v / bias rows.
+
+The kernels of K3, K4 and K5 put the batch on a grid axis of at most 65535
+blocks, so the dispatchers run a larger batch in chunks (``by_batch``):
+each sample's rows are independent, and the null token's gradients, which
+sum over the batch, are summed over the chunks in order.
 """
 
 from __future__ import annotations
@@ -26,6 +31,36 @@ from gigagan_tpu_torch.ops.kernels import build
 from gigagan_tpu_torch.ops.kernels.adaptive_conv import acc_dtype
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# samples per launch: the kernels' grids put the batch on an axis of at
+# most 65535 blocks
+MAX_BATCH = 65535
+
+
+def by_batch(kernel, args, batched, summed=(), chunk=None):
+    """``kernel(*args)`` on chunks of at most ``chunk`` (MAX_BATCH by
+    default) samples: the operands at the indices ``batched`` are sliced
+    along the batch (None passes as None), the others pass whole; the
+    outputs at the indices ``summed`` (the null token's gradients, or None)
+    are added over the chunks in order, the others concatenated."""
+    chunk = chunk or MAX_BATCH
+    b = args[0].shape[0]
+    if b <= chunk:
+        return kernel(*args)
+    parts = [kernel(*(t[i:i + chunk] if j in batched and t is not None
+                      else t for j, t in enumerate(args)))
+             for i in range(0, b, chunk)]
+    outs = []
+    for j, got in enumerate(zip(*parts)):
+        if got[0] is None:
+            outs.append(None)
+        elif j in summed:
+            total = got[0]
+            for t in got[1:]:
+                total = total + t
+            outs.append(total)
+        else:
+            outs.append(torch.cat(got))
+    return tuple(outs)
 
 
 def prep_fused(k, v, null_kv, heads: int, l2_dist: bool, scale: float):
@@ -241,8 +276,8 @@ flash_attention_fused_fwd_tc.launches = 0
 def flash_attention_fused_fwd(q, k_pre, v, bias, nullk_pre, nullv,
                               null_bias, heads: int):
     """K3: its plain version on CPU tensors; on CUDA tensors the
-    tensor-core or the CUDA-core kernel by ``uses_tensor_cores``.
-    Returns (out, lse)."""
+    tensor-core or the CUDA-core kernel by ``uses_tensor_cores``, in chunks
+    of at most MAX_BATCH samples.  Returns (out, lse)."""
     if q.device.type == "cpu":
         return flash_attention_fused_fwd_plain(
             q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads
@@ -250,4 +285,5 @@ def flash_attention_fused_fwd(q, k_pre, v, bias, nullk_pre, nullv,
     d = _head_dim("flash_attention_fused_fwd", q, heads)
     kernel = (flash_attention_fused_fwd_tc if uses_tensor_cores(q.dtype, d)
               else flash_attention_fused_fwd_simt)
-    return kernel(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)
+    return by_batch(kernel, (q, k_pre, v, bias, nullk_pre, nullv, null_bias,
+                             heads), batched=(0, 1, 2, 3))

@@ -59,6 +59,7 @@ from gigagan_tpu_torch.ops.kernels.flash_attention_fused import (
     _check,
     _head_dim,
     _ptr,
+    by_batch,
     check_tc,
     flash_attention_fused_fwd,
     prep_fused,
@@ -243,8 +244,8 @@ flash_attention_fused_bwd_tc.launches = 0
 def flash_attention_fused_bwd(q, k_pre, v, bias, nullk_pre, nullv,
                               null_bias, g, out, lse, heads: int):
     """K4: its plain version on CPU tensors; on CUDA tensors the
-    tensor-core or the CUDA-core kernel by ``uses_tensor_cores`` (same
-    returns as the plain version)."""
+    tensor-core or the CUDA-core kernel by ``uses_tensor_cores``, in chunks
+    of at most MAX_BATCH samples (same returns as the plain version)."""
     if q.device.type == "cpu":
         return flash_attention_fused_bwd_plain(
             q, k_pre, v, bias, nullk_pre, nullv, null_bias, g, out, lse,
@@ -253,8 +254,9 @@ def flash_attention_fused_bwd(q, k_pre, v, bias, nullk_pre, nullv,
     d = _head_dim("flash_attention_fused_bwd", q, heads)
     kernel = (flash_attention_fused_bwd_tc if uses_tensor_cores(q.dtype, d)
               else flash_attention_fused_bwd_simt)
-    return kernel(q, k_pre, v, bias, nullk_pre, nullv, null_bias, g, out,
-                  lse, heads)
+    return by_batch(kernel, (q, k_pre, v, bias, nullk_pre, nullv, null_bias,
+                             g, out, lse, heads),
+                    batched=(0, 1, 2, 3, 7, 8, 9), summed=(4, 5, 6))
 
 
 # ------------------------------------------------------------------ K5
@@ -445,8 +447,9 @@ def flash_attention_so_bwd2(q, k_pre, v, bias, nullk_pre, nullv, null_bias,
                             g, lse, cdq, cdk, cdv, cdbias, cdnullk, cdnullv,
                             cdnull_bias, heads: int):
     """K5: its plain version on CPU tensors; on CUDA tensors the
-    tensor-core or the CUDA-core kernel by ``so_uses_tensor_cores`` (same
-    returns as the plain version)."""
+    tensor-core or the CUDA-core kernel by ``so_uses_tensor_cores``, in
+    chunks of at most MAX_BATCH samples (same returns as the plain
+    version)."""
     args = (q, k_pre, v, bias, nullk_pre, nullv, null_bias, g, lse, cdq,
             cdk, cdv, cdbias, cdnullk, cdnullv, cdnull_bias, heads)
     if q.device.type == "cpu":
@@ -454,7 +457,8 @@ def flash_attention_so_bwd2(q, k_pre, v, bias, nullk_pre, nullv, null_bias,
     d = _head_dim("flash_attention_so_bwd2", q, heads)
     kernel = (flash_attention_so_bwd2_tc if so_uses_tensor_cores(q.dtype, d)
               else flash_attention_so_bwd2_simt)
-    return kernel(*args)
+    return by_batch(kernel, args, batched=(0, 1, 2, 3, 7, 8, 9, 10, 11, 12),
+                    summed=(4, 5, 6))
 
 
 # ------------------------------------------------------ the autograd chain

@@ -42,6 +42,12 @@ inside the R1 double backward (K6a, K6b, K7a and K7b in the
 forward-over-reverse surrogate instead of K5), and G's adaptive convs
 K1/K2 — all through the autograd Functions of ``ops/kernels``.
 
+Training the upsampler (``train_upsampler``), as in JAX: G is the
+``UnetUpsampler``, fed the reals resized to its input size by 'nearest'
+(torch's default ``F.interpolate`` mode, as the reference does), so the
+g_step takes the real batch as the d_step does; D reads the rgbs of G's
+``return_all_rgbs`` at its multiscale resolutions.
+
 Options, as in JAX:
 
 - ``grad_accum_every``: the batch arrives as (accum, mb, h, w, c); each
@@ -77,6 +83,7 @@ from typing import List, Optional
 import torch
 
 from gigagan_tpu_torch import losses as L
+from gigagan_tpu_torch import ops
 from gigagan_tpu_torch.ops.kernels.flash_attention_hv import flash_hv_mode
 from gigagan_tpu_torch.utils import exists
 from gigagan_tpu_torch.utils.remat import remat
@@ -140,7 +147,9 @@ class TrainStepBuilder:
                  generator_contrastive_loss_weight: float = 0.1,
                  matching_awareness_loss_weight: float = 0.1,
                  diff_augment=None, gp_chunk: Optional[int] = None,
-                 gp_fwd_over_rev: bool = False, remat: bool = False):
+                 gp_fwd_over_rev: bool = False, remat: bool = False,
+                 train_upsampler: bool = False,
+                 input_image_size: Optional[int] = None):
         self.G = generator
         self.D = discriminator
         self.VD = vision_aided_discriminator
@@ -158,6 +167,10 @@ class TrainStepBuilder:
         self.gp_chunk = gp_chunk
         self.gp_fwd_over_rev = gp_fwd_over_rev
         self.remat = remat
+        self.train_upsampler = train_upsampler
+        self.input_image_size = input_image_size
+        assert not train_upsampler or exists(input_image_size), (
+            "training the upsampler needs its input_image_size")
 
     @property
     def unconditional(self):
@@ -176,7 +189,14 @@ class TrainStepBuilder:
     def want_matching(self):
         return not self.unconditional and self.matching_w > 0.0
 
-    def _generate(self, batch_size, draws, generator, text=None):
+    def _generate(self, batch_size, draws, generator, text=None, real=None):
+        """G's output and rgbs for ``batch_size`` fakes; the upsampler's
+        from the reals resized to its input size."""
+        if self.train_upsampler:
+            lowres = ops.resize_image_to(real, self.input_image_size,
+                                         "nearest")
+            return self.G(lowres, noise=draws.latents, text_encodings=text,
+                          return_all_rgbs=True, latent_generator=generator)
         return self.G(
             batch_size=batch_size, noise=draws.latents,
             pixel_noise=draws.pixel_noise, text_encodings=text,
@@ -247,7 +267,8 @@ class TrainStepBuilder:
         fold = self.want_matching and not (apply_gp and not chunked)
 
         with torch.no_grad():
-            fake, fake_rgbs = self._generate(b, draws, generator, text)
+            fake, fake_rgbs = self._generate(b, draws, generator, text,
+                                             real_images)
         fake_aug, fake_rgbs_aug = self._augment(fake, fake_rgbs,
                                                 draws.fake_flip,
                                                 host_generator)
@@ -465,14 +486,27 @@ class TrainStepBuilder:
         surrogate = (20.0 / real.shape[0]) * s
         return surrogate - surrogate.detach()
 
-    def g_step(self, batch_size: int, *, text_encodings=None,
-               text_embeds=None, calc_ms: bool, grad_accum_every: int = 1,
-               draws=None, generator=None, host_generator=None) -> dict:
-        """One generator update on ``grad_accum_every`` microbatches of
-        ``batch_size`` fakes (and the EMA update after it).  With text
-        conditioning the fakes' CLIP ``text_encodings`` (mb, n, d) and
-        ``text_embeds`` (mb, e), or (accum, mb, ...)."""
+    def g_step(self, batch, *, text_encodings=None, text_embeds=None,
+               calc_ms: bool, grad_accum_every: int = 1, draws=None,
+               generator=None, host_generator=None) -> dict:
+        """One generator update on ``grad_accum_every`` microbatches (and
+        the EMA update after it).  ``batch``: the microbatch size (an int),
+        or the real batch, (mb, h, w, c) or (accum, mb, h, w, c), whose
+        size it takes; training the upsampler, the reals, whose low-res
+        copies G upsamples.  With text conditioning the fakes' CLIP
+        ``text_encodings`` (mb, n, d) and ``text_embeds`` (mb, e), or
+        (accum, mb, ...)."""
         accum = grad_accum_every
+        reals = None
+        if isinstance(batch, int):
+            batch_size = batch
+        else:
+            reals = _stack(batch, batch.dim() == 5)
+            assert reals.shape[0] == accum, (
+                f"batch leading dim {reals.shape[0]} != grad_accum {accum}")
+            batch_size = reals.shape[1]
+        assert not self.train_upsampler or exists(reals), (
+            "the upsampler's g_step needs the real batch")
         accumulated = exists(text_encodings) and text_encodings.dim() == 4
         texts = _stack(text_encodings, accumulated)
         embeds = _stack(text_embeds, accumulated)
@@ -489,7 +523,8 @@ class TrainStepBuilder:
                 "zero gradient")
             if accum > 1:
                 pool, states = self._contrastive_pool(batch_size, texts,
-                                                      embeds, micro, gens)
+                                                      embeds, micro, gens,
+                                                      reals)
         params = [p for p in self.G.parameters() if p.requires_grad]
         self.g_opt.zero_grad(set_to_none=True)
         metrics = {}
@@ -499,7 +534,8 @@ class TrainStepBuilder:
             loss = functools.partial(
                 self._g_loss, batch_size, d, calc_ms, generator,
                 host_generator, texts[i] if exists(texts) else None,
-                embeds[i] if exists(embeds) else None, *pool[i], accum)
+                embeds[i] if exists(embeds) else None, *pool[i], accum,
+                reals[i] if exists(reals) else None)
             if self.remat:
                 total, m = remat(loss,
                                  generators=(generator, host_generator))
@@ -516,7 +552,8 @@ class TrainStepBuilder:
             self.ema.update(self.G)
         return metrics
 
-    def _contrastive_pool(self, batch_size, texts, embeds, micro, gens):
+    def _contrastive_pool(self, batch_size, texts, embeds, micro, gens,
+                          reals=None):
         """The pooled InfoNCE over every microbatch's augmented fakes, from
         a forward-only pass with each microbatch's draws: per microbatch
         (∂L/∂eᵢ, L), and the generators' states at each microbatch's start,
@@ -525,7 +562,9 @@ class TrainStepBuilder:
         with torch.no_grad():
             for i, d in enumerate(micro):
                 states.append(_states(*gens))
-                fake, rgbs = self._generate(batch_size, d, gens[0], texts[i])
+                fake, rgbs = self._generate(
+                    batch_size, d, gens[0], texts[i],
+                    reals[i] if exists(reals) else None)
                 fake_aug, _ = self._augment(fake, rgbs, d.fake_flip, gens[1])
                 image_embeds.append(self.clip.embed_images(fake_aug)[0])
         e = torch.cat(image_embeds).requires_grad_()
@@ -537,9 +576,9 @@ class TrainStepBuilder:
 
     def _g_loss(self, batch_size, draws, calc_ms, generator, host_generator,
                 text=None, embeds=None, pool_grad=None, pool_value=None,
-                accum=1):
+                accum=1, real=None):
         """One microbatch's generator losses: (total, losses)."""
-        fake, rgbs = self._generate(batch_size, draws, generator, text)
+        fake, rgbs = self._generate(batch_size, draws, generator, text, real)
         fake_aug, rgbs_aug = self._augment(fake, rgbs, draws.fake_flip,
                                            host_generator)
         dtype = self.D.dtype

@@ -22,8 +22,15 @@ adapter (``clip=OpenClipAdapter(...)``), which moves to the trainer's
 device and is neither trained nor saved.  A random-init CLIP or the hash
 tokenizer is refused unless ``allow_mock_clip=True``.  The loader then
 yields (images, captions); each batch's captions are embedded once, and
-``generate(texts=[...])`` samples for captions.  Training the upsampler
-raises ``NotImplementedError`` (ROADMAP.md Queue 1, item 6)."""
+``generate(texts=[...])`` samples for captions.
+
+Training the upsampler (``train_upsampler=True``): ``generator=dict(...)``
+builds a ``UnetUpsampler``, whose ``allowable_rgb_resolutions`` must hold
+the discriminator's multiscale resolutions; both steps take the real
+batch, whose 'nearest' low-res copies G upsamples; ``generate(lowres)``
+(or ``lowres_image=``) upsamples; the sample grids put the low-res input,
+nearest-upsampled, beside each output (from ``sample_upsampler_dl``'s
+batches when one is given)."""
 
 from __future__ import annotations
 
@@ -46,11 +53,13 @@ from gigagan_tpu_torch.losses import DiffAugment
 from gigagan_tpu_torch.models.discriminator import Discriminator
 from gigagan_tpu_torch.models.generator import Generator
 from gigagan_tpu_torch.models.layers import init_parameters
+from gigagan_tpu_torch.models.unet_upsampler import UnetUpsampler
+from gigagan_tpu_torch.ops import resize_image_to
 from gigagan_tpu_torch.models.vision_aided import VisionAidedDiscriminator
 from gigagan_tpu_torch.train.ema import EMA
 from gigagan_tpu_torch.train.optimizer import get_optimizer
 from gigagan_tpu_torch.train.steps import TrainStepBuilder
-from gigagan_tpu_torch.utils import StepTimer, exists, num_to_groups
+from gigagan_tpu_torch.utils import StepTimer, default, exists, num_to_groups
 
 # the EMA's schedule, saved with its counters
 _EMA_KWARGS = ("beta", "update_every", "update_after_step", "inv_gamma",
@@ -87,12 +96,10 @@ class GigaGAN:
                  gp_fwd_over_rev: bool = False, fused_dg_step: bool = False,
                  vision_aided_discriminator=None, clip=None,
                  allow_mock_clip: bool = False,
-                 train_upsampler: bool = False, seed: int = 42,
+                 train_upsampler: bool = False,
+                 resize_image_mode: str = "bilinear",
+                 sample_upsampler_dl=None, seed: int = 42,
                  log_hook=None, device=None):
-        if train_upsampler:
-            raise NotImplementedError(
-                "training the upsampler is not ported yet (ROADMAP.md "
-                "Queue 1, item 6)")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -104,7 +111,14 @@ class GigaGAN:
         self._rng = np.random.default_rng(seed)
         init_gen = torch.Generator().manual_seed(seed)
 
-        self.G = _promote(generator, Generator, dtype=self.dtype)
+        self.train_upsampler = train_upsampler
+        self.resize_image_mode = resize_image_mode
+        self.sample_upsampler_dl_iter = (
+            cycle(sample_upsampler_dl) if exists(sample_upsampler_dl)
+            else None)
+        self.G = _promote(generator,
+                          UnetUpsampler if train_upsampler else Generator,
+                          dtype=self.dtype)
         init_parameters(self.G, init_gen)
         self.G.to(self.device)
         self.G_ema = copy.deepcopy(self.G).eval()
@@ -159,6 +173,12 @@ class GigaGAN:
         assert self.D.unconditional == self.unconditional, (
             "the discriminator's conditioning (unconditional=...) must be "
             "the generator's")
+        if train_upsampler:
+            allowed = set(self.G.allowable_rgb_resolutions)
+            requested = set(self.D.multiscale_input_resolutions)
+            assert not (requested - allowed), (
+                f"only multiscale input resolutions of {sorted(allowed)} "
+                "are allowed based on the unet input and output image size")
         init_parameters(self.D, init_gen)
         self.D.to(self.device)
         opt_kwargs = dict(lr=learning_rate, wd=weight_decay, betas=betas)
@@ -192,7 +212,9 @@ class GigaGAN:
             discr_aux_recon_loss_weight=discr_aux_recon_loss_weight,
             diff_augment=_promote(diff_augment, DiffAugment),
             gp_chunk=gp_chunk, gp_fwd_over_rev=gp_fwd_over_rev,
-            remat=remat,
+            remat=remat, train_upsampler=train_upsampler,
+            input_image_size=(self.G.input_image_size if train_upsampler
+                              else None),
         )
 
     # ------------------------------------------------------------ weights
@@ -289,19 +311,22 @@ class GigaGAN:
                              calc_multiscale_loss: bool, draws=None,
                              seed: Optional[int] = None) -> dict:
         """One G update on ``grad_accum_every`` microbatches of ``batch``
-        fakes each (an int), or, conditional, on the texts of a batch as
-        ``train_discriminator_step`` takes it; then the EMA update;
+        fakes each (an int), or, conditional or training the upsampler, on
+        a batch as ``train_discriminator_step`` takes it (its texts, or the
+        reals whose low-res copies G upsamples); then the EMA update;
         advances the step counter."""
         self._check_trainable()
         text = embeds = None
         if isinstance(batch, int):
-            batch_size = batch
+            assert not self.train_upsampler, (
+                "the upsampler's generator step takes the real batch")
+            g_batch = batch
         else:
             real, text, embeds = self._device_batch(batch, grad_accum_every)
-            batch_size = real.shape[-4]
+            g_batch = real if self.train_upsampler else real.shape[-4]
         gen, host = self._generators(seed)
         metrics = self.builder.g_step(
-            batch_size, text_encodings=text, text_embeds=embeds,
+            g_batch, text_encodings=text, text_embeds=embeds,
             calc_ms=calc_multiscale_loss, grad_accum_every=grad_accum_every,
             draws=draws, generator=gen, host_generator=host,
         )
@@ -388,12 +413,16 @@ class GigaGAN:
                 d_batch, grad_accum_every=grad_accum_every,
                 apply_gradient_penalty=apply_gp,
                 calc_multiscale_loss=calc_ms)
-            # the fused step is unconditional only, as in JAX
-            g_batch = (d_batch if self.fused_dg_step and self.unconditional
+            # the fused step is unconditional and not the upsampler's, as
+            # in JAX
+            fused = (self.fused_dg_step and self.unconditional
+                     and not self.train_upsampler)
+            g_batch = (d_batch if fused
                        else self._collect_batch(dl_iter, grad_accum_every))
-            # the unconditional g_step reads only the batch's size
+            # the unconditional image g_step reads only the batch's size
             g = self.train_generator_step(
-                g_batch.shape[1] if self.unconditional else g_batch,
+                g_batch.shape[1] if self.unconditional
+                and not self.train_upsampler else g_batch,
                 grad_accum_every=grad_accum_every,
                 calc_multiscale_loss=calc_ms)
 
@@ -456,15 +485,22 @@ class GigaGAN:
         return exists(self.ema) or not exists(self.D)
 
     @torch.inference_mode()
-    def generate(self, batch_size: int = 4, styles=None, noise=None,
-                 texts=None, text_encodings=None, seed: Optional[int] = None,
-                 use_ema: bool = True):
+    def generate(self, *args, batch_size: int = 4, styles=None, noise=None,
+                 texts=None, text_encodings=None, lowres_image=None,
+                 seed: Optional[int] = None, use_ema: bool = True):
         """Sample from the EMA generator, or from the trained one with
         ``use_ema=False`` or when there is no EMA generator (as JAX's
         ``_generate_params``).  ``styles``/``noise`` (the style latent)
         override the drawn latent.  Conditional: one sample per caption of
         ``texts`` (embedded by the CLIP adapter) or per row of CLIP
-        ``text_encodings``.  Returns a float32 (b, h, w, 3) numpy array."""
+        ``text_encodings``.  The upsampler upsamples ``lowres_image`` (b,
+        h, w, c) in [0, 1], also given as the one positional argument.
+        Returns a float32 (b, h, w, 3) numpy array."""
+        if args:
+            assert len(args) == 1 and lowres_image is None and (
+                self.train_upsampler), (
+                "positional argument must be the lowres image (upsampler)")
+            lowres_image = args[0]
         if exists(texts):
             text_encodings = self.embed_texts(texts)
         if exists(text_encodings):
@@ -482,19 +518,40 @@ class GigaGAN:
             styles = torch.as_tensor(styles, device=self.device)
         if exists(noise):
             noise = torch.as_tensor(noise, device=self.device)
-        out = g(styles=styles, noise=noise, text_encodings=text_encodings,
-                batch_size=batch_size, latent_generator=latent_gen,
-                noise_generator=noise_gen)
+        if self.train_upsampler:
+            assert exists(lowres_image), "the upsampler needs lowres_image"
+            out = g(torch.as_tensor(lowres_image, device=self.device),
+                    styles=styles, noise=noise,
+                    text_encodings=text_encodings,
+                    latent_generator=latent_gen)
+        else:
+            out = g(styles=styles, noise=noise,
+                    text_encodings=text_encodings, batch_size=batch_size,
+                    latent_generator=latent_gen, noise_generator=noise_gen)
         return out.float().cpu().numpy()
 
     def _sample_images(self, batch_size: int, use_ema: bool, dl_iter=None):
+        """``num_samples`` samples in groups of ``batch_size``; the
+        upsampler's groups are [nearest-upsampled low-res inputs;
+        outputs], as JAX lays them out."""
         rows = []
         for n in num_to_groups(self.num_samples, batch_size):
-            texts = None
-            if not self.unconditional:  # the captions of a loader batch
-                texts = list(next(dl_iter)[1])[:n]
-            rows.append(self.generate(batch_size=n, texts=texts,
-                                      use_ema=use_ema))
+            kwargs = dict(batch_size=n, use_ema=use_ema)
+            if self.train_upsampler or not self.unconditional:
+                result = next(dl_iter)
+                real = result[0] if isinstance(result, tuple) else result
+                if not self.unconditional:  # the captions of the batch
+                    kwargs["texts"] = list(result[1])[:n]
+                if self.train_upsampler:
+                    kwargs["lowres_image"] = resize_image_to(
+                        torch.as_tensor(np.asarray(real[:n])),
+                        self.G.input_image_size, "nearest")
+            out = self.generate(**kwargs)
+            if self.train_upsampler:
+                up = resize_image_to(kwargs["lowres_image"], out.shape[1],
+                                     "nearest")
+                out = np.concatenate([up.float().numpy(), out], axis=0)
+            rows.append(out)
         return np.clip(np.concatenate(rows, axis=0), 0.0, 1.0)
 
     def save_sample(self, batch_size: int, dl_iter=None):
@@ -503,10 +560,16 @@ class GigaGAN:
         (``ema-sample-{m}.png``) into ``results_folder``, then a
         checkpoint ``model-{m}.ckpt`` into ``model_folder``, m being the
         save milestone.  Conditional, the captions come from ``dl_iter``'s
-        batches."""
-        assert self.unconditional or exists(dl_iter)
+        batches; the upsampler's low-res inputs from
+        ``sample_upsampler_dl``'s, or else ``dl_iter``'s, and its grids
+        are twice as wide."""
+        if self.train_upsampler:
+            dl_iter = default(self.sample_upsampler_dl_iter, dl_iter)
+        assert exists(dl_iter) or (self.unconditional
+                                   and not self.train_upsampler)
         milestone = self.steps // self.save_and_sample_every
-        nrow = int(sqrt(self.num_samples))
+        nrow = int(sqrt(self.num_samples)) * (2 if self.train_upsampler
+                                              else 1)
         variants = [("sample", False)]
         if self.has_ema_generator:
             variants.append(("ema-sample", True))

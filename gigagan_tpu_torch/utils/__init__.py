@@ -6,6 +6,7 @@ from gigagan_tpu_torch.utils.helpers import (
     num_to_groups,
 )
 from gigagan_tpu_torch.utils.init import (
+    dirac_1d_,
     kaiming_normal_leaky_,
     pixel_shuffle_icnr_,
 )
@@ -15,6 +16,7 @@ __all__ = [
     "ModTable",
     "StepTimer",
     "default",
+    "dirac_1d_",
     "exists",
     "is_power_of_two",
     "kaiming_normal_leaky_",

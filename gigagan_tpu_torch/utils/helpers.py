@@ -55,6 +55,12 @@ class ModTable:
         # zero-width entries stand in for "no kernel selection" slots
         return entry if entry.shape[-1] > 0 else None
 
+    def skip(self, n: int):
+        """Pass over ``n`` slots (an image through a video-capable net skips
+        its temporal blocks' modulations)."""
+        self._cursor += n
+        assert self._cursor <= len(self._entries)
+
     def assert_exhausted(self):
         assert self._cursor == len(self._entries), (
             f"convolutions were incorrectly modulated: consumed "

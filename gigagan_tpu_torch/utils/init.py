@@ -12,7 +12,8 @@ for three parameter layouts:
 - ``oihw``: a torch conv weight ``(out, in, *spatial)`` — flax ``nn.Conv``'s
   HWIO kernel, transposed, same fan_in;
 
-and the ICNR init of a pixel-shuffle projection.
+the ICNR init of a pixel-shuffle projection, and the identity ("dirac")
+init of a 1-D conv.
 """
 
 from __future__ import annotations
@@ -66,3 +67,15 @@ def pixel_shuffle_icnr_(tensor, upsample_factor: int = 4, generator=None):
                        device=tensor.device)
     base.uniform_(-bound, bound, generator=generator)
     return tensor.copy_(base.repeat_interleave(upsample_factor, dim=0))
+
+
+@torch.no_grad()
+def dirac_1d_(tensor):
+    """In place: a torch conv1d weight ``(out, in, k)`` that starts as the
+    identity, 1 at the centre tap where in == out (the JAX package's
+    ``_dirac_1d_init`` of its ``(k, in, out)`` kernel)."""
+    out, cin, k = tensor.shape
+    tensor.zero_()
+    n = min(out, cin)
+    tensor[torch.arange(n), torch.arange(n), k // 2] = 1.0
+    return tensor

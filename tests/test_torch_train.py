@@ -108,7 +108,8 @@ def numpy_draws(seed, replay=None, period=None):
     calls = []  # (kind, shape) of every draw, replays included
     orig = (jax.random.normal, jax.random.uniform, jax.random.bernoulli)
     real_sites = ("models/generator.py", "models/layers.py",
-                  "models/discriminator.py", "gigagan_tpu/losses.py")
+                  "models/discriminator.py", "models/unet_upsampler.py",
+                  "gigagan_tpu/losses.py")
 
     def from_model(fn):
         # flax re-runs initializers under eval_shape to check parameter
@@ -530,17 +531,22 @@ def test_fwd_over_rev_matches_reverse_over_reverse(jax_setup):
 
 @pytest.mark.parametrize("option", ["conditional", "upsampler"])
 def test_unported_training_options_raise(option):
-    # the conditional path is ported: a conditional D beside an
-    # unconditional G fails as JAX's trainer asserts; the upsampler is not
-    # ported yet and names its roadmap item
+    # both paths are ported and refuse a mismatched D as JAX's trainer
+    # asserts: a conditional D beside an unconditional G, and an upsampler
+    # trainer whose D asks for a multiscale resolution its G does not give
+    # (16 -> 32 gives rgbs of 16 only; D_CFG's resolutions are 16 and 8)
     if option == "conditional":
         with pytest.raises(AssertionError,
                            match="conditioning .* must be the generator's"):
             GigaGAN(generator=G_CFG, discriminator=dict(
                 D_CFG, unconditional=False, text_dim=16), device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-            GigaGAN(generator=G_CFG, discriminator=D_CFG,
+        upsampler = dict(dim=8, image_size=32, input_image_size=16,
+                         dim_mults=(1, 2), full_attn=(False, True),
+                         style_network=dict(dim=16, depth=1))
+        with pytest.raises(AssertionError,
+                           match="only multiscale input resolutions of"):
+            GigaGAN(generator=upsampler, discriminator=D_CFG,
                     train_upsampler=True, device="cpu")
 
 
