@@ -105,7 +105,8 @@ Phases (any failure raises and exits non-zero):
     trainer within 3 times the distance of the two resumed copies, the
     card's own noise in the default mode, where cuDNN may pick algorithms
     that sum in any order); then the same resume in a child process
-    (``--deterministic-resume``) under
+    (``--deterministic-resume``, run beside phase 11, which times
+    nothing) under
     ``torch.use_deterministic_algorithms(True)`` with
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: the continued trainer and two
     resumed copies bitwise equal after one more iteration, parameters and
@@ -150,23 +151,54 @@ Phases (any failure raises and exits non-zero):
     run and the sampling against their plain versions, the bf16 shapes
     timed beside the plain version and cuDNN's grouped conv; K3/K4 at G's
     attention shapes beside SDPA;
+16. the outer surface at the quickstart's full width (run before the
+    summary): (a) the command line, each command the package's
+    ``__main__`` (what ``python -m gigagan_tpu_torch`` runs) in a child
+    process that reports its kernel launches at exit: ``train --mock-data
+    --steps 8 --batch-size 8 --save-every 4``, ``train --resume --steps 2``
+    (2 more iterations), ``generate --num 16``, ``evaluate --mock-data
+    --num 64 --batch 8`` (CLIP-FID on random-init CLIP, which it must
+    say), ``train-upsampler --mock-data --steps 4 --batch-size 4`` and
+    ``upsample`` of a 64² PNG the port wrote; each output exists, has its
+    shape and is finite, every bf16 launch is on the tensor cores, and
+    each command's wall seconds are reported; (b) the model folder the JAX
+    package's CLI wrote (``tests/torch_fixtures``): ``generate`` runs from
+    it, and its G and G_ema, read by ``load_jax_checkpoint``, in fp32
+    through the kernels, give the recorded JAX outputs within 0.02; (c)
+    data parallel on the one card: 2 ranks as child processes on
+    ``cuda:0`` over gloo, the fp32 d_step with R1 and g_step of the
+    quickstart pair at global batch 2 × 4 against one process at batch 8
+    (losses within 1e-4 relative; every all-reduced gradient within 1e-4
+    × max |want| of its leaf from the same 2 × 4 split taken in one
+    process, and within 1e-3 of one process at batch 8, or as far as that
+    split in one process sits from it plus 1e-4, at most 1e-2; a repeat of
+    the 1-process step reports the card's run-to-run spread), then 4 bf16
+    iterations (R1 on the first):
+    finite losses, every K1-K5 launch on the tensor cores, the parameters
+    bitwise equal across the ranks after every step (checksums compared on
+    rank 0); one process over NCCL (world size 1) takes the same 4
+    iterations at batch 8; ms per iteration of both;
 15. print the kernel table as one JSON line (time, plain version, library
     call where one computes the same function, bound, launches on the
-    text-to-image path, on the quickstart's and on the upsampler's) and,
-    last, the device line.
+    text-to-image path, on the quickstart's, on the upsampler's, in phase
+    16's command-line and data-parallel runs) and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import atexit
+import concurrent.futures
 import contextlib
 import gc
 import json
+import math
 import os
 import pathlib
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -326,6 +358,24 @@ ITERATIONS, R1_EVERY = 8, 4
 # sums (the recomputed forward is the same arithmetic on the same draws)
 ACCUM, CHUNK, MEM_BATCH, MEM_CHUNK, REMAT_TOL = 2, 4, 16, 8, 1e-4
 KERNEL_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6a", "k6b", "k7a", "k7b")
+# phase 16: a JAX-written model folder's G outputs (fp32 conv tolerance);
+# the data-parallel fp32 step's losses against one process (relative), and
+# its gradients relative to each leaf's max |want|: against the ranks' own
+# arithmetic, the batch split DP_WORLD ways and taken in one process
+# (DP_SPLIT_TOL), and against one process at the whole batch (DP_GRAD_TOL).
+# Splitting the batch reorders every sum over it, and some leaves are sums
+# that cancel to a small fraction of their terms (G's pixel-noise weights
+# contract the upstream gradient with N(0, 1) noise over every pixel; D's
+# deepest stage under R1): on an H100 the split read up to 3.7e-3 from the
+# whole batch on 38 of 237 leaves, taken by 2 ranks or in one process
+# alike, while the ranks read 5.1e-6 from the same split in one process and
+# a repeated 1-process step 6.3e-6 from itself.  So a leaf may sit as far
+# from one process as the split in one process does, plus DP_SPLIT_TOL,
+# and never past DP_GRAD_CAP (half the fp32 whole-model gate of 0.02); a
+# missing all-reduce, a wrong scale or wrong draws move leaves by O(1)
+JAX_FOLDER_TOL, DP_LOSS_TOL = 0.02, 1e-4
+DP_SPLIT_TOL, DP_GRAD_TOL, DP_GRAD_CAP = 1e-4, 1e-3, 1e-2
+DP_WORLD, DP_ITERATIONS, CLI_TIMEOUT_S = 2, 4, 600
 # one H100 SXM: dense bf16 tensor-core rate and HBM3 rate (NVIDIA's data
 # sheet); a bound is the larger of operations and bytes over these
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -653,6 +703,175 @@ def hv_operands(torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev):
     return prepped, (tq_, tk_pre, tvf, tbias), g, gt
 
 
+def kernel_entries():
+    """{kernel: (tensor-core entry, CUDA-core entry)}: each entry counts its
+    own launches (``.launches``)."""
+    from gigagan_tpu_torch.ops.kernels import adaptive_conv as k1
+    from gigagan_tpu_torch.ops.kernels import flash_attention as k6
+    from gigagan_tpu_torch.ops.kernels import flash_attention_fused as k3
+    from gigagan_tpu_torch.ops.kernels import flash_attention_hv as k7
+    from gigagan_tpu_torch.ops.kernels import flash_attention_so as so
+
+    return {"k1": (k1.adaptive_conv_fwd_tc, k1.adaptive_conv_fwd_simt),
+            "k2": (k1.adaptive_conv_bwd_w_tc, k1.adaptive_conv_bwd_w_simt),
+            "k3": (k3.flash_attention_fused_fwd_tc,
+                   k3.flash_attention_fused_fwd_simt),
+            "k4": (so.flash_attention_fused_bwd_tc,
+                   so.flash_attention_fused_bwd_simt),
+            "k5": (so.flash_attention_so_bwd2_tc,
+                   so.flash_attention_so_bwd2_simt),
+            "k6a": (k6.flash_attention_fwd_tc, k6.flash_attention_fwd_simt),
+            "k6b": (k6.flash_attention_bwd_tc, k6.flash_attention_bwd_simt),
+            "k7a": (k7.flash_attention_hv_jvp_tc,
+                    k7.flash_attention_hv_jvp_simt),
+            "k7b": (k7.flash_attention_hv_bwd_tc,
+                    k7.flash_attention_hv_bwd_simt)}
+
+
+def launch_counts(reset=False):
+    """This process's launches per kernel and route; ``reset`` zeroes
+    them after reading."""
+    out = {}
+    for k, (tc, simt) in kernel_entries().items():
+        out[k] = {"tc": tc.launches, "simt": simt.launches}
+        if reset:
+            tc.launches = simt.launches = 0
+    return out
+
+
+def cli_child(counts_path, argv):
+    """Phase 16(a)'s child: the package's ``__main__`` with ``argv``, as
+    ``python -m gigagan_tpu_torch`` runs it, and at exit this process's
+    kernel launches and seconds written to ``counts_path``: importing torch
+    and starting CUDA (which the command would do first), then the
+    command."""
+    import runpy
+
+    t0 = time.perf_counter()
+    import torch
+
+    torch.zeros(1, device="cuda")
+    t1 = time.perf_counter()
+    sys.path.insert(0, str(REPO))
+    atexit.register(lambda: pathlib.Path(counts_path).write_text(
+        json.dumps(dict(launches=launch_counts(), torch_cuda_s=t1 - t0,
+                        command_s=time.perf_counter() - t1))))
+    sys.argv = ["gigagan_tpu_torch", *argv]
+    runpy.run_module("gigagan_tpu_torch", run_name="__main__",
+                     alter_sys=True)
+
+
+def fp32_steps(GigaGAN, g_cfg, d_cfg, batch, device, shards=1):
+    """An fp32 d_step with R1 and a g_step of the pair, each from the
+    fresh state of seed 0: (d losses, D gradients, g losses, G
+    gradients), the gradients as the optimizers stepped with them.  With
+    ``shards`` = k, the data-parallel arithmetic of k ranks in this one
+    process: each step taken k times from the fresh state, on each k-th of
+    the batch with that rank's slice of the global draws, and the losses
+    and gradients averaged (summed in rank order, then divided)."""
+    from gigagan_tpu_torch.parallel import dist
+
+    b = batch.shape[0] // shards
+    out = []
+    for step in ("d", "g"):
+        losses, grads = {}, {}
+        for r in range(shards):
+            gan = GigaGAN(generator=g_cfg, discriminator=d_cfg, amp=False,
+                          seed=0, device=device)
+            with dist.global_batch_draws(r, shards):
+                if step == "d":
+                    got = gan.train_discriminator_step(
+                        batch[r * b:(r + 1) * b], apply_gradient_penalty=True,
+                        calc_multiscale_loss=True, seed=11)
+                else:
+                    got = gan.train_generator_step(
+                        b, calc_multiscale_loss=True, seed=12)
+            module = gan.D if step == "d" else gan.G
+            for n, p in module.named_parameters():
+                if p.grad is not None:
+                    grads[n] = grads[n] + p.grad if n in grads else p.grad
+            for k, v in got.items():
+                losses[k] = losses.get(k, 0.0) + float(v)
+            del gan
+        out += [{k: v / shards for k, v in losses.items()},
+                {n: (g / shards).cpu() for n, g in grads.items()}]
+    return out
+
+
+def dp_child(spec):
+    """Phase 16(c)'s child: rank ``spec["rank"]`` of ``spec["world"]`` over
+    ``spec["backend"]`` on ``cuda:0``.  fp32 (``"fp32" in modes``): a
+    d_step with R1 and a g_step of the quickstart pair on this rank's slice
+    of the batch-8 pool, rank 0 saving the losses and the all-reduced
+    gradients; bf16: ``DP_ITERATIONS`` iterations (R1 on the first), the
+    parameters' checksums compared on rank 0 after every step.  Rank 0
+    writes ``spec["out"]``: launches per mode, losses, ms per iteration,
+    which steps left the ranks' parameters unequal."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, str(REPO))
+    from gigagan_tpu_torch import GigaGAN, parallel
+    from gigagan_tpu_torch.data import MockImageDataset
+
+    rank, world = spec["rank"], spec["world"]
+    parallel.init(spec["backend"], f"tcp://127.0.0.1:{spec['port']}", world,
+                  rank)
+    data = MockImageDataset(256, length=BATCH, seed=0)
+    b = BATCH // world
+    mine = np.stack([data[i] for i in range(rank * b, (rank + 1) * b)])
+    out = {"rank": rank, "world": world, "backend": spec["backend"]}
+    launch_counts(reset=True)
+    if "fp32" in spec["modes"]:
+        # each step from the fresh state (after a d_step, Adam's first
+        # update moves every weight by ±lr by its gradient's sign, which
+        # the order of the sums decides where a gradient is near 0)
+        d, d_grads, g, g_grads = fp32_steps(GigaGAN, QUICKSTART,
+                                            QUICKSTART_D, mine, "cuda:0")
+        if rank == 0:
+            torch.save({"d": {k: float(v) for k, v in d.items()},
+                        "g": {k: float(v) for k, v in g.items()},
+                        "D": d_grads, "G": g_grads}, spec["fp32_out"])
+        out["launches_fp32"] = launch_counts(reset=True)
+        del d_grads, g_grads
+        torch.cuda.empty_cache()
+    if "bf16" in spec["modes"]:
+        gan = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D,
+                      amp=True, seed=0, device="cuda:0")
+        modules = (gan.G, gan.G_ema, gan.D)
+        unequal, losses, ms = [], [], []
+        for it in range(DP_ITERATIONS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = gan.train_discriminator_step(
+                mine, apply_gradient_penalty=it % R1_EVERY == 0,
+                calc_multiscale_loss=True)
+            sums = [parallel.checksum([p for m in modules
+                                       for p in m.parameters()])]
+            g = gan.train_generator_step(b, calc_multiscale_loss=True)
+            sums.append(parallel.checksum([p for m in modules
+                                           for p in m.parameters()]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for step, local in zip(("d", "g"), sums):
+                every = parallel.all_gather_cat(local[None])
+                if not all(torch.equal(every[0], row) for row in every):
+                    unequal.append(f"iteration {it} {step}_step")
+            losses.append({**{f"d_{k}": float(v) for k, v in d.items()},
+                           **{f"g_{k}": float(v) for k, v in g.items()}})
+        out.update(losses=losses, ms_per_iteration=ms, unequal=unequal,
+                   launches_bf16=launch_counts(reset=True),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    torch.cuda.synchronize()
+    parallel.barrier()
+    if rank == 0:
+        pathlib.Path(spec["out"]).write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def deterministic_resume():
     """Phase 12(d)'s resume under ``torch.use_deterministic_algorithms``,
     run as a child process (``--deterministic-resume``) whose parent set
@@ -822,28 +1041,21 @@ def main():
     dev = torch.device("cuda", 0)
     bf16 = torch.bfloat16
     OUT_DIR.mkdir(exist_ok=True)
+    phase_seconds = report["phase_seconds"] = {}
+    phase_mark = [time.perf_counter()]
+
+    def phase_done(label):
+        """Log and record the seconds since the last phase ended."""
+        now = time.perf_counter()
+        phase_seconds[label] = now - phase_mark[0]
+        phase_mark[0] = now
+        log(f"phase {label}: {phase_seconds[label]:.1f} s")
 
     # every kernel counts the launches of both implementations; the
     # CUDA-core ones alone are read as well, to show that no bf16 call
     # reached them
-    simt = {"k1": k1.adaptive_conv_fwd_simt,
-            "k2": k1.adaptive_conv_bwd_w_simt,
-            "k3": k3.flash_attention_fused_fwd_simt,
-            "k4": so.flash_attention_fused_bwd_simt,
-            "k5": so.flash_attention_so_bwd2_simt,
-            "k6a": k6.flash_attention_fwd_simt,
-            "k6b": k6.flash_attention_bwd_simt,
-            "k7a": k7.flash_attention_hv_jvp_simt,
-            "k7b": k7.flash_attention_hv_bwd_simt}
-    tc_entry = {"k1": k1.adaptive_conv_fwd_tc,
-                "k2": k1.adaptive_conv_bwd_w_tc,
-                "k3": k3.flash_attention_fused_fwd_tc,
-                "k4": so.flash_attention_fused_bwd_tc,
-                "k5": so.flash_attention_so_bwd2_tc,
-                "k6a": k6.flash_attention_fwd_tc,
-                "k6b": k6.flash_attention_bwd_tc,
-                "k7a": k7.flash_attention_hv_jvp_tc,
-                "k7b": k7.flash_attention_hv_bwd_tc}
+    tc_entry = {k_: e[0] for k_, e in kernel_entries().items()}
+    simt = {k_: e[1] for k_, e in kernel_entries().items()}
     counters = {k_: [tc_entry[k_], simt[k_]] for k_ in tc_entry}
 
     def reset_counts():
@@ -897,6 +1109,8 @@ def main():
         return res, (hit[0] if len(hit) == 1 and ran[hit[0]] == 1
                      else None)
 
+    phase_done("1")
+
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
     built = build.build_all(verbose=True)
@@ -919,20 +1133,25 @@ def main():
     # loads fails here
     cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
     report["sass"] = {}
-    for kname in ("adaptive_conv_fwd_tc", "adaptive_conv_bwd_w_tc",
-                  "flash_attention_fused_fwd_tc",
-                  "flash_attention_fused_bwd_tc",
-                  "flash_attention_so_bwd2_tc", "flash_attention_hv_jvp_tc",
-                  "flash_attention_hv_bwd_tc"):
-        sass = subprocess.run([str(cuobjdump), "-sass", str(built[kname][0])],
-                              capture_output=True, text=True,
-                              check=True).stdout
+    tc_libs = ("adaptive_conv_fwd_tc", "adaptive_conv_bwd_w_tc",
+               "flash_attention_fused_fwd_tc", "flash_attention_fused_bwd_tc",
+               "flash_attention_so_bwd2_tc", "flash_attention_hv_jvp_tc",
+               "flash_attention_hv_bwd_tc")
+    with concurrent.futures.ThreadPoolExecutor(len(tc_libs)) as pool_:
+        dumps = dict(zip(tc_libs, pool_.map(
+            lambda k_: subprocess.run(
+                [str(cuobjdump), "-sass", str(built[k_][0])],
+                capture_output=True, text=True, check=True).stdout,
+            tc_libs)))
+    for kname, sass in dumps.items():
         found = {op: len(re.findall(rf"\b{op}\b", sass))
                  for op in ("HGMMA", "UTMALDG")}
         report["sass"][kname] = found
         log(f"  sass {kname}: {found}")
         if not all(found.values()):
             fail(f"{kname} lacks tensor-core products or TMA loads: {found}")
+
+    phase_done("2")
 
     # ---------------------------------------------------------------- 3
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1027,6 +1246,8 @@ def main():
             fail(f"K1 extra row failed: {row}")
     report["k1_extra"] = k1_extra
 
+    phase_done("3")
+
     # ---------------------------------------------------------------- 4
 
     def dtype_name(dtype):
@@ -1093,6 +1314,8 @@ def main():
         del args, o_want, o_got, l_want, l_got
     torch.cuda.empty_cache()
     report["k3"] = k3_rows
+
+    phase_done("4")
 
     # ---------------------------------------------------------------- 5
     t0 = time.perf_counter()
@@ -1213,6 +1436,8 @@ def main():
             profiled(f"b{bs}", lambda: gan.generate(batch_size=bs, seed=1))
     del gan, gan32
     torch.cuda.empty_cache()
+
+    phase_done("5")
 
     # ---------------------------------------------------------------- 6
     k2_rows = {}
@@ -1415,6 +1640,8 @@ def main():
         fail(f"K2 at {n} banks failed: {row}")
     del x, g, w, a, want, got32, got16, same
 
+    phase_done("6")
+
     # ---------------------------------------------------------------- 7
     k4_rows, k5_rows = [], []
     for who, b, h, nq, nk, d, l2, null, dtype, timed in attn_rows(ATTN_PATH):
@@ -1502,6 +1729,8 @@ def main():
         del want5, got5, args5, cots, pairs, args, bargs, want, out, lse, g
         torch.cuda.empty_cache()
     report["k4"], report["k5"] = k4_rows, k5_rows
+
+    phase_done("7")
 
     # ---------------------------------------------------------------- 8
     def hv_route(kname, dtype, d):
@@ -1779,9 +2008,11 @@ def main():
         torch.cuda.empty_cache()
         return steps, launches, timing
 
+    phase_done("8")
     steps, train_launches, timing = drive_training("reverse-over-reverse R1",
                                                    False)
     report["train_steps"], report["train_timing"] = steps, timing
+    phase_done("9")
     steps, for_launches, for_timing = drive_training(
         "forward-over-reverse R1", True)
     report["train_steps_fwd_over_rev"] = steps
@@ -1792,11 +2023,25 @@ def main():
     del batches
     torch.cuda.empty_cache()
 
+    phase_done("10")
+
     # --------------------------------------------------------------- 11
     # fp32 steps through the kernels against the same steps on the plain
     # path, each from the same fresh state; then bf16 steps through the
     # tensor-core K3/K4, K1/K5, K2, K6a/K6b and K7a/K7b against the CUDA-core
     # ones, each route also held to its distance from the fp32 plain step
+    # phase 12(d)'s resume under torch.use_deterministic_algorithms runs
+    # beside this phase, which times nothing: a child process that sets
+    # CUBLAS_WORKSPACE_CONFIG before CUDA starts; every op of the step has
+    # a backward without float atomics, so the continued and the resumed
+    # trainers must be bitwise equal
+    t_det = time.perf_counter()
+    det_child = subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         "--deterministic-resume"],
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: det_child.poll() is None and det_child.kill())
     real = torch.from_numpy(np.stack([data[i] for i in range(BATCH)])).to(dev)
 
     def fp32_step(kind, plain, fwd_over_rev=False, amp=False):
@@ -1931,6 +2176,26 @@ def main():
                      f"{ratio:.3f}x as far from the fp32 plain step as the "
                      f"CUDA-core one")
             del runs
+
+    try:
+        det_out, det_err = det_child.communicate(timeout=600)
+    finally:
+        if det_child.poll() is None:
+            det_child.kill()
+            det_child.wait()
+    lines = [ln_ for ln_ in det_out.splitlines()
+             if ln_.startswith("DETERMINISTIC ")]
+    det = json.loads(lines[-1][len("DETERMINISTIC "):]) if lines else None
+    det_report = dict(result=det, rc=det_child.returncode,
+                      s=time.perf_counter() - t_det)
+    log(f"deterministic resume (child process beside phase 11, rc "
+        f"{det_child.returncode}, {det_report['s']:.1f} s): {det}")
+    if det_child.returncode != 0 or not det or not det["ok"]:
+        log(det_out[-3000:])
+        log(det_err[-3000:])
+        fail("the deterministic resume is not bitwise equal, or the mode "
+             f"refused an op: {det}")
+    phase_done("11")
 
     # --------------------------------------------------------------- 12
     # the rest of the trainer at the quickstart's full width: gradient
@@ -2221,28 +2486,7 @@ def main():
     if not resumed <= max(3.0 * floor, 1e-2 * lr):
         fail(f"a resumed iteration departs by {resumed:.3e}, more than 3 "
              f"times the floor {floor:.3e} of two resumed copies")
-    # the same resume under torch.use_deterministic_algorithms, in a child
-    # process that sets CUBLAS_WORKSPACE_CONFIG before CUDA starts: every
-    # op of the step has a backward without float atomics, so the
-    # continued and the resumed trainers must be bitwise equal
-    t = time.perf_counter()
-    child = subprocess.run(
-        [sys.executable, str(pathlib.Path(__file__).resolve()),
-         "--deterministic-resume"],
-        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
-        capture_output=True, text=True, timeout=600)
-    lines = [ln_ for ln_ in child.stdout.splitlines()
-             if ln_.startswith("DETERMINISTIC ")]
-    det = json.loads(lines[-1][len("DETERMINISTIC "):]) if lines else None
-    trainer_report["deterministic_resume"] = dict(
-        result=det, rc=child.returncode, s=time.perf_counter() - t)
-    log(f"deterministic resume (child process, rc {child.returncode}, "
-        f"{time.perf_counter() - t:.1f} s): {det}")
-    if child.returncode != 0 or not det or not det["ok"]:
-        log(child.stdout[-3000:])
-        log(child.stderr[-3000:])
-        fail("the deterministic resume is not bitwise equal, or the mode "
-             f"refused an op: {det}")
+    trainer_report["deterministic_resume"] = det_report
     log(f"phase 12 (the rest of the trainer): "
         f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -3218,6 +3462,315 @@ def main():
     up["seconds"] = time.perf_counter() - t_phase
     log(f"phase 14 (the upsampler path): {up['seconds']:.1f} s")
 
+    # --------------------------------------------------------------- 16
+    # the outer surface: the command line, a JAX-written model folder, and
+    # data parallel on the one card
+    t_phase = time.perf_counter()
+    from gigagan_tpu_torch import cli as port_cli
+    from gigagan_tpu_torch.utils.png import decode_png, encode_png
+
+    # checkpoints (1.14 GiB each) and the trainers' sample grids go to the
+    # gitignored gigagan-models/ and are deleted after their checks
+    cli_dir = OUT_DIR / "cli"
+    cli_models = REPO / "gigagan-models" / "chip_smoke_cli"
+    up_models = REPO / "gigagan-models" / "chip_smoke_cli_upsampler"
+    grids = REPO / "gigagan-models" / "chip_smoke_cli_results"
+    for d_ in (cli_dir, cli_models, up_models, grids):
+        shutil.rmtree(d_, ignore_errors=True)
+    cli_dir.mkdir(parents=True)
+    surface = {"cli": {}, "gpu": smi}
+
+    def run_cli(label, *args):
+        """One command of the CLI in a child process: (stdout, launches)."""
+        counts_path = cli_dir / f"{label}.launches.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--cli-child",
+             str(counts_path), *args], cwd=REPO, capture_output=True,
+            text=True, timeout=CLI_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        (cli_dir / f"{label}.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            fail(f"CLI {label} ({' '.join(args)}) exited "
+                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        child = json.loads(counts_path.read_text())
+        counts = child["launches"]
+        surface["cli"][label] = dict(
+            args=list(args), seconds=seconds, launches=counts,
+            torch_cuda_s=child["torch_cuda_s"], command_s=child["command_s"])
+        log(f"CLI {label}: {seconds:.1f} s (torch and CUDA "
+            f"{child['torch_cuda_s']:.1f}, the command "
+            f"{child['command_s']:.1f}), launches "
+            + ", ".join(f"{k} {v['tc']}/{v['simt']}"
+                        for k, v in counts.items()
+                        if v["tc"] or v["simt"]) + f" (tc/simt) [{smi}]")
+        return proc.stdout, counts
+
+    def launched_on_tc(label, counts, kernels):
+        missing = [k_ for k_ in kernels if not counts[k_]["tc"]]
+        if missing or any(v["simt"] for v in counts.values()):
+            fail(f"CLI {label}: kernels {missing} not launched on the "
+                 f"tensor cores, or a bf16 launch on the CUDA cores: "
+                 f"{counts}")
+
+    def png_of(path, shape):
+        """A PNG's pixels, of ``shape`` (an early grid may be one colour:
+        the quickstart G's first outputs clip to white)."""
+        img = decode_png(pathlib.Path(path).read_bytes())
+        if img.shape != shape:
+            fail(f"{path}: shape {img.shape} (want {shape})")
+        return img
+
+    def finite_checkpoint(path, steps):
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        bad = [f"{m_}.{n_}" for m_ in ("G", "G_ema", "D")
+               for n_, v in saved[m_].items()
+               if v.is_floating_point() and not torch.isfinite(v).all()]
+        if saved["steps"] != steps or bad:
+            fail(f"{path}: steps {saved['steps']} (want {steps}), "
+                 f"non-finite {bad[:3]}")
+
+    grid = lambda n, s: (n * s + (n + 1) * 2, n * s + (n + 1) * 2, 3)  # noqa
+
+    # (a) the command line at the quickstart's full width
+    common = ["--mock-data", "--batch-size", str(BATCH), "--models",
+              str(cli_models)]
+    _, counts = run_cli("train", "train", *common, "--steps", "8",
+                        "--save-every", "4", "--results",
+                        str(grids / "train"))
+    launched_on_tc("train", counts, ("k1", "k2", "k3", "k4", "k5"))
+    for m_ in range(3):  # saved after iterations 1, 4 and 8
+        png_of(grids / "train" / f"ema-sample-{m_}.png", grid(5, 256))
+    finite_checkpoint(cli_models / "model-2.ckpt", 9)
+    out_, counts = run_cli("train_resume", "train", *common, "--resume",
+                           "--steps", "2", "--save-every", "2", "--results",
+                           str(grids / "resume"))
+    if f"resuming from {cli_models / 'model-2.ckpt'}" not in out_:
+        fail(f"train --resume did not resume from model-2.ckpt: {out_}")
+    launched_on_tc("train_resume", counts, ("k1", "k2", "k3", "k4"))
+    finite_checkpoint(cli_models / "model-5.ckpt", 11)
+    _, counts = run_cli("generate", "generate", "--models", str(cli_models),
+                        "--num", "16", "--seed", "0", "--out",
+                        str(cli_dir / "samples.png"))
+    launched_on_tc("generate", counts, ("k1", "k3"))
+    png_of(cli_dir / "samples.png", grid(4, 256))
+    _, counts = run_cli("evaluate", "evaluate", "--models", str(cli_models),
+                        "--mock-data", "--num", "64", "--batch", "8",
+                        "--out", str(cli_dir / "evaluate.json"))
+    launched_on_tc("evaluate", counts, ("k1", "k3"))
+    rec = json.loads((cli_dir / "evaluate.json").read_text())
+    if not (rec["clip_is_real"] is False and rec["mock_reasons"]
+            and rec["n_real"] == rec["n_fake"] == 64
+            and math.isfinite(rec["clip_fid"]) and rec["clip_fid"] >= 0
+            and rec["steps_trained"] == 11):
+        fail(f"evaluate: {rec}")
+    surface["evaluate"] = rec
+    _, counts = run_cli("train_upsampler", "train-upsampler", "--mock-data",
+                        "--steps", "4", "--batch-size", "4", "--models",
+                        str(up_models), "--results",
+                        str(grids / "upsampler"))
+    launched_on_tc("train_upsampler", counts,
+                   ("k1", "k2", "k3", "k4", "k5"))
+    finite_checkpoint(up_models / "model-0.ckpt", 2)
+    low = (MockImageDataset(64, seed=0)[0] * 255).astype(np.uint8)
+    (cli_dir / "low64.png").write_bytes(encode_png(low))
+    _, counts = run_cli("upsample", "upsample", "--models", str(up_models),
+                        "--input", str(cli_dir / "low64.png"), "--seed",
+                        "0", "--out", str(cli_dir / "upsampled256.png"))
+    launched_on_tc("upsample", counts, ("k1", "k3"))
+    png_of(cli_dir / "upsampled256.png", (256, 256, 3))
+    for d_ in (cli_models, up_models, grids):
+        shutil.rmtree(d_, ignore_errors=True)
+
+    # (b) the model folder the JAX package's CLI wrote
+    fixture = REPO / "tests" / "torch_fixtures"
+    jax_folder = cli_dir / "jax_model"
+    shutil.copytree(fixture / "jax_model", jax_folder)
+    _, counts = run_cli("generate_jax_folder", "generate", "--models",
+                        str(jax_folder), "--num", "4", "--seed", "0",
+                        "--out", str(cli_dir / "jax_model_samples.png"))
+    png_of(cli_dir / "jax_model_samples.png", grid(2, 16))
+    jgan, jckpt = port_cli._load_model_folder(jax_folder, "cuda")
+    outs = fixture / "jax_outputs"
+    latents = torch.from_numpy(np.load(outs / "latents.npy")).to(dev)
+    noises = [torch.from_numpy(np.load(p_)).to(dev)
+              for p_ in sorted(outs.glob("noise_*.npy"))]
+    reset_counts()
+    jax_rows = {}
+    with torch.no_grad():
+        for key, module in (("g", jgan.G), ("g_ema", jgan.G_ema)):
+            got = module(noise=latents, pixel_noise=noises).float().cpu()
+            jax_rows[key] = rel_err(got, torch.from_numpy(
+                np.load(outs / f"{key}.npy")))
+    torch.cuda.synchronize()
+    jax_counts = read_counts()
+    surface["jax_folder"] = dict(checkpoint=jckpt.name, steps=jgan.steps,
+                                 rel=jax_rows, launches=jax_counts)
+    log(f"JAX-written folder {jckpt.name} (steps {jgan.steps}), fp32 "
+        f"through the kernels: rel G {jax_rows['g']:.2e}, G_ema "
+        f"{jax_rows['g_ema']:.2e} (limit {JAX_FOLDER_TOL}); launches "
+        f"{jax_counts}")
+    if not (max(jax_rows.values()) <= JAX_FOLDER_TOL
+            and jax_counts["k1"] and jax_counts["k3"]):
+        fail(f"the JAX-written folder: {surface['jax_folder']}")
+    del jgan
+
+    # (c) data parallel on the one card: the 1-process fp32 reference at
+    # the whole batch, a repeat of it (the card's run-to-run spread), and
+    # the ranks' own arithmetic, the batch split DP_WORLD ways, taken in
+    # this one process
+    pool8 = np.stack([MockImageDataset(256, length=BATCH, seed=0)[i]
+                      for i in range(BATCH)])
+    want_d, want_dg, want_g, want_gg = fp32_steps(
+        GigaGAN, QUICKSTART, QUICKSTART_D, pool8, "cuda")
+    _, again_dg, _, again_gg = fp32_steps(
+        GigaGAN, QUICKSTART, QUICKSTART_D, pool8, "cuda")
+    _, split_dg, _, split_gg = fp32_steps(
+        GigaGAN, QUICKSTART, QUICKSTART_D, pool8, "cuda", shards=DP_WORLD)
+    want_grads = {f"{mod}.{n_}": g_ for mod, grads in (("D", want_dg),
+                                                      ("G", want_gg))
+                  for n_, g_ in grads.items()}
+    split_grads = {f"D.{n_}": g_ for n_, g_ in split_dg.items()}
+    split_grads.update({f"G.{n_}": g_ for n_, g_ in split_gg.items()})
+    spread = {n_: rel_err(g_, want_grads[n_]) for n_, g_ in (
+        [(f"D.{k_}", v) for k_, v in again_dg.items()]
+        + [(f"G.{k_}", v) for k_, v in again_gg.items()])}
+    split_vs_one = {n_: rel_err(split_grads[n_], w_)
+                    for n_, w_ in want_grads.items()}
+    del again_dg, again_gg, split_dg, split_gg, want_dg, want_gg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    dp_dir = REPO / "gigagan-models" / "chip_smoke_dp"
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    dp_dir.mkdir(parents=True)
+
+    def run_ranks(world, backend, modes, label):
+        port = free_port()
+        specs = [dict(rank=r_, world=world, port=port, backend=backend,
+                      modes=modes, out=str(cli_dir / f"dp_{label}.json"),
+                      fp32_out=str(dp_dir / f"{label}_fp32.pt"))
+                 for r_ in range(world)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--dp-child",
+             json.dumps(spec)], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for spec in specs]
+        logs = []
+        try:
+            for r_, proc in enumerate(procs):
+                logs.append(proc.communicate(timeout=CLI_TIMEOUT_S)[0])
+                (cli_dir / f"dp_{label}_rank{r_}.log").write_text(logs[-1])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        bad = [r_ for r_, proc in enumerate(procs) if proc.returncode]
+        if bad:
+            fail(f"data-parallel {label}: ranks {bad} failed: "
+                 f"{logs[bad[0]][-3000:]}")
+        result = json.loads((cli_dir / f"dp_{label}.json").read_text())
+        result["seconds"] = time.perf_counter() - t0
+        return result
+
+    dp2 = run_ranks(DP_WORLD, "gloo", ["fp32", "bf16"], "gloo2")
+    got = torch.load(dp_dir / "gloo2_fp32.pt", weights_only=True)
+    loss_rel = {f"{s_}_{k_}": abs(got[s_][k_] - float(v)) / max(
+        abs(float(v)), 1e-6)
+        for s_, want in (("d", want_d), ("g", want_g))
+        for k_, v in want.items()}
+    got_grads = {f"{mod}.{n_}": g_ for mod in ("D", "G")
+                 for n_, g_ in got[mod].items()}
+    if set(got_grads) != set(want_grads):
+        fail("data-parallel fp32: the gradient leaves differ")
+    vs_split = {n_: rel_err(g_, split_grads[n_])
+                for n_, g_ in got_grads.items()}
+    vs_one = {n_: rel_err(g_, want_grads[n_]) for n_, g_ in got_grads.items()}
+    limit = {n_: min(DP_GRAD_CAP, max(DP_GRAD_TOL,
+                                      split_vs_one[n_] + DP_SPLIT_TOL))
+             for n_ in vs_one}
+    failing = {n_: dict(vs_one=vs_one[n_], limit=limit[n_],
+                        vs_split=vs_split[n_])
+               for n_ in vs_one
+               if vs_one[n_] > limit[n_] or vs_split[n_] > DP_SPLIT_TOL}
+    past = {n_: (vs_one[n_], split_vs_one[n_]) for n_ in vs_one
+            if vs_one[n_] > DP_GRAD_TOL}
+    dists = dict(vs_one=vs_one, vs_split=vs_split, spread=spread,
+                 split_vs_one=split_vs_one)
+    worst = {key: max(d_, key=d_.get) for key, d_ in dists.items()}
+    dp = dict(loss_rel=loss_rel,
+              worst={key: (n_, dists[key][n_]) for key, n_ in worst.items()},
+              past_grad_tol=past,
+              gloo2={k_: v for k_, v in dp2.items() if k_ != "losses"},
+              gloo2_losses=dp2["losses"])
+    log(f"data parallel fp32, 2 ranks x {BATCH // DP_WORLD} vs 1 process x "
+        f"{BATCH}: losses max rel {max(loss_rel.values()):.2e} (limit "
+        f"{DP_LOSS_TOL}); gradients over {len(vs_one)} leaves, max rel vs "
+        f"the same {DP_WORLD}-way split in one process "
+        f"{vs_split[worst['vs_split']]:.2e} at {worst['vs_split']} (limit "
+        f"{DP_SPLIT_TOL}), vs one process "
+        f"{vs_one[worst['vs_one']]:.2e} at {worst['vs_one']} (limit "
+        f"{DP_GRAD_TOL}, or the split's own distance + {DP_SPLIT_TOL}, at "
+        f"most {DP_GRAD_CAP}); the split in one process vs one process "
+        f"{split_vs_one[worst['split_vs_one']]:.2e} at "
+        f"{worst['split_vs_one']}; a repeated 1-process step "
+        f"{spread[worst['spread']]:.2e} at {worst['spread']}; {len(past)} "
+        f"leaves past {DP_GRAD_TOL}: "
+        + (", ".join(f"{n_} {v[0]:.2e} (split {v[1]:.2e})"
+                     for n_, v in past.items()) or "none"))
+    if max(loss_rel.values()) > DP_LOSS_TOL or failing:
+        fail(f"data-parallel fp32 disagrees: {failing}, {loss_rel}")
+    del got, got_grads, want_grads, split_grads
+    dp1 = run_ranks(1, "nccl", ["bf16"], "nccl1")
+    dp["nccl1"] = dp1
+    for label, res in (("gloo2", dp2), ("nccl1", dp1)):
+        counts = res["launches_bf16"]
+        finite = all(math.isfinite(v) for row in res["losses"]
+                     for v in row.values())
+        log(f"data parallel bf16 {label}: {DP_ITERATIONS} iterations, ms "
+            + ", ".join(f"{v:.1f}" for v in res["ms_per_iteration"])
+            + f", peak {res['peak_gib']:.2f} GiB, unequal steps "
+            f"{res['unequal']}, launches "
+            + ", ".join(f"{k_} {v['tc']}/{v['simt']}"
+                        for k_, v in counts.items() if v["tc"] or v["simt"])
+            + f" (tc/simt) [{smi}]")
+        if (not finite or res["unequal"]
+                or any(v["simt"] for v in counts.values())
+                or not all(counts[k_]["tc"] for k_ in
+                           ("k1", "k2", "k3", "k4", "k5"))):
+            fail(f"data parallel bf16 {label}: finite {finite}, unequal "
+                 f"{res['unequal']}, launches {counts}")
+    fp32_counts = dp2["launches_fp32"]
+    if not all(fp32_counts[k_]["simt"] for k_ in ("k1", "k2", "k3", "k4",
+                                                   "k5")):
+        fail(f"data parallel fp32 launches: {fp32_counts}")
+    dp["ms_median_non_r1"] = {
+        label: statistics.median(res["ms_per_iteration"][1:])
+        for label, res in (("gloo2", dp2), ("nccl1", dp1))}
+    log(f"data parallel ms per non-R1 iteration: 2 ranks sharing the card "
+        f"(gloo) {dp['ms_median_non_r1']['gloo2']:.1f}, 1 process (NCCL, "
+        f"world 1) {dp['ms_median_non_r1']['nccl1']:.1f} [{smi}]")
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    surface["dp"] = dp
+    cli_launches = {k_: sum(row["launches"][k_]["tc"]
+                            + row["launches"][k_]["simt"]
+                            for row in surface["cli"].values())
+                    for k_ in KERNEL_NAMES}
+    dp_launches = {k_: sum(v[k_]["tc"] + v[k_]["simt"] for v in (
+        dp2["launches_fp32"], dp2["launches_bf16"], dp1["launches_bf16"]))
+        for k_ in KERNEL_NAMES}
+    surface["seconds"] = time.perf_counter() - t_phase
+    report["surface"] = surface
+    log(f"phase 16 (the command line, a JAX-written folder, data "
+        f"parallel): {surface['seconds']:.1f} s")
+    phase_mark[0] = time.perf_counter()
+
     # --------------------------------------------------------------- 15
     mult = {}
     for _, h, ci, co in convs:
@@ -3256,6 +3809,7 @@ def main():
              launches=t2i_launches["k1"],
              launches_unconditional=train_launches["k1"],
              launches_upsampler=up_launches["k1"],
+             launches_cli=cli_launches["k1"], launches_dp=dp_launches["k1"],
              max_abs_err=max([max(r["abs_f32"], r["abs_bf16"])
                               for r in k1_rows.values()]
                              + [r["abs"] for r in k1_extra]),
@@ -3268,6 +3822,7 @@ def main():
              launches=t2i_launches["k2"],
              launches_unconditional=train_launches["k2"],
              launches_upsampler=up_launches["k2"],
+             launches_cli=cli_launches["k2"], launches_dp=dp_launches["k2"],
              max_abs_err=max([max(r["abs_f32"], r["abs_bf16"])
                               for r in k2_rows.values()]
                              + [r["abs"] for r in k2_extra]
@@ -3283,6 +3838,7 @@ def main():
              launches=t2i_launches["k3"],
              launches_unconditional=train_launches["k3"],
              launches_upsampler=up_launches["k3"],
+             launches_cli=cli_launches["k3"], launches_dp=dp_launches["k3"],
              max_abs_err=max(max(r["abs_out"], r["abs_lse"])
                              for r in k3_rows),
              **timing(d_step["k3"]),
@@ -3294,6 +3850,7 @@ def main():
              launches=t2i_launches["k4"],
              launches_unconditional=train_launches["k4"],
              launches_upsampler=up_launches["k4"],
+             launches_cli=cli_launches["k4"], launches_dp=dp_launches["k4"],
              max_abs_err=max(r["abs"] for r in k4_rows),
              **timing(d_step["k4"]),
              simt_source="gigagan_tpu_torch/csrc/flash_attention_fused_bwd.cu",
@@ -3304,6 +3861,7 @@ def main():
              launches=t2i_launches["k5"],
              launches_unconditional=train_launches["k5"],
              launches_upsampler=up_launches["k5"],
+             launches_cli=cli_launches["k5"], launches_dp=dp_launches["k5"],
              max_abs_err=max(r["abs"] for r in k5_rows),
              **timing(r1_bf16),
              simt_source="gigagan_tpu_torch/csrc/flash_attention_so_bwd2.cu",
@@ -3334,6 +3892,7 @@ def main():
             launches=t2i_launches[key],
             launches_unconditional=for_launches[key],
             launches_upsampler=up_launches[key],
+            launches_cli=cli_launches[key], launches_dp=dp_launches[key],
             max_abs_err=max([r[key]["abs"] for r in hv_rows]
                             + [r[key]["abs"] for r in k6_masked
                                if key in r]),
@@ -3344,7 +3903,10 @@ def main():
     # reverse-over-reverse on two, then 2 forward-over-reverse R1
     # iterations); launches_unconditional: phase 9's (K1-K5) or phase 10's
     # (K6a-K7b) 8 iterations of the quickstart pair; launches_upsampler:
-    # phase 14's run of the upsampler recipe (as phase 13's)
+    # phase 14's run of the upsampler recipe (as phase 13's);
+    # launches_cli / launches_dp: phase 16's command-line children and its
+    # data-parallel ranks (both routes)
+    phase_done("15")
     report["kernels"] = kernels
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3356,4 +3918,8 @@ def main():
 if __name__ == "__main__":
     if "--deterministic-resume" in sys.argv[1:]:
         sys.exit(deterministic_resume())
+    if sys.argv[1:2] == ["--cli-child"]:
+        sys.exit(cli_child(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--dp-child"]:
+        sys.exit(dp_child(json.loads(sys.argv[2])))
     main()

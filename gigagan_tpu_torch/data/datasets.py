@@ -9,8 +9,8 @@ Images are float32 (h, w, c) numpy arrays in [0, 1]; batches are stacked
 (b, h, w, c) arrays, and (images, captions) tuples for text datasets
 (``collate_tensors_or_str``).  The loader decodes on ``num_workers``
 threads under a background prefetch producer, so the next batches load while the device
-runs the current step.  Per-process sharding (data parallel) is not
-ported.
+runs the current step.  In data parallel each process draws a disjoint
+shard of every epoch, as the JAX loader's processes do.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from gigagan_tpu_torch.parallel import dist
 from gigagan_tpu_torch.utils import exists
 
 
@@ -46,11 +47,20 @@ class DataLoader:
     ready.  ``num_workers <= 1`` decodes on the producer thread,
     ``prefetch <= 0`` on the caller's.  The order of the batches does not
     depend on either.  ``collate_fn`` turns a batch's items into the batch
-    (``np.stack`` by default)."""
+    (``np.stack`` by default).
+
+    Per-process shards, as the JAX loader's: every process builds the same
+    seeded permutation and process ``i`` of ``k`` keeps ``order[i::k][:n //
+    k]``, so the shards are disjoint and of one length.
+    ``process_index``/``process_count`` default to the process group's
+    rank and world size (``parallel.dist``), read at iteration time;
+    ``len()`` counts the local shard's batches."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, *,
-                 num_workers: int = 4, prefetch: int = 2, collate_fn=None):
+                 num_workers: int = 4, prefetch: int = 2, collate_fn=None,
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn or np.stack
@@ -58,15 +68,26 @@ class DataLoader:
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
         self._rng = np.random.default_rng(seed)
 
+    def _process(self):
+        if self.process_index is not None:
+            return self.process_index, self.process_count or 1
+        return dist.rank(), dist.world_size()
+
     def __len__(self):
-        n, bs = len(self.dataset), self.batch_size
+        n, bs = len(self.dataset) // self._process()[1], self.batch_size
         return n // bs if self.drop_last else -(-n // bs)
 
     def _index_batches(self):
         n = len(self.dataset)
         order = self._rng.permutation(n) if self.shuffle else np.arange(n)
+        index, count = self._process()
+        if count > 1:
+            order = order[index::count][: n // count]
+            n = len(order)
         stop = (n // self.batch_size) * self.batch_size if self.drop_last \
             else n
         return [order[start:start + self.batch_size]

@@ -8,8 +8,13 @@ Runs on the CUDA device (2000 steps by default).  Every 20 steps the
 trainer's ``log_hook`` record (the 10 losses, ``ms_per_step``,
 ``images_per_sec``) goes to ``DIR/losses.jsonl``; at every quarter
 milestone the raw and EMA sample grids go to ``DIR`` (``DIR`` defaults to
-``chiprun_out/health``).  The checkpoints of the save cadence go to
-``gigagan-models/health`` and are deleted at the end.  It ends with the
+``chiprun_out/health``), and the CLIP-FID of ``EVAL_N`` EMA samples
+against as many of the run's synthetic reals goes to
+``DIR/clip_fid.jsonl``, one JSON line per milestone, as
+``scripts/health_run.py`` records it: on random-init CLIP unless a CLIP
+checkpoint is named by ``GIGAGAN_CLIP_CKPT`` (the line says which,
+``clip_is_real`` and ``mock_reasons``).  The checkpoints of the save
+cadence go to ``gigagan-models/health`` and are deleted at the end.  It ends with the
 curve at the steps the JAX run reported, the device's name and power
 limit, and fails if a loss or a parameter is not finite.
 
@@ -24,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import shutil
 import subprocess
 from pathlib import Path
@@ -36,6 +42,7 @@ QUICKSTART_D = dict(image_size=256, dim_capacity=16, dim_max=512,
                     num_skip_layers_excite=4, unconditional=True)
 CURVE_STEPS = (1, 20, 160, 300, 440, 500, 1000, 1500, 2000)
 MILESTONES = 4
+EVAL_N = 64
 
 
 def main(argv=None):
@@ -47,7 +54,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from gigagan_tpu_torch import GigaGAN
+    from gigagan_tpu_torch import GigaGAN, OpenClipAdapter, QualityEvaluator
     from gigagan_tpu_torch.data import SyntheticShapesDataset
 
     if not torch.cuda.is_available():
@@ -75,23 +82,41 @@ def main(argv=None):
         )
         data = SyntheticShapesDataset(256, length=512, seed=7)
         gan.set_dataloader(data.get_dataloader(8))
+        evaluator = QualityEvaluator(OpenClipAdapter(
+            pretrained=os.environ.get("GIGAGAN_CLIP_CKPT")), batch_size=8)
+        reals = np.stack([data[i] for i in range(EVAL_N)])
+        fids = []
+        (out / "clip_fid.jsonl").write_text("")
         chunk = max(args.steps // MILESTONES, 1)
         done = 0
         while done < args.steps:
             n = min(chunk, args.steps - done)
             gan.forward(steps=n)
             done += n
+            fakes = np.concatenate([
+                np.clip(gan.generate(batch_size=min(8, EVAL_N - i),
+                                     seed=9000 + i), 0.0, 1.0)
+                for i in range(0, EVAL_N, 8)])
+            fids.append({"step": gan.steps - 1,
+                         **evaluator.clip_fid(reals, fakes)})
+            with open(out / "clip_fid.jsonl", "a") as fid_file:
+                fid_file.write(json.dumps(fids[-1]) + "\n")
+            print(f"milestone step {fids[-1]['step']}: clip_fid="
+                  f"{fids[-1]['clip_fid']:.3f} (real CLIP: "
+                  f"{fids[-1]['clip_is_real']})", flush=True)
     shutil.rmtree(models, ignore_errors=True)
 
     finite = all(bool(torch.isfinite(p).all())
                  for m in (gan.G, gan.D) for p in m.parameters())
     losses_finite = all(math.isfinite(v) for r in curve for v in r.values())
+    losses_finite &= all(math.isfinite(r["clip_fid"]) for r in fids)
     at = {r["step"]: r for r in curve}
     summary = {"gpu": gpu, "device": torch.cuda.get_device_name(0),
                "steps": args.steps, "params_finite": finite,
                "losses_finite": losses_finite,
                "curve": [at[s] for s in CURVE_STEPS if s in at],
                "gp_peak": max(curve, key=lambda r: r["GP"]),
+               "clip_fid": fids,
                "ms_per_step_median": float(np.median(
                    [r["ms_per_step"] for r in curve[1:]] or [0.0]))}
     (out / "summary.json").write_text(json.dumps(summary, indent=1))

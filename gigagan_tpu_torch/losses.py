@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from gigagan_tpu_torch.parallel import dist
 from gigagan_tpu_torch.utils import exists
 
 
@@ -35,6 +36,32 @@ def clip_contrastive_loss(image_embeds, text_embeds, logit_scale):
     labels = torch.arange(sim.shape[0], device=sim.device)
     return (F.cross_entropy(sim, labels) + F.cross_entropy(sim.t(),
                                                            labels)) / 2
+
+
+class _AllGatherBatch(torch.autograd.Function):
+    """Every rank's batch, rank-major; the backward sums every rank's
+    cotangent of this rank's slice (the transpose of an all-gather)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.rows = (dist.rank() * t.shape[0], (dist.rank() + 1) * t.shape[0])
+        return dist.all_gather_cat(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = dist.all_reduce_sum_(grad.contiguous().clone())
+        return grad[ctx.rows[0]:ctx.rows[1]]
+
+
+def all_gather_batch(t):
+    """The global batch of per-rank batches ``t`` inside a process group
+    (equal shards, rank-major), differentiable: the counterpart of the JAX
+    package's ``all_gather_batch`` under ``shard_map``, whose gradient
+    reaches the owning rank through ``lax.all_gather``'s transpose.
+    Without a process group, ``t`` itself."""
+    if not dist.is_initialized():
+        return t
+    return _AllGatherBatch.apply(t)
 
 
 def sample_sq_norms(grads, eps: float = 1e-12):

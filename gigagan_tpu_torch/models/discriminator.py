@@ -48,6 +48,7 @@ from gigagan_tpu_torch.models.layers import (
     leaky_relu,
 )
 from gigagan_tpu_torch.ops.adaptive_conv import expand_batch
+from gigagan_tpu_torch.parallel import dist
 from gigagan_tpu_torch.utils import (
     ModTable,
     default,
@@ -95,11 +96,11 @@ class SimpleDecoder(nn.Module):
         None) for one call, from ``generator``."""
         keep = idx = None
         if self.dropout > 0.0:
-            keep = torch.rand(fmap_shape, generator=generator,
+            keep = dist.rand(fmap_shape, generator=generator,
                               device=device) < 1.0 - self.dropout
         if self.frac_patches < 1.0:
             total, num = self.num_patches
-            scores = torch.rand((fmap_shape[0], total), generator=generator,
+            scores = dist.rand((fmap_shape[0], total), generator=generator,
                                 device=device)
             idx = torch.argsort(scores, dim=-1, stable=True)[:, :num]
         return keep, idx

@@ -42,6 +42,7 @@ from gigagan_tpu_torch.models.layers import (
     conv1x1,
     leaky_relu,
 )
+from gigagan_tpu_torch.parallel import dist
 from gigagan_tpu_torch.utils import ModTable, default, exists, is_power_of_two
 
 
@@ -249,7 +250,7 @@ class Generator(nn.Module):
             if not exists(noise):
                 if exists(global_text_tokens):
                     batch_size = global_text_tokens.shape[0]
-                noise = torch.randn(
+                noise = dist.randn(
                     (batch_size, self.style_network_dim),
                     generator=latent_generator, device=device,
                     dtype=self.dtype,

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gigagan_tpu_torch import ops
+from gigagan_tpu_torch.parallel import dist
 from gigagan_tpu_torch.utils import exists
 from gigagan_tpu_torch.utils.init import (
     dirac_1d_,
@@ -261,7 +262,7 @@ class Noise(nn.Module):
 
     def forward(self, x, noise=None, generator=None):
         if not exists(noise):
-            noise = torch.randn((*x.shape[:-1], 1), generator=generator,
+            noise = dist.randn((*x.shape[:-1], 1), generator=generator,
                                 device=x.device, dtype=x.dtype)
         return x + self.weight.to(x.dtype) * noise.to(x.dtype)
 

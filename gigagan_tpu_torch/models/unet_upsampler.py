@@ -54,6 +54,7 @@ from gigagan_tpu_torch.models.layers import (
     RMSNorm,
     conv1x1,
 )
+from gigagan_tpu_torch.parallel import dist
 from gigagan_tpu_torch.utils import ModTable, default, exists, is_power_of_two
 
 
@@ -472,7 +473,7 @@ class UnetUpsampler(nn.Module):
         if not exists(styles):
             assert exists(self.style_net)
             if not exists(noise):
-                noise = torch.randn((batch, self.style_network_dim),
+                noise = dist.randn((batch, self.style_network_dim),
                                     generator=latent_generator,
                                     device=x.device, dtype=self.dtype)
             styles = self.style_net(noise, global_text_tokens)

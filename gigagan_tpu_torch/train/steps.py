@@ -72,6 +72,19 @@ Every random draw of a step comes from explicit generators — the tensors
 ``generator`` on the step's device, the host-side flip decisions from the
 CPU ``host_generator`` — or is given in ``StepDraws`` (one per microbatch)
 so that a run can reproduce another's.
+
+Data parallel (inside a ``torch.distributed`` process group, see
+``parallel/dist.py``): each rank takes its slice of every microbatch of
+the global batch and draws the global batch's latents, pixel noise and
+reconstruction draws from the shared generators, keeping its slice
+(``dist.batch_draws``); the host flips advance alike on every rank.
+The matching-aware roll spans the global accumulated set (the text
+encodings gathered without gradient), the contrastive loss the global
+pool (``losses.all_gather_batch``; with accumulation the pooled gradient's
+slice of this rank, times the world size); the gradients and the reported
+losses are averaged over the ranks before each optimizer step.  A step of
+k ranks then equals one process's step at the global batch, up to the
+order of the reductions.
 """
 
 from __future__ import annotations
@@ -85,6 +98,7 @@ import torch
 from gigagan_tpu_torch import losses as L
 from gigagan_tpu_torch import ops
 from gigagan_tpu_torch.ops.kernels.flash_attention_hv import flash_hv_mode
+from gigagan_tpu_torch.parallel import dist
 from gigagan_tpu_torch.utils import exists
 from gigagan_tpu_torch.utils.remat import remat
 
@@ -134,6 +148,18 @@ def _set_states(generators, states):
 def _scaled(losses: dict, accum: int) -> dict:
     return {k: v.detach() / accum if accum > 1 else v.detach()
             for k, v in losses.items()}
+
+
+def _averaged_over_ranks(params, metrics: dict) -> dict:
+    """Average the parameters' gradients and the losses over the ranks of
+    the process group (without one, nothing to do)."""
+    if not dist.is_initialized():
+        return metrics
+    dist.all_reduce_mean_([p.grad for p in params])
+    keys = list(metrics)
+    values = torch.stack([metrics[k].float() for k in keys])
+    dist.all_reduce_mean_([values])
+    return dict(zip(keys, values.unbind()))
 
 
 class TrainStepBuilder:
@@ -227,15 +253,20 @@ class TrainStepBuilder:
         embeds = _stack(text_embeds, accumulated)
         assert self.unconditional or exists(texts), (
             "text encodings must be passed in for conditional training")
+        rank, world = dist.rank(), dist.world_size()
         rolled = None
         if self.want_matching:
-            assert accum * mb >= 2, (
+            assert accum * mb * world >= 2, (
                 "matching-aware loss needs a total accumulated batch of ≥2 "
-                f"samples (got grad_accum={accum} × microbatch={mb}); a "
-                "1-sample roll is the identity and would punish D for "
-                "accepting correctly matched pairs")
-            rolled = torch.roll(texts.reshape(accum * mb, *texts.shape[2:]),
-                                1, 0).reshape(texts.shape)
+                f"samples (got grad_accum={accum} × microbatch={mb} × "
+                f"{world} ranks); a 1-sample roll is the identity and would "
+                "punish D for accepting correctly matched pairs")
+            # rolled over the global set, microbatch-major: rank r's first
+            # rolled text is rank r-1's last
+            every = dist.all_gather_cat(texts).reshape(world, *texts.shape)
+            rolled = torch.roll(
+                every.transpose(0, 1).reshape(-1, *texts.shape[2:]), 1, 0
+            ).reshape(accum, world, *texts.shape[1:])[:, rank]
         params = [p for p in self.D.parameters() if p.requires_grad]
         opts = [self.d_opt]
         if self.need_vd:
@@ -244,14 +275,16 @@ class TrainStepBuilder:
         for opt in opts:
             opt.zero_grad(set_to_none=True)
         metrics = {}
-        for i, d in enumerate(_micro_draws(draws, accum)):
-            m = self._d_micro(
-                micro[i], texts[i] if exists(texts) else None,
-                embeds[i] if exists(embeds) else None,
-                rolled[i] if exists(rolled) else None, d, apply_gp, calc_ms,
-                params, accum, generator, host_generator)
-            metrics = {k: metrics[k] + v if k in metrics else v
-                       for k, v in m.items()}
+        with dist.batch_draws():
+            for i, d in enumerate(_micro_draws(draws, accum)):
+                m = self._d_micro(
+                    micro[i], texts[i] if exists(texts) else None,
+                    embeds[i] if exists(embeds) else None,
+                    rolled[i] if exists(rolled) else None, d, apply_gp,
+                    calc_ms, params, accum, generator, host_generator)
+                metrics = {k: metrics[k] + v if k in metrics else v
+                           for k, v in m.items()}
+        metrics = _averaged_over_ranks(params, metrics)
         for opt in opts:
             opt.step()
         return metrics
@@ -514,13 +547,28 @@ class TrainStepBuilder:
             "text encodings must be passed in for conditional training")
         micro = _micro_draws(draws, accum)
         gens = (generator, host_generator)
+        with dist.batch_draws():
+            metrics = self._g_micros(batch_size, texts, embeds, reals,
+                                     micro, gens, calc_ms, accum)
+        params = [p for p in self.G.parameters() if p.requires_grad]
+        metrics = _averaged_over_ranks(params, metrics)
+        self.g_opt.step()
+        if exists(self.ema):
+            self.ema.update(self.G)
+        return metrics
+
+    def _g_micros(self, batch_size, texts, embeds, reals, micro, gens,
+                  calc_ms, accum):
+        """Every microbatch's generator losses and their backward into
+        ``.grad``; the losses averaged over the microbatches."""
+        generator, host_generator = gens
         pool, states = [(None, None)] * accum, None
         if self.need_contrastive:
-            assert accum * embeds.shape[1] >= 2, (
+            assert accum * embeds.shape[1] * dist.world_size() >= 2, (
                 "CLIP contrastive loss needs a total accumulated batch of "
                 f"≥2 samples (got grad_accum={accum} × microbatch="
-                f"{embeds.shape[1]}); a 1-pair pool is identically 0 with "
-                "zero gradient")
+                f"{embeds.shape[1]} × {dist.world_size()} ranks); a 1-pair "
+                "pool is identically 0 with zero gradient")
             if accum > 1:
                 pool, states = self._contrastive_pool(batch_size, texts,
                                                       embeds, micro, gens,
@@ -541,23 +589,22 @@ class TrainStepBuilder:
                                  generators=(generator, host_generator))
             else:
                 total, m = loss()
-            if grad_accum_every > 1:
-                total = total / grad_accum_every
+            if accum > 1:
+                total = total / accum
             total.backward(inputs=params)
-            m = _scaled(m, grad_accum_every)
+            m = _scaled(m, accum)
             metrics = {k: metrics[k] + v if k in metrics else v
                        for k, v in m.items()}
-        self.g_opt.step()
-        if exists(self.ema):
-            self.ema.update(self.G)
         return metrics
 
     def _contrastive_pool(self, batch_size, texts, embeds, micro, gens,
                           reals=None):
-        """The pooled InfoNCE over every microbatch's augmented fakes, from
-        a forward-only pass with each microbatch's draws: per microbatch
-        (∂L/∂eᵢ, L), and the generators' states at each microbatch's start,
-        so that its step draws the same fakes again."""
+        """The pooled InfoNCE over every microbatch's augmented fakes (of
+        every rank), from a forward-only pass with each microbatch's draws:
+        per microbatch (∂L/∂eᵢ, L), and the generators' states at each
+        microbatch's start, so that its step draws the same fakes again.
+        A rank's slice of ∂L/∂e is its share of the gradient; the ranks'
+        gradients are averaged, so it is scaled by the world size."""
         states, image_embeds = [], []
         with torch.no_grad():
             for i, d in enumerate(micro):
@@ -567,10 +614,15 @@ class TrainStepBuilder:
                     reals[i] if exists(reals) else None)
                 fake_aug, _ = self._augment(fake, rgbs, d.fake_flip, gens[1])
                 image_embeds.append(self.clip.embed_images(fake_aug)[0])
-        e = torch.cat(image_embeds).requires_grad_()
+        mine = torch.cat(image_embeds)
+        e = dist.all_gather_cat(mine).requires_grad_()
         value = L.clip_contrastive_loss(
-            e, embeds.reshape(e.shape[0], -1).float(), self.clip.logit_scale)
+            e, dist.all_gather_cat(
+                embeds.reshape(mine.shape[0], -1).float()),
+            self.clip.logit_scale)
         (grad,) = torch.autograd.grad(value, e)
+        rank, world = dist.rank(), dist.world_size()
+        grad = grad[rank * mine.shape[0]:(rank + 1) * mine.shape[0]] * world
         return ([(g, value.detach()) for g in grad.split(batch_size)],
                 states)
 
@@ -609,9 +661,10 @@ class TrainStepBuilder:
                 # step's 1/accum)
                 sur = accum * (image_embeds * pool_grad).sum()
                 contrastive = pool_value + sur - sur.detach()
-            else:
+            else:  # over the global batch inside a process group
                 contrastive = L.clip_contrastive_loss(
-                    image_embeds, embeds, self.clip.logit_scale)
+                    L.all_gather_batch(image_embeds),
+                    dist.all_gather_cat(embeds), self.clip.logit_scale)
             total = total + contrastive * self.contrastive_w
         return total, dict(divergence=divergence,
                            multiscale_divergence=ms_div,

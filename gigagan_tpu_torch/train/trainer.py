@@ -30,14 +30,27 @@ the discriminator's multiscale resolutions; both steps take the real
 batch, whose 'nearest' low-res copies G upsamples; ``generate(lowres)``
 (or ``lowres_image=``) upsamples; the sample grids put the low-res input,
 nearest-upsampled, beside each output (from ``sample_upsampler_dl``'s
-batches when one is given)."""
+batches when one is given).
+
+Data parallel (counterpart of JAX's ``mesh=``): inside a
+``torch.distributed`` process group (started from a ``torchrun``
+environment by ``parallel.init_from_env`` when ``WORLD_SIZE`` > 1, or by the
+caller) every rank builds the same models from the shared seed (checked
+once by a checksum broadcast from rank 0), each rank's loader yields its
+shard, and the steps run on the global batch (``train/steps.py``).
+``device=None`` is then ``cuda:{LOCAL_RANK}``.  ``save``, the sample grids,
+the log lines and ``log_hook`` run on the main process only; every rank
+calls ``save`` (a barrier after it keeps the others from reading a
+half-written file) and ``load``.
+
+``load`` reads the port's ``torch.save`` checkpoints and the JAX package's
+msgpack ones (``train/jax_checkpoint.py``), told apart by their leading
+bytes."""
 
 from __future__ import annotations
 
 import copy
-import struct
 import time
-import zlib
 from collections.abc import Mapping
 from math import sqrt
 from pathlib import Path
@@ -56,10 +69,13 @@ from gigagan_tpu_torch.models.layers import init_parameters
 from gigagan_tpu_torch.models.unet_upsampler import UnetUpsampler
 from gigagan_tpu_torch.ops import resize_image_to
 from gigagan_tpu_torch.models.vision_aided import VisionAidedDiscriminator
+from gigagan_tpu_torch.parallel import dist
+from gigagan_tpu_torch.train import jax_checkpoint
 from gigagan_tpu_torch.train.ema import EMA
 from gigagan_tpu_torch.train.optimizer import get_optimizer
 from gigagan_tpu_torch.train.steps import TrainStepBuilder
 from gigagan_tpu_torch.utils import StepTimer, default, exists, num_to_groups
+from gigagan_tpu_torch.utils.png import encode_png
 
 # the EMA's schedule, saved with its counters
 _EMA_KWARGS = ("beta", "update_every", "update_after_step", "inv_gamma",
@@ -100,13 +116,16 @@ class GigaGAN:
                  resize_image_mode: str = "bilinear",
                  sample_upsampler_dl=None, seed: int = 42,
                  log_hook=None, device=None):
+        distributed = dist.init_from_env()
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "GigaGAN runs on a CUDA device by default and none is "
                     'available; pass device="cpu" to run on the CPU')
-            device = "cuda"
+            device = f"cuda:{dist.local_rank()}" if distributed else "cuda"
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)
         self.dtype = torch.bfloat16 if amp else torch.float32
         self._rng = np.random.default_rng(seed)
         init_gen = torch.Generator().manual_seed(seed)
@@ -145,9 +164,9 @@ class GigaGAN:
                     "bpe_simple_vocab_16e6.txt.gz', or pass "
                     "allow_mock_clip=True to proceed anyway (tests/smoke "
                     "runs).")
-            print(f"[gigagan_tpu_torch] WARNING: conditional training on a "
-                  f"MOCK CLIP ({details}) — results will not be meaningful",
-                  flush=True)
+            self.print(f"[gigagan_tpu_torch] WARNING: conditional training "
+                       f"on a MOCK CLIP ({details}) — results will not be "
+                       "meaningful")
 
         self.D = None
         self.VD = None
@@ -167,6 +186,7 @@ class GigaGAN:
         self.results_folder = Path(results_folder)
         self.train_dl = None
         if not exists(discriminator):
+            dist.assert_replicated(self.G.parameters())
             return
 
         self.D = _promote(discriminator, Discriminator, dtype=self.dtype)
@@ -216,6 +236,21 @@ class GigaGAN:
             input_image_size=(self.G.input_image_size if train_upsampler
                               else None),
         )
+        dist.assert_replicated([
+            *self.G.parameters(), *self.D.parameters(),
+            *(self.VD.parameters() if exists(self.VD) else ())])
+
+    # ----------------------------------------------------------- plumbing
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this is the main process (rank 0, or no process
+        group)."""
+        return dist.is_main()
+
+    def print(self, msg):
+        if self.is_main:
+            print(msg, flush=True)
 
     # ------------------------------------------------------------ weights
 
@@ -446,14 +481,15 @@ class GigaGAN:
                          ("SSL", d["aux_reconstruction"]),
                          ("CL", g["contrastive_loss"]),
                          ("MAL", d["matching_aware_loss"]))
-                bs = reals.shape[0] * reals.shape[1]
-                print(f"step {step}: "
-                      + " | ".join(f"{k}: {v:.2f}" for k, v in pairs)
-                      + f" | {self.step_timer.summary(bs)}", flush=True)
+                # the global batch: every rank's
+                bs = reals.shape[0] * reals.shape[1] * dist.world_size()
+                self.print(f"step {step}: "
+                           + " | ".join(f"{k}: {v:.2f}" for k, v in pairs)
+                           + f" | {self.step_timer.summary(bs)}")
                 timing = {"ms_per_step": self.step_timer.mean_s * 1e3,
                           "images_per_sec":
                               self.step_timer.images_per_sec(bs)}
-                if exists(self.log_hook):
+                if exists(self.log_hook) and self.is_main:
                     self.log_hook({"step": step, **dict(pairs), **timing})
                 log.append({"step": step,
                             **{f"d_{k}": v for k, v in d.items()},
@@ -464,7 +500,7 @@ class GigaGAN:
                     step <= self.early_save_thres_steps
                     and step % self.early_save_and_sample_every == 0):
                 self.save_sample(reals.shape[1], dl_iter)
-        print(f"complete {self.steps} training steps", flush=True)
+        self.print(f"complete {self.steps} training steps")
         return log
 
     def train(self, steps: int, grad_accum_every: int = 1):
@@ -562,7 +598,8 @@ class GigaGAN:
         save milestone.  Conditional, the captions come from ``dl_iter``'s
         batches; the upsampler's low-res inputs from
         ``sample_upsampler_dl``'s, or else ``dl_iter``'s, and its grids
-        are twice as wide."""
+        are twice as wide.  Every rank samples (so that the host RNG and the
+        loader advance alike); the main process writes."""
         if self.train_upsampler:
             dl_iter = default(self.sample_upsampler_dl_iter, dl_iter)
         assert exists(dl_iter) or (self.unconditional
@@ -573,12 +610,14 @@ class GigaGAN:
         variants = [("sample", False)]
         if self.has_ema_generator:
             variants.append(("ema-sample", True))
-        self.results_folder.mkdir(parents=True, exist_ok=True)
+        if self.is_main:
+            self.results_folder.mkdir(parents=True, exist_ok=True)
         for prefix, use_ema in variants:
-            save_image_grid(self._sample_images(batch_size, use_ema,
-                                                dl_iter),
-                            self.results_folder / f"{prefix}-{milestone}.png",
-                            nrow=nrow)
+            grid = self._sample_images(batch_size, use_ema, dl_iter)
+            if self.is_main:
+                save_image_grid(
+                    grid, self.results_folder / f"{prefix}-{milestone}.png",
+                    nrow=nrow)
         self.save(self.model_folder / f"model-{milestone}.ckpt")
 
     # -------------------------------------------------------- checkpoints
@@ -609,16 +648,23 @@ class GigaGAN:
         the step counter, the numpy RNG's ``bit_generator.state`` and the
         package version.
         Written to a temporary file and renamed over ``path``, so that a
-        crash mid-save leaves an earlier checkpoint whole."""
+        crash mid-save leaves an earlier checkpoint whole.  In a process
+        group every rank calls it: the main process writes, and the others
+        wait at a barrier until the file is whole."""
         path = Path(path)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        assert overwrite or not path.exists()
-        tmp = path.with_name(path.name + ".tmp")
-        torch.save(self._state(), tmp)
-        tmp.replace(path)
+        if self.is_main:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            assert overwrite or not path.exists()
+            tmp = path.with_name(path.name + ".tmp")
+            torch.save(self._state(), tmp)
+            tmp.replace(path)
+        dist.barrier()
 
     def load(self, path, strict: bool = False):
-        """Restore a checkpoint.
+        """Restore a checkpoint: the port's ``torch.save`` file, or the JAX
+        package's msgpack file (``load_jax_checkpoint``), told apart by
+        the leading bytes; an orbax directory raises
+        ``NotImplementedError``.
 
         Tolerant by default, as the JAX trainer's ``load``: model and EMA
         tensors that match by name and shape are loaded; on a mismatch
@@ -627,10 +673,16 @@ class GigaGAN:
         fresh.  ``strict=True`` raises on any mismatch instead."""
         path = Path(path)
         assert path.exists(), path
-        saved = torch.load(path, map_location="cpu", weights_only=True)
+        if jax_checkpoint.checkpoint_format(path) == "torch":
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+        else:
+            saved = jax_checkpoint.port_state(
+                jax_checkpoint.read_checkpoint(path), self)
+            self.print("the checkpoint's JAX PRNG key cannot seed torch's "
+                       "generators: the host RNG keeps its state")
         version = saved.get("version")
         if version is not None and version != gigagan_tpu_torch.__version__:
-            print(f"trying to load from version {version}")
+            self.print(f"trying to load from version {version}")
         skipped = []
         modules = (("G", self.G), ("G_ema", self.G_ema), ("D", self.D),
                    ("VD", self.VD))
@@ -652,23 +704,40 @@ class GigaGAN:
                                + "; ".join(skipped + [
                                    f"{k} does not fit" for k in misfits]))
         if skipped:
-            print(f"checkpoint load: kept live values for {len(skipped)} "
-                  f"incompatible entries (first: {skipped[0]})")
+            self.print(f"checkpoint load: kept live values for "
+                       f"{len(skipped)} incompatible entries (first: "
+                       f"{skipped[0]})")
         for module, tensors in loads:
             module.load_state_dict(tensors, strict=False)
         if exists(self.ema) and "ema" in saved:
             for k in ("step", "initted", *_EMA_KWARGS):
-                setattr(self.ema, k, saved["ema"][k])
+                if k in saved["ema"]:  # a JAX EMA keeps its counters only
+                    setattr(self.ema, k, saved["ema"][k])
         # optimizer states are all-or-nothing: reset when one does not fit
         for key, opt in opts:
             if key in misfits:
-                print(f"unable to load {key} state; {key} will be reset to "
-                      "a fresh optimizer")
+                self.print(f"unable to load {key} state; {key} will be "
+                           "reset to a fresh optimizer")
                 opt.state.clear()
             else:
                 opt.load_state_dict(saved[key])
         self.steps = int(saved["steps"])
-        self._rng.bit_generator.state = saved["rng"]
+        if "rng" in saved:
+            self._rng.bit_generator.state = saved["rng"]
+
+    def load_jax_checkpoint(self, path, strict: bool = False):
+        """Restore a checkpoint written by the JAX package's
+        ``GigaGAN.save`` (``model-N.ckpt``, flax msgpack), as ``load``
+        does: parameters through the weight bridge, the EMA's params and
+        counters, the step counter and the Adam moments of either optimizer
+        layout (``train/jax_checkpoint.py``).  Its JAX PRNG key cannot seed
+        torch's generators, so the host RNG keeps its state."""
+        fmt = jax_checkpoint.checkpoint_format(path)
+        if fmt == "orbax":
+            jax_checkpoint.read_checkpoint(path)  # raises
+        if fmt != "jax":
+            raise ValueError(f"{path} is not a JAX msgpack checkpoint")
+        self.load(path, strict=strict)
 
 
 def _matching(module, saved, name, skipped) -> dict:
@@ -711,25 +780,6 @@ def _optimizer_fits(opt, saved) -> bool:
     return True
 
 
-def _png(array) -> bytes:
-    """An 8-bit PNG (no filter, one zlib stream) of a (h, w) grey, (h, w,
-    3) RGB or (h, w, 4) RGBA uint8 array."""
-    h, w = array.shape[:2]
-    channels = 1 if array.ndim == 2 else array.shape[2]
-    color_type = {1: 0, 3: 2, 4: 6}[channels]
-    rows = np.ascontiguousarray(array).reshape(h, w * channels)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
-
-    def chunk(kind, data):
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-            + chunk(b"IEND", b""))
-
-
 def save_image_grid(images, path, nrow: int):
     """(n, h, w, c) float [0, 1] → a PNG grid with the JAX trainer's
     pixels (torchvision ``save_image``'s layout: 2-pixel borders on a
@@ -747,4 +797,4 @@ def save_image_grid(images, path, nrow: int):
     arr = (grid * 255).astype(np.uint8)
     if c == 1:
         arr = arr[..., 0]
-    Path(path).write_bytes(_png(arr))
+    Path(path).write_bytes(encode_png(arr))

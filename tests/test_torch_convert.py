@@ -209,6 +209,11 @@ def test_importing_the_port_needs_no_jax_nvcc_or_gpu(tmp_path):
         "import gigagan_tpu_torch.ops.kernels.flash_attention_fused\n"
         "import gigagan_tpu_torch.ops.kernels.flash_attention_hv\n"
         "import gigagan_tpu_torch.health_run\n"
+        "import gigagan_tpu_torch.cli\n"
+        "import gigagan_tpu_torch.eval\n"
+        "import gigagan_tpu_torch.parallel\n"
+        "import gigagan_tpu_torch.train.jax_checkpoint\n"
+        "import gigagan_tpu_torch.utils.png\n"
         "assert not build._LIBS\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'gigagan_tpu', 'triton', 'PIL', 'msgpack')]\n"
