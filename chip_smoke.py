@@ -13,7 +13,8 @@ Phases (any failure raises and exits non-zero):
 2. build the CUDA kernels from ``gigagan_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and check in their SASS that the
    tensor-core K1, K2, K3, K4, K5, K7a and K7b run ``HGMMA`` (``wgmma``) fed
-   by ``UTMALDG`` (TMA);
+   by ``UTMALDG`` (TMA), for K5, K7a and K7b in every kernel, those built
+   for head dim 128 among them;
 3. hold kernel K1 (adaptive conv) against its plain PyTorch version at
    every 3x3 conv shape of the 256px generator, batch 8: fp32 (TF32 off) on
    the CUDA-core kernel, bf16 with fp32 and with bf16 banks on the
@@ -46,21 +47,26 @@ Phases (any failure raises and exits non-zero):
    the route its rule names; and K2 at 8 banks (groups of at most 4 on the
    CUDA cores, 2 on the tensor cores);
 7. the same for K4 (attention backward; the SDPA yardstick is its
-   backward), and K5 (its adjoint; tensor cores in bf16 at d = 64) at the
-   d_step's R1 shapes, timed beside its CUDA-core kernel, and at the small
-   rows (ragged with and without the null token, dot and L2; d = 128 and
-   80 on the CUDA cores);
+   backward), and K5 (its adjoint; tensor cores in bf16 at d = 64 and 128)
+   at the d_step's R1 shapes and at those of phase 17's d = 128
+   discriminator (bf16, each launch on the tensor cores), timed beside its
+   CUDA-core kernel, and at the small rows (ragged with and without the
+   null token, dot and L2; d = 128, and 80 on the CUDA cores);
 8. hold K6a/K6b (split-heads attention and its backward; bf16 at d = 64
    and 128 on the tensor-core kernels of K3/K4 with one head, the rest on
    CUDA cores) and K7a/K7b (its jvp and the jvp's backward; bf16 at d = 64
-   on their tensor-core kernels, the rest on CUDA cores) against their
-   plain versions at the two attention shapes of the forward-over-reverse
-   R1 surrogate (L2, the null token as an extra key), fp32 and bf16, and
-   at small masked shapes (dot product, and head dims 128 and 80), each
-   call on the route its rule names; all four also at a masked shape where
-   one sample has every key masked, on both routes, whose outputs must be
-   finite; time each kernel's two routes at φ's pair beside the plain
-   versions (and SDPA for K6a/K6b);
+   and 128 on their tensor-core kernels, the rest on CUDA cores) against
+   their plain versions at the two attention shapes of the
+   forward-over-reverse R1 surrogate (L2, the null token as an extra key),
+   fp32 and bf16, at the same pair for phase 17's d = 128 discriminator
+   (bf16), and at small masked shapes (dot product, and head dims 128 and
+   80), each call on the route its rule names; all four also at masked
+   shapes (head dims 64 and 128) where one sample has every key masked, on
+   both routes, whose outputs must be finite; time each kernel's two
+   routes at φ's pairs beside the plain versions (and SDPA for K6a/K6b);
+   and report, without a gate, K7a/K7b on both bf16 routes and the fp32
+   plain version against the float64 plain version at φ's d = 128 pairs
+   with q drawn N(0, 1) (the gated rows draw it narrower, ``hv_operands``);
 9. drive the training path: the quickstart G+D pair (256px, bf16, batch 8)
    takes 8 iterations of train_discriminator_step + train_generator_step
    with R1 on iterations 0 and 4; every loss must be finite and every
@@ -85,6 +91,18 @@ Phases (any failure raises and exits non-zero):
     then K7a/K7b, against the CUDA-core ones; each bf16 route's distance
     from the fp32 plain step is reported, and the tensor-core route's may
     be at most FROM_PLAIN_RATIO times the CUDA-core route's;
+17. (after phase 11) the quickstart G beside a discriminator with 4 heads
+    of 128 (``QUICKSTART_D128``; 256px, batch 8, bf16): a d_step+R1 in
+    each form and a g_step from the fresh state, every loss finite and
+    every K1-K7b launch on the tensor cores in the counts the path implies;
+    each R1 form through the tensor-core K5 (reverse-over-reverse) or
+    K7a/K7b (forward-over-reverse) against the CUDA-core ones patched in,
+    and each route's distance from the fp32 plain step, the tensor-core
+    one at most FROM_PLAIN_RATIO times the CUDA-core one's, as phase 11;
+    and, in phase 12(d)'s deterministic child, two d_steps+R1 in each form
+    from one state and one seed with bitwise-equal gradients (no published
+    configuration builds D with heads of 128: the phase checks the range
+    the JAX kernels accept and times no step);
 12. the rest of the trainer at the quickstart's full width (bf16 unless
     named fp32): (a) 4 iterations with ``grad_accum_every=2`` (2
     microbatches of 4, R1 on one), finite losses and every step's launch
@@ -181,7 +199,9 @@ Phases (any failure raises and exits non-zero):
 15. print the kernel table as one JSON line (time, plain version, library
     call where one computes the same function, bound, launches on the
     text-to-image path, on the quickstart's, on the upsampler's, in phase
-    16's command-line and data-parallel runs) and, last, the device line.
+    16's command-line and data-parallel runs and in phase 17's steps; K5-K7b
+    also at the d = 128 discriminator's shapes) and, last, the device
+    line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -329,11 +349,32 @@ HV_PATH = [("phi", 64, HEADS, 1024, 1025, DIM_HEAD, True, False),
            ("phi", 128, HEADS, 256, 257, DIM_HEAD, True, False),
            ("masked dot", 2, 2, 300, 200, DIM_HEAD, False, True),
            ("masked L2 d128", 2, 2, 300, 200, 128, True, True),
-           ("masked dot d80", 1, 3, 260, 131, 80, False, True)]
+           ("masked dot d80", 1, 3, 260, 131, 80, False, True),
+           ("phi d128", 64, 4, 1024, 1025, 128, True, False),
+           ("phi d128", 128, 4, 256, 257, 128, True, False)]
+# rows held in bf16 only (fp32 at d = 128 runs the CUDA-core kernels, which
+# the small d128 row holds)
+HV_BF16_ONLY = ("phi d128",)
+# φ's d = 128 pairs with q drawn N(0, 1), as the rows above drew it before
+# they were rescaled (``hv_operands``): K7a/K7b on both bf16 routes and the
+# fp32 plain version, each against the float64 plain version, reported and
+# not gated (who, b, heads, queries, keys, head dim)
+HV_UNIT_Q = [("phi d128 unit q", 64, 4, 1024, 1025, 128),
+             ("phi d128 unit q", 128, 4, 256, 257, 128)]
+# phase 17's discriminator: the quickstart D with 4 heads of 128 (the same
+# b·H·n²·d as 8 heads of 64), and its R1 attention shapes for K5 (who, b,
+# heads, tokens, L2 similarity?), those of the d_step's [real; fake] batch
+# grown by the multiscale groups as R1_ATTN
+D128_HEADS, D128_DIM_HEAD = 4, 128
+QUICKSTART_D128 = dict(QUICKSTART_D, attn_heads=D128_HEADS,
+                       attn_dim_head=D128_DIM_HEAD)
+R1_ATTN_D128 = [("D128 d_step", 64, D128_HEADS, 1024, True),
+                ("D128 d_step", 128, D128_HEADS, 256, True)]
 # K6a/K6b where sample 0 has every key masked (NEG_INF in its whole bias
 # row): the plain version gives the mean of v, lse = NEG_INF and, from that
 # lse, P = 1 at every key; both routes must give it, finite
-K6_ALL_MASKED = ("all masked", 2, 2, 300, 200, DIM_HEAD, False, "all")
+K6_ALL_MASKED = [("all masked", 2, 2, 300, 200, DIM_HEAD, False, "all"),
+                 ("all masked d128", 2, 2, 300, 200, 128, False, "all")]
 # K2 with more banks than one launch takes (b, h, ci, co, banks)
 K2_BANKS = (BATCH, 32, 128, 128, 8)
 # K2's extra rows (b, h, w, ci, co, banks): ragged maps at the thin layers'
@@ -669,11 +710,13 @@ def expected_upsampler_launches(cfg, n_d_attn):
     return expected_step_launches(n_convs, n_g_attn, n_d_attn)
 
 
-def hv_operands(torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev):
+def hv_operands(torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev,
+                unit_q=False):
     """Prepared operands of K6a-K7b as the surrogate φ gives them:
     (q, k̂, v, bias), their tangents (tq, t̂k, tv, tbias), and the
     cotangents g (of out) and gt (of tout).  On φ's path k = q with the
-    null token first, and the null token has no tangent."""
+    null token first, and the null token has no tangent; ``unit_q`` keeps
+    its q at N(0, 1) at any head dim."""
     from gigagan_tpu_torch.ops.kernels import flash_attention as k6
     from gigagan_tpu_torch.ops.kernels import flash_attention_hv as k7
 
@@ -682,6 +725,15 @@ def hv_operands(torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev):
 
     q, tq = rnd(b, h, nq, d), rnd(b, h, nq, d)
     if not masked:  # shared q/k, the null token as key 0
+        # q (= its keys) drawn with std (64 / d)^(1/4), so that the L2
+        # logits spread as at d = 64 (−2√d·std² off the diagonal): at
+        # N(0, 1) and d = 128 the softmax over φ's 1025 keys is one-hot to
+        # 5e-7 and every cotangent through ĝT and ĝS is a difference at
+        # fp32 rounding, so no fp32 arithmetic can be held to a tolerance
+        # at such operands: phase 8's HV_UNIT_Q rows hold both bf16 routes
+        # and the fp32 plain version to the float64 one there
+        if not unit_q:
+            q = q * (64 / d) ** 0.25
         k = torch.cat((rnd(b, h, 1, d), q), 2)
         tk = torch.cat((torch.zeros(b, h, 1, d, device=dev), tq), 2)
         v = rnd(b, h, nk, d)
@@ -880,8 +932,11 @@ def deterministic_resume():
     fresh trainers, and all three take one more iteration with R1; their
     parameters and optimizer states must be bitwise equal.  Then two fresh
     upsampler trainers of the recipe take a d_step with R1 and a g_step
-    from one seed (bitwise equal), and a small video upsampler's forward
-    and backward run once (what the mode refuses there is reported).
+    from one seed (bitwise equal); for phase 17, two fresh pairs with the
+    d = 128 discriminator take a d_step with R1 in each form from one seed
+    (D's gradients bitwise equal, every K5/K7a/K7b launch on the tensor
+    cores); and a small video upsampler's forward and backward run once
+    (what the mode refuses there is reported).
     Prints one ``DETERMINISTIC {json}`` line; exits 1 when something
     differs or is refused."""
     import numpy as np
@@ -968,6 +1023,36 @@ def deterministic_resume():
         out["upsampler_differs"] = same_state(*ups)
         del ups, up
         torch.cuda.empty_cache()
+
+        # the d = 128 discriminator's R1 through the tensor-core K5 and
+        # K7a/K7b, which sum without float atomics
+        out["d128_differs"], out["d128_launches"] = {}, {}
+        for form, for_ in (("reverse-over-reverse", False),
+                           ("forward-over-reverse", True)):
+            grads = []
+            launch_counts(reset=True)
+            for _ in range(2):
+                pair = GigaGAN(generator=QUICKSTART,
+                               discriminator=QUICKSTART_D128, amp=True,
+                               seed=0, device="cuda", gp_fwd_over_rev=for_)
+                pair.train_discriminator_step(
+                    pool, apply_gradient_penalty=True,
+                    calc_multiscale_loss=True, seed=3)
+                grads.append({n_: p_.grad.detach().clone()
+                              for n_, p_ in pair.D.named_parameters()})
+                del pair
+            torch.cuda.synchronize()
+            counts = launch_counts(reset=True)
+            out["d128_launches"][form] = counts
+            out["d128_differs"][form] = [
+                n_ for n_, g_ in grads[0].items()
+                if not torch.equal(g_, grads[1][n_])]
+            ran = ("k7a", "k7b") if for_ else ("k5",)
+            if any(counts[k_]["simt"] or not counts[k_]["tc"] for k_ in ran):
+                out["d128_differs"][form].append(
+                    f"launches off the tensor cores: {counts}")
+            del grads
+            torch.cuda.empty_cache()
     except Exception as e:  # noqa: BLE001 (reported in the JSON line)
         out["refused"] = f"{type(e).__name__}: {str(e)[:400]}"
         out["traceback"] = traceback.format_exc()[-2000:]
@@ -992,7 +1077,8 @@ def deterministic_resume():
     except Exception as e:  # noqa: BLE001 (reported in the JSON line)
         out["video_backward"] = f"{type(e).__name__}: {str(e)[:300]}"
     ok = out["refused"] is None and not any(
-        out["resume_differs"].values()) and not out["upsampler_differs"]
+        out["resume_differs"].values()) and not out["upsampler_differs"] \
+        and not any(out["d128_differs"].values())
     out["ok"] = ok
     print("DETERMINISTIC " + json.dumps(out), flush=True)
     return 0 if ok else 1
@@ -1150,6 +1236,23 @@ def main():
         log(f"  sass {kname}: {found}")
         if not all(found.values()):
             fail(f"{kname} lacks tensor-core products or TMA loads: {found}")
+    # K5's, K7a's and K7b's kernels one by one: each instantiation, those
+    # at d = 128 (template argument 2) among them, holds both
+    for kname in tc_libs[4:]:
+        per = {}
+        for body in re.split(r"Function : ", dumps[kname])[1:]:
+            fname = body.split(None, 1)[0]
+            if "_tc_kernel" in fname:
+                per[fname] = {op: len(re.findall(rf"\b{op}\b", body))
+                              for op in ("HGMMA", "UTMALDG")}
+        n128 = sum("ILi2E" in f_ for f_ in per)
+        report["sass"][kname + "_kernels"] = per
+        if not n128 or not all(all(v.values()) for v in per.values()):
+            fail(f"a {kname} kernel lacks tensor-core products or TMA "
+                 f"loads, or none is built for d = 128: {per}")
+        log(f"  sass {kname}: {len(per)} kernels ({n128} at d = 128), "
+            f"fewest HGMMA {min(v['HGMMA'] for v in per.values())} and "
+            f"UTMALDG {min(v['UTMALDG'] for v in per.values())} in one")
 
     phase_done("2")
 
@@ -1728,6 +1831,48 @@ def main():
             fail(f"K5 disagrees at {row5}")
         del want5, got5, args5, cots, pairs, args, bargs, want, out, lse, g
         torch.cuda.empty_cache()
+    # K5 at the R1 shapes of phase 17's d = 128 discriminator, bf16: on the
+    # tensor cores by the rule, timed beside its CUDA-core kernel
+    for who, b, h, n, l2 in R1_ATTN_D128:
+        d = D128_DIM_HEAD
+        args = attn_operands(b, h, n, n, d, l2, True, bf16)
+        g = torch.randn(args[0].shape, device=dev, generator=gen).to(bf16)
+        out, lse = k3.flash_attention_fused_fwd(*args)
+        bargs = (*args[:7], g, out, lse, h)
+        cots = [None if w_ is None else torch.randn(
+            w_.shape, device=dev, generator=gen).to(w_.dtype)
+            for w_ in so.flash_attention_fused_bwd(*bargs)]
+        args5 = (*bargs[:8], lse, *cots, h)
+        got5, route = launched_on(
+            "k5", lambda: so.flash_attention_so_bwd2(*args5))
+        want5 = so.flash_attention_so_bwd2_plain(*args5)
+        torch.cuda.synchronize()
+        pairs = [(a_, w_) for a_, w_ in zip(got5, want5) if w_ is not None]
+        row5 = dict(
+            who=who, b=b, heads=h, nq=n, nk=n, d=d, l2=l2, null=True,
+            dtype=dtype_name(bf16), route=route,
+            rel=max(rel_err(a_, w_) for a_, w_ in pairs),
+            abs=max(abs_err(a_, w_) for a_, w_ in pairs))
+        moved = nbytes(*args5[:-1], *(t for t in got5 if t is not None))
+        del got5, want5, pairs
+        torch.cuda.empty_cache()
+        row5["ms"] = time_ms(lambda: so.flash_attention_so_bwd2(*args5),
+                             torch)
+        row5["plain_ms"] = time_ms(
+            lambda: so.flash_attention_so_bwd2_plain(*args5), torch)
+        row5["simt_ms"] = time_ms(
+            lambda: so.flash_attention_so_bwd2_simt(*args5), torch)
+        row5["bound_ms"], row5["bound_by"] = attn_bound(12, b * h, n, n + 1,
+                                                        d, moved)
+        k5_rows.append(row5)
+        log(f"K5 {who} b{b} H{h} n{n} d{d} l2={l2} null=True bf16 "
+            f"({route}): rel {row5['rel']:.2e} | ms {row5['ms']:.4f} "
+            f"(plain {row5['plain_ms']:.4f}, simt {row5['simt_ms']:.4f}, "
+            f"bound {row5['bound_ms']:.4f}) [{smi}]")
+        if route != "tc" or not row5["rel"] <= K5_TOL:
+            fail(f"K5 at the d = 128 R1 shapes: {row5}")
+        del args, g, out, lse, bargs, cots, args5
+        torch.cuda.empty_cache()
     report["k4"], report["k5"] = k4_rows, k5_rows
 
     phase_done("7")
@@ -1741,7 +1886,8 @@ def main():
 
     hv_rows = []
     for who, b, h, nq, nk, d, l2, masked in HV_PATH:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in ((torch.bfloat16,) if who in HV_BF16_ONLY
+                      else (torch.float32, torch.bfloat16)):
             tol = K67_TOL_F32 if dtype == torch.float32 else K67_TOL_BF16
             operands, tang, g, gt = hv_operands(
                 torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev)
@@ -1775,7 +1921,7 @@ def main():
                        masked=masked, dtype=str(dtype).split(".")[-1],
                        route_k6=hv_route("k6a", dtype, d),
                        route_k7=hv_route("k7a", dtype, d))
-            phi_bf16 = who == "phi" and dtype == torch.bfloat16
+            phi_bf16 = who.startswith("phi") and dtype == torch.bfloat16
             if phi_bf16:
                 # products per call: K6a S, P·V; K6b S, dA, dq, dk, dv; K7a
                 # S, two for T, P·V, P·tV, (P⊙T)·V; K7b (no cotangent on
@@ -1836,6 +1982,53 @@ def main():
             torch.cuda.empty_cache()
     report["k6_k7"] = hv_rows
 
+    # φ's d = 128 pairs at N(0, 1) q: K7a/K7b on the tensor cores and on
+    # the CUDA cores (bf16) and the fp32 plain version, each against the
+    # plain version in float64 on the same bf16 operands, per row of b·h
+    # chunks (the float64 (n, n) maps of a whole pair do not fit beside the
+    # rest).  Reported, not gated: a witness of how far fp32 arithmetic can
+    # get at these operands, for either route
+    def plain_as(fn, args, dt, rows=16):
+        outs = [fn(*(a_[i:i + rows].to(dt) if a_ is not None else None
+                     for a_ in args))
+                for i in range(0, args[0].shape[0], rows)]
+        return [torch.cat(parts) for parts in zip(*outs)]
+
+    unit_rows = []
+    for who, b, h, nq, nk, d in HV_UNIT_Q:
+        operands, tang, g, gt = hv_operands(torch, gen, b, h, nq, nk, d,
+                                            True, False, bf16, dev,
+                                            unit_q=True)
+        lse7 = k7.flash_attention_hv_jvp_plain(*operands, *tang)[2]
+        args = {"k7a": (*operands, *tang),
+                "k7b": (*operands, *tang, lse7, None, gt)}
+        entries = {"k7a": (k7.flash_attention_hv_jvp_tc,
+                           k7.flash_attention_hv_jvp_simt,
+                           k7.flash_attention_hv_jvp_plain),
+                   "k7b": (k7.flash_attention_hv_bwd_tc,
+                           k7.flash_attention_hv_bwd_simt,
+                           k7.flash_attention_hv_bwd_plain)}
+        row = dict(who=who, bh=b * h, nq=nq, nk=nk, d=d)
+        for kname, (tc_fn, simt_fn, plain_fn) in entries.items():
+            a_ = args[kname]
+            want = plain_as(plain_fn, a_, torch.float64)
+            got = {"tc": tc_fn(*a_), "simt": simt_fn(*a_),
+                   "plain_fp32": plain_as(plain_fn, a_, torch.float32)}
+            row[kname] = {
+                r: max(rel_err(x, w) for x, w in zip(res, want))
+                for r, res in got.items()}
+            del want, got
+            torch.cuda.empty_cache()
+        unit_rows.append(row)
+        log(f"K7a/K7b {who} bh{b * h} nq{nq} nk{nk} d{d} bf16 operands, "
+            "max-rel from the float64 plain version (not gated): "
+            + "; ".join(f"{k_} " + ", ".join(f"{r} {v:.2e}"
+                                             for r, v in row[k_].items())
+                        for k_ in entries) + f" [{smi}]")
+        del operands, tang, g, gt, lse7, args
+        torch.cuda.empty_cache()
+    report["k7_unit_q"] = unit_rows
+
     # K6a-K7b where one sample has every key masked, on each route that
     # takes the dtype: finite, and the plain version's numbers (lse exactly
     # NEG_INF on the all-masked rows, from K6a and from K7a)
@@ -1845,60 +2038,63 @@ def main():
                     abs=max(abs_err(a_, w_) for a_, w_ in pairs))
 
     k6_masked = []
-    who, b, h, nq, nk, d, l2, masked = K6_ALL_MASKED
-    for dtype in (torch.float32, bf16):
-        tol = K67_TOL_F32 if dtype == torch.float32 else K67_TOL_BF16
-        operands, tang, g, gt = hv_operands(torch, gen, b, h, nq, nk, d,
-                                            l2, masked, dtype, dev)
-        dead = (operands[3] == k6.NEG_INF).all(-1)
-        if not dead.any() or dead.all():
-            fail(f"the all-masked K6 row has {int(dead.sum())} dead rows")
-        out, lse = k6.flash_attention_fwd_plain(*operands)
-        jvp = k7.flash_attention_hv_jvp_plain(*operands, *tang)
-        kernels_ = (
-            ("k6", k6, "flash_attention_fwd", "flash_attention_bwd", operands,
-             (*operands, g, out, lse), (out, lse),
-             k6.flash_attention_bwd_plain(*operands, g, out, lse)),
-            ("k7", k7, "flash_attention_hv_jvp", "flash_attention_hv_bwd",
-             (*operands, *tang), (*operands, *tang, jvp[2], g, gt), jvp,
-             k7.flash_attention_hv_bwd_plain(*operands, *tang, jvp[2], g, gt)))
-        for r in ("tc", "simt"):
-            ran = [k_ for k_, *_ in kernels_
-                   if r == "simt" or hv_route(k_ + "a", dtype, d) == "tc"]
-            if not ran:
-                continue
-            row = dict(who=who, bh=b * h, nq=nq, nk=nk, d=d,
-                       dtype=str(dtype).split(".")[-1], route=r,
-                       dead_rows=int(dead.sum()), finite=True,
-                       lse_dead_exact=True)
-            for (k_, mod, fwd, bwd, fwd_args, bwd_args, want_f,
-                 want_b) in kernels_:
-                if k_ not in ran:
+    for who, b, h, nq, nk, d, l2, masked in K6_ALL_MASKED:
+        for dtype in (torch.float32, bf16):
+            tol = K67_TOL_F32 if dtype == torch.float32 else K67_TOL_BF16
+            operands, tang, g, gt = hv_operands(torch, gen, b, h, nq, nk, d,
+                                                l2, masked, dtype, dev)
+            dead = (operands[3] == k6.NEG_INF).all(-1)
+            if not dead.any() or dead.all():
+                fail(f"the all-masked K6 row has {int(dead.sum())} dead "
+                     "rows")
+            out, lse = k6.flash_attention_fwd_plain(*operands)
+            jvp = k7.flash_attention_hv_jvp_plain(*operands, *tang)
+            kernels_ = (
+                ("k6", k6, "flash_attention_fwd", "flash_attention_bwd",
+                 operands, (*operands, g, out, lse), (out, lse),
+                 k6.flash_attention_bwd_plain(*operands, g, out, lse)),
+                ("k7", k7, "flash_attention_hv_jvp", "flash_attention_hv_bwd",
+                 (*operands, *tang), (*operands, *tang, jvp[2], g, gt), jvp,
+                 k7.flash_attention_hv_bwd_plain(*operands, *tang, jvp[2], g,
+                                                 gt)))
+            for r in ("tc", "simt"):
+                ran = [k_ for k_, *_ in kernels_
+                       if r == "simt" or hv_route(k_ + "a", dtype, d) == "tc"]
+                if not ran:
                     continue
-                got_f = getattr(mod, f"{fwd}_{r}")(*fwd_args)
-                got_b = getattr(mod, f"{bwd}_{r}")(*bwd_args)
-                torch.cuda.synchronize()
-                got_l, want_l = got_f[-1], want_f[-1]
-                row["finite"] &= all(bool(torch.isfinite(x).all())
-                                     for x in (*got_f, *got_b))
-                row["lse_dead_exact"] &= bool(
-                    (got_l[dead] == want_l[dead]).all())
-                row[k_ + "a"] = rel_abs((*got_f[:-1], got_l[~dead]),
-                                        (*want_f[:-1], want_l[~dead]))
-                row[k_ + "b"] = rel_abs(got_b, want_b)
-                del got_f, got_b
-            k6_masked.append(row)
-            names = [k_ + x for k_ in ran for x in "ab"]
-            log(f"K6a-K7b {who} bh{b * h} nq{nq} nk{nk} d{d} {row['dtype']} "
-                f"({r}, {row['dead_rows']} all-masked rows): finite "
-                f"{row['finite']}, lse NEG_INF there {row['lse_dead_exact']},"
-                + "".join(f" rel {n_.upper()} {row[n_]['rel']:.2e}"
-                          for n_ in names) + f" (tol {tol})")
-            if not (row["finite"] and row["lse_dead_exact"]
-                    and max(row[n_]["rel"] for n_ in names) <= tol):
-                fail(f"K6a-K7b with all-masked rows failed: {row}")
-        del operands, tang, g, gt, out, lse, jvp, kernels_
-        torch.cuda.empty_cache()
+                row = dict(who=who, bh=b * h, nq=nq, nk=nk, d=d,
+                           dtype=str(dtype).split(".")[-1], route=r,
+                           dead_rows=int(dead.sum()), finite=True,
+                           lse_dead_exact=True)
+                for (k_, mod, fwd, bwd, fwd_args, bwd_args, want_f,
+                     want_b) in kernels_:
+                    if k_ not in ran:
+                        continue
+                    got_f = getattr(mod, f"{fwd}_{r}")(*fwd_args)
+                    got_b = getattr(mod, f"{bwd}_{r}")(*bwd_args)
+                    torch.cuda.synchronize()
+                    got_l, want_l = got_f[-1], want_f[-1]
+                    row["finite"] &= all(bool(torch.isfinite(x).all())
+                                         for x in (*got_f, *got_b))
+                    row["lse_dead_exact"] &= bool(
+                        (got_l[dead] == want_l[dead]).all())
+                    row[k_ + "a"] = rel_abs((*got_f[:-1], got_l[~dead]),
+                                            (*want_f[:-1], want_l[~dead]))
+                    row[k_ + "b"] = rel_abs(got_b, want_b)
+                    del got_f, got_b
+                k6_masked.append(row)
+                names = [k_ + x for k_ in ran for x in "ab"]
+                log(f"K6a-K7b {who} bh{b * h} nq{nq} nk{nk} d{d} "
+                    f"{row['dtype']} ({r}, {row['dead_rows']} all-masked "
+                    f"rows): finite {row['finite']}, lse NEG_INF there "
+                    f"{row['lse_dead_exact']},"
+                    + "".join(f" rel {n_.upper()} {row[n_]['rel']:.2e}"
+                              for n_ in names) + f" (tol {tol})")
+                if not (row["finite"] and row["lse_dead_exact"]
+                        and max(row[n_]["rel"] for n_ in names) <= tol):
+                    fail(f"K6a-K7b with all-masked rows failed: {row}")
+            del operands, tang, g, gt, out, lse, jvp, kernels_
+            torch.cuda.empty_cache()
     report["k6_all_masked"] = k6_masked
 
     # ------------------------------------------------------------- 9, 10
@@ -2044,8 +2240,9 @@ def main():
     atexit.register(lambda: det_child.poll() is None and det_child.kill())
     real = torch.from_numpy(np.stack([data[i] for i in range(BATCH)])).to(dev)
 
-    def fp32_step(kind, plain, fwd_over_rev=False, amp=False):
-        g32 = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D,
+    def fp32_step(kind, plain, fwd_over_rev=False, amp=False,
+                  d_cfg=QUICKSTART_D):
+        g32 = GigaGAN(generator=QUICKSTART, discriminator=d_cfg,
                       amp=amp, device="cuda", seed=0,
                       gp_fwd_over_rev=fwd_over_rev)
         with (plain_reference() if plain else contextlib.nullcontext()):
@@ -2119,15 +2316,15 @@ def main():
     step_rel["g"] = compare("fp32 g_step kernels vs plain path",
                             fp32_step("g", False), plain_step["g"])
 
-    def bf16_step(kind, route, keys):
+    def bf16_step(kind, route, keys, d_cfg=QUICKSTART_D):
         """A bf16 step of `kind` ("d", "g", or "d_fwd_over_rev": the d_step
         with R1 taken forward-over-reverse) with the kernels `keys` on
-        `route`."""
+        `route`; the step's launches stay counted."""
         reset_counts()
         with (simt_kernels(keys) if route == "simt"
               else contextlib.nullcontext()):
             res = fp32_step(kind[0], False, fwd_over_rev=kind != kind[0],
-                            amp=True)
+                            amp=True, d_cfg=d_cfg)
         tc = {k_: tc_entry[k_].launches for k_ in keys}
         sc = {k_: simt[k_].launches for k_ in keys}
         # K5 runs only in the d_step's R1 double backward, K2 only in the
@@ -2139,12 +2336,12 @@ def main():
                  f"{tc} and CUDA-core {sc} kernels")
         return res
 
-    def from_plain(kind, res):
+    def from_plain(kind, res, plain=plain_step, stable=step_rel):
         """(max-rel, leaf) of a bf16 step's gated leaves from the fp32 plain
         step: the bf16 noise floor that the route comparison sits on."""
-        want = plain_step[kind][1]
+        want = plain[kind][1]
         rel = {n_: rel_err(res[1][n_], want[n_]) for n_ in want
-               if informative(n_, step_rel[kind]["grad_rel"][n_])}
+               if informative(n_, stable[kind]["grad_rel"][n_])}
         worst = max(rel, key=rel.get)
         return rel[worst], worst
 
@@ -2196,6 +2393,96 @@ def main():
         fail("the deterministic resume is not bitwise equal, or the mode "
              f"refused an op: {det}")
     phase_done("11")
+
+    # --------------------------------------------------------------- 17
+    # the quickstart G beside the d = 128 discriminator (4 heads of 128),
+    # bf16: one d_step+R1 in each form and one g_step from the fresh state,
+    # every K1-K7b launch on the tensor cores and the counts the path
+    # implies; each R1 form on the tensor-core K5 (reverse-over-reverse) or
+    # K7a/K7b (forward-over-reverse) against the CUDA-core ones patched in,
+    # both held to their distance from the fp32 plain step as phase 11
+    # holds them.  The bitwise repeat of both R1 forms ran in phase 12(d)'s
+    # deterministic child beside phase 11.
+    t_phase = time.perf_counter()
+    d128 = report["d128"] = dict(bitwise=det.get("d128_differs"),
+                                 bitwise_launches=det.get("d128_launches"))
+    log(f"d = 128 D: two d_step+R1 from one state and one seed, D's "
+        f"gradients bitwise equal in each form (deterministic child): "
+        f"differing leaves {det.get('d128_differs')}")
+    probe = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D128,
+                    amp=True, device="cuda", seed=0)
+    exp128 = expected_step_launches(
+        len(convs), sum(s_.self_attn is not None for s_ in probe.G.stages),
+        sum(s_.core.attn is not None for s_ in probe.D.stages))
+    del probe
+    d128_launches = {k_: 0 for k_ in KERNEL_NAMES}
+    plain128, stable128 = {}, {}
+    for kind, label, keys, want in (
+            ("d", "d_step +R1", ("k5",), exp128[1]),
+            ("d_fwd_over_rev", "d_step +R1 forward-over-reverse",
+             ("k7a", "k7b"), exp128[2])):
+        fwd = kind != "d"
+        plain128[kind] = fp32_step("d", True, fwd, d_cfg=QUICKSTART_D128)
+        stable128[kind] = compare(
+            f"d = 128 D: fp32 {label} kernels vs plain path",
+            fp32_step("d", False, fwd, d_cfg=QUICKSTART_D128),
+            plain128[kind])
+        runs, counts = {}, {}
+        for r in ("tc", "simt"):
+            runs[r] = bf16_step(kind, r, keys, d_cfg=QUICKSTART_D128)
+            counts[r] = read_counts()
+            # every launch but those of `keys` on the CUDA-core route is
+            # on the tensor cores, in the counts the path implies
+            if counts[r] != want or any(
+                    simt[k_].launches for k_ in KERNEL_NAMES
+                    if r == "tc" or k_ not in keys):
+                fail(f"d = 128 D: bf16 {label} on the {r} route launched "
+                     f"{counts[r]} (CUDA-core {simt_counts()}), the path "
+                     f"implies {want}")
+        if not all(np.isfinite(v) for res in runs.values()
+                   for v in res[0].values()):
+            fail(f"d = 128 D: non-finite losses in the bf16 {label}: "
+                 f"{[res[0] for res in runs.values()]}")
+        for k_ in KERNEL_NAMES:
+            d128_launches[k_] += counts["tc"][k_]
+        names = "/".join(k_.upper() for k_ in keys)
+        row = compare(f"d = 128 D: bf16 {label}, tensor-core vs CUDA-core "
+                      f"{names}", runs["tc"], runs["simt"],
+                      tol=STEP_TOL_BF16, stable=stable128[kind])
+        far = {r: from_plain(kind, res, plain128, stable128)
+               for r, res in runs.items()}
+        ratio = far["tc"][0] / far["simt"][0]
+        row.update(from_fp32_plain=far, from_fp32_plain_ratio=ratio,
+                   launches=counts,
+                   fp32_vs_plain=stable128[kind]["grad_rel_max"])
+        d128[kind] = row
+        log(f"d = 128 D: bf16 {label}, each {names} route vs the fp32 plain "
+            f"step: tensor-core {far['tc'][0]:.2e} ({far['tc'][1]}), "
+            f"CUDA-core {far['simt'][0]:.2e} ({far['simt'][1]}): ratio "
+            f"{ratio:.3f} (limit {FROM_PLAIN_RATIO})")
+        if not ratio <= FROM_PLAIN_RATIO:
+            fail(f"d = 128 D: bf16 {label}: the tensor-core {names} route "
+                 f"sits {ratio:.3f}x as far from the fp32 plain step as the "
+                 "CUDA-core one")
+        del runs
+        torch.cuda.empty_cache()
+    del plain128, stable128
+    reset_counts()
+    g_losses, _ = fp32_step("g", False, amp=True, d_cfg=QUICKSTART_D128)
+    g_counts = read_counts()
+    if any(simt_counts().values()) or g_counts != exp128[3] or not all(
+            np.isfinite(v) for v in g_losses.values()):
+        fail(f"d = 128 D: bf16 g_step losses {g_losses}, launches "
+             f"{g_counts} (the path implies {exp128[3]}, all on the tensor "
+             "cores)")
+    for k_ in KERNEL_NAMES:
+        d128_launches[k_] += g_counts[k_]
+    d128["g_step_losses"] = g_losses
+
+    d128["launches"] = d128_launches
+    d128["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 17 (the d = 128 discriminator): {d128['seconds']:.1f} s; "
+        f"launches {d128_launches}")
 
     # --------------------------------------------------------------- 12
     # the rest of the trainer at the quickstart's full width: gradient
@@ -3799,7 +4086,8 @@ def main():
                    and r["dtype"] == "bfloat16"]
               for kn, rows in (("k3", k3_rows), ("k4", k4_rows))}
     r1_bf16 = [(1, r) for r in k5_rows if r["dtype"] == "bfloat16"
-               and "ms" in r]
+               and "ms" in r and r["who"] == "D d_step"]
+    r1_d128 = [(1, r) for r in k5_rows if r["who"] == "D128 d_step"]
     # K1-K5: bf16 on the tensor-core kernels, the CUDA-core
     # kernels (fp32, other channel counts or head dims) beside them
     kernels = [
@@ -3865,13 +4153,15 @@ def main():
              max_abs_err=max(r["abs"] for r in k5_rows),
              **timing(r1_bf16),
              simt_source="gigagan_tpu_torch/csrc/flash_attention_so_bwd2.cu",
-             simt_ms=total(r1_bf16, "simt_ms")),
+             simt_ms=total(r1_bf16, "simt_ms"),
+             d128=dict(timing(r1_d128), simt_ms=total(r1_d128, "simt_ms"))),
     ]
     # K6a-K7b: launches from the forward-over-reverse run, times summed
     # over φ's two attentions in bf16, on the tensor-core kernels (K6a/K6b
     # on K3's/K4's), their CUDA-core kernels beside them
     phi_bf16 = [r for r in hv_rows if r["who"] == "phi"
                 and r["dtype"] == "bfloat16"]
+    phi_d128 = [r for r in hv_rows if r["who"] == "phi d128"]
     for key, name_, source, replaces in (
         ("k6a", "flash_attention_fwd", "flash_attention_fused_fwd_tc",
          "flash_attention.py:118"),
@@ -3882,9 +4172,11 @@ def main():
         ("k7b", "flash_attention_hv_bwd", "flash_attention_hv_bwd_tc",
          "flash_attention_hv.py:110"),
     ):
-        rows = [(1, dict(r[key], library_ms=r.get(f"{key}_library"),
-                         bound_ms=r[f"{key}_bound"][0],
-                         bound_by=r[f"{key}_bound"][1])) for r in phi_bf16]
+        rows, rows128 = (
+            [(1, dict(r[key], library_ms=r.get(f"{key}_library"),
+                      bound_ms=r[f"{key}_bound"][0],
+                      bound_by=r[f"{key}_bound"][1])) for r in phi_rows]
+            for phi_rows in (phi_bf16, phi_d128))
         kernels.append(dict(
             name=name_, route="cuda",
             source=f"gigagan_tpu_torch/csrc/{source}.cu",
@@ -3898,14 +4190,20 @@ def main():
                                if key in r]),
             **timing(rows),
             simt_source=f"gigagan_tpu_torch/csrc/{name_}.cu",
-            simt_ms=total(rows, "simt_ms")))
+            simt_ms=total(rows, "simt_ms"),
+            d128=dict(timing(rows128), simt_ms=total(rows128, "simt_ms"))))
+    # launches_d128: phase 17's bf16 steps on the tensor-core route (a
+    # d_step+R1 in each form and a g_step of the d = 128 discriminator)
+    for entry, key in zip(kernels, KERNEL_NAMES):
+        entry["launches_d128"] = d128["launches"][key]
     # launches: the text-to-image path's run (phase 13: 8 iterations, R1
     # reverse-over-reverse on two, then 2 forward-over-reverse R1
     # iterations); launches_unconditional: phase 9's (K1-K5) or phase 10's
     # (K6a-K7b) 8 iterations of the quickstart pair; launches_upsampler:
     # phase 14's run of the upsampler recipe (as phase 13's);
     # launches_cli / launches_dp: phase 16's command-line children and its
-    # data-parallel ranks (both routes)
+    # data-parallel ranks (both routes); d128: the times at the d = 128
+    # discriminator's R1 shapes (phase 7, φ's pair in phase 8)
     phase_done("15")
     report["kernels"] = kernels
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

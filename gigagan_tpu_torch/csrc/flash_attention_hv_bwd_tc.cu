@@ -1,5 +1,5 @@
 // Backward of the attention-and-tangent pair on Hopper's tensor cores
-// (kernel K7b, the bf16 route at head dim 64).
+// (kernel K7b, the bf16 route at head dims 64 and 128).
 //
 // Replaces the Pallas TPU kernel `_jvp_bwd_kernel` in
 // gigagan_tpu/ops/pallas/flash_attention_hv.py (called through
@@ -19,7 +19,7 @@
 // The statistics need no pass of their own beyond the first: with
 // s₃ = rowsum(A⊙([ĝo | ĝt]·[v | tv]ᵀ + ĝtA⊙T)), ρ = s₃ − 2μr.
 //
-// What bounds it on an H100: 13 (n, n, 64) products a call without ĝo
+// What bounds it on an H100: 13 (n, n, d) products a call without ĝo
 // (15 with it), operation-bound at the R1 surrogate's shapes (~1.0 ms at
 // 989 TF/s), and no (n, n) map may reach device memory.  Design: the
 // deterministic split of the CUDA-core kernel (no float atomics), each
@@ -27,14 +27,16 @@
 // producer warp runs a TMA ring on mbarriers; two consumer warpgroups of
 // 64 rows run `wgmma` on 32-column pieces of each streamed tile):
 //
-// 1. `hv_bwd_q_tc_kernel`, query-major, one block per (128 queries, b·h):
+// 1. `hv_bwd_q_tc_kernel`, query-major, one block per (128 queries, output
+//    slice, b·h):
 //    q, tq, ĝt (and ĝo) resident, k̂, t̂k, v, tv streamed twice.  Pass 1
 //    forms μ, r and ρ per row from S, T, ĝtA and ĝo vᵀ + ĝt tvᵀ and writes
 //    them for steps 2 and 3.  Pass 2 rebuilds S, T and ĝtA, turns ĝtA into
 //    ĝtA⊙(T − μ) − T⊙r − ρ in place and adds ĝo vᵀ + ĝt tvᵀ onto it by
 //    `wgmma` (no fourth fp32 map), and accumulates ĝtq = ĝT k̂ and ĝq in one
 //    chain over [ĝS | ĝT], both from registers with k̂, t̂k MN-major.
-// 2. `hv_bwd_k_tc_kernel`, key-major, one block per (128 keys, b·h): k̂,
+// 2. `hv_bwd_k_tc_kernel`, key-major, one block per (128 keys, output
+//    slice, b·h): k̂,
 //    t̂k, v, tv resident, q, tq, ĝt (and ĝo) and the per-query lse, μ, r, ρ
 //    streamed.  Sᵀ = k̂·qᵀ and Tᵀ = [k̂ | t̂k]·[tq | q]ᵀ are K-major, the
 //    xᵀ·y products take B MN-major: ĝt̂k = ĝTᵀ q and ĝk̂ = [ĝSᵀ | ĝTᵀ]·
@@ -49,7 +51,12 @@
 // A masked key's bias and an all-masked row's lse (both NEG_INF) go to the
 // log2 domain through `to_log2`, so such a row takes A = 1 at every key
 // from its lse, as the plain version does.  Registers: two (64 × 64) fp32
-// accumulators and three 32-column pieces a thread in each kernel.
+// accumulators and three 32-column pieces a thread in each kernel.  At
+// d = 128 each block accumulates one 64-column slice of its outputs
+// (flash_attention_hv_tc.cuh) and the two slices' blocks each rebuild the
+// logit-side products over all 128 columns: 44 (n, n, d) products a call
+// without ĝo to d = 64's 26 (query-major 2 × 10 + 3, key-major 2 × 5 + 3,
+// the v kernel 2 × 3 + 2).
 
 #include <math.h>
 
@@ -60,11 +67,14 @@ namespace {
 using namespace hv;
 
 // query-major: q, tq, ĝt, ĝo | k̂, t̂k, v, tv | bias, tbias
-using LQ = Layout<4, 4, 2, 3>;
+template <int DA>
+using LQ = Layout<DA, 4, 4, 2, 3>;
 // key-major: k̂, t̂k, v, tv | q, tq, ĝt, ĝo | lse, μ, r, ρ
-using LK = Layout<4, 4, 4, 3>;
+template <int DA>
+using LK = Layout<DA, 4, 4, 4, 3>;
 // key-major: k̂, t̂k | q, tq, ĝt, ĝo | lse, μ
-using LV = Layout<2, 4, 2, 4>;
+template <int DA>
+using LV = Layout<DA, 2, 4, 2, 4>;
 
 struct Maps {
   CUtensorMap q, tq, gt, go, k, tk, v, tv;
@@ -80,6 +90,7 @@ struct Rows {
 
 // The per-query rows of a key-major stage: lse in the log2 domain (+inf
 // past nq: A = 0 there), then the first `nstat` of μ, r, ρ (0 past nq)
+template <int kCols>
 __device__ __forceinline__ void stage_query_rows(float* v, const Rows& a,
                                                  size_t rows0, int q0,
                                                  int nstat) {
@@ -92,52 +103,57 @@ __device__ __forceinline__ void stage_query_rows(float* v, const Rows& a,
   }
 }
 
-// Query-major products over a 32-key piece at row `ko` of the stage at
+// Query-major products over a 32-key piece at byte `ko` of the stage at
 // `ks` (k̂, t̂k, v, tv), with the warpgroup's resident rows at qw (q; tq,
 // ĝt and ĝo follow at kRes steps): S, T = [tq | q]·[k̂ | t̂k]ᵀ and ĝtA.
+template <int DA>
 __device__ __forceinline__ void q_products(uint32_t qw, uint32_t ks,
                                            uint32_t ko, float (&sa)[KP / 2],
                                            float (&ta)[KP / 2],
                                            float (&ga)[KP / 2]) {
-  const uint32_t tqw = qw + kRes, gtw = qw + 2 * kRes;
-  const uint32_t tks = ks + kTile, vs = ks + 2 * kTile;
+  using H = Heads<DA>;
+  const uint32_t tqw = qw + H::kRes, gtw = qw + 2 * H::kRes;
+  const uint32_t tks = ks + H::kTile, vs = ks + 2 * H::kTile;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    mma_ss_n<KP>(sa, desc_k(qw, kk), desc_k(ks + ko, kk), kk > 0);
+  for (int kk = 0; kk < 4 * DA; ++kk)
+    mma_ss_n<KP>(sa, desc_k(qw, kk), H::b_k(ks, ko, kk), kk > 0);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    mma_ss_n<KP>(ta, desc_k(tqw, kk), desc_k(ks + ko, kk), kk > 0);
+  for (int kk = 0; kk < 4 * DA; ++kk)
+    mma_ss_n<KP>(ta, desc_k(tqw, kk), H::b_k(ks, ko, kk), kk > 0);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    mma_ss_n<KP>(ta, desc_k(qw, kk), desc_k(tks + ko, kk), 1);
+  for (int kk = 0; kk < 4 * DA; ++kk)
+    mma_ss_n<KP>(ta, desc_k(qw, kk), H::b_k(tks, ko, kk), 1);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    mma_ss_n<KP>(ga, desc_k(gtw, kk), desc_k(vs + ko, kk), kk > 0);
+  for (int kk = 0; kk < 4 * DA; ++kk)
+    mma_ss_n<KP>(ga, desc_k(gtw, kk), H::b_k(vs, ko, kk), kk > 0);
 }
 
 // x (+)= [ĝo | ĝt]·[v | tv]ᵀ over the same piece (ĝt tvᵀ alone without ĝo)
-template <bool GO>
+template <int DA, bool GO>
 __device__ __forceinline__ void q_g1(uint32_t qw, uint32_t ks, uint32_t ko,
                                      float (&x)[KP / 2], bool acc) {
-  const uint32_t gtw = qw + 2 * kRes, gow = qw + 3 * kRes;
-  const uint32_t vs = ks + 2 * kTile, tvs = ks + 3 * kTile;
+  using H = Heads<DA>;
+  const uint32_t gtw = qw + 2 * H::kRes, gow = qw + 3 * H::kRes;
+  const uint32_t vs = ks + 2 * H::kTile, tvs = ks + 3 * H::kTile;
   if (GO) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma_ss_n<KP>(x, desc_k(gow, kk), desc_k(vs + ko, kk), acc || kk > 0);
+    for (int kk = 0; kk < 4 * DA; ++kk)
+      mma_ss_n<KP>(x, desc_k(gow, kk), H::b_k(vs, ko, kk), acc || kk > 0);
   }
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    mma_ss_n<KP>(x, desc_k(gtw, kk), desc_k(tvs + ko, kk),
+  for (int kk = 0; kk < 4 * DA; ++kk)
+    mma_ss_n<KP>(x, desc_k(gtw, kk), H::b_k(tvs, ko, kk),
                  acc || GO || kk > 0);
 }
 
-template <bool GO>
+template <int DA, bool GO>
 __global__ void __launch_bounds__(kThreads, 1)
 hv_bwd_q_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
                    __nv_bfloat16* __restrict__ gq,
                    __nv_bfloat16* __restrict__ gtq) {
-  using L = LQ;
+  using L = LQ<DA>;
+  using H = Heads<DA>;
+  constexpr int kD = H::kD, kCols = H::kCols;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const uint32_t base = smem_u32(smem);
@@ -145,7 +161,8 @@ hv_bwd_q_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
   const Bars bars = init_bars(base + L::kBars, L::kStages);
 
   const int nq = a.nq, nk = a.nk;
-  const int q0 = blockIdx.x * kBlockRows;
+  const int slice = blockIdx.x % DA;  // output columns 64·slice ..
+  const int q0 = (blockIdx.x / DA) * kBlockRows;
   const int bi = blockIdx.y;
   const int ntiles = (nk + kCols - 1) / kCols;
   const int warp = threadIdx.x / 32;
@@ -156,11 +173,12 @@ hv_bwd_q_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
   if (warp == kConsumers / 32) {
     const CUtensorMap* res[4] = {&mp.q, &mp.tq, &mp.gt, &mp.go};
     const CUtensorMap* str[4] = {&mp.k, &mp.tk, &mp.v, &mp.tv};
-    produce(bars, base, res, GO ? 4 : 3, str, 4, q0, bi, 2 * ntiles, ntiles,
-            L::kRing, L::kStage, [&](int s, int t) {
-              stage_key_rows(vec + s * L::kVecStage, a.bias + keys0,
-                             a.tbias + keys0, t * kCols, nk);
-            });
+    produce<DA>(bars, base, res, GO ? 4 : 3, str, 4, q0, bi, 2 * ntiles,
+                ntiles, L::kRing, L::kStage, [&](int s, int t) {
+                  stage_key_rows<kCols>(vec + s * L::kVecStage,
+                                        a.bias + keys0, a.tbias + keys0,
+                                        t * kCols, nk);
+                });
     return;
   }
 
@@ -168,7 +186,7 @@ hv_bwd_q_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
   const int r_lo = (warp % 4) * 16 + lane / 4;
   const int cq2 = 2 * (lane % 4);
   const int row_blk = 64 * wg + r_lo;
-  const uint32_t qw = base + wg * kAtomBytes;
+  const uint32_t qw = base + wg * DA * kAtomBytes;
 
   float lse2[2];
 #pragma unroll
@@ -189,8 +207,8 @@ hv_bwd_q_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
       const uint32_t ko = hf * KP * 128;
       float sa[KP / 2], ta[KP / 2], ga[KP / 2], xa[KP / 2];
       wgmma_fence();
-      q_products(qw, ks, ko, sa, ta, ga);
-      q_g1<GO>(qw, ks, ko, xa, false);
+      q_products<DA>(qw, ks, ko, sa, ta, ga);
+      q_g1<DA, GO>(qw, ks, ko, xa, false);
       wgmma_commit();
       wgmma_wait();
       fence_acc(sa);
@@ -226,7 +244,7 @@ hv_bwd_q_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
     rs[i] = quad_sum(rs[i]);
     rho[i] = quad_sum(s3[i]) - 2.f * mu[i] * rs[i];
     const int row = q0 + row_blk + 8 * i;
-    if (row < nq && lane % 4 == 0) {
+    if (slice == 0 && row < nq && lane % 4 == 0) {
       float* st = a.stats + (rows0 + row) * 3;
       st[0] = mu[i];
       st[1] = rs[i];
@@ -234,7 +252,7 @@ hv_bwd_q_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
     }
   }
 
-  // ---- pass 2: ĝq and ĝtq
+  // ---- pass 2: the slice of ĝq and ĝtq
   float aq[32], atq[32];
 #pragma unroll
   for (int r = 0; r < 32; ++r) aq[r] = atq[r] = 0.f;
@@ -242,14 +260,14 @@ hv_bwd_q_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
     const int s = t % L::kStages;
     mbar_wait(bars.full(s), (t / L::kStages) & 1);
     const uint32_t ks = base + L::kRing + s * L::kStage;
-    const uint32_t tks = ks + kTile;
+    const uint32_t tks = ks + H::kTile;
 #pragma unroll 1
     for (int hf = 0; hf < kCols / KP; ++hf) {
       const uint32_t ko = hf * KP * 128;
       const int k16 = hf * KP / 16;
       float sa[KP / 2], ta[KP / 2], ga[KP / 2];
       wgmma_fence();
-      q_products(qw, ks, ko, sa, ta, ga);
+      q_products<DA>(qw, ks, ko, sa, ta, ga);
       wgmma_commit();
       wgmma_wait();
       fence_acc(sa);
@@ -282,10 +300,10 @@ hv_bwd_q_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
       }
       // ĝA − ρ: ĝo vᵀ + ĝt tvᵀ onto ga; ĝtq += ĝT·k̂
       wgmma_fence();
-      q_g1<GO>(qw, ks, ko, ga, true);
+      q_g1<DA, GO>(qw, ks, ko, ga, true);
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk)
-        mma_rs_t(atq, tf + 4 * kk, desc_mn(ks, 0, k16 + kk));
+        mma_rs_t(atq, tf + 4 * kk, H::b_mn(ks, slice, k16 + kk));
       wgmma_commit();
       wgmma_wait();
       fence_acc(ga);
@@ -298,10 +316,10 @@ hv_bwd_q_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk)
-        mma_rs_t(aq, sf + 4 * kk, desc_mn(ks, 0, k16 + kk));
+        mma_rs_t(aq, sf + 4 * kk, H::b_mn(ks, slice, k16 + kk));
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk)
-        mma_rs_t(aq, tf + 4 * kk, desc_mn(tks, 0, k16 + kk));
+        mma_rs_t(aq, tf + 4 * kk, H::b_mn(tks, slice, k16 + kk));
       wgmma_commit();
       wgmma_wait();
       fence_acc(aq);
@@ -313,18 +331,20 @@ hv_bwd_q_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + row_blk + 8 * i;
     if (row >= nq) continue;
-    const size_t off = (rows0 + row) * kD;
+    const size_t off = (rows0 + row) * kD + 64 * slice;
     store_row(gq + off, aq, i, 1.f);
     store_row(gtq + off, atq, i, 1.f);
   }
 }
 
-template <bool GO>
+template <int DA, bool GO>
 __global__ void __launch_bounds__(kThreads, 1)
 hv_bwd_k_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
                    float* __restrict__ gk, float* __restrict__ gtk,
                    float* __restrict__ gbias, float* __restrict__ gtbias) {
-  using L = LK;
+  using L = LK<DA>;
+  using H = Heads<DA>;
+  constexpr int kD = H::kD, kCols = H::kCols;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const uint32_t base = smem_u32(smem);
@@ -332,7 +352,8 @@ hv_bwd_k_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
   const Bars bars = init_bars(base + L::kBars, L::kStages);
 
   const int nq = a.nq, nk = a.nk;
-  const int k0 = blockIdx.x * kBlockRows;
+  const int slice = blockIdx.x % DA;  // output columns 64·slice ..
+  const int k0 = (blockIdx.x / DA) * kBlockRows;
   const int bi = blockIdx.y;
   const int ntiles = (nq + kCols - 1) / kCols;
   const int warp = threadIdx.x / 32;
@@ -343,11 +364,11 @@ hv_bwd_k_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
   if (warp == kConsumers / 32) {
     const CUtensorMap* res[4] = {&mp.k, &mp.tk, &mp.v, &mp.tv};
     const CUtensorMap* str[4] = {&mp.q, &mp.tq, &mp.gt, &mp.go};
-    produce(bars, base, res, 4, str, GO ? 4 : 3, k0, bi, ntiles, ntiles,
-            L::kRing, L::kStage, [&](int s, int t) {
-              stage_query_rows(vec + s * L::kVecStage, a, rows0, t * kCols,
-                               3);
-            });
+    produce<DA>(bars, base, res, 4, str, GO ? 4 : 3, k0, bi, ntiles, ntiles,
+                L::kRing, L::kStage, [&](int s, int t) {
+                  stage_query_rows<kCols>(vec + s * L::kVecStage, a, rows0,
+                                          t * kCols, 3);
+                });
     return;
   }
 
@@ -355,8 +376,9 @@ hv_bwd_k_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
   const int r_lo = (warp % 4) * 16 + lane / 4;
   const int cq2 = 2 * (lane % 4);
   const int row_blk = 64 * wg + r_lo;
-  const uint32_t kw = base + wg * kAtomBytes;
-  const uint32_t tkw = kw + kRes, vw = kw + 2 * kRes, tvw = kw + 3 * kRes;
+  const uint32_t kw = base + wg * DA * kAtomBytes;
+  const uint32_t tkw = kw + H::kRes, vw = kw + 2 * H::kRes,
+                 tvw = kw + 3 * H::kRes;
 
   // per key row: bias (log2 domain; −inf past nk: A = 0) and tbias
   float b2[2], tb[2], cs[2] = {0.f, 0.f}, cts[2] = {0.f, 0.f};
@@ -376,8 +398,8 @@ hv_bwd_k_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
     const int s = t % L::kStages;
     mbar_wait(bars.full(s), (t / L::kStages) & 1);
     const uint32_t qs = base + L::kRing + s * L::kStage;
-    const uint32_t tqs = qs + kTile, gts = qs + 2 * kTile,
-                   gos = qs + 3 * kTile;
+    const uint32_t tqs = qs + H::kTile, gts = qs + 2 * H::kTile,
+                   gos = qs + 3 * H::kTile;
 #pragma unroll 1
     for (int hf = 0; hf < kCols / KP; ++hf) {
       // rows are keys, columns the queries KP·hf .. of the tile
@@ -386,17 +408,17 @@ hv_bwd_k_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
       float sa[KP / 2], ta[KP / 2], ga[KP / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(sa, desc_k(kw, kk), desc_k(qs + qo, kk), kk > 0);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(sa, desc_k(kw, kk), H::b_k(qs, qo, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(ta, desc_k(kw, kk), desc_k(tqs + qo, kk), kk > 0);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(ta, desc_k(kw, kk), H::b_k(tqs, qo, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(ta, desc_k(tkw, kk), desc_k(qs + qo, kk), 1);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(ta, desc_k(tkw, kk), H::b_k(qs, qo, kk), 1);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(ga, desc_k(vw, kk), desc_k(gts + qo, kk), kk > 0);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(ga, desc_k(vw, kk), H::b_k(gts, qo, kk), kk > 0);
       wgmma_commit();
       wgmma_wait();
       fence_acc(sa);
@@ -437,15 +459,15 @@ hv_bwd_k_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
       wgmma_fence();
       if (GO) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          mma_ss_n<KP>(ga, desc_k(vw, kk), desc_k(gos + qo, kk), 1);
+        for (int kk = 0; kk < 4 * DA; ++kk)
+          mma_ss_n<KP>(ga, desc_k(vw, kk), H::b_k(gos, qo, kk), 1);
       }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(ga, desc_k(tvw, kk), desc_k(gts + qo, kk), 1);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(ga, desc_k(tvw, kk), H::b_k(gts, qo, kk), 1);
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk)
-        mma_rs_t(atk, tf + 4 * kk, desc_mn(qs, 0, k16 + kk));
+        mma_rs_t(atk, tf + 4 * kk, H::b_mn(qs, slice, k16 + kk));
       wgmma_commit();
       wgmma_wait();
       fence_acc(ga);
@@ -462,10 +484,10 @@ hv_bwd_k_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk)
-        mma_rs_t(ak, sf + 4 * kk, desc_mn(qs, 0, k16 + kk));
+        mma_rs_t(ak, sf + 4 * kk, H::b_mn(qs, slice, k16 + kk));
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk)
-        mma_rs_t(ak, tf + 4 * kk, desc_mn(tqs, 0, k16 + kk));
+        mma_rs_t(ak, tf + 4 * kk, H::b_mn(tqs, slice, k16 + kk));
       wgmma_commit();
       wgmma_wait();
       fence_acc(ak);
@@ -479,22 +501,24 @@ hv_bwd_k_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
     const float c_t = quad_sum(cts[i]);
     const int key = k0 + row_blk + 8 * i;
     if (key >= nk) continue;
-    const size_t off = (keys0 + key) * kD;
+    const size_t off = (keys0 + key) * kD + 64 * slice;
     store_row(gk + off, ak, i, 1.f);
     store_row(gtk + off, atk, i, 1.f);
-    if (lane % 4 == 0) {
+    if (slice == 0 && lane % 4 == 0) {
       gbias[keys0 + key] = c_s;
       gtbias[keys0 + key] = c_t;
     }
   }
 }
 
-template <bool GO>
+template <int DA, bool GO>
 __global__ void __launch_bounds__(kThreads, 1)
 hv_bwd_v_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
                    __nv_bfloat16* __restrict__ gv,
                    __nv_bfloat16* __restrict__ gtv) {
-  using L = LV;
+  using L = LV<DA>;
+  using H = Heads<DA>;
+  constexpr int kD = H::kD, kCols = H::kCols;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const uint32_t base = smem_u32(smem);
@@ -502,7 +526,8 @@ hv_bwd_v_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
   const Bars bars = init_bars(base + L::kBars, L::kStages);
 
   const int nq = a.nq, nk = a.nk;
-  const int k0 = blockIdx.x * kBlockRows;
+  const int slice = blockIdx.x % DA;  // output columns 64·slice ..
+  const int k0 = (blockIdx.x / DA) * kBlockRows;
   const int bi = blockIdx.y;
   const int ntiles = (nq + kCols - 1) / kCols;
   const int warp = threadIdx.x / 32;
@@ -513,11 +538,11 @@ hv_bwd_v_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
   if (warp == kConsumers / 32) {
     const CUtensorMap* res[2] = {&mp.k, &mp.tk};
     const CUtensorMap* str[4] = {&mp.q, &mp.tq, &mp.gt, &mp.go};
-    produce(bars, base, res, 2, str, GO ? 4 : 3, k0, bi, ntiles, ntiles,
-            L::kRing, L::kStage, [&](int s, int t) {
-              stage_query_rows(vec + s * L::kVecStage, a, rows0, t * kCols,
-                               1);
-            });
+    produce<DA>(bars, base, res, 2, str, GO ? 4 : 3, k0, bi, ntiles, ntiles,
+                L::kRing, L::kStage, [&](int s, int t) {
+                  stage_query_rows<kCols>(vec + s * L::kVecStage, a, rows0,
+                                          t * kCols, 1);
+                });
     return;
   }
 
@@ -525,8 +550,8 @@ hv_bwd_v_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
   const int r_lo = (warp % 4) * 16 + lane / 4;
   const int cq2 = 2 * (lane % 4);
   const int row_blk = 64 * wg + r_lo;
-  const uint32_t kw = base + wg * kAtomBytes;
-  const uint32_t tkw = kw + kRes;
+  const uint32_t kw = base + wg * DA * kAtomBytes;
+  const uint32_t tkw = kw + H::kRes;
 
   float b2[2], tb[2];
 #pragma unroll
@@ -545,8 +570,8 @@ hv_bwd_v_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
     const int s = t % L::kStages;
     mbar_wait(bars.full(s), (t / L::kStages) & 1);
     const uint32_t qs = base + L::kRing + s * L::kStage;
-    const uint32_t tqs = qs + kTile, gts = qs + 2 * kTile,
-                   gos = qs + 3 * kTile;
+    const uint32_t tqs = qs + H::kTile, gts = qs + 2 * H::kTile,
+                   gos = qs + 3 * H::kTile;
 #pragma unroll 1
     for (int hf = 0; hf < kCols / KP; ++hf) {
       const uint32_t qo = hf * KP * 128;
@@ -554,14 +579,14 @@ hv_bwd_v_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
       float sa[KP / 2], ta[KP / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(sa, desc_k(kw, kk), desc_k(qs + qo, kk), kk > 0);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(sa, desc_k(kw, kk), H::b_k(qs, qo, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(ta, desc_k(kw, kk), desc_k(tqs + qo, kk), kk > 0);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(ta, desc_k(kw, kk), H::b_k(tqs, qo, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(ta, desc_k(tkw, kk), desc_k(qs + qo, kk), 1);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(ta, desc_k(tkw, kk), H::b_k(qs, qo, kk), 1);
       wgmma_commit();
       wgmma_wait();
       fence_acc(sa);
@@ -592,14 +617,14 @@ hv_bwd_v_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
       if (GO) {
 #pragma unroll
         for (int kk = 0; kk < KP / 16; ++kk)
-          mma_rs_t(av, af + 4 * kk, desc_mn(gos, 0, k16 + kk));
+          mma_rs_t(av, af + 4 * kk, H::b_mn(gos, slice, k16 + kk));
       }
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk)
-        mma_rs_t(av, tf + 4 * kk, desc_mn(gts, 0, k16 + kk));
+        mma_rs_t(av, tf + 4 * kk, H::b_mn(gts, slice, k16 + kk));
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk)
-        mma_rs_t(atv, af + 4 * kk, desc_mn(gts, 0, k16 + kk));
+        mma_rs_t(atv, af + 4 * kk, H::b_mn(gts, slice, k16 + kk));
       wgmma_commit();
       wgmma_wait();
       fence_acc(av);
@@ -612,43 +637,75 @@ hv_bwd_v_tc_kernel(const __grid_constant__ Maps mp, const Rows a,
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + row_blk + 8 * i;
     if (key >= nk) continue;
-    const size_t off = (keys0 + key) * kD;
+    const size_t off = (keys0 + key) * kD + 64 * slice;
     store_row(gv + off, av, i, 1.f);
     store_row(gtv + off, atv, i, 1.f);
   }
 }
 
-template <bool GO>
+template <int DA, bool GO>
 cudaError_t launch(const Maps& mp, const Rows& a, int bh,
                    __nv_bfloat16* gq, float* gk, __nv_bfloat16* gv,
                    float* gbias, __nv_bfloat16* gtq, float* gtk,
                    __nv_bfloat16* gtv, float* gtbias, cudaStream_t stream) {
-  auto qk = hv_bwd_q_tc_kernel<GO>;
-  auto kk = hv_bwd_k_tc_kernel<GO>;
-  auto vk = hv_bwd_v_tc_kernel<GO>;
-  cudaError_t err = set_smem(qk, LQ::kBytes);
-  if (err == cudaSuccess) err = set_smem(kk, LK::kBytes);
-  if (err == cudaSuccess) err = set_smem(vk, LV::kBytes);
+  auto qk = hv_bwd_q_tc_kernel<DA, GO>;
+  auto kk = hv_bwd_k_tc_kernel<DA, GO>;
+  auto vk = hv_bwd_v_tc_kernel<DA, GO>;
+  cudaError_t err = set_smem(qk, LQ<DA>::kBytes);
+  if (err == cudaSuccess) err = set_smem(kk, LK<DA>::kBytes);
+  if (err == cudaSuccess) err = set_smem(vk, LV<DA>::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 qgrid((a.nq + kBlockRows - 1) / kBlockRows, bh);
-  const dim3 kgrid((a.nk + kBlockRows - 1) / kBlockRows, bh);
-  qk<<<qgrid, kThreads, LQ::kBytes, stream>>>(mp, a, gq, gtq);
+  const dim3 qgrid((a.nq + kBlockRows - 1) / kBlockRows * DA, bh);
+  const dim3 kgrid((a.nk + kBlockRows - 1) / kBlockRows * DA, bh);
+  qk<<<qgrid, kThreads, LQ<DA>::kBytes, stream>>>(mp, a, gq, gtq);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kk<<<kgrid, kThreads, LK::kBytes, stream>>>(mp, a, gk, gtk, gbias, gtbias);
+  kk<<<kgrid, kThreads, LK<DA>::kBytes, stream>>>(mp, a, gk, gtk, gbias,
+                                                  gtbias);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  vk<<<kgrid, kThreads, LV::kBytes, stream>>>(mp, a, gv, gtv);
+  vk<<<kgrid, kThreads, LV<DA>::kBytes, stream>>>(mp, a, gv, gtv);
   return cudaGetLastError();
+}
+
+// the maps at head dim 64·DA (boxes of Heads<DA>::kCols rows), then the
+// three kernels
+template <int DA>
+cudaError_t run(const void* q, const void* k, const void* v, const void* tq,
+                const void* tk, const void* tv, const void* go,
+                const void* gt, const Rows& a, int bh, void* gq, void* gk,
+                void* gv, void* gbias, void* gtq, void* gtk, void* gtv,
+                void* gtbias, cudaStream_t s) {
+  constexpr int kD = Heads<DA>::kD, kCols = Heads<DA>::kCols;
+  const int nq = a.nq, nk = a.nk;
+  Maps mp;
+  cudaError_t err = make_map(&mp.q, q, bh, nq, kD, kCols);
+  if (err == cudaSuccess) err = make_map(&mp.tq, tq, bh, nq, kD, kCols);
+  if (err == cudaSuccess) err = make_map(&mp.gt, gt, bh, nq, kD, kCols);
+  // without ĝo its map is never read: a copy of ĝt's stands in
+  if (err == cudaSuccess)
+    err = make_map(&mp.go, go ? go : gt, bh, nq, kD, kCols);
+  if (err == cudaSuccess) err = make_map(&mp.k, k, bh, nk, kD, kCols);
+  if (err == cudaSuccess) err = make_map(&mp.tk, tk, bh, nk, kD, kCols);
+  if (err == cudaSuccess) err = make_map(&mp.v, v, bh, nk, kD, kCols);
+  if (err == cudaSuccess) err = make_map(&mp.tv, tv, bh, nk, kD, kCols);
+  if (err != cudaSuccess) return err;
+  auto bf = [](void* p) { return static_cast<__nv_bfloat16*>(p); };
+  auto f32 = [](void* p) { return static_cast<float*>(p); };
+  if (go)
+    return launch<DA, true>(mp, a, bh, bf(gq), f32(gk), bf(gv), f32(gbias),
+                            bf(gtq), f32(gtk), bf(gtv), f32(gtbias), s);
+  return launch<DA, false>(mp, a, bh, bf(gq), f32(gk), bf(gv), f32(gbias),
+                           bf(gtq), f32(gtk), bf(gtv), f32(gtbias), s);
 }
 
 }  // namespace
 
-// bf16 (bh, n, 64) operands and cotangents, 16-byte aligned; bias, tbias
+// bf16 (bh, n, d) operands and cotangents, 16-byte aligned; bias, tbias
 // (bh, nk) and lse (bh, nq) fp32.  `go` may be null (no cotangent on out).
 // gq, gv, gtq, gtv are bf16; gk, gtk, gbias and gtbias fp32; `stats` is a
 // (bh, nq, 3) fp32 workspace.  The dtype code must be 1 (bfloat16) and d
-// 64.  Returns a cudaError_t.
+// 64 or 128.  Returns a cudaError_t.
 extern "C" int gigagan_flash_attention_hv_bwd_tc(
     const void* q, const void* k, const void* v, const void* bias,
     const void* tq, const void* tk, const void* tv, const void* tbias,
@@ -658,30 +715,15 @@ extern "C" int gigagan_flash_attention_hv_bwd_tc(
     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0 || d != kD || dtype != 1)
+  if (bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0 || (d != 64 && d != 128) ||
+      dtype != 1)
     return cudaErrorInvalidValue;
-  Maps mp;
-  err = make_map(&mp.q, q, bh, nq, kD);
-  if (err == cudaSuccess) err = make_map(&mp.tq, tq, bh, nq, kD);
-  if (err == cudaSuccess) err = make_map(&mp.gt, gt, bh, nq, kD);
-  // without ĝo its map is never read: a copy of ĝt's stands in
-  if (err == cudaSuccess) err = make_map(&mp.go, go ? go : gt, bh, nq, kD);
-  if (err == cudaSuccess) err = make_map(&mp.k, k, bh, nk, kD);
-  if (err == cudaSuccess) err = make_map(&mp.tk, tk, bh, nk, kD);
-  if (err == cudaSuccess) err = make_map(&mp.v, v, bh, nk, kD);
-  if (err == cudaSuccess) err = make_map(&mp.tv, tv, bh, nk, kD);
-  if (err != cudaSuccess) return err;
   const Rows a{static_cast<const float*>(bias), static_cast<const float*>(tbias),
                static_cast<const float*>(lse), static_cast<float*>(stats), nq,
                nk};
-  auto bf = [](void* p) { return static_cast<__nv_bfloat16*>(p); };
-  auto f32 = [](void* p) { return static_cast<float*>(p); };
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (go)
-    return launch<true>(mp, a, bh, bf(gq), f32(gk), bf(gv), f32(gbias),
-                        bf(gtq), f32(gtk), bf(gtv), f32(gtbias), s);
-  return launch<false>(mp, a, bh, bf(gq), f32(gk), bf(gv), f32(gbias),
-                       bf(gtq), f32(gtk), bf(gtv), f32(gtbias), s);
+  auto fn = d == 64 ? run<1> : run<2>;
+  return fn(q, k, v, tq, tk, tv, go, gt, a, bh, gq, gk, gv, gbias, gtq, gtk,
+            gtv, gtbias, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* gigagan_cuda_error_string(int err) {

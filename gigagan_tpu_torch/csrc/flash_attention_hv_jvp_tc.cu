@@ -1,5 +1,5 @@
 // Split-heads attention and its tangent on Hopper's tensor cores (kernel
-// K7a, the bf16 route at head dim 64).
+// K7a, the bf16 route at head dims 64 and 128).
 //
 // Replaces the Pallas TPU kernel `_jvp_kernel` in
 // gigagan_tpu/ops/pallas/flash_attention_hv.py (called through
@@ -11,18 +11,21 @@
 //   μ = rowsum(A⊙T)   out = A v   tout = [A⊙(T − μ) | A]·[v ; tv]
 //   lse = logsumexp(S)
 //
-// What bounds it on an H100: six (n, n, 64) products a call, operation-
-// bound at the R1 surrogate's shapes (b·h = 512 at n = 1024, 1024 at 256:
-// ~0.5 ms at 989 TF/s), and S, T and A must not reach device memory.
+// What bounds it on an H100: six (n, n, d) products a call, operation-
+// bound at the R1 surrogate's shapes (b·h = 512 at n = 1024, 1024 at 256
+// with d = 64, half the rows with d = 128: ~0.5 ms at 989 TF/s), and S, T
+// and A must not reach device memory.
 //
 // Design (flash_attention_hv_tc.cuh; K3-_tc's online softmax): one block
-// per (128 queries, b·h); q and tq stay in shared memory, and k̂, t̂k, v, tv
-// stream through a four-stage TMA ring of 64-key tiles with the tile's
-// bias (log2 domain, −inf past nk) and tbias (0 past nk) rows.  Each tile
-// is taken in two 32-key pieces: S and T are two `wgmma` chains (T one
-// chain of depth 2·64 over [tq | q] and [k̂ | t̂k], so one accumulator),
+// per (128 queries, output slice, b·h); q and tq stay in shared memory,
+// and k̂, t̂k, v, tv stream through a four-stage TMA ring of key tiles with
+// the tile's bias (log2 domain, −inf past nk) and tbias (0 past nk) rows.
+// Each tile is taken in 32-key pieces: S and T are two `wgmma` chains (T
+// one chain of depth 2·d over [tq | q] and [k̂ | t̂k], so one accumulator),
 // then the online softmax on the fragment, and out += e·v and
-// tout += [e⊙(T − c) | e]·[v ; tv] from registers with v and tv MN-major.
+// tout += [e⊙(T − c) | e]·[v ; tv] over the block's 64-column slice of v
+// and tv, from registers with v and tv MN-major.  At d = 128 the two
+// slices' blocks each rebuild S and T: nine (n, n, d) products a call.
 //
 // One pass over the keys, where the CUDA-core kernel makes two.  The
 // tangent accumulator is kept centred on c, the running μ = Σ e·T / Σ e of
@@ -37,8 +40,8 @@
 // and tv, lse = NEG_INF), as K3-_tc's does.
 //
 // Registers: out and tout are two (64 × 64) fp32 accumulators, 64 a
-// thread, beside the 16 of each piece map; at d = 128 the accumulators
-// alone would take 128 of the 168, so d = 128 stays on the CUDA cores.
+// thread, beside the 16 of each piece map; at d = 128 the whole rows' two
+// accumulators alone would take 128 of the 168, hence the slices.
 
 #include <math.h>
 
@@ -48,8 +51,11 @@ namespace {
 
 using namespace hv;
 
-using L = Layout<2, 4, 2, 4>;  // q, tq | k̂, t̂k, v, tv | bias, tbias
+// q, tq | k̂, t̂k, v, tv | bias, tbias
+template <int DA>
+using LJ = Layout<DA, 2, 4, 2, 4>;
 
+template <int DA>
 __global__ void __launch_bounds__(kThreads, 1)
 hv_jvp_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap tqmap,
@@ -62,13 +68,17 @@ hv_jvp_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                  __nv_bfloat16* __restrict__ out,
                  __nv_bfloat16* __restrict__ tout, float* __restrict__ lse,
                  int nq, int nk) {
+  using L = LJ<DA>;
+  using H = Heads<DA>;
+  constexpr int kD = H::kD, kCols = H::kCols;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const uint32_t base = smem_u32(smem);
   float* vec = reinterpret_cast<float*>(smem + L::kVec);
   const Bars bars = init_bars(base + L::kBars, L::kStages);
 
-  const int q0 = blockIdx.x * kBlockRows;
+  const int slice = blockIdx.x % DA;  // output columns 64·slice ..
+  const int q0 = (blockIdx.x / DA) * kBlockRows;
   const int bi = blockIdx.y;
   const int ntiles = (nk + kCols - 1) / kCols;
   const int warp = threadIdx.x / 32;
@@ -78,11 +88,11 @@ hv_jvp_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   if (warp == kConsumers / 32) {
     const CUtensorMap* res[2] = {&qmap, &tqmap};
     const CUtensorMap* str[4] = {&kmap, &tkmap, &vmap, &tvmap};
-    produce(bars, base, res, 2, str, 4, q0, bi, ntiles, ntiles, L::kRing,
-            L::kStage, [&](int s, int t) {
-              stage_key_rows(vec + s * L::kVecStage, bias + keys0,
-                             tbias + keys0, t * kCols, nk);
-            });
+    produce<DA>(bars, base, res, 2, str, 4, q0, bi, ntiles, ntiles,
+                L::kRing, L::kStage, [&](int s, int t) {
+                  stage_key_rows<kCols>(vec + s * L::kVecStage, bias + keys0,
+                                        tbias + keys0, t * kCols, nk);
+                });
     return;
   }
 
@@ -90,8 +100,8 @@ hv_jvp_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const int r_lo = (warp % 4) * 16 + lane / 4;  // rows r_lo, r_lo + 8
   const int cq2 = 2 * (lane % 4);
   const int row_blk = 64 * wg + r_lo;
-  const uint32_t qw = base + wg * kAtomBytes;
-  const uint32_t tqw = base + kRes + wg * kAtomBytes;
+  const uint32_t qw = base + wg * DA * kAtomBytes;
+  const uint32_t tqw = qw + H::kRes;
 
   // per row: running max (log2 domain), Σ e, Σ e·T and the centre c =
   // Σ e·T / Σ e, all quad-wide
@@ -106,8 +116,8 @@ hv_jvp_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int s = t % L::kStages;
     mbar_wait(bars.full(s), (t / L::kStages) & 1);
     const uint32_t ks = base + L::kRing + s * L::kStage;
-    const uint32_t tks = ks + kTile, vs = ks + 2 * kTile,
-                   tvs = ks + 3 * kTile;
+    const uint32_t tks = ks + H::kTile, vs = ks + 2 * H::kTile,
+                   tvs = ks + 3 * H::kTile;
 #pragma unroll 1
     for (int hf = 0; hf < kCols / KP; ++hf) {
       const uint32_t ko = hf * KP * 128;  // the piece's first key row
@@ -115,14 +125,14 @@ hv_jvp_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       float sa[KP / 2], ta[KP / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(sa, desc_k(qw, kk), desc_k(ks + ko, kk), kk > 0);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(sa, desc_k(qw, kk), H::b_k(ks, ko, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(ta, desc_k(tqw, kk), desc_k(ks + ko, kk), kk > 0);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(ta, desc_k(tqw, kk), H::b_k(ks, ko, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(ta, desc_k(qw, kk), desc_k(tks + ko, kk), 1);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(ta, desc_k(qw, kk), H::b_k(tks, ko, kk), 1);
       wgmma_commit();
       wgmma_wait();
       fence_acc(sa);
@@ -184,17 +194,17 @@ hv_jvp_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                                     sa[r + 1] * (ta[r + 1] - c_new));
         }
       }
-      // out += e·v; tout += [e⊙(T − c) | e]·[v ; tv]
+      // out += e·v; tout += [e⊙(T − c) | e]·[v ; tv], the slice's columns
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk)
-        mma_rs_t(o, ef + 4 * kk, desc_mn(vs, 0, k16 + kk));
+        mma_rs_t(o, ef + 4 * kk, H::b_mn(vs, slice, k16 + kk));
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk)
-        mma_rs_t(to, tf + 4 * kk, desc_mn(vs, 0, k16 + kk));
+        mma_rs_t(to, tf + 4 * kk, H::b_mn(vs, slice, k16 + kk));
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk)
-        mma_rs_t(to, ef + 4 * kk, desc_mn(tvs, 0, k16 + kk));
+        mma_rs_t(to, ef + 4 * kk, H::b_mn(tvs, slice, k16 + kk));
       wgmma_commit();
       wgmma_wait();
       fence_acc(o);
@@ -208,21 +218,45 @@ hv_jvp_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int row = q0 + row_blk + 8 * i;
     if (row >= nq) continue;
     const float inv = 1.f / l[i];
-    const size_t off = ((size_t)bi * nq + row) * kD;
+    const size_t off = ((size_t)bi * nq + row) * kD + 64 * slice;
     store_row(out + off, o, i, inv);
     store_row(tout + off, to, i, inv);  // centred on c = μ
     // a row whose every key is masked keeps lse = NEG_INF (`to_log2`)
-    if (lane % 4 == 0)
+    if (slice == 0 && lane % 4 == 0)
       lse[(size_t)bi * nq + row] =
           m[i] == kMasked ? kMasked : (m[i] + log2f(l[i])) * kLn2;
   }
 }
 
+template <int DA>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* bias, const void* tq, const void* tk,
+                   const void* tv, const float* tbias, __nv_bfloat16* out,
+                   __nv_bfloat16* tout, float* lse, int bh, int nq, int nk,
+                   cudaStream_t stream) {
+  using H = Heads<DA>;
+  constexpr int kD = H::kD, kCols = H::kCols;
+  CUtensorMap qm, tqm, km, tkm, vm, tvm;
+  cudaError_t err = make_map(&qm, q, bh, nq, kD, kCols);
+  if (err == cudaSuccess) err = make_map(&tqm, tq, bh, nq, kD, kCols);
+  if (err == cudaSuccess) err = make_map(&km, k, bh, nk, kD, kCols);
+  if (err == cudaSuccess) err = make_map(&tkm, tk, bh, nk, kD, kCols);
+  if (err == cudaSuccess) err = make_map(&vm, v, bh, nk, kD, kCols);
+  if (err == cudaSuccess) err = make_map(&tvm, tv, bh, nk, kD, kCols);
+  auto kernel = hv_jvp_tc_kernel<DA>;
+  if (err == cudaSuccess) err = set_smem(kernel, LJ<DA>::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nq + kBlockRows - 1) / kBlockRows * DA, bh);
+  kernel<<<grid, kThreads, LJ<DA>::kBytes, stream>>>(
+      qm, tqm, km, tkm, vm, tvm, bias, tbias, out, tout, lse, nq, nk);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// bf16 (bh, n, 64) operands, 16-byte aligned; bias and tbias (bh, nk)
+// bf16 (bh, n, d) operands, 16-byte aligned; bias and tbias (bh, nk)
 // fp32; out and tout bf16 like q, lse (bh, nq) fp32.  The dtype code must
-// be 1 (bfloat16) and d 64.  Returns a cudaError_t.
+// be 1 (bfloat16) and d 64 or 128.  Returns a cudaError_t.
 extern "C" int gigagan_flash_attention_hv_jvp_tc(
     const void* q, const void* k, const void* v, const void* bias,
     const void* tq, const void* tk, const void* tv, const void* tbias,
@@ -230,24 +264,14 @@ extern "C" int gigagan_flash_attention_hv_jvp_tc(
     int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0 || d != kD || dtype != 1)
+  if (bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0 || (d != 64 && d != 128) ||
+      dtype != 1)
     return cudaErrorInvalidValue;
-  CUtensorMap qm, tqm, km, tkm, vm, tvm;
-  err = make_map(&qm, q, bh, nq, kD);
-  if (err == cudaSuccess) err = make_map(&tqm, tq, bh, nq, kD);
-  if (err == cudaSuccess) err = make_map(&km, k, bh, nk, kD);
-  if (err == cudaSuccess) err = make_map(&tkm, tk, bh, nk, kD);
-  if (err == cudaSuccess) err = make_map(&vm, v, bh, nk, kD);
-  if (err == cudaSuccess) err = make_map(&tvm, tv, bh, nk, kD);
-  if (err == cudaSuccess) err = set_smem(hv_jvp_tc_kernel, L::kBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((nq + kBlockRows - 1) / kBlockRows, bh);
-  hv_jvp_tc_kernel<<<grid, kThreads, L::kBytes,
-                     static_cast<cudaStream_t>(stream)>>>(
-      qm, tqm, km, tkm, vm, tvm, static_cast<const float*>(bias),
-      static_cast<const float*>(tbias), static_cast<__nv_bfloat16*>(out),
-      static_cast<__nv_bfloat16*>(tout), static_cast<float*>(lse), nq, nk);
-  return cudaGetLastError();
+  auto fn = d == 64 ? launch<1> : launch<2>;
+  return fn(q, k, v, static_cast<const float*>(bias), tq, tk, tv,
+            static_cast<const float*>(tbias), static_cast<__nv_bfloat16*>(out),
+            static_cast<__nv_bfloat16*>(tout), static_cast<float*>(lse), bh,
+            nq, nk, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* gigagan_cuda_error_string(int err) {

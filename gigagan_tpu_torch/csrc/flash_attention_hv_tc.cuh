@@ -6,14 +6,17 @@
 // A block is two consumer warpgroups of 64 rows each (128 resident rows)
 // and one producer warp, 288 threads, as K5-_tc's: the register file's
 // quarters take three of the nine warps each, so ptxas allocates 168
-// registers a thread.  Operands are K6a's split-heads (b·h, n, 64) bf16
-// tensors, read through 3-D TMA maps (make_map with H·d = 64, b = b·h) in
-// (64 × 64) atoms with the 128-byte swizzle.  The producer warp loads the
-// resident 128-row tiles once, then streams 64-row tiles of the other side
+// registers a thread.  Operands are K6a's split-heads (b·h, n, d) bf16
+// tensors, d = 64·DA, read through 3-D TMA maps (make_map with H·d = d,
+// b = b·h) in the 128-byte swizzle, tiled as `Heads<DA>` (hopper_tc.cuh)
+// lays them out.  The producer warp loads the resident 128-row tiles once,
+// then streams tiles of the other side (64 rows at d = 64, 32 at d = 128)
 // through a ring of stages on mbarriers, writing each stage's per-row
 // values (biases, lse, statistics) before it arrives.  The consumers take
-// each streamed tile in two 32-column pieces (m64n32k16 products), so a
-// piece's fp32 maps take 16 registers each.
+// each streamed tile in 32-row pieces (m64n32k16 products), so a piece's
+// fp32 maps take 16 registers each.  At d = 128 each block accumulates one
+// 64-column slice of its outputs (slice = blockIdx.x % 2) and contracts
+// the logits over all 128 columns, so its registers are d = 64's.
 
 #pragma once
 
@@ -26,22 +29,19 @@ using namespace tc;
 constexpr int kConsumers = 256;             // two warpgroups of 64 rows
 constexpr int kThreads = kConsumers + 32;   // + the producer warp
 constexpr int kBlockRows = 128;             // resident rows per block
-constexpr int kCols = 64;                   // rows of a streamed tile
-constexpr int kD = 64;                      // the head dim these take
-constexpr int kTile = kAtomBytes;           // 64 rows × 64 bf16
-constexpr int kRes = 2 * kAtomBytes;        // 128 rows
 constexpr int KP = 32;                      // columns of a piece
 
 // NRES resident 128-row tiles, STAGES ring stages of NSTR streamed tiles
-// and NVEC rows of 64 floats each, then the barriers: one for the resident
-// tiles, then `full` and `empty` per stage
-template <int NRES, int NSTR, int NVEC, int STAGES>
+// and NVEC rows of kCols floats each, then the barriers: one for the
+// resident tiles, then `full` and `empty` per stage
+template <int DA, int NRES, int NSTR, int NVEC, int STAGES>
 struct Layout {
+  using H = Heads<DA>;
   static constexpr int kStages = STAGES;
-  static constexpr int kRing = NRES * kRes;
-  static constexpr int kStage = NSTR * kTile;
+  static constexpr int kRing = NRES * H::kRes;
+  static constexpr int kStage = NSTR * H::kTile;
   static constexpr int kVec = kRing + STAGES * kStage;
-  static constexpr int kVecStage = NVEC * kCols;  // floats per stage
+  static constexpr int kVecStage = NVEC * H::kCols;  // floats per stage
   static constexpr int kBars = kVec + STAGES * kVecStage * 4;
   static constexpr int kBytes = kBars + 8 * (1 + 2 * STAGES) + 1024;
 };
@@ -71,33 +71,33 @@ __device__ __forceinline__ Bars init_bars(uint32_t at, int stages) {
 
 // The producer warp: `nres` resident 128-row tiles of the maps `res` (rows
 // r0 .. r0+127 of sample bi) at base + m·kRes, then `steps` ring steps,
-// each the `nstr` 64-row tiles of the maps `str` at rows 64·(t % ntiles),
-// with `fill(s, t % ntiles)` writing the stage's per-row values first.
-template <typename Fill>
+// each the `nstr` streamed tiles of the maps `str` at rows
+// kCols·(t % ntiles), with `fill(s, t % ntiles)` writing the stage's
+// per-row values first.
+template <int DA, typename Fill>
 __device__ __forceinline__ void produce(const Bars& bars, uint32_t base,
                                         const CUtensorMap* const* res,
                                         int nres, const CUtensorMap* const* str,
                                         int nstr, int r0, int bi, int steps,
                                         int ntiles, int ring, int stage,
                                         Fill fill) {
+  using H = Heads<DA>;
   const int lane = threadIdx.x % 32;
   if (lane == 0) {
-    mbar_arrive_tx(bars.res, nres * kRes);
+    mbar_arrive_tx(bars.res, nres * H::kRes);
     for (int m = 0; m < nres; ++m)
-      for (int wg = 0; wg < 2; ++wg)
-        tma_load(base + m * kRes + wg * kAtomBytes, res[m], bars.res, 0,
-                 r0 + 64 * wg, bi);
+      H::load_res(base + m * H::kRes, res[m], bars.res, 0, r0, bi);
   }
   for (int t = 0; t < steps; ++t) {
     const int s = t % bars.stages;
     if (t >= bars.stages) mbar_wait(bars.empty(s), ((t / bars.stages) - 1) & 1);
     fill(s, t % ntiles);
     if (lane == 0) {
-      mbar_arrive_tx(bars.full(s), nstr * kTile);
+      mbar_arrive_tx(bars.full(s), nstr * H::kTile);
       const uint32_t st = base + ring + s * stage;
       for (int m = 0; m < nstr; ++m)
-        tma_load(st + m * kTile, str[m], bars.full(s), 0,
-                 (t % ntiles) * kCols, bi);
+        H::load_str(st + m * H::kTile, str[m], bars.full(s), 0,
+                    (t % ntiles) * H::kCols, bi);
     } else {
       mbar_arrive(bars.full(s));
     }
@@ -106,6 +106,7 @@ __device__ __forceinline__ void produce(const Bars& bars, uint32_t base,
 
 // A key tile's bias row in the log2 domain (−inf past nk: no weight) and
 // its tangent row (0 past nk), for the query-major kernels
+template <int kCols>
 __device__ __forceinline__ void stage_key_rows(float* v, const float* bias,
                                                const float* tbias, int k0,
                                                int nk) {
@@ -123,8 +124,8 @@ cudaError_t set_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// the (64 rows, 64 columns) accumulator of a warpgroup to rows of a
-// (n, 64) output in global memory: bf16 or fp32
+// the (64 rows, 64 columns) accumulator of a warpgroup to 64 columns of
+// rows of an output in global memory: bf16 or fp32
 __device__ __forceinline__ void store_row(__nv_bfloat16* dst,
                                           const float (&acc)[32], int i,
                                           float scale) {

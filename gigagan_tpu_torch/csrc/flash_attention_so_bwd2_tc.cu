@@ -1,6 +1,7 @@
 // Adjoint of the fused-heads attention backward on Hopper's tensor cores
-// (kernel K5, the bf16 route at head dim 64): the second derivative of
-// softmax attention that the R1 penalty's double backward needs.
+// (kernel K5, the bf16 route at head dims 64 and 128): the second
+// derivative of softmax attention that the R1 penalty's double backward
+// needs.
 //
 // Replaces the Pallas TPU kernel `_bwd2_kernel` in
 // gigagan_tpu/ops/pallas/flash_attention_so.py (called through
@@ -19,40 +20,54 @@
 //   c_k̂ = [c_Sᵀ | dSᵀ]·[q ; Ã]   c_v = c_dAᵀ·g   c_bias = colsum(c_S)
 //   plus the null token's rows and cotangents.
 //
-// What bounds it on an H100: 22 (n, n, d) products per (sample, head) in
-// this design (12 are the minimum), operation-bound at the discriminator's
-// R1 shapes (b·H = 512 at n = 1024, 1024 at n = 256).  Design, on K4-_tc's
-// machinery (flash_attention_fused_bwd_tc.cu: a producer warp runs a TMA
-// ring on mbarriers and stages per-tile rows; two consumer warpgroups of 64
-// rows run `wgmma`):
+// What bounds it on an H100: 12 (n, n, d) products per (sample, head) at
+// the least, operation-bound at the discriminator's R1 shapes (b·H = 512
+// at n = 1024 and 1024 at n = 256 with d = 64; 256 and 512 with d = 128).
+// This design makes 22 at d = 64 and 37 at d = 128 (below).  Design, on
+// K4-_tc's machinery (flash_attention_fused_bwd_tc.cu: a producer warp
+// runs a TMA ring on mbarriers and stages per-tile rows; two consumer
+// warpgroups of 64 rows run `wgmma`):
 //
-// 1. `so2_q_tc_kernel`, query-major, one block per (128 queries, head,
-//    sample).  q, g, Ã stay in shared memory; the key tiles of 64 (k̂, v,
-//    B̃, C̃ with the bias and D̃ rows) stream through the ring twice.  Pass 1 forms
-//    the row statistics (δ, r₂, ρ) from P, dA, c_dS and g·C̃ᵀ on the
-//    fragment and writes them for step 2.  Pass 2 rebuilds the pieces and
-//    accumulates c_q and c_g on `wgmma` with the pieces as A from registers
-//    and k̂, B̃, v, C̃ read MN-major.  c_dS is one chain of K = 2d into one
-//    accumulator; g·C̃ᵀ accumulates onto the finished c_S term, so the
-//    pieces need no fourth fp32 tile.  The null column is done on CUDA
-//    cores from the resident tiles; per-block null partials go to a
-//    workspace.
-// 2. `so2_k_tc_kernel`, key-major, one block per (128 keys, head, sample):
-//    k̂, v, B̃, C̃ resident, q, g, Ã and the per-query rows (lse, δ, r₂, ρ)
-//    streamed; it rebuilds the transposed pieces and accumulates c_k̂ and
-//    c_v, and c_bias as fp32 row sums of the unrounded c_Sᵀ.
+// 1. `so2_q_tc_kernel`, query-major, one block per (128 queries, output
+//    slice, head, sample).  q, g, Ã stay in shared memory; the key tiles
+//    (k̂, v, B̃, C̃ with the bias and D̃ rows) stream through the ring
+//    twice.  Pass 1 forms the row statistics (δ, r₂, ρ) from P, dA, c_dS
+//    and g·C̃ᵀ on the fragment and writes them for step 2.  Pass 2 rebuilds
+//    the pieces and accumulates the slice's c_q and c_g on `wgmma` with the
+//    pieces as A from registers and k̂, B̃, v, C̃ read MN-major.  c_dS is one
+//    chain of K = 2d into one accumulator; g·C̃ᵀ accumulates onto the
+//    finished c_S term, so the pieces need no fourth fp32 tile.  The null
+//    column is done on CUDA cores from the resident tiles; per-block null
+//    partials go to a workspace.
+// 2. `so2_k_tc_kernel`, key-major, one block per (128 keys, output slice,
+//    head, sample): k̂, v, B̃, C̃ resident, q, g, Ã and the per-query rows
+//    (lse, δ, r₂, ρ) streamed; it rebuilds the transposed pieces and
+//    accumulates the slice's c_k̂ and c_v, and c_bias as fp32 row sums of
+//    the unrounded c_Sᵀ.
 // 3. `null_reduce_kernel` (flash_attention_common.cuh): the null partials
 //    added in a fixed order.  No float atomics: the result is deterministic.
 //
-// Registers: four (64 × 64) fp32 pieces and two (64 × d) accumulators would
-// be 192 per consumer thread.  Here each 64-row streamed tile is rebuilt in
-// two 32-column pieces (m64n32k16 products), and the pieces go to bf16
-// fragments as soon as they are formed (dS, c_dA, then c_S and P).  A block
-// is 288 threads (two consumer warpgroups and one producer warp); the
-// register file's four quarters take three of its nine warps each, so
-// ptxas allocates 168 registers a thread (224 compiles, but the launch is
+// Registers: four (64 × 64) fp32 pieces and two (64 × 64) accumulators
+// would be 192 per consumer thread.  Here each streamed tile is rebuilt in
+// 32-key pieces (m64n32k16 products), and the pieces go to bf16 fragments
+// as soon as they are formed (dS, c_dA, then c_S and P).  A block is 288
+// threads (two consumer warpgroups and one producer warp); the register
+// file's four quarters take three of its nine warps each, so ptxas
+// allocates 168 registers a thread (224 compiles, but the launch is
 // refused; `setmaxnreg` does not raise what ptxas allocates).  With
 // 64-column pieces both kernels spilled ~500 bytes.
+//
+// Head dim 128 (`Heads<2>`, hopper_tc.cuh).  The two (64 × 128)
+// accumulators alone would take 128 of the 168 registers, so each block
+// accumulates one 64-column slice of its two outputs (the slice is the
+// fastest grid index, so both slices of a row block run together and
+// share their reads in L2) and contracts the logit-side products over all
+// 128 columns as chains of eight k = 16 steps: the register plan is
+// d = 64's.  Each slice rebuilds the pieces, so the kernels make 37
+// (n, n, d) products to d = 64's 22: q-major 2 × 10 logit products and 4
+// output ones, key-major 2 × 5 and 3.  The resident tiles double (q, g, Ã
+// take 96 KB, k̂, v, B̃, C̃ 128 KB); streamed tiles of 32 rows keep a stage
+// at d = 64's size, so the ring keeps its three stages.
 
 #include <math.h>
 
@@ -66,33 +81,33 @@ using namespace tc;
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 32;
 constexpr int kBlockRows = 128;  // resident rows per block
-constexpr int kCols = 64;        // rows of a streamed tile
-constexpr int kD = 64;
-constexpr int kTile = kAtomBytes;      // 64 rows × 64 bf16
-constexpr int kRes = 2 * kAtomBytes;   // 128 rows
 constexpr int kStages = 3;
-// keys (query-major) or queries (key-major) per piece: a 64-row streamed
-// tile is rebuilt in two 32-column halves, so the fp32 pieces take 16
-// registers each (faster than 64-column pieces at D's R1 pair on an H100;
-// PERF.md has the times)
+// keys (query-major) or queries (key-major) per piece: a streamed tile is
+// rebuilt in 32-row pieces, so the fp32 pieces take 16 registers each
+// (faster than 64-column pieces at D's R1 pair on an H100; PERF.md has the
+// times)
 constexpr int KP = 32;
 
 // query-major: resident q, g, Ã; stages of k̂, v, B̃, C̃ + (bias, D̃) rows
+template <int DA>
 struct LayoutQ {
-  static constexpr int kRing = 3 * kRes;
-  static constexpr int kStage = 4 * kTile;
+  using H = Heads<DA>;
+  static constexpr int kRing = 3 * H::kRes;
+  static constexpr int kStage = 4 * H::kTile;
   static constexpr int kVec = kRing + kStages * kStage;
-  static constexpr int kNull = kVec + kStages * 2 * kCols * 4;
+  static constexpr int kNull = kVec + kStages * 2 * H::kCols * 4;
   static constexpr int kBars = kNull + 3 * kBlockRows * 4;
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
 
 // key-major: resident k̂, v, B̃, C̃; stages of q, g, Ã + (lse, δ, r₂, ρ)
+template <int DA>
 struct LayoutK {
-  static constexpr int kRing = 4 * kRes;
-  static constexpr int kStage = 3 * kTile;
+  using H = Heads<DA>;
+  static constexpr int kRing = 4 * H::kRes;
+  static constexpr int kStage = 3 * H::kTile;
   static constexpr int kVec = kRing + kStages * kStage;
-  static constexpr int kBars = kVec + kStages * 4 * kCols * 4;
+  static constexpr int kBars = kVec + kStages * 4 * H::kCols * 4;
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
 
@@ -121,22 +136,22 @@ __device__ __forceinline__ float dot8f(uint4 x, const float* y) {
 }
 
 // The producer warp: `nres` resident 128-row tiles from `res` (row r0),
-// then per ring step the `nstr` 64-row tiles of `str` at row 64·(t % ntiles),
-// `fill(s, t)` staging the step's per-tile rows before the warp arrives.
-template <int NRES, int NSTR, typename Fill>
+// then per ring step the `nstr` streamed tiles of `str` at row
+// kCols·(t % ntiles), `fill(s, t)` staging the step's per-tile rows before
+// the warp arrives.
+template <int DA, int NRES, int NSTR, typename Fill>
 __device__ __forceinline__ void produce(uint32_t base, uint32_t bars,
                                         const CUtensorMap* const* res,
                                         const CUtensorMap* const* str,
                                         int col, int r0, int bi, int steps,
                                         int ntiles, int ring, int stage,
                                         Fill fill) {
+  using H = Heads<DA>;
   const int lane = threadIdx.x % 32;
   if (lane == 0) {
-    mbar_arrive_tx(bars, NRES * kRes);
+    mbar_arrive_tx(bars, NRES * H::kRes);
     for (int m = 0; m < NRES; ++m)
-      for (int wg = 0; wg < 2; ++wg)
-        tma_load(base + m * kRes + wg * kAtomBytes, res[m], bars, col,
-                 r0 + 64 * wg, bi);
+      H::load_res(base + m * H::kRes, res[m], bars, col, r0, bi);
   }
   for (int t = 0; t < steps; ++t) {
     const int s = t % kStages;
@@ -145,16 +160,18 @@ __device__ __forceinline__ void produce(uint32_t base, uint32_t bars,
       mbar_wait(bars + 8 * (1 + kStages + s), ((t / kStages) - 1) & 1);
     fill(s, t % ntiles);
     if (lane == 0) {
-      mbar_arrive_tx(full, NSTR * kTile);
+      mbar_arrive_tx(full, NSTR * H::kTile);
       const uint32_t st = base + ring + s * stage;
       for (int m = 0; m < NSTR; ++m)
-        tma_load(st + m * kTile, str[m], full, col, (t % ntiles) * kCols, bi);
+        H::load_str(st + m * H::kTile, str[m], full, col,
+                    (t % ntiles) * H::kCols, bi);
     } else {
       mbar_arrive(full);
     }
   }
 }
 
+template <int DA>
 __global__ void __launch_bounds__(kThreads, 1)
 so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
@@ -174,7 +191,9 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 __nv_bfloat16* __restrict__ cq, __nv_bfloat16* __restrict__ cg,
                 float* __restrict__ stats, float* __restrict__ null_part,
                 int nq, int nk, int heads, int have_null) {
-  using L = LayoutQ;
+  using L = LayoutQ<DA>;
+  using H = Heads<DA>;
+  constexpr int kD = H::kD, kCols = H::kCols;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const uint32_t base = smem_u32(smem);
@@ -185,7 +204,9 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t bars = base + L::kBars;
   init_bars(bars);
 
-  const int q0 = blockIdx.x * kBlockRows;
+  const int qblock = blockIdx.x / DA;
+  const int slice = blockIdx.x % DA;  // output columns 64·slice ..
+  const int q0 = qblock * kBlockRows;
   const int hh = blockIdx.y;
   const int bi = blockIdx.z;
   const int ntiles = (nk + kCols - 1) / kCols;
@@ -196,18 +217,18 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   if (warp == kConsumers / 32) {
     const CUtensorMap* res[3] = {&qmap, &gmap, &amap};
     const CUtensorMap* str[4] = {&kmap, &vmap, &bmap, &cmap};
-    produce<3, 4>(base, bars, res, str, hh * kD, q0, bi, 2 * ntiles, ntiles,
-                  L::kRing, L::kStage, [&](int s, int t) {
-                    for (int c = lane; c < kCols; c += 32) {
-                      const int key = t * kCols + c;
-                      const bool ok = key < nk;
-                      vec[s * 2 * kCols + c] =
-                          ok ? (bias ? bias[keys0 + key] * kLog2e : 0.f)
-                             : -INFINITY;
-                      vec[s * 2 * kCols + kCols + c] =
-                          ok && cdbias ? cdbias[keys0 + key] : 0.f;
-                    }
-                  });
+    produce<DA, 3, 4>(base, bars, res, str, hh * kD, q0, bi, 2 * ntiles,
+                      ntiles, L::kRing, L::kStage, [&](int s, int t) {
+                        for (int c = lane; c < kCols; c += 32) {
+                          const int key = t * kCols + c;
+                          const bool ok = key < nk;
+                          vec[s * 2 * kCols + c] =
+                              ok ? (bias ? bias[keys0 + key] * kLog2e : 0.f)
+                                 : -INFINITY;
+                          vec[s * 2 * kCols + kCols + c] =
+                              ok && cdbias ? cdbias[keys0 + key] : 0.f;
+                        }
+                      });
     return;
   }
 
@@ -215,12 +236,13 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const int r_lo = (warp % 4) * 16 + lane / 4;
   const int cq2 = 2 * (lane % 4);
   const int row_blk = 64 * wg + r_lo;
+  const int c0 = 64 * slice;  // the slice's first column
   const uint8_t* q_tile = smem;
-  const uint8_t* g_tile = smem + kRes;
-  const uint8_t* a_tile = smem + 2 * kRes;
-  const uint32_t qw = base + wg * kAtomBytes;
-  const uint32_t gw = base + kRes + wg * kAtomBytes;
-  const uint32_t aw = base + 2 * kRes + wg * kAtomBytes;
+  const uint8_t* g_tile = smem + H::kRes;
+  const uint8_t* a_tile = smem + 2 * H::kRes;
+  const uint32_t qw = base + wg * DA * kAtomBytes;
+  const uint32_t gw = qw + H::kRes;
+  const uint32_t aw = qw + 2 * H::kRes;
   const size_t hd = (size_t)heads * kD;
   const size_t rows0 = ((size_t)bi * heads + hh) * nq;
 
@@ -240,11 +262,11 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       const float* f_h = cf + (size_t)hh * kD;
       float sn = 0.f, an = 0.f, cn = 0.f, fn = 0.f;
       for (int c8 = lane % 4; c8 < kD / 8; c8 += 4) {
-        const uint4 qc = tile_chunk<1>(q_tile, rb, c8);
-        const uint4 gc = tile_chunk<1>(g_tile, rb, c8);
+        const uint4 qc = tile_chunk<DA>(q_tile, rb, c8);
+        const uint4 gc = tile_chunk<DA>(g_tile, rb, c8);
         sn += dot8(qc, nk_h + 8 * c8);
         an += dot8(gc, nv_h + 8 * c8);
-        cn += dot8(tile_chunk<1>(a_tile, rb, c8), nk_h + 8 * c8) +
+        cn += dot8(tile_chunk<DA>(a_tile, rb, c8), nk_h + 8 * c8) +
               dot8f(qc, e_h + 8 * c8);
         fn += dot8f(gc, f_h + 8 * c8);
       }
@@ -263,24 +285,25 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int s = t % kStages;
     mbar_wait(bars + 8 * (1 + s), (t / kStages) & 1);
     const uint32_t ks = base + L::kRing + s * L::kStage;
-    const uint32_t vs = ks + kTile, bs = ks + 2 * kTile, cs = ks + 3 * kTile;
+    const uint32_t vs = ks + H::kTile, bs = ks + 2 * H::kTile,
+                   cs = ks + 3 * H::kTile;
 #pragma unroll 1
     for (int hf = 0; hf < kCols / KP; ++hf) {
       const uint32_t ko = hf * KP * 128;  // the piece's first key row
       float sa[KP / 2], da[KP / 2], xa[KP / 2], ya[KP / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        mma_ss_n<KP>(sa, desc_k(qw, kk), desc_k(ks + ko, kk), kk > 0);
-        mma_ss_n<KP>(da, desc_k(gw, kk), desc_k(vs + ko, kk), kk > 0);
-        mma_ss_n<KP>(ya, desc_k(gw, kk), desc_k(cs + ko, kk), kk > 0);
+      for (int kk = 0; kk < 4 * DA; ++kk) {
+        mma_ss_n<KP>(sa, desc_k(qw, kk), H::b_k(ks, ko, kk), kk > 0);
+        mma_ss_n<KP>(da, desc_k(gw, kk), H::b_k(vs, ko, kk), kk > 0);
+        mma_ss_n<KP>(ya, desc_k(gw, kk), H::b_k(cs, ko, kk), kk > 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(xa, desc_k(aw, kk), desc_k(ks + ko, kk), kk > 0);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(xa, desc_k(aw, kk), H::b_k(ks, ko, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(xa, desc_k(qw, kk), desc_k(bs + ko, kk), 1);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(xa, desc_k(qw, kk), H::b_k(bs, ko, kk), 1);
       wgmma_commit();
       wgmma_wait();
       fence_acc(sa);
@@ -319,7 +342,7 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const float s3 = quad_sum(r3[i]) + pn[i] * gfn[i];
     rho[i] = s1 + s3 - 2.f * del[i] * r2[i];
     const int row = q0 + row_blk + 8 * i;
-    if (row < nq && lane % 4 == 0) {
+    if (slice == 0 && row < nq && lane % 4 == 0) {
       float* st = stats + (rows0 + row) * 3;
       st[0] = del[i];
       st[1] = r2[i];
@@ -327,7 +350,8 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   }
 
-  // ---- pass 2: c_q and c_g, seeded with the null column's terms
+  // ---- pass 2: the slice of c_q and c_g, seeded with the null column's
+  // terms
   float acq[32], acg[32];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -345,13 +369,11 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int r = 4 * j + 2 * i + c;
-        const int col = 8 * j + cq2 + c;
+        const size_t col = (size_t)hh * kD + c0 + 8 * j + cq2 + c;
         acq[r] = acg[r] = 0.f;
         if (have_null) {
-          acq[r] = c_sn * __bfloat162float(nullk[(size_t)hh * kD + col]) +
-                   dsn * ce[(size_t)hh * kD + col];
-          acg[r] = c_dan * __bfloat162float(nullv[(size_t)hh * kD + col]) +
-                   pn[i] * cf[(size_t)hh * kD + col];
+          acq[r] = c_sn * __bfloat162float(nullk[col]) + dsn * ce[col];
+          acg[r] = c_dan * __bfloat162float(nullv[col]) + pn[i] * cf[col];
         }
       }
   }
@@ -359,7 +381,8 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int s = t % kStages;
     mbar_wait(bars + 8 * (1 + s), (t / kStages) & 1);
     const uint32_t ks = base + L::kRing + s * L::kStage;
-    const uint32_t vs = ks + kTile, bs = ks + 2 * kTile, cs = ks + 3 * kTile;
+    const uint32_t vs = ks + H::kTile, bs = ks + 2 * H::kTile,
+                   cs = ks + 3 * H::kTile;
 #pragma unroll 1
     for (int hf = 0; hf < kCols / KP; ++hf) {
       const uint32_t ko = hf * KP * 128;
@@ -367,16 +390,16 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       float sa[KP / 2], da[KP / 2], xa[KP / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        mma_ss_n<KP>(sa, desc_k(qw, kk), desc_k(ks + ko, kk), kk > 0);
-        mma_ss_n<KP>(da, desc_k(gw, kk), desc_k(vs + ko, kk), kk > 0);
+      for (int kk = 0; kk < 4 * DA; ++kk) {
+        mma_ss_n<KP>(sa, desc_k(qw, kk), H::b_k(ks, ko, kk), kk > 0);
+        mma_ss_n<KP>(da, desc_k(gw, kk), H::b_k(vs, ko, kk), kk > 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(xa, desc_k(aw, kk), desc_k(ks + ko, kk), kk > 0);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(xa, desc_k(aw, kk), H::b_k(ks, ko, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(xa, desc_k(qw, kk), desc_k(bs + ko, kk), 1);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(xa, desc_k(qw, kk), H::b_k(bs, ko, kk), 1);
       wgmma_commit();
       wgmma_wait();
       fence_acc(sa);
@@ -414,12 +437,12 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       // g·C̃ᵀ onto the c_S term; c_q += dS·B̃, c_g += c_dA·v
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(xa, desc_k(gw, kk), desc_k(cs + ko, kk), 1);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(xa, desc_k(gw, kk), H::b_k(cs, ko, kk), 1);
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk) {
-        mma_rs_t(acq, df + 4 * kk, desc_mn(bs, 0, k16 + kk));
-        mma_rs_t(acg, cf_ + 4 * kk, desc_mn(vs, 0, k16 + kk));
+        mma_rs_t(acq, df + 4 * kk, H::b_mn(bs, slice, k16 + kk));
+        mma_rs_t(acg, cf_ + 4 * kk, H::b_mn(vs, slice, k16 + kk));
       }
       wgmma_commit();
       wgmma_wait();
@@ -437,8 +460,8 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk) {
-        mma_rs_t(acq, sf + 4 * kk, desc_mn(ks, 0, k16 + kk));
-        mma_rs_t(acg, pf + 4 * kk, desc_mn(cs, 0, k16 + kk));
+        mma_rs_t(acq, sf + 4 * kk, H::b_mn(ks, slice, k16 + kk));
+        mma_rs_t(acg, pf + 4 * kk, H::b_mn(cs, slice, k16 + kk));
       }
       wgmma_commit();
       wgmma_wait();
@@ -452,7 +475,7 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + row_blk + 8 * i;
     if (row >= nq) continue;
-    const size_t off = ((size_t)bi * nq + row) * hd + hh * kD;
+    const size_t off = ((size_t)bi * nq + row) * hd + hh * kD + c0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = 8 * j + cq2;
@@ -464,25 +487,25 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   if (have_null) {
-    // this block's partials of the null cotangents, rows in order
+    // this block's partials of the null cotangents' slice, rows in order
     consumer_sync(kConsumers);
     const int tid = threadIdx.x;
     float* part = null_part +
-                  (((size_t)bi * gridDim.x + blockIdx.x) * heads + hh) *
+                  (((size_t)bi * (gridDim.x / DA) + qblock) * heads + hh) *
                       (2 * kD + 1);
-    if (tid < kD) {
+    if (tid < 64) {
       float sk = 0.f;
       for (int r = 0; r < kBlockRows; ++r)
-        sk += null_cs[r] * tile_at(q_tile, 1, r, tid) +
-              null_ds[r] * tile_at(a_tile, 1, r, tid);
-      part[tid] = sk;
-    } else if (tid >= 128 && tid < 128 + kD) {
+        sk += null_cs[r] * tile_at(q_tile, DA, r, c0 + tid) +
+              null_ds[r] * tile_at(a_tile, DA, r, c0 + tid);
+      part[c0 + tid] = sk;
+    } else if (tid >= 128 && tid < 128 + 64) {
       float sv = 0.f;
       for (int r = 0; r < kBlockRows; ++r)
-        sv += null_ca[r] * tile_at(g_tile, 1, r, tid - 128);
-      part[kD + tid - 128] = sv;
+        sv += null_ca[r] * tile_at(g_tile, DA, r, c0 + tid - 128);
+      part[kD + c0 + tid - 128] = sv;
     }
-    if (tid == kConsumers - 1) {
+    if (slice == 0 && tid == kConsumers - 1) {
       float sb = 0.f;
       for (int r = 0; r < kBlockRows; ++r) sb += null_cs[r];
       part[2 * kD] = sb;
@@ -490,6 +513,7 @@ so2_q_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+template <int DA>
 __global__ void __launch_bounds__(kThreads, 1)
 so2_k_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
@@ -503,7 +527,9 @@ so2_k_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const float* __restrict__ stats,
                 __nv_bfloat16* __restrict__ ck, __nv_bfloat16* __restrict__ cv,
                 float* __restrict__ cbias, int nq, int nk, int heads) {
-  using L = LayoutK;
+  using L = LayoutK<DA>;
+  using H = Heads<DA>;
+  constexpr int kD = H::kD, kCols = H::kCols;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const uint32_t base = smem_u32(smem);
@@ -511,7 +537,8 @@ so2_k_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t bars = base + L::kBars;
   init_bars(bars);
 
-  const int k0 = blockIdx.x * kBlockRows;
+  const int slice = blockIdx.x % DA;
+  const int k0 = (blockIdx.x / DA) * kBlockRows;
   const int hh = blockIdx.y;
   const int bi = blockIdx.z;
   const int ntiles = (nq + kCols - 1) / kCols;
@@ -524,19 +551,19 @@ so2_k_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     // per query: lse in the log2 domain (+inf past nq: P = 0), δ, r₂, ρ
     const CUtensorMap* res[4] = {&kmap, &vmap, &bmap, &cmap};
     const CUtensorMap* str[3] = {&qmap, &gmap, &amap};
-    produce<4, 3>(base, bars, res, str, hh * kD, k0, bi, ntiles, ntiles,
-                  L::kRing, L::kStage, [&](int s, int t) {
-                    float* v = vec + s * 4 * kCols;
-                    for (int c = lane; c < kCols; c += 32) {
-                      const int qr = t * kCols + c;
-                      const bool ok = qr < nq;
-                      const float* st = stats + (rows0 + qr) * 3;
-                      v[c] = ok ? lse[rows0 + qr] * kLog2e : INFINITY;
-                      v[kCols + c] = ok ? st[0] : 0.f;
-                      v[2 * kCols + c] = ok ? st[1] : 0.f;
-                      v[3 * kCols + c] = ok ? st[2] : 0.f;
-                    }
-                  });
+    produce<DA, 4, 3>(base, bars, res, str, hh * kD, k0, bi, ntiles, ntiles,
+                      L::kRing, L::kStage, [&](int s, int t) {
+                        float* v = vec + s * 4 * kCols;
+                        for (int c = lane; c < kCols; c += 32) {
+                          const int qr = t * kCols + c;
+                          const bool ok = qr < nq;
+                          const float* st = stats + (rows0 + qr) * 3;
+                          v[c] = ok ? lse[rows0 + qr] * kLog2e : INFINITY;
+                          v[kCols + c] = ok ? st[0] : 0.f;
+                          v[2 * kCols + c] = ok ? st[1] : 0.f;
+                          v[3 * kCols + c] = ok ? st[2] : 0.f;
+                        }
+                      });
     return;
   }
 
@@ -544,10 +571,10 @@ so2_k_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const int r_lo = (warp % 4) * 16 + lane / 4;
   const int cq2 = 2 * (lane % 4);
   const int row_blk = 64 * wg + r_lo;
-  const uint32_t kw = base + wg * kAtomBytes;
-  const uint32_t vw = base + kRes + wg * kAtomBytes;
-  const uint32_t bw = base + 2 * kRes + wg * kAtomBytes;
-  const uint32_t cw = base + 3 * kRes + wg * kAtomBytes;
+  const uint32_t kw = base + wg * DA * kAtomBytes;
+  const uint32_t vw = kw + H::kRes;
+  const uint32_t bw = kw + 2 * H::kRes;
+  const uint32_t cw = kw + 3 * H::kRes;
 
   float b2[2], dt[2], cb_sum[2], ack[32], acv[32];
 #pragma unroll
@@ -566,7 +593,7 @@ so2_k_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int s = t % kStages;
     mbar_wait(bars + 8 * (1 + s), (t / kStages) & 1);
     const uint32_t qs = base + L::kRing + s * L::kStage;
-    const uint32_t gs = qs + kTile, as = qs + 2 * kTile;
+    const uint32_t gs = qs + H::kTile, as = qs + 2 * H::kTile;
 #pragma unroll 1
     for (int hf = 0; hf < kCols / KP; ++hf) {
       // rows are keys, columns the queries KP·hf .. of the tile
@@ -575,16 +602,16 @@ so2_k_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       float sa[KP / 2], da[KP / 2], xa[KP / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        mma_ss_n<KP>(sa, desc_k(kw, kk), desc_k(qs + qo, kk), kk > 0);
-        mma_ss_n<KP>(da, desc_k(vw, kk), desc_k(gs + qo, kk), kk > 0);
+      for (int kk = 0; kk < 4 * DA; ++kk) {
+        mma_ss_n<KP>(sa, desc_k(kw, kk), H::b_k(qs, qo, kk), kk > 0);
+        mma_ss_n<KP>(da, desc_k(vw, kk), H::b_k(gs, qo, kk), kk > 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(xa, desc_k(kw, kk), desc_k(as + qo, kk), kk > 0);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(xa, desc_k(kw, kk), H::b_k(as, qo, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(xa, desc_k(bw, kk), desc_k(qs + qo, kk), 1);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(xa, desc_k(bw, kk), H::b_k(qs, qo, kk), 1);
       wgmma_commit();
       wgmma_wait();
       fence_acc(sa);
@@ -625,12 +652,12 @@ so2_k_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       // (g·C̃ᵀ)ᵀ onto the c_Sᵀ term; c_k̂ += dSᵀ·Ã, c_v += c_dAᵀ·g
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss_n<KP>(xa, desc_k(cw, kk), desc_k(gs + qo, kk), 1);
+      for (int kk = 0; kk < 4 * DA; ++kk)
+        mma_ss_n<KP>(xa, desc_k(cw, kk), H::b_k(gs, qo, kk), 1);
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk) {
-        mma_rs_t(ack, df + 4 * kk, desc_mn(as, 0, k16 + kk));
-        mma_rs_t(acv, cf_ + 4 * kk, desc_mn(gs, 0, k16 + kk));
+        mma_rs_t(ack, df + 4 * kk, H::b_mn(as, slice, k16 + kk));
+        mma_rs_t(acv, cf_ + 4 * kk, H::b_mn(gs, slice, k16 + kk));
       }
       wgmma_commit();
       wgmma_wait();
@@ -649,7 +676,7 @@ so2_k_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KP / 16; ++kk)
-        mma_rs_t(ack, sf + 4 * kk, desc_mn(qs, 0, k16 + kk));
+        mma_rs_t(ack, sf + 4 * kk, H::b_mn(qs, slice, k16 + kk));
       wgmma_commit();
       wgmma_wait();
       fence_acc(ack);
@@ -663,7 +690,7 @@ so2_k_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const float colsum = quad_sum(cb_sum[i]);
     const int key = k0 + row_blk + 8 * i;
     if (key >= nk) continue;
-    const size_t off = ((size_t)bi * nk + key) * hd + hh * kD;
+    const size_t off = ((size_t)bi * nk + key) * hd + hh * kD + 64 * slice;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = 8 * j + cq2;
@@ -672,7 +699,7 @@ so2_k_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       *reinterpret_cast<__nv_bfloat162*>(cv + off + col) =
           __floats2bfloat162_rn(acv[4 * j + 2 * i], acv[4 * j + 2 * i + 1]);
     }
-    if (cbias && lane % 4 == 0) cbias[keys0 + key] = colsum;
+    if (cbias && slice == 0 && lane % 4 == 0) cbias[keys0 + key] = colsum;
   }
 }
 
@@ -691,32 +718,36 @@ struct Args {
   int b, nq, nk, heads, have_null;
 };
 
+template <int DA>
 cudaError_t launch(const Args& a, cudaStream_t s) {
+  using H = Heads<DA>;
+  constexpr int kD = H::kD;
   const int hd = a.heads * kD;
   CUtensorMap qm, km, vm, gm, am, bm, cm;
-  cudaError_t err = make_map(&qm, a.q, a.b, a.nq, hd);
-  if (err == cudaSuccess) err = make_map(&km, a.k, a.b, a.nk, hd);
-  if (err == cudaSuccess) err = make_map(&vm, a.v, a.b, a.nk, hd);
-  if (err == cudaSuccess) err = make_map(&gm, a.g, a.b, a.nq, hd);
-  if (err == cudaSuccess) err = make_map(&am, a.cdq, a.b, a.nq, hd);
-  if (err == cudaSuccess) err = make_map(&bm, a.cdk, a.b, a.nk, hd);
-  if (err == cudaSuccess) err = make_map(&cm, a.cdv, a.b, a.nk, hd);
-  auto qk = so2_q_tc_kernel;
-  auto kk = so2_k_tc_kernel;
-  if (err == cudaSuccess) err = set_smem(qk, LayoutQ::kBytes);
-  if (err == cudaSuccess) err = set_smem(kk, LayoutK::kBytes);
+  cudaError_t err = make_map(&qm, a.q, a.b, a.nq, hd, H::kCols);
+  if (err == cudaSuccess) err = make_map(&km, a.k, a.b, a.nk, hd, H::kCols);
+  if (err == cudaSuccess) err = make_map(&vm, a.v, a.b, a.nk, hd, H::kCols);
+  if (err == cudaSuccess) err = make_map(&gm, a.g, a.b, a.nq, hd, H::kCols);
+  if (err == cudaSuccess) err = make_map(&am, a.cdq, a.b, a.nq, hd, H::kCols);
+  if (err == cudaSuccess) err = make_map(&bm, a.cdk, a.b, a.nk, hd, H::kCols);
+  if (err == cudaSuccess) err = make_map(&cm, a.cdv, a.b, a.nk, hd, H::kCols);
+  auto qk = so2_q_tc_kernel<DA>;
+  auto kk = so2_k_tc_kernel<DA>;
+  if (err == cudaSuccess) err = set_smem(qk, LayoutQ<DA>::kBytes);
+  if (err == cudaSuccess) err = set_smem(kk, LayoutK<DA>::kBytes);
   if (err != cudaSuccess) return err;
   const int qblocks = (a.nq + kBlockRows - 1) / kBlockRows;
-  qk<<<dim3(qblocks, a.heads, a.b), kThreads, LayoutQ::kBytes, s>>>(
+  qk<<<dim3(qblocks * DA, a.heads, a.b), kThreads, LayoutQ<DA>::kBytes, s>>>(
       qm, km, vm, gm, am, bm, cm, a.bias, a.nullk, a.nullv, a.null_bias,
       a.lse, a.cdbias, a.ce, a.cf, a.ch, a.cq, a.cg, a.stats, a.null_part,
       a.nq, a.nk, a.heads, a.have_null);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kk<<<dim3((a.nk + kBlockRows - 1) / kBlockRows, a.heads, a.b), kThreads,
-       LayoutK::kBytes, s>>>(qm, km, vm, gm, am, bm, cm, a.bias, a.lse,
-                             a.cdbias, a.stats, a.ck, a.cv, a.cbias, a.nq,
-                             a.nk, a.heads);
+  kk<<<dim3((a.nk + kBlockRows - 1) / kBlockRows * DA, a.heads, a.b),
+       kThreads, LayoutK<DA>::kBytes, s>>>(qm, km, vm, gm, am, bm, cm,
+                                           a.bias, a.lse, a.cdbias, a.stats,
+                                           a.ck, a.cv, a.cbias, a.nq, a.nk,
+                                           a.heads);
   err = cudaGetLastError();
   if (err != cudaSuccess || !a.have_null) return err;
   flash::null_reduce_kernel<<<a.heads, flash::kThreads, 0, s>>>(
@@ -726,13 +757,13 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// bf16 operands at head dim 64, every (b, n, H·d) pointer 16-byte aligned.
-// `bias`, `cdbias` and `cbias` are (b, H, nk) fp32 or all null; the
-// null-token operands (nullk/nullv bf16 (H, 64), null_bias and the
-// cotangents cdnullk/cdnullv (H, 64) and cdnull_bias (H,) fp32) and the
+// bf16 operands at head dim 64 or 128, every (b, n, H·d) pointer 16-byte
+// aligned.  `bias`, `cdbias` and `cbias` are (b, H, nk) fp32 or all null;
+// the null-token operands (nullk/nullv bf16 (H, d), null_bias and the
+// cotangents cdnullk/cdnullv (H, d) and cdnull_bias (H,) fp32) and the
 // null outputs may be null when have_null is 0.  `stats` is a (b, H, nq, 3)
-// fp32 workspace, `null_part` one of at least b·ceil(nq/128)·H·129 floats.
-// Returns a cudaError_t.
+// fp32 workspace, `null_part` one of at least b·ceil(nq/128)·H·(2d + 1)
+// floats.  Returns a cudaError_t.
 extern "C" int gigagan_flash_attention_so_bwd2_tc(
     const void* q, const void* k, const void* v, const void* bias,
     const void* nullk, const void* nullv, const void* null_bias,
@@ -745,7 +776,8 @@ extern "C" int gigagan_flash_attention_so_bwd2_tc(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (b <= 0 || b > 65535 || nq <= 0 || nk <= 0 || heads <= 0 ||
-      heads > 65535 || d != kD || (bias == nullptr) != (cbias == nullptr) ||
+      heads > 65535 || (d != 64 && d != 128) ||
+      (bias == nullptr) != (cbias == nullptr) ||
       (have_null &&
        (nullk == nullptr || nullv == nullptr || null_bias == nullptr ||
         cdnullk == nullptr || cdnullv == nullptr || cdnull_bias == nullptr ||
@@ -786,7 +818,7 @@ extern "C" int gigagan_flash_attention_so_bwd2_tc(
   a.heads = heads;
   a.have_null = have_null;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return launch(a, s);
+  return d == 64 ? launch<1>(a, s) : launch<2>(a, s);
 }
 
 extern "C" const char* gigagan_cuda_error_string(int err) {

@@ -88,16 +88,16 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A map over a (b, n, H·d) bf16 tensor read in place: dims (H·d, n, b),
-// box (64 columns, 64 rows, 1 sample), 128-byte swizzle.  Rows past n are
-// zero-filled, so a tile never reads the next sample.
+// box (64 columns, `rows` rows, 1 sample), 128-byte swizzle.  Rows past n
+// are zero-filled, so a tile never reads the next sample.
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int b, int n,
-                            int hd) {
+                            int hd, int rows = kAtomRows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)n, (cuuint64_t)b};
   const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)n * (cuuint64_t)hd * 2};
-  const cuuint32_t box[3] = {64, kAtomRows, 1};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                         const_cast<void*>(ptr), dims, strides, box, elem,
@@ -444,5 +444,65 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
 }
+
+// The tiles of the attention kernels that keep 128 rows resident and stream
+// the other side (K5, K7a, K7b), at head dim 64·DA.  A resident tile is
+// [64-row block][DA atoms], as `desc_k` and `tile_chunk<DA>` read it.  A
+// streamed tile is kCols = 64 / DA rows of DA sub-atoms of 64 columns,
+// [atom][kCols rows], so it is 8 KB at either head dim and three or four
+// stages fit beside the resident tiles.  The maps' boxes are kCols rows:
+// a resident atom is DA boxes stacked, which the 128-byte swizzle (a
+// function of the address within each 1024 bytes) lays out as one box of
+// 64 rows.  Each block accumulates one 64-column slice of its outputs and
+// contracts its logits over all DA atoms, so its accumulators take the
+// registers of d = 64.
+template <int DA>
+struct Heads {
+  static constexpr int kD = 64 * DA;
+  static constexpr int kCols = kAtomRows / DA;  // rows of a streamed tile
+  static constexpr int kSub = kCols * 128;      // one atom of it
+  static constexpr int kTile = DA * kSub;       // 8 KB
+  static constexpr int kRes = 2 * DA * kAtomBytes;
+
+  // K-major B operand: the rows from byte `ko` of a streamed tile, at
+  // the 16-column step kk (< 4·DA) of the head dim
+  static __device__ __forceinline__ uint64_t b_k(uint32_t tile, uint32_t ko,
+                                                 int kk) {
+    return desc(tile + (kk / 4) * kSub + ko + (kk % 4) * 32, 16);
+  }
+
+  // MN-major B operand: the 16-row step kk of a streamed tile, its 64
+  // columns of atom a
+  static __device__ __forceinline__ uint64_t b_mn(uint32_t tile, int a,
+                                                  int kk) {
+    return desc(tile + a * kSub + kk * 2048, kAtomBytes);
+  }
+
+  // rows r0 .. r0+127, columns col .. col+kD−1 of sample bi into a
+  // resident tile at dst (kRes bytes on `bar`)
+  static __device__ __forceinline__ void load_res(uint32_t dst,
+                                                  const CUtensorMap* map,
+                                                  uint32_t bar, int col,
+                                                  int r0, int bi) {
+#pragma unroll
+    for (int wg = 0; wg < 2; ++wg)
+#pragma unroll
+      for (int a = 0; a < DA; ++a)
+#pragma unroll
+        for (int bx = 0; bx < DA; ++bx)
+          tma_load(dst + (wg * DA + a) * kAtomBytes + bx * kSub, map, bar,
+                   col + 64 * a, r0 + 64 * wg + bx * kCols, bi);
+  }
+
+  // the kCols rows from r0 into a streamed tile at dst (kTile bytes)
+  static __device__ __forceinline__ void load_str(uint32_t dst,
+                                                  const CUtensorMap* map,
+                                                  uint32_t bar, int col,
+                                                  int r0, int bi) {
+#pragma unroll
+    for (int a = 0; a < DA; ++a)
+      tma_load(dst + a * kSub, map, bar, col + 64 * a, r0, bi);
+  }
+};
 
 }  // namespace tc

@@ -4,8 +4,8 @@ Functions behind ``flash_attend_hv``, the split-heads attention of
 ``ops.attend`` at flash sizes, which the forward-over-reverse R1 penalty
 can differentiate (counterpart of
 gigagan_tpu/ops/pallas/flash_attention_hv.py).  Each kernel has two
-implementations, picked by ``hv_uses_tensor_cores``: for bf16 at d = 64 the
-tensor-core kernels (``csrc/flash_attention_hv_jvp_tc.cu``,
+implementations, picked by ``hv_uses_tensor_cores``: for bf16 at d = 64 or
+128 the tensor-core kernels (``csrc/flash_attention_hv_jvp_tc.cu``,
 ``csrc/flash_attention_hv_bwd_tc.cu``), otherwise the CUDA-core kernels
 (``csrc/flash_attention_hv_jvp.cu``, ``csrc/flash_attention_hv_bwd.cu``).
 Both put b·h on a grid axis of at most 65535 blocks, so the dispatchers run
@@ -136,21 +136,21 @@ def flash_attention_hv_jvp_plain(q, k_pre, v, bias, tq, tk_pre, tv, tbias):
 
 
 def hv_uses_tensor_cores(dtype, d: int) -> bool:
-    """K7a's and K7b's dispatch rule: bf16 operands at head dim 64 go to the
-    tensor-core kernels (``csrc/flash_attention_hv_{jvp,bwd}_tc.cu``); fp32
-    and every other head dim up to 128 to the CUDA-core kernels
-    (``*_simt``).  d = 128 does not fit the tensor-core kernels' registers:
-    K7a's two (64 × 128) fp32 accumulators, and K7b's in each of its three
-    kernels, would take 128 of the 168 registers a thread gets."""
-    return dtype == torch.bfloat16 and d == 64
+    """K7a's and K7b's dispatch rule, K3/K4's: bf16 operands at head dim 64
+    or 128 go to the tensor-core kernels
+    (``csrc/flash_attention_hv_{jvp,bwd}_tc.cu``; at 128 each block
+    accumulates one 64-column slice of its outputs); fp32 and every other
+    head dim up to 128 to the CUDA-core kernels (``*_simt``)."""
+    return dtype == torch.bfloat16 and d in (64, 128)
 
 
 def _check_tc(what, q, *tensors):
     """The tensor-core entries take what ``hv_uses_tensor_cores`` sends
-    them, with every operand 16-byte aligned for TMA; after ``_check``."""
+    them, with every operand 16-byte aligned for TMA; before ``_check``,
+    so that a head dim they do not take is named as such."""
     if not hv_uses_tensor_cores(q.dtype, q.shape[-1]):
-        raise ValueError(f"{what}: takes bf16 with head dim 64, got "
-                         f"{q.dtype} with {q.shape[-1]}")
+        raise ValueError(f"{what}: takes bf16 with head dim 64 or 128, got "
+                         f"{q.dtype} with head dim {q.shape[-1]}")
     check_tc(what, (("q", q),) + tuple(
         (f"operand {i}", t) for i, t in enumerate(tensors, 1)))
 
@@ -192,10 +192,10 @@ def flash_attention_hv_jvp_simt(q, k_pre, v, bias, tq, tk_pre, tv, tbias):
 
 def flash_attention_hv_jvp_tc(q, k_pre, v, bias, tq, tk_pre, tv, tbias):
     """K7a on the tensor cores (``csrc/flash_attention_hv_jvp_tc.cu``):
-    bf16 at head dim 64.  Returns (out, tout, lse)."""
+    bf16 at head dim 64 or 128.  Returns (out, tout, lse)."""
     what = "flash_attention_hv_jvp_tc"
-    _check_jvp(what, q, k_pre, v, bias, tq, tk_pre, tv, tbias)
     _check_tc(what, q, k_pre, v, tq, tk_pre, tv)
+    _check_jvp(what, q, k_pre, v, bias, tq, tk_pre, tv, tbias)
     res = _jvp_launch(what, what, q, k_pre, v, bias, tq, tk_pre, tv, tbias)
     flash_attention_hv_jvp_tc.launches += 1
     return res
@@ -318,11 +318,11 @@ def flash_attention_hv_bwd_simt(q, k_pre, v, bias, tq, tk_pre, tv, tbias,
 def flash_attention_hv_bwd_tc(q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse,
                               go, gt):
     """K7b on the tensor cores (``csrc/flash_attention_hv_bwd_tc.cu``): bf16
-    at head dim 64 (same returns as the plain version; gk_pre and gtk_pre
-    float32)."""
+    at head dim 64 or 128 (same returns as the plain version; gk_pre and
+    gtk_pre float32)."""
     what = "flash_attention_hv_bwd_tc"
-    _check_bwd(what, q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse, go, gt)
     _check_tc(what, q, k_pre, v, tq, tk_pre, tv, gt, go)
+    _check_bwd(what, q, k_pre, v, bias, tq, tk_pre, tv, tbias, lse, go, gt)
     res = _bwd_launch(what, what, q, k_pre, v, bias, tq, tk_pre, tv, tbias,
                       lse, go, gt)
     flash_attention_hv_bwd_tc.launches += 1

@@ -4,9 +4,9 @@ behind ``flash_attend_fused``.  Each has two implementations.  K4 is
 picked as K3 is (``uses_tensor_cores``): on the tensor cores
 (``csrc/flash_attention_fused_bwd_tc.cu``) for bf16 at d = 64 or 128, on
 CUDA cores (``csrc/flash_attention_fused_bwd.cu``) otherwise.  K5 by
-``so_uses_tensor_cores``: on the tensor cores
-(``csrc/flash_attention_so_bwd2_tc.cu``) for bf16 at d = 64, on CUDA cores
-(``csrc/flash_attention_so_bwd2.cu``) otherwise.
+``so_uses_tensor_cores``, the same rule: on the tensor cores
+(``csrc/flash_attention_so_bwd2_tc.cu``) for bf16 at d = 64 or 128, on CUDA
+cores (``csrc/flash_attention_so_bwd2.cu``) otherwise.
 
 Everything works on K3's PREPARED operands (``prep_fused``):
 q (b, nq, H·d), k_pre = coeff·k and v (b, nk, H·d), bias (b, H, nk) fp32
@@ -335,12 +335,12 @@ def flash_attention_so_bwd2_plain(q, k_pre, v, bias, nullk_pre, nullv,
 
 
 def so_uses_tensor_cores(dtype, d: int) -> bool:
-    """K5's dispatch rule: bf16 operands at head dim 64 go to the
-    tensor-core kernels (``csrc/flash_attention_so_bwd2_tc.cu``); fp32 and
-    every other head dim up to 128 (d = 128 among them: its two (64 × d)
-    accumulators and four pieces do not fit the tensor-core kernel's
-    registers) to the CUDA-core kernels (``*_simt``)."""
-    return dtype == torch.bfloat16 and d == 64
+    """K5's dispatch rule, K3/K4's: bf16 operands at head dim 64 or 128 go
+    to the tensor-core kernels (``csrc/flash_attention_so_bwd2_tc.cu``; at
+    128 each block accumulates one 64-column slice of its outputs); fp32
+    and every other head dim up to 128 to the CUDA-core kernels
+    (``*_simt``)."""
+    return dtype == torch.bfloat16 and d in (64, 128)
 
 
 def _so_bwd2_launch(what, source, q, k_pre, v, bias, nullk_pre, nullv,
@@ -423,12 +423,12 @@ def flash_attention_so_bwd2_tc(q, k_pre, v, bias, nullk_pre, nullv,
                                null_bias, g, lse, cdq, cdk, cdv, cdbias,
                                cdnullk, cdnullv, cdnull_bias, heads: int):
     """K5 on the tensor cores (``csrc/flash_attention_so_bwd2_tc.cu``),
-    bf16 at head dim 64 (returns as the plain version)."""
+    bf16 at head dim 64 or 128 (returns as the plain version)."""
     what = "flash_attention_so_bwd2_tc"
     d = _head_dim(what, q, heads)
     if not so_uses_tensor_cores(q.dtype, d):
-        raise ValueError(f"{what}: takes bf16 with head dim 64, got "
-                         f"{q.dtype} with {d}")
+        raise ValueError(f"{what}: takes bf16 with head dim 64 or 128, got "
+                         f"{q.dtype} with head dim {d}")
     _check(q, k_pre, v, bias, nullk_pre, nullv, null_bias, heads)
     check_tc(what, (("q", q), ("k_pre", k_pre), ("v", v), ("g", g),
                     ("cdq", cdq), ("cdk", cdk), ("cdv", cdv)))

@@ -484,9 +484,9 @@ def _k7_standins(monkeypatch):
     return entries
 
 
-# K7a and K7b dispatch by their own rule: bf16 at head dim 64 to the tensor
-# cores, everything else (d = 128 among it) to the CUDA cores
-K7_DISPATCH = [(torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "simt"),
+# K7a and K7b dispatch by their own rule, K3/K4's: bf16 at head dims 64 and
+# 128 to the tensor cores, everything else to the CUDA cores
+K7_DISPATCH = [(torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
                (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
                (torch.bfloat16, 80, "simt"), (torch.bfloat16, 32, "simt")]
 
@@ -505,6 +505,26 @@ def test_k7_dispatch_rule(dtype, d, route, monkeypatch):
         f"flash_attention_hv_{k}_{r}": (
             ([4] if k == "jvp" else [(4, False)]) if r == route else [])
         for k in ("jvp", "bwd") for r in ("tc", "simt")}
+
+
+@pytest.mark.parametrize("d,msg", [(128, "on meta"), (80, "head dim 80"),
+                                   (32, "head dim 32")])
+@pytest.mark.parametrize("with_go", [False, True], ids=["no_go", "go"])
+def test_k7_tc_entries_take_head_dim_128(d, msg, with_go):
+    # K7a's and K7b's tensor-core entries take bf16 at head dim 128 as far
+    # as the device check (tensors on meta), with and without ĝo, as they
+    # take 64 (test_hv_wrappers_never_fall_back_off_the_cpu), and refuse
+    # another head dim with a message that names it; nothing counts a
+    # launch
+    before = [f.launches for f in HV_ENTRIES]
+    q = torch.empty(2, 16, d, dtype=torch.bfloat16, device="meta")
+    bias = torch.empty(2, 16, device="meta")
+    with pytest.raises(ValueError, match=msg):
+        k7.flash_attention_hv_jvp_tc(q, q, q, bias, q, q, q, bias)
+    with pytest.raises(ValueError, match=msg):
+        k7.flash_attention_hv_bwd_tc(q, q, q, bias, q, q, q, bias, bias,
+                                     q if with_go else None, q)
+    assert [f.launches for f in HV_ENTRIES] == before
 
 
 @pytest.mark.parametrize("with_go", [False, True], ids=["no_go", "go"])

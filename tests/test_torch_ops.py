@@ -785,7 +785,7 @@ def test_adaptive_conv_bwd_w_dispatch_rule(dtype, h, ci, co, route,
 
 
 K5_DISPATCH = [(torch.bfloat16, 64, "tc"), (torch.float32, 64, "simt"),
-               (torch.bfloat16, 80, "simt"), (torch.bfloat16, 128, "simt"),
+               (torch.bfloat16, 80, "simt"), (torch.bfloat16, 128, "tc"),
                (torch.float32, 128, "simt"), (torch.bfloat16, 32, "simt")]
 
 
@@ -834,8 +834,9 @@ def test_new_entries_never_fall_back_off_the_cpu(entry):
 
 def test_tensor_core_entries_refuse_what_they_do_not_take():
     # K1's tensor-core entry takes bf16 with channel multiples of 16 only;
-    # K5's takes head dim 64 only (d = 128 stays on the CUDA cores, up to
-    # 128 like every attention entry); the message names the limit
+    # K5's takes head dims 64 and 128 only (the others stay on the CUDA
+    # cores, up to 128 like every attention entry); the message names the
+    # limit
     meta = dict(device="meta")
     with pytest.raises(ValueError, match="multiples of 16"):
         k1.adaptive_conv_fwd_tc(
@@ -855,12 +856,34 @@ def test_tensor_core_entries_refuse_what_they_do_not_take():
                 torch.empty(1, 4, 4, 16, dtype=dtype, **meta),
                 torch.empty(n, 3, 3, ci, 16, **meta),
                 torch.empty(1, n, **meta))
-    for d, msg in ((128, "head dim 64"), (136, "head dim 136 > 128")):
+    for d, msg in ((80, "head dim 80"), (136, "head dim 136 > 128")):
         q, lse, heads = _meta_attention(torch.bfloat16, d)
         with pytest.raises(ValueError, match=msg):
             so.flash_attention_so_bwd2_tc(q, q, q, None, None, None, None, q,
                                           lse, q, q, q, None, None, None,
                                           None, heads)
+
+
+@pytest.mark.parametrize("d,msg", [(128, "on meta"), (80, "head dim 80"),
+                                   (32, "head dim 32")])
+@pytest.mark.parametrize("null", [False, True], ids=["no_null", "null"])
+def test_so_bwd2_tc_takes_head_dim_128(d, msg, null):
+    # K5's tensor-core entry takes bf16 at head dim 128 as far as the
+    # device check (a tensor on meta), with and without the null token, as
+    # it takes 64 (test_new_entries_never_fall_back_off_the_cpu), and
+    # refuses another head dim with a message that names it; nothing
+    # counts a launch
+    counted = (so.flash_attention_so_bwd2_tc, so.flash_attention_so_bwd2_simt)
+    before = [f.launches for f in counted]
+    q, lse, heads = _meta_attention(torch.bfloat16, d)
+    meta = dict(device="meta")
+    nk = nv = torch.empty(heads, d, dtype=torch.bfloat16, **meta) \
+        if null else None
+    nb = torch.empty(heads, **meta) if null else None
+    with pytest.raises(ValueError, match=msg):
+        so.flash_attention_so_bwd2_tc(q, q, q, None, nk, nv, nb, q, lse, q,
+                                      q, q, None, None, None, None, heads)
+    assert [f.launches for f in counted] == before
 
 
 @pytest.mark.parametrize("ci,co", [(16, 32), (24, 16)],

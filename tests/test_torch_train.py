@@ -41,6 +41,7 @@ from gigagan_tpu.train.steps import (  # noqa: E402
 from gigagan_tpu_torch import GigaGAN, losses  # noqa: E402
 from gigagan_tpu_torch.convert import convert_params  # noqa: E402
 from gigagan_tpu_torch.data import MockImageDataset  # noqa: E402
+from gigagan_tpu_torch.ops.kernels import plain_reference  # noqa: E402
 from gigagan_tpu_torch.train.ema import EMA  # noqa: E402
 from gigagan_tpu_torch.train.optimizer import get_optimizer  # noqa: E402
 from gigagan_tpu_torch.train.steps import StepDraws  # noqa: E402
@@ -297,6 +298,9 @@ G_CFG = dict(image_size=32, dim_capacity=4, dim_max=32, dim_latent=16,
              num_skip_layers_excite=1, unconditional=True)
 D_CFG = dict(image_size=32, dim_capacity=4, dim_max=32, attn_heads=2,
              attn_dim_head=64, num_skip_layers_excite=1, unconditional=True)
+# a D of 2 heads of 128: the head dim whose R1 runs K5 and K7a/K7b on their
+# wider tensor-core route on the card
+D_CFG_D128 = dict(D_CFG, attn_dim_head=128)
 DIFF_AUGMENT = dict(prob=1.0, horizontal_flip=True)
 LR, BETAS, BATCH = 2e-4, (0.5, 0.9), 2
 ADAM_COUNT = 10  # the mid-run optimizer state
@@ -326,10 +330,9 @@ def seed_adam_state(opt, module, jax_grads):
                         "exp_avg_sq": nu[name].clone()}
 
 
-@pytest.fixture(scope="module")
-def jax_setup():
+def make_jax_setup(d_cfg):
     jg = JaxGenerator(**G_CFG, s2d_trunk=False)
-    jdisc = JaxDiscriminator(**D_CFG, s2d_trunk=False)
+    jdisc = JaxDiscriminator(**d_cfg, s2d_trunk=False)
     keys = {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1),
             "latent": jax.random.PRNGKey(2), "dropout": jax.random.PRNGKey(3)}
     g_params = random_params(jax.eval_shape(
@@ -345,8 +348,18 @@ def jax_setup():
     return builder, tx, g_params, d_params, real
 
 
-def port_gan(g_params, d_params, gp_fwd_over_rev=False):
-    gan = GigaGAN(generator=G_CFG, discriminator=D_CFG,
+@pytest.fixture(scope="module")
+def jax_setup():
+    return make_jax_setup(D_CFG)
+
+
+@pytest.fixture(scope="module")
+def jax_setup_d128():
+    return make_jax_setup(D_CFG_D128)
+
+
+def port_gan(g_params, d_params, gp_fwd_over_rev=False, d_cfg=D_CFG):
+    gan = GigaGAN(generator=G_CFG, discriminator=d_cfg,
                   diff_augment=DIFF_AUGMENT, learning_rate=LR, betas=BETAS,
                   device="cpu", seed=0, gp_fwd_over_rev=gp_fwd_over_rev)
     gan.load_jax_params(g_params, d_params=d_params)
@@ -384,11 +397,17 @@ def check_losses(got, want, names):
 D_PIPELINE_DRAWS = 4
 
 
-@pytest.mark.parametrize("apply_gp,fwd_over_rev",
-                         [(False, False), (True, False), (True, True)],
-                         ids=["no_r1", "r1", "r1_fwd_over_rev"])
-def test_d_step_matches_jax(jax_setup, apply_gp, fwd_over_rev):
-    builder, tx, g_params, d_params, real = jax_setup
+@pytest.mark.parametrize(
+    "apply_gp,fwd_over_rev,dim_head",
+    [(False, False, 64), (True, False, 64), (True, True, 64),
+     (False, False, 128), (True, False, 128), (True, True, 128)],
+    ids=["no_r1", "r1", "r1_fwd_over_rev", "no_r1-d128", "r1-d128",
+         "r1_fwd_over_rev-d128"])
+def test_d_step_matches_jax(request, apply_gp, fwd_over_rev, dim_head):
+    d_cfg = D_CFG if dim_head == 64 else D_CFG_D128
+    builder, tx, g_params, d_params, real = request.getfixturevalue(
+        "jax_setup" if dim_head == 64 else "jax_setup_d128")
+
     if fwd_over_rev:
         builder = JaxTrainStepBuilder(
             builder.G, builder.D, tx, tx,
@@ -404,7 +423,18 @@ def test_d_step_matches_jax(jax_setup, apply_gp, fwd_over_rev):
         (_, metrics), grads = fn(d_params, jax.random.PRNGKey(4))
     new_params = jax_adam_update(tx, grads, d_params)
 
-    gan = port_gan(g_params, d_params, gp_fwd_over_rev=fwd_over_rev)
+    gan = port_gan(g_params, d_params, gp_fwd_over_rev=fwd_over_rev,
+                   d_cfg=d_cfg)
+    if dim_head == 128:
+        # One of this D's leaky-ReLU pre-activations lies at the kink, and
+        # JAX's fp32 step crosses it: its R1 gradient reads 8.0e-3 from the
+        # port's float64 step on stages.2.from_rgb.bias, as does the port's
+        # fp32 step with G under plain_reference() (whose fakes round as
+        # XLA's do); with G on its kernels' plain versions the port's fp32
+        # step stays on the float64 side (test_d128_r1_step_float64).  G's
+        # forward takes the plain_reference() path here, so that the step
+        # holds the d = 128 D, through K3-K7b's plain versions, to JAX.
+        plain_g_forward(gan)
     seed_adam_state(gan.d_opt, gan.D, grads)
     got = gan.train_discriminator_step(
         real, apply_gradient_penalty=apply_gp, calc_multiscale_loss=True,
@@ -414,6 +444,97 @@ def test_d_step_matches_jax(jax_setup, apply_gp, fwd_over_rev):
                                         if apply_gp else []))
     check_leaves(gan.D, grads, "d grads", grads_within)
     check_leaves(gan.D, new_params, "d params", params_within)
+
+
+def plain_g_forward(gan):
+    """G's forward under plain_reference() from now on."""
+    g_forward = gan.G.forward
+
+    def plain_g(*args, **kwargs):
+        with plain_reference():
+            return g_forward(*args, **kwargs)
+
+    gan.G.forward = plain_g
+
+
+def to_float64(gan):
+    """The pair in float64: its parameters and each module's compute
+    dtype."""
+    for module in (gan.G, gan.D):
+        module.double()
+        for m in module.modules():
+            if isinstance(getattr(m, "dtype", None), torch.dtype):
+                m.dtype = torch.float64
+
+
+@pytest.mark.parametrize("fwd_over_rev", [False, True],
+                         ids=["r1", "r1_fwd_over_rev"])
+def test_d128_r1_step_float64(jax_setup_d128, fwd_over_rev, monkeypatch):
+    """Why test_d_step_matches_jax's d = 128 cases run G under
+    plain_reference().  In float64 the port's d_step+R1 of the d = 128 D
+    gives the same gradients with G on its kernels' plain versions and
+    under plain_reference() (1e-4 of each leaf's max): the two G paths
+    are one algebra.  The fp32 steps part at a kink: where the fp32 step
+    (G under plain_reference(), whose fakes round as XLA's do) and the
+    float64 one put one of D's leaky-ReLU pre-activations on opposite
+    sides of 0, it lies within 1e-4 of 0.  Run with -s, the test prints
+    the steps' distances and the pre-activations that cross."""
+    builder, tx, g_params, d_params, real = jax_setup_d128
+    if fwd_over_rev:
+        builder = JaxTrainStepBuilder(
+            builder.G, builder.D, tx, tx,
+            diff_augment=jlosses.DiffAugment(**DIFF_AUGMENT),
+            gp_fwd_over_rev=True)
+    with numpy_draws(21, replay=D_PIPELINE_DRAWS
+                     if fwd_over_rev else None) as record:
+        jax.eval_shape(lambda d, key: builder._d_micro_loss(
+            {"d": d}, g_params, None, {}, real, None, None, None, key,
+            apply_gp=True, calc_ms=True), d_params, jax.random.PRNGKey(4))
+
+    from gigagan_tpu_torch.models import discriminator as port_d
+
+    leaky_relu = port_d.leaky_relu
+
+    def step(float64, plain_g):
+        gan = port_gan(g_params, d_params, gp_fwd_over_rev=fwd_over_rev,
+                       d_cfg=D_CFG_D128)
+        if plain_g:
+            plain_g_forward(gan)
+        if float64:
+            to_float64(gan)
+        pre = []
+
+        def recording(x, *args, **kwargs):
+            pre.append(x.detach().double())
+            return leaky_relu(x, *args, **kwargs)
+
+        monkeypatch.setattr(port_d, "leaky_relu", recording)
+        gan.train_discriminator_step(
+            real.astype(np.float64) if float64 else real,
+            apply_gradient_penalty=True, calc_multiscale_loss=True,
+            draws=port_draws(record))
+        monkeypatch.setattr(port_d, "leaky_relu", leaky_relu)
+        return {n: p.grad.double() for n, p in gan.D.named_parameters()}, pre
+
+    def distance(got, want):
+        return max(((got[n] - w).abs().max() / w.abs().max()).item()
+                   for n, w in want.items())
+
+    (g64, pre64), (g64_kernel_g, _) = step(True, True), step(True, False)
+    assert distance(g64_kernel_g, g64) <= 1e-4
+    for plain_g in (True, False):
+        got, pre = step(False, plain_g)
+        assert len(pre) == len(pre64)
+        crossing = torch.cat([w[torch.sign(x) != torch.sign(w)]
+                              for x, w in zip(pre, pre64)])
+        path = ("under plain_reference()" if plain_g
+                else "on its kernels' plain versions")
+        print(f"fp32 step, G {path}: {distance(got, g64):.3e} from the "
+              f"float64 step; pre-activations crossing 0 (float64 values): "
+              f"{crossing.tolist()}")
+        assert (crossing.abs() <= 1e-4).all()
+    print(f"float64 steps, G on the two paths: "
+          f"{distance(g64_kernel_g, g64):.3e} apart")
 
 
 def test_g_step_matches_jax(jax_setup):
