@@ -180,9 +180,13 @@ Phases (any failure raises and exits non-zero):
     ``upsample`` of a 64² PNG the port wrote; each output exists, has its
     shape and is finite, every bf16 launch is on the tensor cores, and
     each command's wall seconds are reported; (b) the model folder the JAX
-    package's CLI wrote (``tests/torch_fixtures``): ``generate`` runs from
-    it, and its G and G_ema, read by ``load_jax_checkpoint``, in fp32
-    through the kernels, give the recorded JAX outputs within 0.02; (c)
+    package's CLI wrote (``tests/torch_fixtures/jax_model``, flax msgpack)
+    and the same state saved by its trainer as an orbax directory
+    (``jax_model_orbax``: OCDBT, zarr v2, zstd, read through the
+    hand-written host decoder): ``generate`` runs from each, their G and
+    G_ema, in fp32 through the kernels, give the recorded JAX outputs
+    within 0.02, the two folders' G and G_ema are bitwise equal, and the
+    host seconds of each checkpoint's import are printed side by side; (c)
     data parallel on the one card: 2 ranks as child processes on
     ``cuda:0`` over gloo, the fp32 d_step with R1 and g_step of the
     quickstart pair at global batch 2 × 4 against one process at batch 8
@@ -399,7 +403,7 @@ ITERATIONS, R1_EVERY = 8, 4
 # sums (the recomputed forward is the same arithmetic on the same draws)
 ACCUM, CHUNK, MEM_BATCH, MEM_CHUNK, REMAT_TOL = 2, 4, 16, 8, 1e-4
 KERNEL_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6a", "k6b", "k7a", "k7b")
-# phase 16: a JAX-written model folder's G outputs (fp32 conv tolerance);
+# phase 16: the JAX-written model folders' G outputs (fp32 conv tolerance);
 # the data-parallel fp32 step's losses against one process (relative), and
 # its gradients relative to each leaf's max |want|: against the ranks' own
 # arithmetic, the batch split DP_WORLD ways and taken in one process
@@ -3750,7 +3754,7 @@ def main():
     log(f"phase 14 (the upsampler path): {up['seconds']:.1f} s")
 
     # --------------------------------------------------------------- 16
-    # the outer surface: the command line, a JAX-written model folder, and
+    # the outer surface: the command line, JAX-written model folders, and
     # data parallel on the one card
     t_phase = time.perf_counter()
     from gigagan_tpu_torch import cli as port_cli
@@ -3869,38 +3873,70 @@ def main():
     for d_ in (cli_models, up_models, grids):
         shutil.rmtree(d_, ignore_errors=True)
 
-    # (b) the model folder the JAX package's CLI wrote
+    # (b) the model folders the JAX package wrote: its CLI's (a flax
+    # msgpack checkpoint) and the same state saved by its trainer with
+    # checkpoint_backend="orbax" (a directory: OCDBT, zarr v2, zstd)
+    from gigagan_tpu_torch.ops.kernels import build as kernel_build
+    from gigagan_tpu_torch.train import jax_checkpoint
+
     fixture = REPO / "tests" / "torch_fixtures"
-    jax_folder = cli_dir / "jax_model"
-    shutil.copytree(fixture / "jax_model", jax_folder)
-    _, counts = run_cli("generate_jax_folder", "generate", "--models",
-                        str(jax_folder), "--num", "4", "--seed", "0",
-                        "--out", str(cli_dir / "jax_model_samples.png"))
-    png_of(cli_dir / "jax_model_samples.png", grid(2, 16))
-    jgan, jckpt = port_cli._load_model_folder(jax_folder, "cuda")
     outs = fixture / "jax_outputs"
     latents = torch.from_numpy(np.load(outs / "latents.npy")).to(dev)
     noises = [torch.from_numpy(np.load(p_)).to(dev)
               for p_ in sorted(outs.glob("noise_*.npy"))]
-    reset_counts()
-    jax_rows = {}
-    with torch.no_grad():
-        for key, module in (("g", jgan.G), ("g_ema", jgan.G_ema)):
-            got = module(noise=latents, pixel_noise=noises).float().cpu()
-            jax_rows[key] = rel_err(got, torch.from_numpy(
-                np.load(outs / f"{key}.npy")))
-    torch.cuda.synchronize()
-    jax_counts = read_counts()
-    surface["jax_folder"] = dict(checkpoint=jckpt.name, steps=jgan.steps,
-                                 rel=jax_rows, launches=jax_counts)
-    log(f"JAX-written folder {jckpt.name} (steps {jgan.steps}), fp32 "
-        f"through the kernels: rel G {jax_rows['g']:.2e}, G_ema "
-        f"{jax_rows['g_ema']:.2e} (limit {JAX_FOLDER_TOL}); launches "
-        f"{jax_counts}")
-    if not (max(jax_rows.values()) <= JAX_FOLDER_TOL
-            and jax_counts["k1"] and jax_counts["k3"]):
-        fail(f"the JAX-written folder: {surface['jax_folder']}")
-    del jgan
+    t0 = time.perf_counter()
+    kernel_build.load("zstd_decode")  # the host decoder, built with cc
+    zstd_build_s = time.perf_counter() - t0
+    loaded, import_s = {}, {}
+    for label, folder_name in (("jax_folder", "jax_model"),
+                               ("jax_orbax_folder", "jax_model_orbax")):
+        folder = cli_dir / folder_name
+        shutil.copytree(fixture / folder_name, folder)
+        samples = cli_dir / f"{folder_name}_samples.png"
+        _, counts = run_cli(f"generate_{label}", "generate", "--models",
+                            str(folder), "--num", "4", "--seed", "0",
+                            "--out", str(samples))
+        png_of(samples, grid(2, 16))
+        jgan, jckpt = port_cli._load_model_folder(folder, "cuda")
+        t0 = time.perf_counter()
+        jax_checkpoint.read_checkpoint(jckpt)
+        import_s[label] = time.perf_counter() - t0
+        reset_counts()
+        jax_rows = {}
+        with torch.no_grad():
+            for key, module in (("g", jgan.G), ("g_ema", jgan.G_ema)):
+                got = module(noise=latents, pixel_noise=noises).float().cpu()
+                jax_rows[key] = rel_err(got, torch.from_numpy(
+                    np.load(outs / f"{key}.npy")))
+        torch.cuda.synchronize()
+        jax_counts = read_counts()
+        surface[label] = dict(checkpoint=jckpt.name, steps=jgan.steps,
+                              rel=jax_rows, launches=jax_counts,
+                              import_s=import_s[label])
+        log(f"JAX-written folder {folder_name}/{jckpt.name} (steps {jgan.steps}), "
+            f"fp32 through the kernels: rel G {jax_rows['g']:.2e}, G_ema "
+            f"{jax_rows['g_ema']:.2e} (limit {JAX_FOLDER_TOL}); launches "
+            f"{jax_counts}")
+        if not (max(jax_rows.values()) <= JAX_FOLDER_TOL
+                and jax_counts["k1"] and jax_counts["k3"]):
+            fail(f"the JAX-written folder {folder_name}: {surface[label]}")
+        loaded[label] = {f"{m_}.{n_}": v.detach().cpu()
+                         for m_ in ("G", "G_ema")
+                         for n_, v in getattr(jgan, m_).state_dict().items()}
+        del jgan
+    unequal = [n_ for n_, v in loaded["jax_folder"].items()
+               if not torch.equal(v, loaded["jax_orbax_folder"][n_])]
+    if loaded["jax_folder"].keys() != loaded["jax_orbax_folder"].keys() \
+            or unequal:
+        fail(f"the orbax folder's G and G_ema differ from the msgpack "
+             f"folder's: {unequal[:5]}")
+    surface["jax_orbax_folder"]["zstd_build_s"] = zstd_build_s
+    log(f"JAX checkpoint import on the host: orbax "
+        f"{import_s['jax_orbax_folder']:.3f} s, msgpack "
+        f"{import_s['jax_folder']:.3f} s (zstd decoder built in "
+        f"{zstd_build_s:.2f} s); G and G_ema of the two folders bitwise "
+        f"equal ({len(loaded['jax_folder'])} tensors)")
+    del loaded
 
     # (c) data parallel on the one card: the 1-process fp32 reference at
     # the whole batch, a repeat of it (the card's run-to-run spread), and
@@ -4054,7 +4090,7 @@ def main():
         for k_ in KERNEL_NAMES}
     surface["seconds"] = time.perf_counter() - t_phase
     report["surface"] = surface
-    log(f"phase 16 (the command line, a JAX-written folder, data "
+    log(f"phase 16 (the command line, JAX-written folders, data "
         f"parallel): {surface['seconds']:.1f} s")
     phase_mark[0] = time.perf_counter()
 

@@ -8,11 +8,12 @@ flags, defaults and ``config.json`` contract.
   (on the main process), so that ``generate``, ``evaluate`` and
   ``upsample`` rebuild the model from the folder alone, with its latest
   ``model-N.ckpt``.  A folder written by ``python -m gigagan_tpu train``
-  works too: its msgpack checkpoints load through
-  ``train/jax_checkpoint.py``.  Of its JAX-only keys,
-  ``checkpoint_backend="msgpack"``, ``mixed_precision_type="bf16"`` and
-  ``mesh=None`` change nothing here and are accepted; another value
-  raises (``checkpoint_backend="orbax"``: ``NotImplementedError``).
+  works too: its msgpack checkpoints and orbax checkpoint directories load
+  through ``train/jax_checkpoint.py`` and ``train/orbax_checkpoint.py``.
+  Of its JAX-only keys, ``checkpoint_backend`` ("msgpack" or "orbax": the
+  port reads either and writes its own single-file checkpoints),
+  ``mixed_precision_type="bf16"`` and ``mesh=None`` change nothing here
+  and are accepted; another value raises.
 - ``--device`` defaults to the card (``cuda:{LOCAL_RANK}`` under
   ``torchrun``); ``--device cpu`` runs on the CPU.
 - ``--mock-data`` swaps the image folder for the mock dataset.
@@ -42,7 +43,7 @@ from pathlib import Path
 
 CONFIG_NAME = "config.json"
 # JAX-only GigaGAN keys and the values that change nothing in the port
-_JAX_ONLY = {"checkpoint_backend": ("msgpack",),
+_JAX_ONLY = {"checkpoint_backend": ("msgpack", "orbax"),
              "mixed_precision_type": ("bf16", "bfloat16"),
              "mesh": (None,)}
 
@@ -140,11 +141,6 @@ def port_kwargs(cfg: dict) -> dict:
         if key not in out:
             continue
         value = out.pop(key)
-        if key == "checkpoint_backend" and value == "orbax":
-            raise NotImplementedError(
-                "checkpoint_backend='orbax' is not ported: reading orbax "
-                "needs orbax (ROADMAP.md Queue 1, item 4); the port reads "
-                "and writes single-file checkpoints")
         if value not in accepted:
             raise ValueError(f"{key}={value!r} has no counterpart in the "
                              f"port (accepted: {accepted})")
@@ -170,6 +166,8 @@ def _make_dataset(args, image_size: int):
 
 
 def _checkpoints(folder: Path):
+    """The folder's ``model-N.ckpt`` by N: the port's files, the JAX
+    package's msgpack files and its orbax directories."""
     return sorted(folder.glob("model-*.ckpt"),
                   key=lambda p: int(p.stem.split("-")[-1]))
 

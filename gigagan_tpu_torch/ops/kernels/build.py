@@ -1,13 +1,15 @@
-"""Builds the hand-written CUDA kernels under ``gigagan_tpu_torch/csrc`` and
-loads them with ctypes.
+"""Builds the hand-written CUDA kernels and host C code under
+``gigagan_tpu_torch/csrc`` and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds) under ``gigagan_tpu_torch/_build/``,
 keyed by a hash of the source, the shared ``csrc/*.cuh`` headers and the
-flags; ``build_all`` starts one nvcc per source at once.  Nothing here runs when a
-module is imported: the CPU tests import every module on machines without
-``nvcc``.
+flags; ``build_all`` starts one nvcc per kernel source at once.  A
+``csrc/<name>.c`` (host code: the zstd decoder of the orbax reader) is
+compiled the same way with the host C compiler ``cc``.  Nothing here runs
+when a module is imported: the CPU tests import every module on machines
+without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-lineinfo",
     "-shared", "-Xcompiler", "-fPIC",
 )
+CC_FLAGS = ("-O2", "-shared", "-fPIC")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -46,6 +49,16 @@ def nvcc_path() -> str:
         raise RuntimeError(
             "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
             "and PATH): the CUDA kernels are built from source at first use"
+        )
+    return found
+
+
+def cc_path() -> str:
+    found = shutil.which("cc")
+    if found is None:
+        raise RuntimeError(
+            "cc not found on PATH: the host C sources under csrc/ are built "
+            "from source at first use"
         )
     return found
 
@@ -72,29 +85,39 @@ KERNELS = (
 
 def _digest(src: pathlib.Path) -> str:
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    if src.suffix == ".cu":
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS if src.suffix == ".cu" else CC_FLAGS)
+             .encode())
     return h.hexdigest()[:16]
 
 
 def build(name: str, verbose: bool = False) -> tuple[pathlib.Path, str]:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists.
-    Returns (library path, compiler log); ``verbose`` adds ``-Xptxas -v``
-    (registers, shared memory and spills per kernel) to a fresh build."""
+    """Compile ``csrc/<name>.cu`` (nvcc) or ``csrc/<name>.c`` (cc) unless
+    its hashed library exists.  Returns (library path, compiler log);
+    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills
+    per kernel) to a fresh CUDA build."""
     src = CSRC_DIR / f"{name}.cu"
+    if not src.exists():
+        src = CSRC_DIR / f"{name}.c"
     lib = BUILD_DIR / f"{name}-{_digest(src)}.so"
     if lib.exists() and not verbose:
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(src)]
+    if src.suffix == ".cu":
+        cmd = [nvcc_path(), *NVCC_FLAGS,
+               *(("-Xptxas", "-v") if verbose else ())]
+    else:
+        cmd = [cc_path(), *CC_FLAGS]
+    cmd += ["-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+            f"{pathlib.Path(cmd[0]).name} failed for {src.name} (exit "
+            f"{proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n"
+            f"{proc.stderr}"
         )
     os.replace(tmp, lib)
     return lib, proc.stdout + proc.stderr
@@ -114,7 +137,8 @@ def build_all(verbose: bool = False) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu`` (built on first call)."""
+    """The built library for ``csrc/<name>.cu`` or ``.c`` (built on first
+    call)."""
     with _LOCK:
         if name not in _LIBS:
             path, _ = build(name)

@@ -1,6 +1,8 @@
 """Reader of the JAX package's checkpoints (``model-N.ckpt`` of
 gigagan_tpu's ``GigaGAN.save``), with no ``flax``, ``msgpack`` or
-``ml_dtypes``: the standard library, numpy and torch only.
+``ml_dtypes``: the standard library, numpy and torch only.  An orbax
+checkpoint directory (``checkpoint_backend="orbax"``) is read by
+``train/orbax_checkpoint.py`` into the same payload.
 
 A checkpoint is ``flax.serialization.msgpack_serialize`` of ``{"state",
 "rng", "version"}``; ``state`` is flax's state dict of ``GANState``:
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from gigagan_tpu_torch.convert import _flatten, _merge, _torch_key_and_value
+from gigagan_tpu_torch.train import orbax_checkpoint
 
 CHUNKED = "__msgpack_chunked_array__"
 ZIP_MAGIC = b"PK\x03\x04"
@@ -188,13 +191,12 @@ def checkpoint_format(path) -> str:
 
 
 def read_checkpoint(path) -> dict:
-    """The payload of a JAX checkpoint file: {"state", "rng", "version"}."""
+    """The payload of a JAX checkpoint, a flax msgpack file or an orbax
+    directory (``train/orbax_checkpoint.py``): {"state", "rng",
+    "version"}."""
     path = Path(path)
     if checkpoint_format(path) == "orbax":
-        raise NotImplementedError(
-            f"{path} is an orbax checkpoint directory: reading it needs "
-            "orbax, out of the port's scope (ROADMAP.md Queue 1, item 4); "
-            "save with checkpoint_backend='msgpack'")
+        return orbax_checkpoint.read_orbax(path)
     payload = msgpack_restore(path.read_bytes())
     if not isinstance(payload, dict) or "state" not in payload:
         raise ValueError(f"{path} holds no JAX train state")

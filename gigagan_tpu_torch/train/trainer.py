@@ -648,10 +648,16 @@ class GigaGAN:
         the step counter, the numpy RNG's ``bit_generator.state`` and the
         package version.
         Written to a temporary file and renamed over ``path``, so that a
-        crash mid-save leaves an earlier checkpoint whole.  In a process
-        group every rank calls it: the main process writes, and the others
-        wait at a barrier until the file is whole."""
+        crash mid-save leaves an earlier checkpoint whole; a directory at
+        ``path`` (a JAX orbax checkpoint of the same name) raises
+        ``FileExistsError`` and is left as it is.  In a process group every
+        rank calls it: the main process writes, and the others wait at a
+        barrier until the file is whole."""
         path = Path(path)
+        if path.is_dir():
+            raise FileExistsError(
+                f"{path} is a directory (a JAX orbax checkpoint?): the port "
+                "writes single-file checkpoints and does not replace it")
         if self.is_main:
             path.parent.mkdir(parents=True, exist_ok=True)
             assert overwrite or not path.exists()
@@ -662,9 +668,8 @@ class GigaGAN:
 
     def load(self, path, strict: bool = False):
         """Restore a checkpoint: the port's ``torch.save`` file, or the JAX
-        package's msgpack file (``load_jax_checkpoint``), told apart by
-        the leading bytes; an orbax directory raises
-        ``NotImplementedError``.
+        package's msgpack file or orbax directory
+        (``load_jax_checkpoint``), told apart by the leading bytes.
 
         Tolerant by default, as the JAX trainer's ``load``: model and EMA
         tensors that match by name and shape are loaded; on a mismatch
@@ -727,16 +732,15 @@ class GigaGAN:
 
     def load_jax_checkpoint(self, path, strict: bool = False):
         """Restore a checkpoint written by the JAX package's
-        ``GigaGAN.save`` (``model-N.ckpt``, flax msgpack), as ``load``
+        ``GigaGAN.save`` (``model-N.ckpt``: a flax msgpack file, or an
+        orbax directory under ``checkpoint_backend="orbax"``), as ``load``
         does: parameters through the weight bridge, the EMA's params and
         counters, the step counter and the Adam moments of either optimizer
-        layout (``train/jax_checkpoint.py``).  Its JAX PRNG key cannot seed
-        torch's generators, so the host RNG keeps its state."""
-        fmt = jax_checkpoint.checkpoint_format(path)
-        if fmt == "orbax":
-            jax_checkpoint.read_checkpoint(path)  # raises
-        if fmt != "jax":
-            raise ValueError(f"{path} is not a JAX msgpack checkpoint")
+        layout (``train/jax_checkpoint.py``, ``train/orbax_checkpoint.py``).
+        Its JAX PRNG key cannot seed torch's generators, so the host RNG
+        keeps its state."""
+        if jax_checkpoint.checkpoint_format(path) == "torch":
+            raise ValueError(f"{path} is not a JAX checkpoint")
         self.load(path, strict=strict)
 
 

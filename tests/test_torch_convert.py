@@ -186,7 +186,9 @@ def port_sources():
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
     bad = [m for m in _imports(path)
-           if m.split(".")[0] in ("jax", "flax", "optax", "gigagan_tpu")]
+           if m.split(".")[0] in ("jax", "flax", "optax", "gigagan_tpu",
+                                  "orbax", "tensorstore", "zstandard",
+                                  "xxhash")]
     assert not bad, f"{path}: imports {bad}"
     # no library attention in the package: the yardsticks of the attention
     # kernels (one scaled_dot_product_attention call each) live in
@@ -213,10 +215,12 @@ def test_importing_the_port_needs_no_jax_nvcc_or_gpu(tmp_path):
         "import gigagan_tpu_torch.eval\n"
         "import gigagan_tpu_torch.parallel\n"
         "import gigagan_tpu_torch.train.jax_checkpoint\n"
+        "import gigagan_tpu_torch.train.orbax_checkpoint\n"
         "import gigagan_tpu_torch.utils.png\n"
         "assert not build._LIBS\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'gigagan_tpu', 'triton', 'PIL', 'msgpack')]\n"
+        "('jax', 'flax', 'gigagan_tpu', 'triton', 'PIL', 'msgpack', "
+        "'orbax', 'tensorstore', 'zstandard', 'xxhash')]\n"
         "assert not bad, bad\n"
         "try:\n"
         "    build.nvcc_path()\n"

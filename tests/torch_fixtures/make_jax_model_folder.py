@@ -1,16 +1,24 @@
-"""Remakes ``tests/torch_fixtures/jax_model`` and ``jax_outputs``: a model
-folder written by the JAX package's CLI (``python -m gigagan_tpu train
---mock-data``, 2 steps, at a tiny width) and its generator's outputs for
-fixed latents and pixel noise, which the port must reproduce from the
-folder alone (``tests/test_torch_cli.py``; ``chip_smoke.py`` phase 16 on
-the card).
+"""Remakes ``tests/torch_fixtures/jax_model``, ``jax_model_orbax`` and
+``jax_outputs``: a model folder written by the JAX package's CLI (``python
+-m gigagan_tpu train --mock-data``, 2 steps, at a tiny width), the same
+trained state saved by the JAX trainer with ``checkpoint_backend="orbax"``,
+and the generator's outputs for fixed latents and pixel noise, which the
+port must reproduce from either folder alone (``tests/test_torch_cli.py``,
+``tests/test_torch_orbax.py``; ``chip_smoke.py`` phase 16 on the card).
 
     JAX_PLATFORMS=cpu python tests/torch_fixtures/make_jax_model_folder.py
+    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_jax_model_folder.py \
+        --orbax-only   # jax_model_orbax from the jax_model already here
 
 Writes ``jax_model/config.json`` and its latest ``model-N.ckpt`` (flax
-msgpack), and under ``jax_outputs/``: ``latents.npy``, one
-``noise_NN.npy`` per Noise layer in call order, ``g.npy`` (the trained
-G) and ``g_ema.npy`` (its EMA), fp32.
+msgpack); ``jax_model_orbax/config.json`` (the same, with
+``"checkpoint_backend": "orbax"``) and ``model-N.ckpt``, an orbax
+directory, written by a JAX ``GigaGAN(checkpoint_backend="orbax")`` that
+loaded the msgpack checkpoint; and under ``jax_outputs/``:
+``latents.npy``, one ``noise_NN.npy`` per Noise layer in call order,
+``g.npy`` (the trained G) and ``g_ema.npy`` (its EMA), fp32.  The orbax
+folder, loaded back by the JAX CLI, must give the recorded outputs
+bitwise.
 """
 
 import json
@@ -51,13 +59,80 @@ CONFIG = {
 LATENT_SEED, NOISE_SEED, BATCH = 0, 1, 2
 
 
-def main():
-    sys.path.insert(0, str(REPO))
+def g_outputs(gan, latents, noises=None):
+    """{"g", "g_ema"}: the trained G's and its EMA's outputs for
+    ``latents``, the pixel noise drawn from ``NOISE_SEED`` on the first
+    pass (into ``noises``) or replayed from ``noises``."""
     import jax.numpy as jnp
     from flax import linen as nn
 
-    from gigagan_tpu import cli
     from gigagan_tpu.models import layers as jl
+
+    draw = noises is None
+    noises = [] if draw else noises
+    noise_rng = np.random.default_rng(NOISE_SEED)
+
+    def interceptor(next_fun, args, kwargs, context):
+        if (isinstance(context.module, jl.Noise)
+                and context.method_name == "__call__"):
+            if draw and len(noises) < n_layers[0]:  # the first pass draws
+                x = args[0]
+                noises.append(noise_rng.standard_normal(
+                    (*x.shape[:-1], 1)).astype(np.float32))
+            kwargs = dict(kwargs, noise=jnp.asarray(
+                noises[calls[0] % len(noises)]))
+            calls[0] += 1
+        return next_fun(*args, **kwargs)
+
+    n_layers, calls, out = [10 ** 9 if draw else len(noises)], [0], {}
+    for name, params in (("g", gan.state.g_params),
+                         ("g_ema", gan.state.ema.params)):
+        with nn.intercept_methods(interceptor):
+            y = gan.G.apply({"params": params}, noise=jnp.asarray(latents))
+        n_layers[0] = len(noises)
+        out[name] = np.asarray(y, np.float32)
+    return out, noises
+
+
+def write_orbax_folder():
+    """``jax_model_orbax/`` from ``jax_model/``: its config with the orbax
+    backend, and its latest checkpoint loaded into a JAX trainer of that
+    config and saved by it; then checked against ``jax_outputs/``."""
+    from gigagan_tpu import cli
+
+    folder, orbax = HERE / "jax_model", HERE / "jax_model_orbax"
+    outputs = HERE / "jax_outputs"
+    shutil.rmtree(orbax, ignore_errors=True)
+    orbax.mkdir()
+    cfg = json.loads((folder / "config.json").read_text())
+    cfg["checkpoint_backend"] = "orbax"
+    (orbax / "config.json").write_text(json.dumps(cfg, indent=2))
+    ckpt = sorted(folder.glob("model-*.ckpt"),
+                  key=lambda p: int(p.stem.split("-")[-1]))[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            gan = cli._build_gan(dict(cfg, model_folder=str(orbax)))
+            gan.checkpoint_backend = "msgpack"  # read the msgpack file
+            gan.load(ckpt)
+            gan.checkpoint_backend = "orbax"
+            gan.save(orbax / ckpt.name)
+            back, _ = cli._load_model_folder(str(orbax))
+        finally:
+            os.chdir(cwd)
+    noises = [np.load(p) for p in sorted(outputs.glob("noise_*.npy"))]
+    got, _ = g_outputs(back, np.load(outputs / "latents.npy"), noises)
+    for name, y in got.items():
+        assert np.array_equal(y, np.load(outputs / f"{name}.npy")), name
+
+
+def main():
+    sys.path.insert(0, str(REPO))
+    if sys.argv[1:] == ["--orbax-only"]:
+        write_orbax_folder()
+        return report()
+    from gigagan_tpu import cli
 
     folder, outputs = HERE / "jax_model", HERE / "jax_outputs"
     for d in (folder, outputs):
@@ -87,34 +162,20 @@ def main():
         (BATCH, CONFIG["generator"]["style_network"]["dim"])).astype(
         np.float32)
     np.save(outputs / "latents.npy", latents)
-    noise_rng = np.random.default_rng(NOISE_SEED)
-    noises = []
-
-    def interceptor(next_fun, args, kwargs, context):
-        if (isinstance(context.module, jl.Noise)
-                and context.method_name == "__call__"):
-            if len(noises) < n_layers[0]:  # the first pass draws
-                x = args[0]
-                noises.append(noise_rng.standard_normal(
-                    (*x.shape[:-1], 1)).astype(np.float32))
-            kwargs = dict(kwargs, noise=jnp.asarray(
-                noises[calls[0] % len(noises)]))
-            calls[0] += 1
-        return next_fun(*args, **kwargs)
-
-    n_layers, calls = [10 ** 9], [0]
-    for name, params in (("g", gan.state.g_params),
-                         ("g_ema", gan.state.ema.params)):
-        with nn.intercept_methods(interceptor):
-            out = gan.G.apply({"params": params},
-                              noise=jnp.asarray(latents))
-        n_layers[0] = len(noises)
-        np.save(outputs / f"{name}.npy", np.asarray(out, np.float32))
+    got, noises = g_outputs(gan, latents)
+    for name, y in got.items():
+        np.save(outputs / f"{name}.npy", y)
     for i, n in enumerate(noises):
         np.save(outputs / f"noise_{i:02d}.npy", n)
-    size = sum(p.stat().st_size for d in (folder, outputs)
+    write_orbax_folder()
+    report()
+
+
+def report():
+    dirs = [HERE / d for d in ("jax_model", "jax_model_orbax", "jax_outputs")]
+    size = sum(p.stat().st_size for d in dirs
                for p in d.rglob("*") if p.is_file())
-    print(f"wrote {folder} and {outputs}: {size} bytes")
+    print(f"wrote {', '.join(d.name for d in dirs)}: {size} bytes")
 
 
 if __name__ == "__main__":
