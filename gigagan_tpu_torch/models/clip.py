@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gigagan_tpu_torch import ops
-from gigagan_tpu_torch.utils import exists
+from gigagan_tpu_torch.utils import exists, span
 
 OPENAI_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -616,13 +616,15 @@ class OpenClipAdapter:
 
     @property
     def logit_scale(self):
-        return float(self.model.logit_scale.exp())
+        with span("gigagan.sync.clip_logit_scale"):
+            return float(self.model.logit_scale.exp())
 
     # ------------------------------------------------------------ embedding
 
     def tokenize(self, texts: List[str]):
-        return torch.as_tensor(self.tokenizer(texts), dtype=torch.long,
-                               device=self.device)
+        ids = self.tokenizer(texts)
+        with span("gigagan.sync.clip_tokens"):
+            return torch.as_tensor(ids, dtype=torch.long, device=self.device)
 
     @staticmethod
     def text_mask_from_ids(ids, eos_id: int = EOT_ID):
@@ -650,10 +652,12 @@ class OpenClipAdapter:
         nearest)."""
         if images.shape[-2] != self.image_size:
             images = ops.resize_image_to(images, self.image_size, "nearest")
-        mean = torch.tensor(OPENAI_IMAGE_MEAN, dtype=images.dtype,
-                            device=images.device)
-        std = torch.tensor(OPENAI_IMAGE_STD, dtype=images.dtype,
-                           device=images.device)
+        with span("gigagan.sync.clip_normalize"):
+            mean = torch.tensor(OPENAI_IMAGE_MEAN, dtype=images.dtype,
+                                device=images.device)
+        with span("gigagan.sync.clip_normalize"):
+            std = torch.tensor(OPENAI_IMAGE_STD, dtype=images.dtype,
+                               device=images.device)
         return (images - mean) / std
 
     def embed_images(self, images):

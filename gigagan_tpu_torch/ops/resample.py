@@ -27,6 +27,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from gigagan_tpu_torch.utils import span
+
 _BINOMIAL = (1.0, 2.0, 1.0)
 
 
@@ -62,7 +64,8 @@ def _depthwise(x, kernel):
 
 
 def _binomial(device):
-    return torch.tensor(_BINOMIAL, dtype=torch.float32, device=device)
+    with span("gigagan.sync.blur_kernel"):
+        return torch.tensor(_BINOMIAL, dtype=torch.float32, device=device)
 
 
 def blur_2d(x):
@@ -167,7 +170,9 @@ def _nearest_axis(x, out_size: int, axis: int):
         return x
     idx = torch.floor(torch.arange(out_size, dtype=torch.float64)
                       * (in_size / out_size)).long().clamp(max=in_size - 1)
-    return x.index_select(axis, idx.to(x.device))
+    with span("gigagan.sync.resize_index"):
+        idx = idx.to(x.device)
+    return x.index_select(axis, idx)
 
 
 def upsample_2x(x):

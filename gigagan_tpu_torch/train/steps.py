@@ -99,7 +99,7 @@ from gigagan_tpu_torch import losses as L
 from gigagan_tpu_torch import ops
 from gigagan_tpu_torch.ops.kernels.flash_attention_hv import flash_hv_mode
 from gigagan_tpu_torch.parallel import dist
-from gigagan_tpu_torch.utils import exists
+from gigagan_tpu_torch.utils import exists, span
 from gigagan_tpu_torch.utils.remat import remat
 
 
@@ -272,8 +272,9 @@ class TrainStepBuilder:
         if self.need_vd:
             params += [p for p in self.VD.parameters() if p.requires_grad]
             opts.append(self.vd_opt)
-        for opt in opts:
-            opt.zero_grad(set_to_none=True)
+        with span("gigagan.d.optimizer"):
+            for opt in opts:
+                opt.zero_grad(set_to_none=True)
         metrics = {}
         with dist.batch_draws():
             for i, d in enumerate(_micro_draws(draws, accum)):
@@ -285,8 +286,9 @@ class TrainStepBuilder:
                 metrics = {k: metrics[k] + v if k in metrics else v
                            for k, v in m.items()}
         metrics = _averaged_over_ranks(params, metrics)
-        for opt in opts:
-            opt.step()
+        with span("gigagan.d.optimizer"):
+            for opt in opts:
+                opt.step()
         return metrics
 
     def _d_micro(self, real_images, text, embeds, rolled, draws, apply_gp,
@@ -299,7 +301,7 @@ class TrainStepBuilder:
         # differentiates it
         fold = self.want_matching and not (apply_gp and not chunked)
 
-        with torch.no_grad():
+        with span("gigagan.d.fakes"), torch.no_grad():
             fake, fake_rgbs = self._generate(b, draws, generator, text,
                                              real_images)
         fake_aug, fake_rgbs_aug = self._augment(fake, fake_rgbs,
@@ -408,18 +410,21 @@ class TrainStepBuilder:
                                matching_aware_loss=matching,
                                gradient_penalty=gp, aux_reconstruction=aux)
 
-        if self.remat:
-            total, metrics = remat(loss, real, fake_aug,
-                                   generators=(generator,))
-        else:
-            total, metrics = loss(real, fake_aug)
-        if accum > 1:
-            total = total / accum
-        total.backward(inputs=params)
+        with span("gigagan.d.loss"):
+            if self.remat:
+                total, metrics = remat(loss, real, fake_aug,
+                                       generators=(generator,))
+            else:
+                total, metrics = loss(real, fake_aug)
+            if accum > 1:
+                total = total / accum
+        with span("gigagan.d.backward"):
+            total.backward(inputs=params)
         if chunked:
-            metrics["gradient_penalty"] = metrics["gradient_penalty"] + \
-                self._r1_chunked(real, fake, fake_rgbs, text, calc_ms,
-                                 params, accum)
+            with span("gigagan.d.r1_chunked"):
+                metrics["gradient_penalty"] = metrics["gradient_penalty"] \
+                    + self._r1_chunked(real, fake, fake_rgbs, text, calc_ms,
+                                       params, accum)
         return _scaled(metrics, accum)
 
     def _matching_inputs(self, real, fake, fake_rgbs, rolled):
@@ -552,9 +557,11 @@ class TrainStepBuilder:
                                      micro, gens, calc_ms, accum)
         params = [p for p in self.G.parameters() if p.requires_grad]
         metrics = _averaged_over_ranks(params, metrics)
-        self.g_opt.step()
+        with span("gigagan.g.optimizer"):
+            self.g_opt.step()
         if exists(self.ema):
-            self.ema.update(self.G)
+            with span("gigagan.g.ema"):
+                self.ema.update(self.G)
         return metrics
 
     def _g_micros(self, batch_size, texts, embeds, reals, micro, gens,
@@ -570,11 +577,12 @@ class TrainStepBuilder:
                 f"{embeds.shape[1]} × {dist.world_size()} ranks); a 1-pair "
                 "pool is identically 0 with zero gradient")
             if accum > 1:
-                pool, states = self._contrastive_pool(batch_size, texts,
-                                                      embeds, micro, gens,
-                                                      reals)
+                with span("gigagan.g.loss"):
+                    pool, states = self._contrastive_pool(
+                        batch_size, texts, embeds, micro, gens, reals)
         params = [p for p in self.G.parameters() if p.requires_grad]
-        self.g_opt.zero_grad(set_to_none=True)
+        with span("gigagan.g.optimizer"):
+            self.g_opt.zero_grad(set_to_none=True)
         metrics = {}
         for i, d in enumerate(micro):
             if exists(states):  # the draws of this microbatch's pool pass
@@ -584,14 +592,16 @@ class TrainStepBuilder:
                 host_generator, texts[i] if exists(texts) else None,
                 embeds[i] if exists(embeds) else None, *pool[i], accum,
                 reals[i] if exists(reals) else None)
-            if self.remat:
-                total, m = remat(loss,
-                                 generators=(generator, host_generator))
-            else:
-                total, m = loss()
-            if accum > 1:
-                total = total / accum
-            total.backward(inputs=params)
+            with span("gigagan.g.loss"):
+                if self.remat:
+                    total, m = remat(loss,
+                                     generators=(generator, host_generator))
+                else:
+                    total, m = loss()
+                if accum > 1:
+                    total = total / accum
+            with span("gigagan.g.backward"):
+                total.backward(inputs=params)
             m = _scaled(m, accum)
             metrics = {k: metrics[k] + v if k in metrics else v
                        for k, v in m.items()}

@@ -74,7 +74,8 @@ from gigagan_tpu_torch.train import jax_checkpoint
 from gigagan_tpu_torch.train.ema import EMA
 from gigagan_tpu_torch.train.optimizer import get_optimizer
 from gigagan_tpu_torch.train.steps import TrainStepBuilder
-from gigagan_tpu_torch.utils import StepTimer, default, exists, num_to_groups
+from gigagan_tpu_torch.utils import (StepTimer, default, exists,
+                                     num_to_groups, span)
 from gigagan_tpu_torch.utils.png import encode_png
 
 # the EMA's schedule, saved with its counters
@@ -309,13 +310,15 @@ class GigaGAN:
         if not self.unconditional:
             assert exists(parts[1]), (
                 "a conditional step needs the batch's text_encodings")
-        real = torch.as_tensor(parts[0], device=self.device)
+        with span("gigagan.sync.batch_to_device"):
+            real = torch.as_tensor(parts[0], device=self.device)
         accumulated = real.dim() == 5
         if not accumulated and grad_accum_every > 1:
             accumulated = True
             parts = [None if p is None else torch.as_tensor(p).reshape(
                 grad_accum_every, -1, *p.shape[1:]) for p in parts]
-            real = torch.as_tensor(parts[0], device=self.device)
+            with span("gigagan.sync.batch_to_device"):
+                real = torch.as_tensor(parts[0], device=self.device)
         assert not accumulated or real.shape[0] == grad_accum_every, (
             f"batch leading dim {real.shape[0]} != grad_accum "
             f"{grad_accum_every}")
@@ -334,13 +337,15 @@ class GigaGAN:
         ``draws`` fixes the step's random draws (``train.steps.StepDraws``,
         one per microbatch)."""
         self._check_trainable()
-        real, text, embeds = self._device_batch(batch, grad_accum_every)
-        gen, host = self._generators(seed)
-        return self.builder.d_step(
-            real, text_encodings=text, text_embeds=embeds,
-            apply_gp=apply_gradient_penalty, calc_ms=calc_multiscale_loss,
-            draws=draws, generator=gen, host_generator=host,
-        )
+        with span("gigagan.train.d_step"):
+            real, text, embeds = self._device_batch(batch, grad_accum_every)
+            gen, host = self._generators(seed)
+            return self.builder.d_step(
+                real, text_encodings=text, text_embeds=embeds,
+                apply_gp=apply_gradient_penalty,
+                calc_ms=calc_multiscale_loss, draws=draws, generator=gen,
+                host_generator=host,
+            )
 
     def train_generator_step(self, batch, *, grad_accum_every: int = 1,
                              calc_multiscale_loss: bool, draws=None,
@@ -352,19 +357,22 @@ class GigaGAN:
         advances the step counter."""
         self._check_trainable()
         text = embeds = None
-        if isinstance(batch, int):
-            assert not self.train_upsampler, (
-                "the upsampler's generator step takes the real batch")
-            g_batch = batch
-        else:
-            real, text, embeds = self._device_batch(batch, grad_accum_every)
-            g_batch = real if self.train_upsampler else real.shape[-4]
-        gen, host = self._generators(seed)
-        metrics = self.builder.g_step(
-            g_batch, text_encodings=text, text_embeds=embeds,
-            calc_ms=calc_multiscale_loss, grad_accum_every=grad_accum_every,
-            draws=draws, generator=gen, host_generator=host,
-        )
+        with span("gigagan.train.g_step"):
+            if isinstance(batch, int):
+                assert not self.train_upsampler, (
+                    "the upsampler's generator step takes the real batch")
+                g_batch = batch
+            else:
+                real, text, embeds = self._device_batch(batch,
+                                                        grad_accum_every)
+                g_batch = real if self.train_upsampler else real.shape[-4]
+            gen, host = self._generators(seed)
+            metrics = self.builder.g_step(
+                g_batch, text_encodings=text, text_embeds=embeds,
+                calc_ms=calc_multiscale_loss,
+                grad_accum_every=grad_accum_every, draws=draws,
+                generator=gen, host_generator=host,
+            )
         self.steps += 1
         return metrics
 
@@ -381,33 +389,37 @@ class GigaGAN:
         """(global embed, token encodings) of the captions."""
         assert exists(self.clip), (
             "a CLIP adapter must be attached (clip=...) to embed raw texts")
-        return self.clip.embed_texts(list(texts))
+        with span("gigagan.clip.embed_texts"):
+            return self.clip.embed_texts(list(texts))
 
     def _collect_batch(self, dl_iter, grad_accum_every: int):
         """``grad_accum_every`` batches of the loader, stacked as
         (grad_accum_every, mb, h, w, c); conditional, a mapping with the
         CLIP ``text_encodings`` and ``text_embeds`` of the batches'
         captions, each batch's embedded once, laid out alike."""
-        images, encodings, embeds = [], [], []
-        for _ in range(grad_accum_every):
-            result = next(dl_iter)
+        with span("gigagan.train.batch"):
+            images, encodings, embeds = [], [], []
+            for _ in range(grad_accum_every):
+                with span("gigagan.train.data_wait"):
+                    result = next(dl_iter)
+                if self.unconditional:
+                    (real,) = (result if isinstance(result, tuple)
+                               else (result,))
+                else:
+                    assert isinstance(result, tuple), (
+                        "dataset should return (images, texts) for text-"
+                        "conditioned training")
+                    real, texts = result
+                    embed, enc = self._embed_texts_full(texts)
+                    encodings.append(enc)
+                    embeds.append(embed)
+                images.append(np.asarray(real))
+            images = np.stack(images)
             if self.unconditional:
-                (real,) = result if isinstance(result, tuple) else (result,)
-            else:
-                assert isinstance(result, tuple), (
-                    "dataset should return (images, texts) for text-"
-                    "conditioned training")
-                real, texts = result
-                embed, enc = self._embed_texts_full(texts)
-                encodings.append(enc)
-                embeds.append(embed)
-            images.append(np.asarray(real))
-        images = np.stack(images)
-        if self.unconditional:
-            return images
-        return {"real_images": images,
-                "text_encodings": torch.stack(encodings),
-                "text_embeds": torch.stack(embeds)}
+                return images
+            return {"real_images": images,
+                    "text_encodings": torch.stack(encodings),
+                    "text_embeds": torch.stack(embeds)}
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -434,72 +446,81 @@ class GigaGAN:
         log = []
         t0 = time.perf_counter()
         for _ in range(steps):
-            step = self.steps
-            is_first = step == 1
-            self.step_timer.start()
-            apply_gp = (self.apply_gradient_penalty_every > 0
-                        and step % self.apply_gradient_penalty_every == 0)
-            calc_ms = (self.calc_multiscale_loss_every > 0
-                       and step % self.calc_multiscale_loss_every == 0)
+            with span("gigagan.train.iteration"):
+                step = self.steps
+                is_first = step == 1
+                self.step_timer.start()
+                apply_gp = (self.apply_gradient_penalty_every > 0
+                            and step % self.apply_gradient_penalty_every
+                            == 0)
+                calc_ms = (self.calc_multiscale_loss_every > 0
+                           and step % self.calc_multiscale_loss_every == 0)
 
-            d_batch = self._collect_batch(dl_iter, grad_accum_every)
-            reals = d_batch if self.unconditional else d_batch["real_images"]
-            d = self.train_discriminator_step(
-                d_batch, grad_accum_every=grad_accum_every,
-                apply_gradient_penalty=apply_gp,
-                calc_multiscale_loss=calc_ms)
-            # the fused step is unconditional and not the upsampler's, as
-            # in JAX
-            fused = (self.fused_dg_step and self.unconditional
-                     and not self.train_upsampler)
-            g_batch = (d_batch if fused
-                       else self._collect_batch(dl_iter, grad_accum_every))
-            # the unconditional image g_step reads only the batch's size
-            g = self.train_generator_step(
-                g_batch.shape[1] if self.unconditional
-                and not self.train_upsampler else g_batch,
-                grad_accum_every=grad_accum_every,
-                calc_multiscale_loss=calc_ms)
+                d_batch = self._collect_batch(dl_iter, grad_accum_every)
+                reals = (d_batch if self.unconditional
+                         else d_batch["real_images"])
+                d = self.train_discriminator_step(
+                    d_batch, grad_accum_every=grad_accum_every,
+                    apply_gradient_penalty=apply_gp,
+                    calc_multiscale_loss=calc_ms)
+                # the fused step is unconditional and not the upsampler's,
+                # as in JAX
+                fused = (self.fused_dg_step and self.unconditional
+                         and not self.train_upsampler)
+                g_batch = (d_batch if fused else
+                           self._collect_batch(dl_iter, grad_accum_every))
+                # the unconditional image g_step reads only the batch's size
+                g = self.train_generator_step(
+                    g_batch.shape[1] if self.unconditional
+                    and not self.train_upsampler else g_batch,
+                    grad_accum_every=grad_accum_every,
+                    calc_multiscale_loss=calc_ms)
 
-            steps_since_sync += 1
-            if is_first or step % self.log_steps_every == 0:
-                self._sync()
-                self.step_timer.stop(steps_since_sync)
-                steps_since_sync = 0
-                d = {k: float(v) for k, v in d.items()}
-                g = {k: float(v) for k, v in g.items()}
-                if apply_gp:
-                    last["gp"] = d["gradient_penalty"]
-                if calc_ms:
-                    last["msd"] = d["multiscale_divergence"]
-                    last["msg"] = g["multiscale_divergence"]
-                pairs = (("G", g["divergence"]), ("MSG", last["msg"]),
-                         ("VG", g["total_vd_divergence"]),
-                         ("D", d["divergence"]), ("MSD", last["msd"]),
-                         ("VD", d["vision_aided_divergence"]),
-                         ("GP", last["gp"]),
-                         ("SSL", d["aux_reconstruction"]),
-                         ("CL", g["contrastive_loss"]),
-                         ("MAL", d["matching_aware_loss"]))
-                # the global batch: every rank's
-                bs = reals.shape[0] * reals.shape[1] * dist.world_size()
-                self.print(f"step {step}: "
-                           + " | ".join(f"{k}: {v:.2f}" for k, v in pairs)
-                           + f" | {self.step_timer.summary(bs)}")
-                timing = {"ms_per_step": self.step_timer.mean_s * 1e3,
-                          "images_per_sec":
-                              self.step_timer.images_per_sec(bs)}
-                if exists(self.log_hook) and self.is_main:
-                    self.log_hook({"step": step, **dict(pairs), **timing})
-                log.append({"step": step,
-                            **{f"d_{k}": v for k, v in d.items()},
-                            **{f"g_{k}": v for k, v in g.items()},
-                            "seconds": time.perf_counter() - t0, **timing})
+                steps_since_sync += 1
+                if is_first or step % self.log_steps_every == 0:
+                    with span("gigagan.train.log"):
+                        self._sync()
+                        self.step_timer.stop(steps_since_sync)
+                        steps_since_sync = 0
+                        d = {k: float(v) for k, v in d.items()}
+                        g = {k: float(v) for k, v in g.items()}
+                        if apply_gp:
+                            last["gp"] = d["gradient_penalty"]
+                        if calc_ms:
+                            last["msd"] = d["multiscale_divergence"]
+                            last["msg"] = g["multiscale_divergence"]
+                        pairs = (("G", g["divergence"]), ("MSG", last["msg"]),
+                                 ("VG", g["total_vd_divergence"]),
+                                 ("D", d["divergence"]), ("MSD", last["msd"]),
+                                 ("VD", d["vision_aided_divergence"]),
+                                 ("GP", last["gp"]),
+                                 ("SSL", d["aux_reconstruction"]),
+                                 ("CL", g["contrastive_loss"]),
+                                 ("MAL", d["matching_aware_loss"]))
+                        # the global batch: every rank's
+                        bs = (reals.shape[0] * reals.shape[1]
+                              * dist.world_size())
+                        self.print(f"step {step}: " + " | ".join(
+                            f"{k}: {v:.2f}" for k, v in pairs)
+                            + f" | {self.step_timer.summary(bs)}")
+                        timing = {"ms_per_step": self.step_timer.mean_s * 1e3,
+                                  "images_per_sec":
+                                      self.step_timer.images_per_sec(bs)}
+                        if exists(self.log_hook) and self.is_main:
+                            self.log_hook({"step": step, **dict(pairs),
+                                           **timing})
+                        log.append({"step": step,
+                                    **{f"d_{k}": v for k, v in d.items()},
+                                    **{f"g_{k}": v for k, v in g.items()},
+                                    "seconds": time.perf_counter() - t0,
+                                    **timing})
 
-            if is_first or step % self.save_and_sample_every == 0 or (
-                    step <= self.early_save_thres_steps
-                    and step % self.early_save_and_sample_every == 0):
-                self.save_sample(reals.shape[1], dl_iter)
+                if is_first or step % self.save_and_sample_every == 0 or (
+                        step <= self.early_save_thres_steps
+                        and step % self.early_save_and_sample_every == 0):
+                    self.save_sample(reals.shape[1], dl_iter)
+        with span("gigagan.train.loader_close"):
+            dl_iter.close()  # the loader's threads end here
         self.print(f"complete {self.steps} training steps")
         return log
 
@@ -532,39 +553,47 @@ class GigaGAN:
         ``text_encodings``.  The upsampler upsamples ``lowres_image`` (b,
         h, w, c) in [0, 1], also given as the one positional argument.
         Returns a float32 (b, h, w, 3) numpy array."""
-        if args:
-            assert len(args) == 1 and lowres_image is None and (
-                self.train_upsampler), (
-                "positional argument must be the lowres image (upsampler)")
-            lowres_image = args[0]
-        if exists(texts):
-            text_encodings = self.embed_texts(texts)
-        if exists(text_encodings):
-            text_encodings = torch.as_tensor(text_encodings,
-                                             device=self.device)
-        g = self.G_ema if use_ema and self.has_ema_generator else self.G
-        if seed is None:
-            seed = int(self._rng.integers(2 ** 63))
-        s_noise, s_latent = np.random.SeedSequence(seed).generate_state(2)
-        noise_gen = torch.Generator(device=self.device).manual_seed(
-            int(s_noise))
-        latent_gen = torch.Generator(device=self.device).manual_seed(
-            int(s_latent))
-        if exists(styles):
-            styles = torch.as_tensor(styles, device=self.device)
-        if exists(noise):
-            noise = torch.as_tensor(noise, device=self.device)
-        if self.train_upsampler:
-            assert exists(lowres_image), "the upsampler needs lowres_image"
-            out = g(torch.as_tensor(lowres_image, device=self.device),
-                    styles=styles, noise=noise,
-                    text_encodings=text_encodings,
-                    latent_generator=latent_gen)
-        else:
-            out = g(styles=styles, noise=noise,
-                    text_encodings=text_encodings, batch_size=batch_size,
-                    latent_generator=latent_gen, noise_generator=noise_gen)
-        return out.float().cpu().numpy()
+        with span("gigagan.sample.request"):
+            if args:
+                assert len(args) == 1 and lowres_image is None and (
+                    self.train_upsampler), (
+                    "positional argument must be the lowres image "
+                    "(upsampler)")
+                lowres_image = args[0]
+            if exists(texts):
+                text_encodings = self.embed_texts(texts)
+            if exists(text_encodings):
+                text_encodings = torch.as_tensor(text_encodings,
+                                                 device=self.device)
+            g = self.G_ema if use_ema and self.has_ema_generator else self.G
+            if seed is None:
+                seed = int(self._rng.integers(2 ** 63))
+            s_noise, s_latent = np.random.SeedSequence(seed).generate_state(
+                2)
+            noise_gen = torch.Generator(device=self.device).manual_seed(
+                int(s_noise))
+            latent_gen = torch.Generator(device=self.device).manual_seed(
+                int(s_latent))
+            if exists(styles):
+                styles = torch.as_tensor(styles, device=self.device)
+            if exists(noise):
+                noise = torch.as_tensor(noise, device=self.device)
+            with span("gigagan.sample.generator"):
+                if self.train_upsampler:
+                    assert exists(lowres_image), (
+                        "the upsampler needs lowres_image")
+                    out = g(torch.as_tensor(lowres_image, device=self.device),
+                            styles=styles, noise=noise,
+                            text_encodings=text_encodings,
+                            latent_generator=latent_gen)
+                else:
+                    out = g(styles=styles, noise=noise,
+                            text_encodings=text_encodings,
+                            batch_size=batch_size,
+                            latent_generator=latent_gen,
+                            noise_generator=noise_gen)
+            with span("gigagan.sync.readback"):
+                return out.float().cpu().numpy()
 
     def _sample_images(self, batch_size: int, use_ema: bool, dl_iter=None):
         """``num_samples`` samples in groups of ``batch_size``; the

@@ -10,10 +10,11 @@ from gigagan_tpu_torch.utils.init import (
     kaiming_normal_leaky_,
     pixel_shuffle_icnr_,
 )
-from gigagan_tpu_torch.utils.profiling import StepTimer
+from gigagan_tpu_torch.utils.profiling import SPANS, StepTimer, span
 
 __all__ = [
     "ModTable",
+    "SPANS",
     "StepTimer",
     "default",
     "dirac_1d_",
@@ -22,4 +23,5 @@ __all__ = [
     "kaiming_normal_leaky_",
     "num_to_groups",
     "pixel_shuffle_icnr_",
+    "span",
 ]

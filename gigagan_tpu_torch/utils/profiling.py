@@ -1,11 +1,64 @@
 """Wall-clock step timing for the trainer's log line (counterpart of
-``StepTimer`` in gigagan_tpu/utils/profiling.py)."""
+``StepTimer`` in gigagan_tpu/utils/profiling.py), and the named phase
+spans the trainer and the sampler record for ``torch.profiler``."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from typing import Optional
+
+import torch
+
+# Every span the port records.  ``gigagan.train.iteration`` holds every
+# other train span of its iteration (``gigagan.train.loader_close``, once
+# per ``forward`` call, follows the last), ``gigagan.sample.request``
+# every sample span of its request; ``gigagan.sync.*`` covers a call on
+# the train or sample path at which the host waits for the card.
+SPANS = (
+    "gigagan.train.iteration",
+    "gigagan.train.batch",
+    "gigagan.train.data_wait",
+    "gigagan.train.d_step",
+    "gigagan.train.g_step",
+    "gigagan.train.log",
+    "gigagan.train.loader_close",
+    "gigagan.d.fakes",
+    "gigagan.d.loss",
+    "gigagan.d.backward",
+    "gigagan.d.r1_chunked",
+    "gigagan.d.optimizer",
+    "gigagan.g.loss",
+    "gigagan.g.backward",
+    "gigagan.g.optimizer",
+    "gigagan.g.ema",
+    "gigagan.clip.embed_texts",
+    "gigagan.sample.request",
+    "gigagan.sample.generator",
+    "gigagan.sync.batch_to_device",
+    "gigagan.sync.blur_kernel",
+    "gigagan.sync.resize_index",
+    "gigagan.sync.clip_tokens",
+    "gigagan.sync.clip_normalize",
+    "gigagan.sync.clip_logit_scale",
+    "gigagan.sync.readback",
+)
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records ``name`` as a profiler ``cpu_op`` event on
+    the calling thread while a ``torch.profiler`` profile runs, and the
+    shared no-op context otherwise.
+
+    ``_RecordFunctionFast`` and not ``record_function``: the latter records
+    a user annotation, which Kineto mirrors onto the device's timeline,
+    where it would read as device activity."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 class StepTimer:
