@@ -32,11 +32,23 @@ Phases (any failure raises and exits non-zero):
    ``scaled_dot_product_attention`` call;
 5. drive the sampling path: the README quickstart generator (256px, 30M
    params, bf16) answers generate(batch_size=8) and generate(batch_size=1)
-   three times each; the kernels' launch counts must show 15 K1 and 2 K3
-   launches per forward; one fp32 forward through the kernels is held
+   three times each: the first call of each runs G eagerly, the second
+   captures G's forward as a CUDA graph and replays it, the third replays
+   it (``train/sample_graph.py``); the kernels' launch counts, which
+   Python counts and a replay does not, must show 15 K1 and 2 K3 launches
+   for each of the two forwards issued from Python per batch size, and
+   both graphs must be held; one fp32 forward through the kernels is held
    against the plain path on the card; batch-1 latency and batch-8
-   images/s are timed, with K1's CUDA-core kernel patched in on every
-   other request as the yardstick;
+   images/s are timed, in turns with G's eager forward (the path before
+   graphs) and the eager forward with K1's CUDA-core kernel patched in
+   (the kernel's yardstick);
+18. (after phase 5) the sampler's CUDA graph: the card's tests of
+    ``tests/test_torch_sample_graph.py`` (marked ``cuda``) in a child
+    pytest: replayed ``generate`` bitwise equal to G's eager forward for
+    the quickstart G and a small text-conditioned G at batch 1 and 4 over
+    3 seeds, replays after an in-place weight update and after ``load``
+    following the new weights, and a capture under
+    ``torch.cuda.set_sync_debug_mode("error")``;
 6. hold K2 (weight gradient; fp32 on the CUDA-core kernel, bf16 on the
    tensor-core one, every bf16 launch checked to land there) and K1 as the
    input gradient (tensor cores in bf16), through the conv Function's
@@ -1107,6 +1119,7 @@ def main():
         SyntheticShapesDataset,
         cycle,
     )
+    from gigagan_tpu_torch.train import sample_graph
     from gigagan_tpu_torch.train.steps import StepDraws
     from gigagan_tpu_torch.models.layers import AdaptiveConv, SelfAttention
     from gigagan_tpu_torch.ops import attention as ops_attention
@@ -1451,9 +1464,16 @@ def main():
     for hk in hooks:
         hk.remove()
     log(f"sampling path: {len(requests)} requests, launches {counts}")
+    # per batch size, the eager first call and the capture issue G's
+    # forward from Python; the third call replays the graph
     per_forward = {"k1": len(convs), "k3": len(SELF_ATTN_RES)}
-    if launches != {k: n * len(requests) for k, n in per_forward.items()}:
+    issued = 2 * len(set(requests))
+    if launches != {k: n * issued for k, n in per_forward.items()}:
         fail(f"launch counts {launches}")
+    held = [e for e in sample_graph.graphs_of(gan.G_ema).entries.values()
+            if isinstance(e, sample_graph.Captured)]
+    if len(held) != len(set(requests)):
+        fail(f"{len(held)} graphs held for batch sizes {set(requests)}")
     if any(n for k, n in counts.items() if k not in ("k1", "k3")):
         fail(f"backward kernels launched while sampling: {counts}")
     if simt_counts()["k1"] or simt_counts()["k3"]:
@@ -1476,19 +1496,35 @@ def main():
     if not g_rel <= G_TOL_F32:
         fail("G forward disagrees")
 
+    def eager_request(bs, seed):
+        """What generate does with G's forward issued from Python, as it
+        ran before graphs (a replay would not see a patched kernel)."""
+        seeds = tuple(map(int, np.random.SeedSequence(seed).generate_state(
+            2)))
+        with torch.inference_mode():
+            out = sample_graph.forward(
+                gan.G_ema, None, dev, bs, seeds,
+                dict(styles=None, noise=None, text_encodings=None))
+            return out.float().cpu().numpy()
+
     def latency(bs, reps):
-        """Seconds of `reps` requests on each K1 route: the package's
-        (tensor cores) and the CUDA-core kernel patched in, taking turns so
-        that the host's drift, which moves a request by more than K1 does,
-        falls on both alike."""
-        times = {"tc": [], "simt": []}
+        """Seconds of `reps` requests on each route: the package's (a
+        replay of G's graph, K1 on the tensor cores), G's eager forward,
+        and the eager forward with K1's CUDA-core kernel patched in, taking
+        turns so that the host's drift, which moves a request by more than
+        K1 does, falls on all alike."""
+        routes = ("graph", "tc", "simt")
+        times = {r: [] for r in routes}
         for i in range(reps):
-            for route in ("tc", "simt") if i % 2 else ("simt", "tc"):
+            for route in routes if i % 2 else routes[::-1]:
                 with (simt_kernels(["k1"]) if route == "simt"
                       else contextlib.nullcontext()):
                     torch.cuda.synchronize()
                     t = time.perf_counter()
-                    gan.generate(batch_size=bs, seed=100 + i)
+                    if route == "graph":
+                        gan.generate(batch_size=bs, seed=100 + i)
+                    else:
+                        eager_request(bs, 100 + i)
                     torch.cuda.synchronize()
                 times[route].append(time.perf_counter() - t)
         return times
@@ -1496,19 +1532,25 @@ def main():
     latency(1, 2)  # warm-up
     latency(BATCH, 2)
     lat1_all, lat8_all = latency(1, 25), latency(BATCH, 15)
-    lat1, lat8 = (statistics.median(t["tc"]) for t in (lat1_all, lat8_all))
-    report["latency_b1_s"], report["latency_b1_all_s"] = lat1, lat1_all["tc"]
-    report["batch8_s"], report["batch8_all_s"] = lat8, lat8_all["tc"]
+    lat1, lat8 = (statistics.median(t["graph"])
+                  for t in (lat1_all, lat8_all))
+    report["latency_b1_s"], report["latency_b1_all_s"] = (
+        lat1, lat1_all["graph"])
+    report["batch8_s"], report["batch8_all_s"] = lat8, lat8_all["graph"]
+    report["latency_eager"] = dict(b1_all_s=lat1_all["tc"],
+                                   b8_all_s=lat8_all["tc"])
     report["latency_k1_simt"] = dict(b1_all_s=lat1_all["simt"],
                                      b8_all_s=lat8_all["simt"])
     report["batch8_images_per_s"] = BATCH / lat8
+    med = {bs: {r: statistics.median(v) * 1e3 for r, v in t.items()}
+           for bs, t in ((1, lat1_all), (BATCH, lat8_all))}
     log(f"generate latency b1: {lat1 * 1e3:.3f} ms (median of 25, min "
-        f"{min(lat1_all['tc']) * 1e3:.3f}); b{BATCH}: {lat8 * 1e3:.3f} ms "
-        f"(median of 15, min {min(lat8_all['tc']) * 1e3:.3f}) -> "
-        f"{BATCH / lat8:.2f} images/s; in turn with K1 on the CUDA cores: "
-        f"b1 {statistics.median(lat1_all['simt']) * 1e3:.3f} ms, "
-        f"b{BATCH} {statistics.median(lat8_all['simt']) * 1e3:.3f} ms "
-        f"[{smi}]")
+        f"{min(lat1_all['graph']) * 1e3:.3f}); b{BATCH}: {lat8 * 1e3:.3f} "
+        f"ms (median of 15, min {min(lat8_all['graph']) * 1e3:.3f}) -> "
+        f"{BATCH / lat8:.2f} images/s; in turn, G eager: b1 "
+        f"{med[1]['tc']:.3f} ms, b{BATCH} {med[BATCH]['tc']:.3f} ms; G eager "
+        f"with K1 on the CUDA cores: b1 {med[1]['simt']:.3f} ms, b{BATCH} "
+        f"{med[BATCH]['simt']:.3f} ms [{smi}]")
 
     def profiled(label, fn):
         from torch.autograd import DeviceType
@@ -1545,6 +1587,20 @@ def main():
     torch.cuda.empty_cache()
 
     phase_done("5")
+
+    # ---------------------------------------------------------------- 18
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p",
+         "no:cacheprovider", "-m", "cuda", "tests/test_torch_sample_graph.py"],
+        cwd=REPO, capture_output=True, text=True, timeout=900)
+    (OUT_DIR / "sample_graph_tests.log").write_text(proc.stdout + proc.stderr)
+    summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    report["sample_graph_tests"] = summary
+    log(f"the sampler's graph, the card's tests: {summary}")
+    if proc.returncode != 0 or "passed" not in summary or (
+            "skipped" in summary):
+        fail(f"the sampler's graph tests: {proc.stdout[-3000:]}")
+    phase_done("18")
 
     # ---------------------------------------------------------------- 6
     k2_rows = {}
@@ -2954,11 +3010,13 @@ def main():
         profiled("t2i_iter_r1", lambda: t2i_iteration(0, True))
 
     # sampling from captions, batch 1 and 8: K1 per G conv and K3 per G
-    # attention per forward; cross-attention and the text encoder run no
-    # kernel (77 keys: the plain attention)
+    # attention per forward issued from Python, two per batch size (the
+    # eager first call and the capture of its graph; later calls replay
+    # it); cross-attention and the text encoder run no kernel (77 keys: the
+    # plain attention)
     gen_ms = {1: [], BATCH: []}
     reset_counts()
-    for i in range(4):
+    for i in range(5):
         for bs in (1, BATCH):
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -2970,18 +3028,19 @@ def main():
                 fail(f"text-to-image sampling gave {img.shape} / non-finite")
     counts = read_counts()
     per = {k: 0 for k in counts}
-    per.update(k1=8 * n_g, k3=8 * n_ga)
+    per.update(k1=4 * n_g, k3=4 * n_ga)
     if counts != per:
         fail(f"text-to-image sampling launched {counts}, the path implies "
              f"{per}")
     t2i["sampling"] = dict(
-        latency_ms_b1=statistics.median(gen_ms[1][1:]),
-        images_per_s_b8=BATCH / (statistics.median(gen_ms[BATCH][1:]) / 1e3),
+        latency_ms_b1=statistics.median(gen_ms[1][2:]),
+        images_per_s_b8=BATCH / (statistics.median(gen_ms[BATCH][2:]) / 1e3),
         ms=gen_ms, launches=counts)
     log(f"text-to-image sampling: batch-1 latency "
         f"{t2i['sampling']['latency_ms_b1']:.3f} ms, batch-{BATCH} "
         f"{t2i['sampling']['images_per_s_b8']:.2f} images/s (medians of 3 "
-        f"after one warm-up; caption embedding included) [{smi}]")
+        f"replays after the eager call and the capture; caption embedding "
+        f"included) [{smi}]")
     k1.adaptive_conv_fwd, k1.adaptive_conv_bwd_w = k1_dispatch, k2_dispatch
     del gan
     gc.collect()

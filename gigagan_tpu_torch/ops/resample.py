@@ -52,41 +52,50 @@ def _reflect_pad1(x, axis: int):
 
 def _depthwise(x, kernel):
     """x (b, *spatial, c) blurred per channel by ``kernel`` (*k) of odd
-    sizes 3, reflect-padded (kornia ``filter2d``/``filter3d``'s default
-    border, as in JAX)."""
+    sizes 3 in x's dtype, reflect-padded (kornia ``filter2d``/``filter3d``'s
+    default border, as in JAX)."""
     rank = kernel.dim()
     c = x.shape[-1]
     for axis in range(1, 1 + rank):
         x = _reflect_pad1(x, axis)
-    kern = kernel.to(x.dtype).expand(c, 1, *kernel.shape)
+    kern = kernel.expand(c, 1, *kernel.shape)
     conv = F.conv2d if rank == 2 else F.conv3d
     return _channels_last(conv(_channels_first(x), kern, groups=c))
 
 
-def _binomial(device):
-    with span("gigagan.sync.blur_kernel"):
-        return torch.tensor(_BINOMIAL, dtype=torch.float32, device=device)
+@functools.lru_cache(maxsize=None)
+def _blur_filter(kind: str, device, dtype):
+    """The normalised blur filter of ``kind`` ('2d', '3d' or 'temporal') in
+    ``dtype`` on ``device``, kept (a read-only operand), so that a blur
+    copies nothing to the card and launches only its conv; made in fp32 and
+    then cast, as each blur made it before it was kept, and outside
+    inference mode, so that a filter first made while sampling can be saved
+    for a later backward."""
+    with span("gigagan.sync.blur_kernel"), torch.inference_mode(False):
+        f = torch.tensor(_BINOMIAL, dtype=torch.float32, device=device)
+        if kind == "2d":
+            f = f[:, None] * f[None, :]
+        elif kind == "3d":
+            f = f[:, None, None] * f[None, :, None] * f[None, None, :]
+        else:
+            f = f[:, None, None].expand(3, 3, 3)
+        return (f / f.sum()).to(dtype)
 
 
 def blur_2d(x):
     """Normalized binomial [1,2,1]⊗[1,2,1] blur on (b, h, w, c)."""
-    f = _binomial(x.device)
-    f = f[:, None] * f[None, :]
-    return _depthwise(x, f / f.sum())
+    return _depthwise(x, _blur_filter("2d", x.device, x.dtype))
 
 
 def blur_3d(x):
     """Normalized separable binomial blur on (b, t, h, w, c)."""
-    f = _binomial(x.device)
-    f = f[:, None, None] * f[None, :, None] * f[None, None, :]
-    return _depthwise(x, f / f.sum())
+    return _depthwise(x, _blur_filter("3d", x.device, x.dtype))
 
 
 def blur_temporal(x):
     """The temporal blur of the video upsample on (b, t, h, w, c): [1,2,1]
     along time, a box over the 3x3 spatial window, normalized."""
-    f = _binomial(x.device)[:, None, None].expand(3, 3, 3)
-    return _depthwise(x, f / f.sum())
+    return _depthwise(x, _blur_filter("temporal", x.device, x.dtype))
 
 
 def _linear_taps(in_size: int, out_size: int):

@@ -14,8 +14,10 @@ and sampling.
 
 ``fused_dg_step=True`` gives the G step the D step's batch, as JAX's fused
 D+G program does, so the numbers are JAX's; the steps still run as two
-sequences of kernel launches here (capturing them as one CUDA graph is
-ROADMAP.md Queue 2, item B).
+sequences of kernel launches here (capturing them as CUDA graphs is what
+remains of ROADMAP.md Queue 2, item B).  ``generate`` on the card replays
+G's forward as a CUDA graph captured for the request's shapes
+(``train/sample_graph.py``), the upsampler's excepted.
 
 Text conditioning (``unconditional=False`` in G and D) takes a CLIP
 adapter (``clip=OpenClipAdapter(...)``), which moves to the trainer's
@@ -70,7 +72,7 @@ from gigagan_tpu_torch.models.unet_upsampler import UnetUpsampler
 from gigagan_tpu_torch.ops import resize_image_to
 from gigagan_tpu_torch.models.vision_aided import VisionAidedDiscriminator
 from gigagan_tpu_torch.parallel import dist
-from gigagan_tpu_torch.train import jax_checkpoint
+from gigagan_tpu_torch.train import jax_checkpoint, sample_graph
 from gigagan_tpu_torch.train.ema import EMA
 from gigagan_tpu_torch.train.optimizer import get_optimizer
 from gigagan_tpu_torch.train.steps import TrainStepBuilder
@@ -568,30 +570,27 @@ class GigaGAN:
             g = self.G_ema if use_ema and self.has_ema_generator else self.G
             if seed is None:
                 seed = int(self._rng.integers(2 ** 63))
-            s_noise, s_latent = np.random.SeedSequence(seed).generate_state(
-                2)
-            noise_gen = torch.Generator(device=self.device).manual_seed(
-                int(s_noise))
-            latent_gen = torch.Generator(device=self.device).manual_seed(
-                int(s_latent))
+            seeds = tuple(map(int, np.random.SeedSequence(
+                seed).generate_state(2)))  # (noise, latent)
             if exists(styles):
                 styles = torch.as_tensor(styles, device=self.device)
             if exists(noise):
                 noise = torch.as_tensor(noise, device=self.device)
+            inputs = dict(styles=styles, noise=noise,
+                          text_encodings=text_encodings)
+            key = sample_graph.graph_key(self.device, self.train_upsampler,
+                                         batch_size, g.dtype, inputs)
             with span("gigagan.sample.generator"):
                 if self.train_upsampler:
                     assert exists(lowres_image), (
                         "the upsampler needs lowres_image")
+                    latent_gen = torch.Generator(
+                        device=self.device).manual_seed(seeds[1])
                     out = g(torch.as_tensor(lowres_image, device=self.device),
-                            styles=styles, noise=noise,
-                            text_encodings=text_encodings,
-                            latent_generator=latent_gen)
+                            **inputs, latent_generator=latent_gen)
                 else:
-                    out = g(styles=styles, noise=noise,
-                            text_encodings=text_encodings,
-                            batch_size=batch_size,
-                            latent_generator=latent_gen,
-                            noise_generator=noise_gen)
+                    out = sample_graph.forward(g, key, self.device,
+                                               batch_size, seeds, inputs)
             with span("gigagan.sync.readback"):
                 return out.float().cpu().numpy()
 

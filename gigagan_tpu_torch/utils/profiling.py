@@ -16,6 +16,9 @@ import torch
 # per ``forward`` call, follows the last), ``gigagan.sample.request``
 # every sample span of its request; ``gigagan.sync.*`` covers a call on
 # the train or sample path at which the host waits for the card.
+# ``gigagan.sample.graph_capture`` and ``.graph_replay`` lie inside
+# ``gigagan.sample.generator``: a capture of G's forward as a CUDA graph,
+# and a replay of one (``train/sample_graph.py``).
 SPANS = (
     "gigagan.train.iteration",
     "gigagan.train.batch",
@@ -36,6 +39,8 @@ SPANS = (
     "gigagan.clip.embed_texts",
     "gigagan.sample.request",
     "gigagan.sample.generator",
+    "gigagan.sample.graph_capture",
+    "gigagan.sample.graph_replay",
     "gigagan.sync.batch_to_device",
     "gigagan.sync.blur_kernel",
     "gigagan.sync.resize_index",

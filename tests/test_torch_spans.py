@@ -117,6 +117,9 @@ def test_generate_spans_nest_in_their_request(tmp_path):
             "gigagan.sync.readback"} <= seen
     assert not any(n.startswith(TRAIN_PREFIXES) for n in seen)
     assert sum(n == "gigagan.sync.readback" for _, _, n, _ in events) == 2
+    # the CPU runs G eagerly: no graph is captured or replayed
+    assert not seen & {"gigagan.sample.graph_capture",
+                       "gigagan.sample.graph_replay"}
 
 
 @pytest.mark.parametrize("path", ["train", "generate"])
@@ -173,6 +176,7 @@ def test_span_names_are_unique_and_namespaced():
     for name in ("gigagan.train.iteration", "gigagan.sample.request",
                  "gigagan.train.batch", "gigagan.train.data_wait",
                  "gigagan.train.d_step", "gigagan.train.g_step",
-                 "gigagan.sample.generator"):
+                 "gigagan.sample.generator", "gigagan.sample.graph_capture",
+                 "gigagan.sample.graph_replay"):
         assert name in SPANS
     assert sum(n.startswith("gigagan.sync.") for n in SPANS) >= 3
