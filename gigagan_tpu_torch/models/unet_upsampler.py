@@ -55,7 +55,13 @@ from gigagan_tpu_torch.models.layers import (
     conv1x1,
 )
 from gigagan_tpu_torch.parallel import dist
-from gigagan_tpu_torch.utils import ModTable, default, exists, is_power_of_two
+from gigagan_tpu_torch.utils import (
+    ModTable,
+    default,
+    exists,
+    is_power_of_two,
+    span,
+)
 
 
 def _fold_time(x):
@@ -195,8 +201,9 @@ class LinearAttention2D(nn.Module):
         hidden = self.dim_head * self.heads
         q, k, v = (t.reshape(b, h * w, hidden)
                    for t in self.to_qkv(self.norm(x)).chunk(3, dim=-1))
-        out = ops.linear_attend_fused(q, k, v, heads=self.heads,
-                                      scale=self.dim_head ** -0.5)
+        with span("gigagan.up.linear_attn"):
+            out = ops.linear_attend_fused(q, k, v, heads=self.heads,
+                                          scale=self.dim_head ** -0.5)
         return self.out_norm(self.to_out(out.reshape(b, h, w, hidden)))
 
 
@@ -437,11 +444,16 @@ class UnetUpsampler(nn.Module):
         flat = stage.temporal_attn(flat[:, :, None, :])[:, :, 0, :]
         return _fold_time(_unfold_space(flat, dims))
 
-    def forward(self, lowres_image=None, *, lowres_image_or_video=None,
-                styles=None, noise=None, text_encodings=None,
-                global_text_tokens=None, fine_text_tokens=None,
-                text_mask=None, return_all_rgbs: bool = False,
-                latent_generator=None):
+    def forward(self, *args, **kwargs):
+        """``_forward`` inside the ``gigagan.up.generator`` span."""
+        with span("gigagan.up.generator"):
+            return self._forward(*args, **kwargs)
+
+    def _forward(self, lowres_image=None, *, lowres_image_or_video=None,
+                 styles=None, noise=None, text_encodings=None,
+                 global_text_tokens=None, fine_text_tokens=None,
+                 text_mask=None, return_all_rgbs: bool = False,
+                 latent_generator=None):
         """``lowres_image`` (b, h, w, c) or, with temporal layers, a video
         (b, t, h, w, c) at ``input_image_size``.  ``noise`` is the style
         latent (b, style_network_dim); without it (and without ``styles``)

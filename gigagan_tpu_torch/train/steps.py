@@ -219,8 +219,9 @@ class TrainStepBuilder:
         """G's output and rgbs for ``batch_size`` fakes; the upsampler's
         from the reals resized to its input size."""
         if self.train_upsampler:
-            lowres = ops.resize_image_to(real, self.input_image_size,
-                                         "nearest")
+            with span("gigagan.up.lowres"):
+                lowres = ops.resize_image_to(real, self.input_image_size,
+                                             "nearest")
             return self.G(lowres, noise=draws.latents, text_encodings=text,
                           return_all_rgbs=True, latent_generator=generator)
         return self.G(

@@ -18,7 +18,10 @@ import torch
 # the train or sample path at which the host waits for the card.
 # ``gigagan.sample.graph_capture`` and ``.graph_replay`` lie inside
 # ``gigagan.sample.generator``: a capture of G's forward as a CUDA graph,
-# and a replay of one (``train/sample_graph.py``).
+# and a replay of one (``train/sample_graph.py``).  ``gigagan.up.*`` lie
+# on the upsampler's path alone: its UNet's forward, each of its linear
+# attentions' ``ops.linear_attend_fused`` call, and the step's low-res
+# copy of the reals.
 SPANS = (
     "gigagan.train.iteration",
     "gigagan.train.batch",
@@ -41,6 +44,9 @@ SPANS = (
     "gigagan.sample.generator",
     "gigagan.sample.graph_capture",
     "gigagan.sample.graph_replay",
+    "gigagan.up.generator",
+    "gigagan.up.linear_attn",
+    "gigagan.up.lowres",
     "gigagan.sync.batch_to_device",
     "gigagan.sync.blur_kernel",
     "gigagan.sync.resize_index",
