@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (``gigagan_tpu_torch``) on one NVIDIA GPU.
+"""Check of the PyTorch port (``gigagan_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the check, one card
-    python3 chip_smoke.py --profile   # also torch.profiler breakdowns of one
-                                      # batch-8 forward and of batch-8
-                                      # training iterations (without R1,
-                                      # with R1 in both forms)
+    python3 chip_smoke.py             # every phase, one card
 
-Phases (any failure raises and exits non-zero):
+It times nothing: the port's speed is the benchmark's
+(``portbench/``; PERF.md and PERF_LEDGER.jsonl).  Each phase is a function,
+``phase_<N>_<what>(ctx)``, that ends the run with ``chip_smoke: FAIL`` at
+the first check that does not hold; ``main()`` calls them in the order
+below and logs each phase's seconds (``phase N: ... s``).  One phase can
+be rehearsed by making a ``Ctx`` and calling its function (a phase that
+reads an earlier one's result takes it as an argument).
+
+Phases:
 
 1. find the card (fails without CUDA) and print its name and power limit;
 2. build the CUDA kernels from ``gigagan_tpu_torch/csrc`` with nvcc, one
@@ -20,16 +24,12 @@ Phases (any failure raises and exits non-zero):
    the CUDA-core kernel, bf16 with fp32 and with bf16 banks on the
    tensor-core one; and at extra rows (a ragged 12x20 map, 64 -> 48, with
    1 and 2 banks, and 4 banks as the conv pair's double backward makes);
-   time the bf16 path shapes on both implementations, the plain version
-   and cuDNN's grouped conv;
 4. hold kernel K3 (fused-heads attention) against its plain version at the
    six attention shapes of the training path (G's dot product, D's L2 in
    the d_step and the g_step) with the null key/value, fp32 (CUDA-core
    kernel) and bf16 (tensor-core kernel), and at small ragged rows (300
    queries, 200 keys) for d = 64 and 128 (tensor cores in bf16) and 80
-   (CUDA cores), with and without the null token, dot and L2; time the
-   bf16 path shapes on both implementations, the plain version and one
-   ``scaled_dot_product_attention`` call;
+   (CUDA cores), with and without the null token, dot and L2;
 5. drive the sampling path: the README quickstart generator (256px, 30M
    params, bf16) answers generate(batch_size=8) and generate(batch_size=1)
    three times each: the first call of each runs G eagerly, the second
@@ -38,10 +38,7 @@ Phases (any failure raises and exits non-zero):
    Python counts and a replay does not, must show 15 K1 and 2 K3 launches
    for each of the two forwards issued from Python per batch size, and
    both graphs must be held; one fp32 forward through the kernels is held
-   against the plain path on the card; batch-1 latency and batch-8
-   images/s are timed, in turns with G's eager forward (the path before
-   graphs) and the eager forward with K1's CUDA-core kernel patched in
-   (the kernel's yardstick);
+   against the plain path on the card;
 18. (after phase 5) the sampler's CUDA graph: the card's tests of
     ``tests/test_torch_sample_graph.py`` (marked ``cuda``) in a child
     pytest: replayed ``generate`` bitwise equal to G's eager forward for
@@ -52,18 +49,16 @@ Phases (any failure raises and exits non-zero):
 6. hold K2 (weight gradient; fp32 on the CUDA-core kernel, bf16 on the
    tensor-core one, every bf16 launch checked to land there) and K1 as the
    input gradient (tensor cores in bf16), through the conv Function's
-   backward, against plain PyTorch at the same 15 shapes, timing K2's two
-   routes and the plain version beside the bound; K2 at extra rows (ragged
-   12x20 maps at 16 -> 16, 16 -> 32, 32 -> 16 and 64 -> 48, the last on
-   the CUDA cores by the rule; 1, 2 and 4 banks; batch 1), each launch on
-   the route its rule names; and K2 at 8 banks (groups of at most 4 on the
-   CUDA cores, 2 on the tensor cores);
-7. the same for K4 (attention backward; the SDPA yardstick is its
-   backward), and K5 (its adjoint; tensor cores in bf16 at d = 64 and 128)
-   at the d_step's R1 shapes and at those of phase 17's d = 128
-   discriminator (bf16, each launch on the tensor cores), timed beside its
-   CUDA-core kernel, and at the small rows (ragged with and without the
-   null token, dot and L2; d = 128, and 80 on the CUDA cores);
+   backward, against plain PyTorch at the same 15 shapes; K2 at extra rows
+   (ragged 12x20 maps at 16 -> 16, 16 -> 32, 32 -> 16 and 64 -> 48, and
+   64 -> 40 on the CUDA cores by the rule; 1, 2 and 4 banks; batch 1),
+   each launch on the route its rule names; and K2 at 8 banks (groups of
+   at most 4 on the CUDA cores, 2 on the tensor cores);
+7. the same for K4 (attention backward), and K5 (its adjoint; tensor cores
+   in bf16 at d = 64 and 128) at the d_step's R1 shapes and at those of
+   phase 17's d = 128 discriminator (bf16, each launch on the tensor
+   cores), and at the small rows (ragged with and without the null token,
+   dot and L2; d = 128, and 80 on the CUDA cores);
 8. hold K6a/K6b (split-heads attention and its backward; bf16 at d = 64
    and 128 on the tensor-core kernels of K3/K4 with one head, the rest on
    CUDA cores) and K7a/K7b (its jvp and the jvp's backward; bf16 at d = 64
@@ -74,23 +69,16 @@ Phases (any failure raises and exits non-zero):
    (bf16), and at small masked shapes (dot product, and head dims 128 and
    80), each call on the route its rule names; all four also at masked
    shapes (head dims 64 and 128) where one sample has every key masked, on
-   both routes, whose outputs must be finite; time each kernel's two
-   routes at φ's pairs beside the plain versions (and SDPA for K6a/K6b);
-   and report, without a gate, K7a/K7b on both bf16 routes and the fp32
-   plain version against the float64 plain version at φ's d = 128 pairs
-   with q drawn N(0, 1) (the gated rows draw it narrower, ``hv_operands``);
+   both routes, whose outputs must be finite;
 9. drive the training path: the quickstart G+D pair (256px, bf16, batch 8)
    takes 8 iterations of train_discriminator_step + train_generator_step
    with R1 on iterations 0 and 4; every loss must be finite and every
    step's K1-K7b launch counts those the path implies (K5 on R1 steps
    only), every bf16 launch of a kernel with two routes on its tensor-core
-   kernel; ms per
-   d_step (with and without R1) and per g_step and images/s over the
-   4-iteration cadence are timed;
+   kernel;
 10. the same 8 iterations with the R1 penalty taken forward-over-reverse
     (``GigaGAN(gp_fwd_over_rev=True)``): K6a, K6b, K7a and K7b on R1
     d_steps only, K5 never, every K6a-K7b launch on the tensor cores;
-    d_step+R1 timed beside phase 9's;
 11. fp32 steps on the card, each from the same fresh state: a d_step with
     R1 (both forms) and a g_step through the kernels against the same
     steps under ``plain_reference()`` (losses and every parameter's
@@ -101,7 +89,7 @@ Phases (any failure raises and exits non-zero):
     g_step through the tensor-core K2 against the CUDA-core one, and a
     forward-over-reverse d_step with R1 through the tensor-core K6a/K6b,
     then K7a/K7b, against the CUDA-core ones; each bf16 route's distance
-    from the fp32 plain step is reported, and the tensor-core route's may
+    from the fp32 plain step is logged, and the tensor-core route's may
     be at most FROM_PLAIN_RATIO times the CUDA-core route's;
 17. (after phase 11) the quickstart G beside a discriminator with 4 heads
     of 128 (``QUICKSTART_D128``; 256px, batch 8, bf16): a d_step+R1 in
@@ -114,7 +102,7 @@ Phases (any failure raises and exits non-zero):
     and, in phase 12(d)'s deterministic child, two d_steps+R1 in each form
     from one state and one seed with bitwise-equal gradients (no published
     configuration builds D with heads of 128: the phase checks the range
-    the JAX kernels accept and times no step);
+    the JAX kernels accept);
 12. the rest of the trainer at the quickstart's full width (bf16 unless
     named fp32): (a) 4 iterations with ``grad_accum_every=2`` (2
     microbatches of 4, R1 on one), finite losses and every step's launch
@@ -124,8 +112,8 @@ Phases (any failure raises and exits non-zero):
     b = 8 and every D gradient against the unchunked step (no flips: the
     chunked penalty runs on the un-augmented pipeline); (c) fp32 d_step+R1
     and g_step gradients with ``remat`` and D's ``remat_stages`` against
-    none, same seed (REMAT_TOL); then peak device memory and ms of
-    d_step+R1 at microbatch 16 unchunked, with ``gp_chunk=8``, with
+    none, same seed (REMAT_TOL); then the peak device memory of d_step+R1
+    at microbatch 16 unchunked, with ``gp_chunk=8``, with
     ``remat_stages`` and with both recomputations, and of the g_step with
     and without (launch counts checked; the chunked peak must be lower);
     (d) ``train(24)`` with ``log_steps_every=8`` and a ``log_hook`` (JAX's
@@ -135,8 +123,7 @@ Phases (any failure raises and exits non-zero):
     trainer within 3 times the distance of the two resumed copies, the
     card's own noise in the default mode, where cuDNN may pick algorithms
     that sum in any order); then the same resume in a child process
-    (``--deterministic-resume``, run beside phase 11, which times
-    nothing) under
+    (``--deterministic-resume``, run beside phase 11) under
     ``torch.use_deterministic_algorithms(True)`` with
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: the continued trainer and two
     resumed copies bitwise equal after one more iteration, parameters and
@@ -151,75 +138,58 @@ Phases (any failure raises and exits non-zero):
     every loss finite, the vision-aided, matching-aware, contrastive and R1
     terms non-zero, every step's K1-K7b launch counts those
     ``expected_t2i_launches`` names, every bf16 launch on the tensor
-    cores; ms per step, images/s over the cadence and each step's peak
-    memory; ``generate(texts=...)`` at batch 1 and 8 (latency, images/s,
-    launch counts); fp32 d_steps (matching rows folded in; R1 in both
-    forms) and a g_step against ``plain_reference()`` with its attention
-    in float64 (losses and every D, VD or G gradient, 0.02; the plain fp32
-    path's distance from it is reported as the control, and the q-side and
-    k-side terms of D's shared-q/k ``to_q`` gradients); K1 and K2 at every shape and dtype the run and
-    the sampling gave them (recorded at their dispatchers) against their
-    plain versions, as called and in fp32, on the routes their rules name;
-    the calls the generator does not make (the VD's 7x7 maps at 512
-    channels, the predictors' rows at 32², 16², 8² and 4² for b, 2b and 4b
-    images) timed;
+    cores; ``generate(texts=...)`` at batch 1 and 8 (launch counts); fp32
+    d_steps (matching rows folded in; R1 in both forms) and a g_step
+    against ``plain_reference()`` with its attention in float64 (losses
+    and every D, VD or G gradient, 0.02); K1 and K2 at every shape and
+    dtype the run and the sampling gave them (recorded at their
+    dispatchers) against their plain versions, as called and in fp32, on
+    the routes their rules name;
 14. the UNet upsampler recipe of examples/train_upsampler.py at full
     width (64 -> 256, dim 32, five stages, 47.89M-parameter G; its D reads
     G's rgbs at 128; batch 8, bf16, ``MockImageDataset(256, seed=0)``): 8
     iterations with R1 on 0 and 4, then 2 with R1 forward-over-reverse,
     every loss finite and every step's K1-K7b launch counts those
     ``expected_upsampler_launches`` derives from the configuration, every
-    bf16 launch on the tensor cores; ms per step, images/s over the
-    cadence and each step's peak memory; ``generate(lowres)`` at batch 1
-    and 8 (46 K1 and 5 K3 per image) and a batch-1 256 -> 1024 request
-    with the same widths (latency, peak memory); fp32 d_steps with R1 in
-    both forms and a g_step against ``plain_reference()`` with float64
-    attention (0.02); a video forward (4 frames, fp32, four stages) against
-    the plain path, its 65536-row temporal attention split at K3's grid
-    limit; K3, K4 and K5 at a batch of 65536 + 8 against their plain
-    versions, two launches each; K1 and K2 at every shape and dtype of the
-    run and the sampling against their plain versions, the bf16 shapes
-    timed beside the plain version and cuDNN's grouped conv; K3/K4 at G's
-    attention shapes beside SDPA;
-16. the outer surface at the quickstart's full width (run before the
-    summary): (a) the command line, each command the package's
-    ``__main__`` (what ``python -m gigagan_tpu_torch`` runs) in a child
-    process that reports its kernel launches at exit: ``train --mock-data
-    --steps 8 --batch-size 8 --save-every 4``, ``train --resume --steps 2``
-    (2 more iterations), ``generate --num 16``, ``evaluate --mock-data
-    --num 64 --batch 8`` (CLIP-FID on random-init CLIP, which it must
-    say), ``train-upsampler --mock-data --steps 4 --batch-size 4`` and
-    ``upsample`` of a 64² PNG the port wrote; each output exists, has its
-    shape and is finite, every bf16 launch is on the tensor cores, and
-    each command's wall seconds are reported; (b) the model folder the JAX
+    bf16 launch on the tensor cores; ``generate(lowres)`` at batch 1 and 8
+    (46 K1 and 5 K3 per image) and a batch-1 256 -> 1024 request with the
+    same widths (launch counts); fp32 d_steps with R1 in both forms and a
+    g_step against ``plain_reference()`` with float64 attention (0.02); a
+    video forward (4 frames, fp32, four stages) against the plain path,
+    its 65536-row temporal attention split at K3's grid limit; K3, K4 and
+    K5 at a batch of 65536 + 8 against their plain versions, two launches
+    each; K1 and K2 at every shape and dtype of the run and the sampling
+    against their plain versions; K3/K4 at G's attention shapes and K3 at
+    the 1024 request's 16384 tokens;
+16. the outer surface at the quickstart's full width: (a) the command
+    line, each command the package's ``__main__`` (what ``python -m
+    gigagan_tpu_torch`` runs) in a child process that reports its kernel
+    launches at exit: ``train --mock-data --steps 8 --batch-size 8
+    --save-every 4``, ``train --resume --steps 2`` (2 more iterations),
+    ``generate --num 16``, ``evaluate --mock-data --num 64 --batch 8``
+    (CLIP-FID on random-init CLIP, which it must say), ``train-upsampler
+    --mock-data --steps 4 --batch-size 4`` and ``upsample`` of a 64² PNG
+    the port wrote; each output exists, has its shape and is finite, and
+    every bf16 launch is on the tensor cores; (b) the model folder the JAX
     package's CLI wrote (``tests/torch_fixtures/jax_model``, flax msgpack)
     and the same state saved by its trainer as an orbax directory
     (``jax_model_orbax``: OCDBT, zarr v2, zstd, read through the
     hand-written host decoder): ``generate`` runs from each, their G and
     G_ema, in fp32 through the kernels, give the recorded JAX outputs
-    within 0.02, the two folders' G and G_ema are bitwise equal, and the
-    host seconds of each checkpoint's import are printed side by side; (c)
+    within 0.02, and the two folders' G and G_ema are bitwise equal; (c)
     data parallel on the one card: 2 ranks as child processes on
     ``cuda:0`` over gloo, the fp32 d_step with R1 and g_step of the
     quickstart pair at global batch 2 × 4 against one process at batch 8
     (losses within 1e-4 relative; every all-reduced gradient within 1e-4
     × max |want| of its leaf from the same 2 × 4 split taken in one
     process, and within 1e-3 of one process at batch 8, or as far as that
-    split in one process sits from it plus 1e-4, at most 1e-2; a repeat of
-    the 1-process step reports the card's run-to-run spread), then 4 bf16
-    iterations (R1 on the first):
-    finite losses, every K1-K5 launch on the tensor cores, the parameters
-    bitwise equal across the ranks after every step (checksums compared on
-    rank 0); one process over NCCL (world size 1) takes the same 4
-    iterations at batch 8; ms per iteration of both;
-15. print the kernel table as one JSON line (time, plain version, library
-    call where one computes the same function, bound, launches on the
-    text-to-image path, on the quickstart's, on the upsampler's, in phase
-    16's command-line and data-parallel runs and in phase 17's steps; K5-K7b
-    also at the d = 128 discriminator's shapes) and, last, the device
-    line.
+    split in one process sits from it plus 1e-4, at most 1e-2), then 4
+    bf16 iterations (R1 on the first): finite losses, every K1-K5 launch
+    on the tensor cores, the parameters bitwise equal across the ranks
+    after every step (checksums compared on rank 0); one process over NCCL
+    (world size 1) takes the same 4 iterations at batch 8;
 
-Details go to ``chiprun_out/chip_smoke.json``.
+and, last, the device line.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -235,14 +205,39 @@ import pathlib
 import re
 import shutil
 import socket
-import statistics
 import subprocess
 import sys
 import time
 import traceback
 
+import numpy as np
+import torch
+
+from gigagan_tpu_torch import GigaGAN, OpenClipAdapter, ops, parallel
+from gigagan_tpu_torch import cli as port_cli
+from gigagan_tpu_torch.data import (
+    MockImageDataset,
+    MockTextImageDataset,
+    SyntheticShapesDataset,
+    cycle,
+)
+from gigagan_tpu_torch.models.layers import AdaptiveConv, init_parameters
+from gigagan_tpu_torch.models.unet_upsampler import Attention2D, UnetUpsampler
+from gigagan_tpu_torch.ops import attention as ops_attention
+from gigagan_tpu_torch.ops.kernels import adaptive_conv as k1
+from gigagan_tpu_torch.ops.kernels import build, plain_reference
+from gigagan_tpu_torch.ops.kernels import flash_attention as k6
+from gigagan_tpu_torch.ops.kernels import flash_attention_fused as k3
+from gigagan_tpu_torch.ops.kernels import flash_attention_hv as k7
+from gigagan_tpu_torch.ops.kernels import flash_attention_so as so
+from gigagan_tpu_torch.parallel import dist
+from gigagan_tpu_torch.train import sample_graph
+from gigagan_tpu_torch.train.steps import StepDraws
+from gigagan_tpu_torch.utils.png import decode_png, encode_png
+
 REPO = pathlib.Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
+BF16 = torch.bfloat16
 
 # the README quickstart generator (bench.py / scripts/bench_infer.py)
 QUICKSTART = dict(
@@ -371,12 +366,6 @@ HV_PATH = [("phi", 64, HEADS, 1024, 1025, DIM_HEAD, True, False),
 # rows held in bf16 only (fp32 at d = 128 runs the CUDA-core kernels, which
 # the small d128 row holds)
 HV_BF16_ONLY = ("phi d128",)
-# φ's d = 128 pairs with q drawn N(0, 1), as the rows above drew it before
-# they were rescaled (``hv_operands``): K7a/K7b on both bf16 routes and the
-# fp32 plain version, each against the float64 plain version, reported and
-# not gated (who, b, heads, queries, keys, head dim)
-HV_UNIT_Q = [("phi d128 unit q", 64, 4, 1024, 1025, 128),
-             ("phi d128 unit q", 128, 4, 256, 257, 128)]
 # phase 17's discriminator: the quickstart D with 4 heads of 128 (the same
 # b·H·n²·d as 8 heads of 64), and its R1 attention shapes for K5 (who, b,
 # heads, tokens, L2 similarity?), those of the d_step's [real; fake] batch
@@ -433,9 +422,6 @@ KERNEL_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6a", "k6b", "k7a", "k7b")
 JAX_FOLDER_TOL, DP_LOSS_TOL = 0.02, 1e-4
 DP_SPLIT_TOL, DP_GRAD_TOL, DP_GRAD_CAP = 1e-4, 1e-3, 1e-2
 DP_WORLD, DP_ITERATIONS, CLI_TIMEOUT_S = 2, 4, 600
-# one H100 SXM: dense bf16 tensor-core rate and HBM3 rate (NVIDIA's data
-# sheet); a bound is the larger of operations and bytes over these
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 
 def log(msg):
@@ -451,154 +437,14 @@ def rel_err(got, want):
     return float((got - want).abs().max() / (want.abs().max() + 1e-6))
 
 
-def abs_err(got, want):
-    return float((got.float() - want.float()).abs().max())
+def max_rel(got, want):
+    """The largest ``rel_err`` over paired outputs, pairs whose wanted
+    output is None left out."""
+    return max(rel_err(a_, w_) for a_, w_ in zip(got, want) if w_ is not None)
 
 
-def time_ms(fn, torch, min_ms=60.0):
-    """Mean device time of one call, CUDA events over a run of calls."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    once = max(start.elapsed_time(end), 1e-3)
-    iters = int(min(max(min_ms / once, 3), 200))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def host_ms(fn, torch, calls=100):
-    """Host time to issue one call: no synchronisation inside the loop, so
-    the device's time is left out while the launch queue has room."""
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    issue = (time.perf_counter() - t) * 1e3 / calls
-    torch.cuda.synchronize()
-    return issue
-
-
-def device_ms(fn, torch, kernels, reps=20, tries=4):
-    """(mean device time of one call, {kernel name: its share}): the
-    kernels' own time, summed by torch.profiler over `reps` calls, so the
-    host's issue time (which the CUDA events of `time_ms` include when the
-    host falls behind) is left out.  `fn` launches each kernel named in
-    `kernels` once and no other; a trace that does not hold exactly that
-    (the profiler drops events now and then) is taken again, and after
-    `tries` such traces the time is None: a partial trace would undercount
-    it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as prof
-
-    fn()
-    torch.cuda.synchronize()
-    want = {k_: reps for k_ in kernels}
-    for _ in range(tries):
-        with prof(activities=[ProfilerActivity.CUDA]) as p:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        by_name, counts = {}, {}
-        for e in p.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                found = re.search(r"\w+_kernel", e.key)
-                name = found.group(0) if found else e.key[:40]
-                by_name[name] = (by_name.get(name, 0.0)
-                                 + e.self_device_time_total / 1e3 / reps)
-                counts[name] = counts.get(name, 0) + e.count
-        if counts == want:
-            return sum(by_name.values()), by_name
-        log(f"device_ms: the trace holds launches {counts}, one call "
-            f"launches {want} over {reps} calls; taken again")
-    log(f"device_ms: {tries} traces lost kernels; no device time reported")
-    return None, {}
-
-
-def k2_kernels(k1, route, x, g, w):
-    """The kernels one K2 call on `route` launches: the correlation, the
-    sum of the tensor-core route's pixel splits where it splits, and the
-    reduces of the partials."""
-    if route == "simt":
-        return ("corr_partial_kernel", "corr_reduce_kernel",
-                "da_reduce_kernel")
-    b, h, w_, ci = x.shape
-    splits = k1.bwd_w_workspace("tc", b, h, w_, ci, g.shape[-1], w.shape[0],
-                                x.device.index)[0]
-    return ("corr_tc_kernel",) + (("dw_reduce_kernel",) if splits else ()) \
-        + ("da_reduce_kernel",)
-
-
-def ms_text(v):
-    return "not measured" if v is None else f"{v:.4f}"
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def bound(flops, moved):
-    """(ms, what bounds it): the least time an H100 takes for work of
-    `flops` operations that must move `moved` bytes."""
-    ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
-                                                              "bytes")
-
-
-def attn_bound(products, bh, nq, nk, d, moved):
-    """Bound of attention work of `products` (nq, nk, d) matrix products."""
-    return bound(2.0 * products * bh * nq * nk * d, moved)
-
-
-def sdpa_operands(torch, q, k_pre, v, bias, nullk, nullv, null_bias, heads):
-    """K3's function as the operands of one scaled_dot_product_attention
-    call: (b, H, n, d) views, the null token as key 0, [null_bias, bias] as
-    a float mask broadcast over the queries (in q's dtype, as the call
-    takes it); the call's scale is 1."""
-    b, nq, hd = q.shape
-    nk, d = k_pre.shape[1], hd // heads
-    qh = q.view(b, nq, heads, d).transpose(1, 2)
-    kh = k_pre.view(b, nk, heads, d).transpose(1, 2)
-    vh = v.view(b, nk, heads, d).transpose(1, 2)
-    mask = (bias[:, :, None, :] if bias is not None
-            else torch.zeros(b, heads, 1, nk, device=q.device))
-    if nullk is not None:
-        kh = torch.cat((nullk[None, :, None].expand(b, heads, 1, d), kh), 2)
-        vh = torch.cat((nullv[None, :, None].expand(b, heads, 1, d), vh), 2)
-        mask = torch.cat((null_bias[None, :, None, None].expand(
-            b, heads, 1, 1), mask), 3)
-    return qh, kh, vh, mask.to(q.dtype).contiguous()
-
-
-def sdpa_times(torch, qh, kh, vh, mask, g=None):
-    """ms of one scaled_dot_product_attention call on these operands, and
-    of its backward (to q, k, v and the mask, as K4 gives dbias) for a
-    cotangent g; a call PyTorch refuses gives None and the reason."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
-    try:
-        fwd = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=1.0),
-                      torch)
-        if g is None:
-            return fwd, None, None
-        ins = [t.detach().requires_grad_() for t in (qh, kh, vh, mask)]
-        out = sdpa(*ins[:3], attn_mask=ins[3], scale=1.0)
-        gh = g.view(out.shape[0], out.shape[2], out.shape[1],
-                    out.shape[3]).transpose(1, 2)
-        bwd = time_ms(lambda: torch.autograd.grad(out, ins, gh,
-                                                  retain_graph=True), torch)
-        del out, ins
-        return fwd, bwd, None
-    except RuntimeError as e:
-        return None, None, f"{type(e).__name__}: {str(e)[:200]}"
+def dtype_name(dtype):
+    return str(dtype).split(".")[-1]
 
 
 def path_convs(cfg):
@@ -616,6 +462,20 @@ def path_convs(cfg):
         convs += [(f"stages.{s}.conv1", r, di, do),
                   (f"stages.{s}.conv2", r, do, do)]
     return convs
+
+
+def attention_counts(gan):
+    """(G's self-attentions, D's attentions) of a G+D trainer."""
+    return (sum(st.self_attn is not None for st in gan.G.stages),
+            sum(st.core.attn is not None for st in gan.D.stages))
+
+
+def t2i_structure(gan):
+    """(adaptive convs in D's predictors, adaptive convs in the
+    vision-aided D) of a text-to-image trainer."""
+    return (sum(isinstance(m, AdaptiveConv) for st in gan.D.stages
+                if st.predictor is not None for m in st.predictor.modules()),
+            sum(isinstance(m, AdaptiveConv) for m in gan.VD.modules()))
 
 
 def expected_step_launches(n_convs, n_g_attn, n_d_attn, accum=1, chunks=0,
@@ -726,74 +586,24 @@ def expected_upsampler_launches(cfg, n_d_attn):
     return expected_step_launches(n_convs, n_g_attn, n_d_attn)
 
 
-def hv_operands(torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev,
-                unit_q=False):
-    """Prepared operands of K6a-K7b as the surrogate φ gives them:
-    (q, k̂, v, bias), their tangents (tq, t̂k, tv, tbias), and the
-    cotangents g (of out) and gt (of tout).  On φ's path k = q with the
-    null token first, and the null token has no tangent; ``unit_q`` keeps
-    its q at N(0, 1) at any head dim."""
-    from gigagan_tpu_torch.ops.kernels import flash_attention as k6
-    from gigagan_tpu_torch.ops.kernels import flash_attention_hv as k7
-
-    def rnd(*shape):
-        return torch.randn(*shape, device=dev, generator=gen)
-
-    q, tq = rnd(b, h, nq, d), rnd(b, h, nq, d)
-    if not masked:  # shared q/k, the null token as key 0
-        # q (= its keys) drawn with std (64 / d)^(1/4), so that the L2
-        # logits spread as at d = 64 (−2√d·std² off the diagonal): at
-        # N(0, 1) and d = 128 the softmax over φ's 1025 keys is one-hot to
-        # 5e-7 and every cotangent through ĝT and ĝS is a difference at
-        # fp32 rounding, so no fp32 arithmetic can be held to a tolerance
-        # at such operands: phase 8's HV_UNIT_Q rows hold both bf16 routes
-        # and the fp32 plain version to the float64 one there
-        if not unit_q:
-            q = q * (64 / d) ** 0.25
-        k = torch.cat((rnd(b, h, 1, d), q), 2)
-        tk = torch.cat((torch.zeros(b, h, 1, d, device=dev), tq), 2)
-        v = rnd(b, h, nk, d)
-        tv = torch.cat((torch.zeros(b, h, 1, d, device=dev),
-                        rnd(b, h, nk - 1, d)), 2)
-        mask = None
-    else:
-        k, v, tk, tv = (rnd(b, h, nk, d) for _ in range(4))
-        mask = torch.rand(b, nk, device=dev, generator=gen) > 0.3
-        mask[:, 0] = True
-        if masked == "all":  # sample 0: every key masked
-            mask[0] = False
-    q, k, v, tq, tk, tv = (x.to(dtype) for x in (q, k, v, tq, tk, tv))
-    scale = d ** -0.5
-    prepped = k6.prep_split(q, k, v, mask, l2, scale)
-    tq_, tk_pre, tbias = k7.prep_tangents(q, k, tq, tk, mask, l2, scale)
-    tvf = tv.reshape(b * h, nk, d).contiguous()
-    g, gt = (rnd(b * h, nq, d).to(dtype) for _ in range(2))
-    return prepped, (tq_, tk_pre, tvf, tbias), g, gt
+# where each kernel's entries live, as module attributes ``<base>_tc`` and
+# ``<base>_simt`` that its dispatcher reads
+ENTRY_HOME = {"k1": (k1, "adaptive_conv_fwd"),
+              "k2": (k1, "adaptive_conv_bwd_w"),
+              "k3": (k3, "flash_attention_fused_fwd"),
+              "k4": (so, "flash_attention_fused_bwd"),
+              "k5": (so, "flash_attention_so_bwd2"),
+              "k6a": (k6, "flash_attention_fwd"),
+              "k6b": (k6, "flash_attention_bwd"),
+              "k7a": (k7, "flash_attention_hv_jvp"),
+              "k7b": (k7, "flash_attention_hv_bwd")}
 
 
 def kernel_entries():
     """{kernel: (tensor-core entry, CUDA-core entry)}: each entry counts its
     own launches (``.launches``)."""
-    from gigagan_tpu_torch.ops.kernels import adaptive_conv as k1
-    from gigagan_tpu_torch.ops.kernels import flash_attention as k6
-    from gigagan_tpu_torch.ops.kernels import flash_attention_fused as k3
-    from gigagan_tpu_torch.ops.kernels import flash_attention_hv as k7
-    from gigagan_tpu_torch.ops.kernels import flash_attention_so as so
-
-    return {"k1": (k1.adaptive_conv_fwd_tc, k1.adaptive_conv_fwd_simt),
-            "k2": (k1.adaptive_conv_bwd_w_tc, k1.adaptive_conv_bwd_w_simt),
-            "k3": (k3.flash_attention_fused_fwd_tc,
-                   k3.flash_attention_fused_fwd_simt),
-            "k4": (so.flash_attention_fused_bwd_tc,
-                   so.flash_attention_fused_bwd_simt),
-            "k5": (so.flash_attention_so_bwd2_tc,
-                   so.flash_attention_so_bwd2_simt),
-            "k6a": (k6.flash_attention_fwd_tc, k6.flash_attention_fwd_simt),
-            "k6b": (k6.flash_attention_bwd_tc, k6.flash_attention_bwd_simt),
-            "k7a": (k7.flash_attention_hv_jvp_tc,
-                    k7.flash_attention_hv_jvp_simt),
-            "k7b": (k7.flash_attention_hv_bwd_tc,
-                    k7.flash_attention_hv_bwd_simt)}
+    return {k: (getattr(mod, f"{base}_tc"), getattr(mod, f"{base}_simt"))
+            for k, (mod, base) in ENTRY_HOME.items()}
 
 
 def launch_counts(reset=False):
@@ -807,29 +617,96 @@ def launch_counts(reset=False):
     return out
 
 
+class Ctx:
+    """What the phases share: the device ``dev`` (``dev.type`` is what the
+    trainers are built on), the seeded generator ``gen`` of the kernel
+    phases' random operands, the nvidia-smi line, the report written to
+    ``chiprun_out/chip_smoke.json``, and the launch counters of K1-K7b:
+    every kernel counts the launches of both implementations, and the
+    CUDA-core ones alone are read as well, to show that no bf16 call
+    reached them."""
+
+    def __init__(self, dev, smi):
+        self.dev, self.smi = dev, smi
+        self.gen = torch.Generator(device=dev).manual_seed(0)
+        self.report = {"gpu": smi, "phase_seconds": {}}
+        entries = kernel_entries()
+        self.tc = {k_: e[0] for k_, e in entries.items()}
+        self.simt = {k_: e[1] for k_, e in entries.items()}
+        self._mark = time.perf_counter()
+
+    def phase_done(self, label):
+        """Log and record the seconds since the last phase ended."""
+        now = time.perf_counter()
+        seconds = self.report["phase_seconds"][label] = now - self._mark
+        self._mark = now
+        log(f"phase {label}: {seconds:.1f} s")
+
+    def reset_counts(self):
+        for k_ in KERNEL_NAMES:
+            self.tc[k_].launches = self.simt[k_].launches = 0
+
+    def read_counts(self):
+        return {k_: self.tc[k_].launches + self.simt[k_].launches
+                for k_ in KERNEL_NAMES}
+
+    def simt_counts(self):
+        return {k_: fn.launches for k_, fn in self.simt.items()}
+
+    @contextlib.contextmanager
+    def simt_kernels(self, keys):
+        """The kernels `keys` on their CUDA-core implementations for every
+        dtype: the dispatch patched here, not through a switch of the
+        package."""
+        for k_ in keys:
+            mod, base = ENTRY_HOME[k_]
+            setattr(mod, f"{base}_tc", self.simt[k_])
+        try:
+            yield
+        finally:
+            for k_ in keys:
+                mod, base = ENTRY_HOME[k_]
+                setattr(mod, f"{base}_tc", self.tc[k_])
+
+    def launches(self, kname, call):
+        """call() and the launches of kernel `kname` it made per route."""
+        routes = (("tc", self.tc), ("simt", self.simt))
+        before = {r: e[kname].launches for r, e in routes}
+        res = call()
+        return res, {r: e[kname].launches - before[r] for r, e in routes}
+
+    def launched_on(self, kname, call):
+        """call() and the route of the kernel it launched on (None if it
+        did not launch exactly once, on one route)."""
+        res, ran = self.launches(kname, call)
+        hit = [r for r, n_ in ran.items() if n_]
+        return res, (hit[0] if len(hit) == 1 and ran[hit[0]] == 1
+                     else None)
+
+    def route_of(self, kname, call):
+        """call() and the one route all its launches took (None if it
+        launched nothing or on both)."""
+        res, ran = self.launches(kname, call)
+        hit = [r for r, n_ in ran.items() if n_]
+        return res, (hit[0] if len(hit) == 1 else None)
+
+
+# ------------------------------------------------------- child processes
+
 def cli_child(counts_path, argv):
     """Phase 16(a)'s child: the package's ``__main__`` with ``argv``, as
     ``python -m gigagan_tpu_torch`` runs it, and at exit this process's
-    kernel launches and seconds written to ``counts_path``: importing torch
-    and starting CUDA (which the command would do first), then the
-    command."""
+    kernel launches written to ``counts_path``."""
     import runpy
 
-    t0 = time.perf_counter()
-    import torch
-
-    torch.zeros(1, device="cuda")
-    t1 = time.perf_counter()
-    sys.path.insert(0, str(REPO))
     atexit.register(lambda: pathlib.Path(counts_path).write_text(
-        json.dumps(dict(launches=launch_counts(), torch_cuda_s=t1 - t0,
-                        command_s=time.perf_counter() - t1))))
+        json.dumps(launch_counts())))
     sys.argv = ["gigagan_tpu_torch", *argv]
     runpy.run_module("gigagan_tpu_torch", run_name="__main__",
                      alter_sys=True)
 
 
-def fp32_steps(GigaGAN, g_cfg, d_cfg, batch, device, shards=1):
+def fp32_steps(g_cfg, d_cfg, batch, device, shards=1):
     """An fp32 d_step with R1 and a g_step of the pair, each from the
     fresh state of seed 0: (d losses, D gradients, g losses, G
     gradients), the gradients as the optimizers stepped with them.  With
@@ -837,8 +714,6 @@ def fp32_steps(GigaGAN, g_cfg, d_cfg, batch, device, shards=1):
     process: each step taken k times from the fresh state, on each k-th of
     the batch with that rank's slice of the global draws, and the losses
     and gradients averaged (summed in rank order, then divided)."""
-    from gigagan_tpu_torch.parallel import dist
-
     b = batch.shape[0] // shards
     out = []
     for step in ("d", "g"):
@@ -873,17 +748,10 @@ def dp_child(spec):
     of the batch-8 pool, rank 0 saving the losses and the all-reduced
     gradients; bf16: ``DP_ITERATIONS`` iterations (R1 on the first), the
     parameters' checksums compared on rank 0 after every step.  Rank 0
-    writes ``spec["out"]``: launches per mode, losses, ms per iteration,
-    which steps left the ranks' parameters unequal."""
-    import numpy as np
-    import torch
-
+    writes ``spec["out"]``: launches per mode, losses, which steps left the
+    ranks' parameters unequal."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sys.path.insert(0, str(REPO))
-    from gigagan_tpu_torch import GigaGAN, parallel
-    from gigagan_tpu_torch.data import MockImageDataset
-
     rank, world = spec["rank"], spec["world"]
     parallel.init(spec["backend"], f"tcp://127.0.0.1:{spec['port']}", world,
                   rank)
@@ -896,8 +764,8 @@ def dp_child(spec):
         # each step from the fresh state (after a d_step, Adam's first
         # update moves every weight by ±lr by its gradient's sign, which
         # the order of the sums decides where a gradient is near 0)
-        d, d_grads, g, g_grads = fp32_steps(GigaGAN, QUICKSTART,
-                                            QUICKSTART_D, mine, "cuda:0")
+        d, d_grads, g, g_grads = fp32_steps(QUICKSTART, QUICKSTART_D, mine,
+                                            "cuda:0")
         if rank == 0:
             torch.save({"d": {k: float(v) for k, v in d.items()},
                         "g": {k: float(v) for k, v in g.items()},
@@ -909,10 +777,8 @@ def dp_child(spec):
         gan = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D,
                       amp=True, seed=0, device="cuda:0")
         modules = (gan.G, gan.G_ema, gan.D)
-        unequal, losses, ms = [], [], []
+        unequal, losses = [], []
         for it in range(DP_ITERATIONS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             d = gan.train_discriminator_step(
                 mine, apply_gradient_penalty=it % R1_EVERY == 0,
                 calc_multiscale_loss=True)
@@ -921,17 +787,14 @@ def dp_child(spec):
             g = gan.train_generator_step(b, calc_multiscale_loss=True)
             sums.append(parallel.checksum([p for m in modules
                                            for p in m.parameters()]))
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
             for step, local in zip(("d", "g"), sums):
                 every = parallel.all_gather_cat(local[None])
                 if not all(torch.equal(every[0], row) for row in every):
                     unequal.append(f"iteration {it} {step}_step")
             losses.append({**{f"d_{k}": float(v) for k, v in d.items()},
                            **{f"g_{k}": float(v) for k, v in g.items()}})
-        out.update(losses=losses, ms_per_iteration=ms, unequal=unequal,
-                   launches_bf16=launch_counts(reset=True),
-                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        out.update(losses=losses, unequal=unequal,
+                   launches_bf16=launch_counts(reset=True))
     torch.cuda.synchronize()
     parallel.barrier()
     if rank == 0:
@@ -955,18 +818,9 @@ def deterministic_resume():
     (what the mode refuses there is reported).
     Prints one ``DETERMINISTIC {json}`` line; exits 1 when something
     differs or is refused."""
-    import numpy as np
-    import torch
-
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sys.path.insert(0, str(REPO))
-    from gigagan_tpu_torch import GigaGAN
-    from gigagan_tpu_torch.data import MockImageDataset
-    from gigagan_tpu_torch.models.layers import init_parameters
-    from gigagan_tpu_torch.models.unet_upsampler import UnetUpsampler
-
     dev = torch.device("cuda", 0)
     out = dict(refused=None)
     models_dir = REPO / "gigagan-models" / "chip_smoke_deterministic"
@@ -1100,132 +954,37 @@ def deterministic_resume():
     return 0 if ok else 1
 
 
-def main():
-    import numpy as np
-    import torch
+# ------------------------------------------------- phases 1-8: the kernels
 
-    profile = "--profile" in sys.argv[1:]
-    report = {}
-
-    # ---------------------------------------------------------------- 1
+def phase_1_card():
+    """The card: fails without CUDA; logs its name and power limit, turns
+    TF32 off.  Returns the Ctx of the later phases."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAIL: torch.cuda.is_available() is "
                          "false — this check runs on a CUDA device only")
-    sys.path.insert(0, str(REPO))
-    from gigagan_tpu_torch import GigaGAN, OpenClipAdapter, ops
-    from gigagan_tpu_torch.data import (
-        MockImageDataset,
-        MockTextImageDataset,
-        SyntheticShapesDataset,
-        cycle,
-    )
-    from gigagan_tpu_torch.train import sample_graph
-    from gigagan_tpu_torch.train.steps import StepDraws
-    from gigagan_tpu_torch.models.layers import AdaptiveConv, SelfAttention
-    from gigagan_tpu_torch.ops import attention as ops_attention
-    from gigagan_tpu_torch.ops.kernels import build, plain_reference
-    from gigagan_tpu_torch.ops.kernels import adaptive_conv as k1
-    from gigagan_tpu_torch.ops.kernels import flash_attention as k6
-    from gigagan_tpu_torch.ops.kernels import flash_attention_fused as k3
-    from gigagan_tpu_torch.ops.kernels import flash_attention_hv as k7
-    from gigagan_tpu_torch.ops.kernels import flash_attention_so as so
-
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     log(f"gpu: {smi}")
-    name = torch.cuda.get_device_name(0)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
-    report["gpu"] = smi
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    bf16 = torch.bfloat16
     OUT_DIR.mkdir(exist_ok=True)
-    phase_seconds = report["phase_seconds"] = {}
-    phase_mark = [time.perf_counter()]
+    return Ctx(torch.device("cuda", 0), smi)
 
-    def phase_done(label):
-        """Log and record the seconds since the last phase ended."""
-        now = time.perf_counter()
-        phase_seconds[label] = now - phase_mark[0]
-        phase_mark[0] = now
-        log(f"phase {label}: {phase_seconds[label]:.1f} s")
 
-    # every kernel counts the launches of both implementations; the
-    # CUDA-core ones alone are read as well, to show that no bf16 call
-    # reached them
-    tc_entry = {k_: e[0] for k_, e in kernel_entries().items()}
-    simt = {k_: e[1] for k_, e in kernel_entries().items()}
-    counters = {k_: [tc_entry[k_], simt[k_]] for k_ in tc_entry}
-
-    def reset_counts():
-        for fns in counters.values():
-            for fn in fns:
-                fn.launches = 0
-
-    def read_counts():
-        return {k: sum(fn.launches for fn in fns)
-                for k, fns in counters.items()}
-
-    def simt_counts():
-        return {k: fn.launches for k, fn in simt.items()}
-
-    # where each kernel's tensor-core entry lives as a module attribute that
-    # its dispatcher reads
-    tc_home = {"k1": (k1, "adaptive_conv_fwd"),
-               "k2": (k1, "adaptive_conv_bwd_w"),
-               "k3": (k3, "flash_attention_fused_fwd"),
-               "k4": (so, "flash_attention_fused_bwd"),
-               "k5": (so, "flash_attention_so_bwd2"),
-               "k6a": (k6, "flash_attention_fwd"),
-               "k6b": (k6, "flash_attention_bwd"),
-               "k7a": (k7, "flash_attention_hv_jvp"),
-               "k7b": (k7, "flash_attention_hv_bwd")}
-
-    @contextlib.contextmanager
-    def simt_kernels(keys):
-        """The kernels `keys` on their CUDA-core implementations for every
-        dtype: the dispatch patched here, not through a switch of the
-        package."""
-        for k_ in keys:
-            mod, base = tc_home[k_]
-            setattr(mod, f"{base}_tc", simt[k_])
-        try:
-            yield
-        finally:
-            for k_ in keys:
-                mod, base = tc_home[k_]
-                setattr(mod, f"{base}_tc", tc_entry[k_])
-
-    def launched_on(kname, call):
-        """call() and the route of the kernel it launched on (None if it
-        did not launch exactly once, on one route)."""
-        before = {r: e[kname].launches for r, e in (("tc", tc_entry),
-                                                      ("simt", simt))}
-        res = call()
-        ran = {r: e[kname].launches - before[r]
-               for r, e in (("tc", tc_entry), ("simt", simt))}
-        hit = [r for r, n_ in ran.items() if n_]
-        return res, (hit[0] if len(hit) == 1 and ran[hit[0]] == 1
-                     else None)
-
-    phase_done("1")
-
-    # ---------------------------------------------------------------- 2
-    t0 = time.perf_counter()
+def phase_2_build(ctx):
+    """Every kernel built (their ptxas reports to chiprun_out/ptxas.log)
+    and loaded; the tensor-core libraries' SASS holds HGMMA and UTMALDG."""
     built = build.build_all(verbose=True)
-    log(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s "
-        "(one nvcc each, in parallel)")
-    ptxas = []
-    for kname, (path, text, secs) in built.items():
-        log(f"  {kname}: {secs:.2f} s -> {path.relative_to(REPO)}")
-        ptxas.append(f"== {kname}\n{text}")
-        build.load(kname)
-    (OUT_DIR / "ptxas.log").write_text("\n".join(ptxas))
+    log(f"build: {len(built)} kernels (one nvcc each, in parallel)")
+    (OUT_DIR / "ptxas.log").write_text("\n".join(
+        f"== {kname}\n{text}" for kname, (_, text, _) in built.items()))
     for kname, (_, text, _) in built.items():
+        build.load(kname)
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
         spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores",
                                              text)]
@@ -1235,7 +994,7 @@ def main():
     # a tensor-core kernel that quietly lost its tensor cores or its TMA
     # loads fails here
     cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
-    report["sass"] = {}
+    ctx.report["sass"] = {}
     tc_libs = ("adaptive_conv_fwd_tc", "adaptive_conv_bwd_w_tc",
                "flash_attention_fused_fwd_tc", "flash_attention_fused_bwd_tc",
                "flash_attention_so_bwd2_tc", "flash_attention_hv_jvp_tc",
@@ -1249,7 +1008,7 @@ def main():
     for kname, sass in dumps.items():
         found = {op: len(re.findall(rf"\b{op}\b", sass))
                  for op in ("HGMMA", "UTMALDG")}
-        report["sass"][kname] = found
+        ctx.report["sass"][kname] = found
         log(f"  sass {kname}: {found}")
         if not all(found.values()):
             fail(f"{kname} lacks tensor-core products or TMA loads: {found}")
@@ -1263,7 +1022,7 @@ def main():
                 per[fname] = {op: len(re.findall(rf"\b{op}\b", body))
                               for op in ("HGMMA", "UTMALDG")}
         n128 = sum("ILi2E" in f_ for f_ in per)
-        report["sass"][kname + "_kernels"] = per
+        ctx.report["sass"][kname + "_kernels"] = per
         if not n128 or not all(all(v.values()) for v in per.values()):
             fail(f"a {kname} kernel lacks tensor-core products or TMA "
                  f"loads, or none is built for d = 128: {per}")
@@ -1271,134 +1030,106 @@ def main():
             f"fewest HGMMA {min(v['HGMMA'] for v in per.values())} and "
             f"UTMALDG {min(v['UTMALDG'] for v in per.values())} in one")
 
-    phase_done("2")
 
-    # ---------------------------------------------------------------- 3
-    gen = torch.Generator(device=dev).manual_seed(0)
-    convs = path_convs(QUICKSTART)
+def conv_operands(ctx, b, h, w_, ci, co, n):
+    """x_mod, banks, selection weights and demod as the generator's
+    AdaptiveConv hands them to K1."""
+    dev, gen = ctx.dev, ctx.gen
+    x = torch.randn(b, h, w_, ci, device=dev, generator=gen)
+    w = torch.randn(n, 3, 3, ci, co, device=dev, generator=gen) * (
+        2.0 / (9 * ci)) ** 0.5
+    a = torch.softmax(torch.randn(b, n, device=dev, generator=gen), -1)
+    scale_in = 1.0 + 0.2 * torch.randn(b, ci, device=dev, generator=gen)
+    d = ops.demod_scale(w, scale_in, a)
+    return x * scale_in[:, None, None, :], w, a, d
 
-    def conv_operands(b, h, w_, ci, co, n):
-        """x_mod, banks, selection weights and demod as the generator's
-        AdaptiveConv hands them to K1."""
-        x = torch.randn(b, h, w_, ci, device=dev, generator=gen)
-        w = torch.randn(n, 3, 3, ci, co, device=dev, generator=gen) * (
-            2.0 / (9 * ci)) ** 0.5
-        a = torch.softmax(torch.randn(b, n, device=dev, generator=gen), -1)
-        scale_in = 1.0 + 0.2 * torch.randn(b, ci, device=dev, generator=gen)
-        d = ops.demod_scale(w, scale_in, a)
-        return x * scale_in[:, None, None, :], w, a, d
 
-    k1_rows = {}
-    for _, h, ci, co in convs:
-        if (h, ci, co) in k1_rows:
+def phase_3_k1(ctx):
+    """K1 at the generator's conv shapes and at the extra rows.  Returns
+    the (h, ci, co) it held, which phase 5 holds the sampling path to."""
+    rows = {}
+    for _, h, ci, co in path_convs(QUICKSTART):
+        if (h, ci, co) in rows:
             continue
-        xm, w, a, d = conv_operands(BATCH, h, h, ci, co, 2)
+        xm, w, a, d = conv_operands(ctx, BATCH, h, h, ci, co, 2)
         want = k1.adaptive_conv_fwd_plain(xm, w, a, d)
         got32 = k1.adaptive_conv_fwd(xm, w, a, d)
         xb, wb = xm.bfloat16(), w.bfloat16()
         got16 = k1.adaptive_conv_fwd(xb, w, a, d)
         got16w = k1.adaptive_conv_fwd(xb, wb, a, d)
         torch.cuda.synchronize()
-        # the yardstick: cuDNN's grouped conv (one group per sample) on the
-        # pre-mixed, demodulated weights, mixed outside the timed call
-        wg = torch.einsum("bn,nijcd,bd->bdcij", a, w, d).reshape(
-            BATCH * co, ci, 3, 3).bfloat16()
-        xg = xb.permute(0, 3, 1, 2).reshape(1, BATCH * ci, h, h)
         row = dict(
             h=h, ci=ci, co=co,
-            route_bf16="tc" if k1.conv_uses_tensor_cores(bf16, ci, co)
+            route_bf16="tc" if k1.conv_uses_tensor_cores(BF16, ci, co)
             else "simt",
             rel_f32=rel_err(got32, want), rel_bf16=rel_err(got16, want),
-            rel_bf16_banks=rel_err(got16w, want),
-            abs_f32=abs_err(got32, want),
-            abs_bf16=max(abs_err(got16, want), abs_err(got16w, want)),
-            ms_f32=time_ms(lambda: k1.adaptive_conv_fwd(xm, w, a, d), torch),
-            plain_ms_f32=time_ms(
-                lambda: k1.adaptive_conv_fwd_plain(xm, w, a, d), torch),
-            ms_bf16=time_ms(lambda: k1.adaptive_conv_fwd(xb, w, a, d),
-                            torch),
-            simt_ms_bf16=time_ms(
-                lambda: k1.adaptive_conv_fwd_simt(xb, w, a, d), torch),
-            plain_ms_bf16=time_ms(
-                lambda: k1.adaptive_conv_fwd_plain(xb, w, a, d), torch),
-            library_ms_bf16=time_ms(
-                lambda: torch.nn.functional.conv2d(xg, wg, padding=1,
-                                                   groups=BATCH), torch),
-        )
-        row["bound_ms"], row["bound_by"] = bound(
-            2.0 * BATCH * h * h * 9 * ci * co,
-            nbytes(xb, w, a, d) + nbytes(got16))
-        k1_rows[(h, ci, co)] = row
+            rel_bf16_banks=rel_err(got16w, want))
+        rows[(h, ci, co)] = row
         log(f"K1 b{BATCH} {h}x{h} {ci}->{co}: rel f32 {row['rel_f32']:.2e} "
             f"bf16 ({row['route_bf16']}) {row['rel_bf16']:.2e}, bf16 banks "
-            f"{row['rel_bf16_banks']:.2e} | ms f32 {row['ms_f32']:.4f} "
-            f"(plain {row['plain_ms_f32']:.4f}) bf16 {row['ms_bf16']:.4f} "
-            f"(simt {row['simt_ms_bf16']:.4f}, plain "
-            f"{row['plain_ms_bf16']:.4f}, cuDNN grouped conv "
-            f"{row['library_ms_bf16']:.4f}, bound {row['bound_ms']:.4f})")
+            f"{row['rel_bf16_banks']:.2e}")
         if not (row["rel_f32"] <= K1_TOL_F32
                 and max(row["rel_bf16"], row["rel_bf16_banks"])
                 <= K1_TOL_BF16):
             fail(f"K1 disagrees at {row}")
-    if any(r["route_bf16"] != "tc" for r in k1_rows.values()):
+    if any(r["route_bf16"] != "tc" for r in rows.values()):
         fail("a path conv shape is not on the tensor-core K1")
-    report["k1"] = list(k1_rows.values())
+    ctx.report["k1"] = list(rows.values())
     # extra rows: a ragged map with co not a multiple of 32 (16-wide co
     # tiles), one bank, and the four banks of the conv pair's double
     # backward; bf16 with fp32 and bf16 banks on the tensor cores
-    k1_extra = []
+    extra = []
     for b, h, w_, ci, co, n in K1_EXTRA:
-        xm, w, a, d = conv_operands(b, h, w_, ci, co, n)
+        xm, w, a, d = conv_operands(ctx, b, h, w_, ci, co, n)
         want = k1.adaptive_conv_fwd_plain(xm, w, a, d)
         xb = xm.bfloat16()
-        before = tc_entry["k1"].launches
+        before = ctx.tc["k1"].launches
         got = [k1.adaptive_conv_fwd(xb, w, a, d),
                k1.adaptive_conv_fwd(xb, w.bfloat16(), a, d)]
         torch.cuda.synchronize()
         row = dict(b=b, h=h, w=w_, ci=ci, co=co, n=n,
                    rel=max(rel_err(g_, want) for g_ in got),
-                   abs=max(abs_err(g_, want) for g_ in got),
-                   tc=tc_entry["k1"].launches - before == 2)
-        k1_extra.append(row)
+                   tc=ctx.tc["k1"].launches - before == 2)
+        extra.append(row)
         log(f"K1 extra b{b} {h}x{w_} {ci}->{co} n={n} bf16 (tc "
             f"{row['tc']}): rel {row['rel']:.2e}")
         if not (row["tc"] and row["rel"] <= K1_TOL_BF16):
             fail(f"K1 extra row failed: {row}")
-    report["k1_extra"] = k1_extra
+    ctx.report["k1_extra"] = extra
+    return set(rows)
 
-    phase_done("3")
 
-    # ---------------------------------------------------------------- 4
+def attn_operands(ctx, b, heads, nq, nk, d, l2, null, dtype):
+    """K3's prepared operands from random q, k, v and null_kv."""
+    dev, gen = ctx.dev, ctx.gen
+    q = torch.randn(b, nq, heads * d, device=dev, generator=gen).to(dtype)
+    k, v = (torch.randn(b, nk, heads * d, device=dev,
+                        generator=gen).to(dtype) for _ in range(2))
+    null_kv = (torch.randn(2, heads, d, device=dev, generator=gen)
+               if null else None)
+    k_pre, bias, nullk, nullv, null_bias = k3.prep_fused(
+        k, v, null_kv, heads, l2, d ** -0.5)
+    return q, k_pre, v, bias, nullk, nullv, null_bias, heads
 
-    def dtype_name(dtype):
-        return str(dtype).split(".")[-1]
 
-    def attn_operands(b, heads, nq, nk, d, l2, null, dtype):
-        """K3's prepared operands from random q, k, v and null_kv."""
-        q = torch.randn(b, nq, heads * d, device=dev, generator=gen).to(dtype)
-        k, v = (torch.randn(b, nk, heads * d, device=dev,
-                            generator=gen).to(dtype) for _ in range(2))
-        null_kv = (torch.randn(2, heads, d, device=dev, generator=gen)
-                   if null else None)
-        k_pre, bias, nullk, nullv, null_bias = k3.prep_fused(
-            k, v, null_kv, heads, l2, d ** -0.5)
-        return q, k_pre, v, bias, nullk, nullv, null_bias, heads
+def attn_rows(path_shapes):
+    """(who, b, heads, nq, nk, d, l2, null, dtype) of the attention
+    phases: the path shapes, then the small rows."""
+    for who, b, n, l2 in path_shapes:
+        for dtype in (torch.float32, BF16):
+            yield who, b, HEADS, n, n, DIM_HEAD, l2, True, dtype
+    for who, b, h, nq, nk, d in ATTN_SMALL:
+        for null in (True, False):
+            for l2 in (False, True):
+                for dtype in (torch.float32, BF16):
+                    yield who, b, h, nq, nk, d, l2, null, dtype
 
-    def attn_rows(timed_shapes):
-        """(who, b, heads, nq, nk, d, l2, null, dtype, timed) of the
-        attention phases: the path shapes (timed), then the small rows."""
-        for who, b, n, l2 in timed_shapes:
-            for dtype in (torch.float32, bf16):
-                yield who, b, HEADS, n, n, DIM_HEAD, l2, True, dtype, True
-        for who, b, h, nq, nk, d in ATTN_SMALL:
-            for null in (True, False):
-                for l2 in (False, True):
-                    for dtype in (torch.float32, bf16):
-                        yield who, b, h, nq, nk, d, l2, null, dtype, False
 
-    k3_rows = []
-    for who, b, h, nq, nk, d, l2, null, dtype, timed in attn_rows(ATTN_PATH):
-        args = attn_operands(b, h, nq, nk, d, l2, null, dtype)
+def phase_4_k3(ctx):
+    """K3 at the training path's attention shapes and the small rows."""
+    rows = []
+    for who, b, h, nq, nk, d, l2, null, dtype in attn_rows(ATTN_PATH):
+        args = attn_operands(ctx, b, h, nq, nk, d, l2, null, dtype)
         o_want, l_want = k3.flash_attention_fused_fwd_plain(*args)
         o_got, l_got = k3.flash_attention_fused_fwd(*args)
         torch.cuda.synchronize()
@@ -1406,43 +1137,25 @@ def main():
             who=who, b=b, heads=h, nq=nq, nk=nk, d=d, l2=l2, null=null,
             dtype=dtype_name(dtype),
             route="tc" if k3.uses_tensor_cores(dtype, d) else "simt",
-            rel_out=rel_err(o_got, o_want), rel_lse=rel_err(l_got, l_want),
-            abs_out=abs_err(o_got, o_want), abs_lse=abs_err(l_got, l_want))
-        if timed:
-            row["ms"] = time_ms(lambda: k3.flash_attention_fused_fwd(*args),
-                                torch)
-            row["plain_ms"] = time_ms(
-                lambda: k3.flash_attention_fused_fwd_plain(*args), torch)
-        if timed and dtype == bf16:
-            row["simt_ms"] = time_ms(
-                lambda: k3.flash_attention_fused_fwd_simt(*args), torch)
-            row["library_ms"], _, row["library_note"] = sdpa_times(
-                torch, *sdpa_operands(torch, *args))
-            row["bound_ms"], row["bound_by"] = attn_bound(
-                2, b * h, nq, nk + null, d,
-                nbytes(*args[:-1], o_got, l_got))
-        k3_rows.append(row)
+            rel_out=rel_err(o_got, o_want), rel_lse=rel_err(l_got, l_want))
+        rows.append(row)
         log(f"K3 {who} b{b} H{h} nq{nq} nk{nk} d{d} l2={l2} null={null} "
             f"{row['dtype']} ({row['route']}): rel out {row['rel_out']:.2e} "
-            f"lse {row['rel_lse']:.2e}" + (
-                f" | ms {row['ms']:.4f} (plain {row['plain_ms']:.4f}" + (
-                    f", simt {row['simt_ms']:.4f}, SDPA {row['library_ms']}"
-                    f", bound {row['bound_ms']:.4f}"
-                    if "simt_ms" in row else "") + ")" if timed else ""))
+            f"lse {row['rel_lse']:.2e}")
         if not (row["rel_out"] <= K3_TOL and row["rel_lse"] <= K3_TOL):
             fail(f"K3 disagrees at {row}")
         del args, o_want, o_got, l_want, l_got
     torch.cuda.empty_cache()
-    report["k3"] = k3_rows
+    ctx.report["k3"] = rows
 
-    phase_done("4")
 
-    # ---------------------------------------------------------------- 5
-    t0 = time.perf_counter()
-    gan = GigaGAN(generator=QUICKSTART, amp=True, device="cuda", seed=0)
-    n_params = sum(p.numel() for p in gan.G.parameters())
-    log(f"G: {n_params / 1e6:.2f}M params, built in "
-        f"{time.perf_counter() - t0:.2f} s")
+def phase_5_sampling(ctx, k1_shapes):
+    """The quickstart G's sampling path: launch counts of the eager call
+    and the graph's capture per batch size, the graphs held, the conv
+    shapes those phase 3 held, and an fp32 forward against the plain
+    path."""
+    gan = GigaGAN(generator=QUICKSTART, amp=True, device=ctx.dev.type,
+                  seed=0)
     seen = set()
     hooks = [
         m.register_forward_pre_hook(
@@ -1452,21 +1165,22 @@ def main():
         if isinstance(m, AdaptiveConv) and m.weights.shape[1] == 3
     ]
 
-    reset_counts()
+    ctx.reset_counts()
     requests = [BATCH] * 3 + [1] * 3
     for i, bs in enumerate(requests):
         img = gan.generate(batch_size=bs, seed=i)
         size = QUICKSTART["image_size"]
         if img.shape != (bs, size, size, 3) or not np.isfinite(img).all():
             fail(f"request {i} gave {img.shape} / non-finite values")
-    counts = read_counts()
+    counts = ctx.read_counts()
     launches = {"k1": counts["k1"], "k3": counts["k3"]}
     for hk in hooks:
         hk.remove()
     log(f"sampling path: {len(requests)} requests, launches {counts}")
     # per batch size, the eager first call and the capture issue G's
     # forward from Python; the third call replays the graph
-    per_forward = {"k1": len(convs), "k3": len(SELF_ATTN_RES)}
+    per_forward = {"k1": len(path_convs(QUICKSTART)),
+                   "k3": len(SELF_ATTN_RES)}
     issued = 2 * len(set(requests))
     if launches != {k: n * issued for k, n in per_forward.items()}:
         fail(f"launch counts {launches}")
@@ -1476,136 +1190,50 @@ def main():
         fail(f"{len(held)} graphs held for batch sizes {set(requests)}")
     if any(n for k, n in counts.items() if k not in ("k1", "k3")):
         fail(f"backward kernels launched while sampling: {counts}")
-    if simt_counts()["k1"] or simt_counts()["k3"]:
-        fail(f"bf16 sampling reached the CUDA-core K1/K3: {simt_counts()}")
-    if seen != set(k1_rows):
-        fail(f"path conv shapes {seen} != checked {set(k1_rows)}")
-    report["sampling_launches"] = counts
+    if ctx.simt_counts()["k1"] or ctx.simt_counts()["k3"]:
+        fail(f"bf16 sampling reached the CUDA-core K1/K3: "
+             f"{ctx.simt_counts()}")
+    if seen != k1_shapes:
+        fail(f"path conv shapes {seen} != checked {k1_shapes}")
+    ctx.report["sampling_launches"] = counts
 
-    gan32 = GigaGAN(generator=QUICKSTART, amp=False, device="cuda", seed=0)
+    gan32 = GigaGAN(generator=QUICKSTART, amp=False, device=ctx.dev.type,
+                    seed=0)
     img_k = gan32.generate(batch_size=2, seed=7)
     with plain_reference():
         img_p = gan32.generate(batch_size=2, seed=7)
-    img_amp = gan.generate(batch_size=2, seed=7)
-    tt = torch.from_numpy
-    g_rel = rel_err(tt(img_k), tt(img_p))
-    amp_rel = rel_err(tt(img_amp), tt(img_p))
-    log(f"G fp32 kernels vs plain path: rel {g_rel:.2e} (tol {G_TOL_F32}); "
-        f"bf16 kernels vs fp32 plain: rel {amp_rel:.2e} (not gated)")
-    report["g_rel_f32"], report["g_rel_amp"] = g_rel, amp_rel
+    g_rel = rel_err(torch.from_numpy(img_k), torch.from_numpy(img_p))
+    log(f"G fp32 kernels vs plain path: rel {g_rel:.2e} (tol {G_TOL_F32})")
+    ctx.report["g_rel_f32"] = g_rel
     if not g_rel <= G_TOL_F32:
         fail("G forward disagrees")
-
-    def eager_request(bs, seed):
-        """What generate does with G's forward issued from Python, as it
-        ran before graphs (a replay would not see a patched kernel)."""
-        seeds = tuple(map(int, np.random.SeedSequence(seed).generate_state(
-            2)))
-        with torch.inference_mode():
-            out = sample_graph.forward(
-                gan.G_ema, None, dev, bs, seeds,
-                dict(styles=None, noise=None, text_encodings=None))
-            return out.float().cpu().numpy()
-
-    def latency(bs, reps):
-        """Seconds of `reps` requests on each route: the package's (a
-        replay of G's graph, K1 on the tensor cores), G's eager forward,
-        and the eager forward with K1's CUDA-core kernel patched in, taking
-        turns so that the host's drift, which moves a request by more than
-        K1 does, falls on all alike."""
-        routes = ("graph", "tc", "simt")
-        times = {r: [] for r in routes}
-        for i in range(reps):
-            for route in routes if i % 2 else routes[::-1]:
-                with (simt_kernels(["k1"]) if route == "simt"
-                      else contextlib.nullcontext()):
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    if route == "graph":
-                        gan.generate(batch_size=bs, seed=100 + i)
-                    else:
-                        eager_request(bs, 100 + i)
-                    torch.cuda.synchronize()
-                times[route].append(time.perf_counter() - t)
-        return times
-
-    latency(1, 2)  # warm-up
-    latency(BATCH, 2)
-    lat1_all, lat8_all = latency(1, 25), latency(BATCH, 15)
-    lat1, lat8 = (statistics.median(t["graph"])
-                  for t in (lat1_all, lat8_all))
-    report["latency_b1_s"], report["latency_b1_all_s"] = (
-        lat1, lat1_all["graph"])
-    report["batch8_s"], report["batch8_all_s"] = lat8, lat8_all["graph"]
-    report["latency_eager"] = dict(b1_all_s=lat1_all["tc"],
-                                   b8_all_s=lat8_all["tc"])
-    report["latency_k1_simt"] = dict(b1_all_s=lat1_all["simt"],
-                                     b8_all_s=lat8_all["simt"])
-    report["batch8_images_per_s"] = BATCH / lat8
-    med = {bs: {r: statistics.median(v) * 1e3 for r, v in t.items()}
-           for bs, t in ((1, lat1_all), (BATCH, lat8_all))}
-    log(f"generate latency b1: {lat1 * 1e3:.3f} ms (median of 25, min "
-        f"{min(lat1_all['graph']) * 1e3:.3f}); b{BATCH}: {lat8 * 1e3:.3f} "
-        f"ms (median of 15, min {min(lat8_all['graph']) * 1e3:.3f}) -> "
-        f"{BATCH / lat8:.2f} images/s; in turn, G eager: b1 "
-        f"{med[1]['tc']:.3f} ms, b{BATCH} {med[BATCH]['tc']:.3f} ms; G eager "
-        f"with K1 on the CUDA cores: b1 {med[1]['simt']:.3f} ms, b{BATCH} "
-        f"{med[BATCH]['simt']:.3f} ms [{smi}]")
-
-    def profiled(label, fn):
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as prof
-
-        with prof(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as p:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        events = p.key_averages()
-        table = events.table(sort_by="self_device_time_total", row_limit=40)
-        (OUT_DIR / f"profile_{label}.txt").write_text(table)
-        devev = [e for e in events if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in devev) / 1e3
-        top = sorted(devev, key=lambda e: -e.self_device_time_total)[:10]
-        report[f"profile_{label}"] = dict(
-            wall_ms=wall_ms, device_busy_ms=busy_ms,
-            device_kernels=sum(e.count for e in devev),
-            top=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
-                 for e in top])
-        log(f"profile {label}: wall {wall_ms:.3f} ms, device busy "
-            f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-            f"{sum(e.count for e in devev)} device kernels [{smi}]")
-        for key, count, ms in report[f"profile_{label}"]["top"]:
-            log(f"  {ms:9.3f} ms  x{count:<4d} {key}")
-
-    if profile:
-        for bs in (BATCH, 1):
-            profiled(f"b{bs}", lambda: gan.generate(batch_size=bs, seed=1))
     del gan, gan32
     torch.cuda.empty_cache()
 
-    phase_done("5")
 
-    # ---------------------------------------------------------------- 18
+def phase_18_sample_graph(ctx):
+    """The sampler's CUDA graph: the card's tests of
+    tests/test_torch_sample_graph.py in a child pytest."""
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p",
          "no:cacheprovider", "-m", "cuda", "tests/test_torch_sample_graph.py"],
         cwd=REPO, capture_output=True, text=True, timeout=900)
     (OUT_DIR / "sample_graph_tests.log").write_text(proc.stdout + proc.stderr)
     summary = (proc.stdout.strip().splitlines() or [""])[-1]
-    report["sample_graph_tests"] = summary
+    ctx.report["sample_graph_tests"] = summary
     log(f"the sampler's graph, the card's tests: {summary}")
     if proc.returncode != 0 or "passed" not in summary or (
             "skipped" in summary):
         fail(f"the sampler's graph tests: {proc.stdout[-3000:]}")
-    phase_done("18")
 
-    # ---------------------------------------------------------------- 6
-    k2_rows = {}
-    for _, h, ci, co in convs:
-        if (h, ci, co) in k2_rows:
+
+def phase_6_k2(ctx):
+    """K2 (and K1 as the input gradient) at the generator's conv shapes,
+    K2 at the extra rows and at more banks than one launch takes."""
+    dev, gen = ctx.dev, ctx.gen
+    rows = {}
+    for _, h, ci, co in path_convs(QUICKSTART):
+        if (h, ci, co) in rows:
             continue
         x = torch.randn(BATCH, h, h, ci, device=dev, generator=gen)
         g = torch.randn(BATCH, h, h, co, device=dev, generator=gen)
@@ -1618,9 +1246,9 @@ def main():
         dw_want, da_want = k1.adaptive_conv_bwd_w_plain(x, g, w, a)
         # the plain version on the bf16 call's own inputs
         dw_same, da_same = k1.adaptive_conv_bwd_w_plain(xb, gb, w, a)
-        (dw32, da32), route32 = launched_on(
+        (dw32, da32), route32 = ctx.launched_on(
             "k2", lambda: k1.adaptive_conv_bwd_w(x, g, w, a))
-        (dw16, da16), route16 = launched_on(
+        (dw16, da16), route16 = ctx.launched_on(
             "k2", lambda: k1.adaptive_conv_bwd_w(xb, gb, w, a))
         if (route32, route16) != ("simt", "tc"):
             fail(f"K2 at {h}x{h} {ci}->{co} ran fp32 on {route32} and bf16 "
@@ -1633,17 +1261,12 @@ def main():
         xk = x.clone().requires_grad_()
         (dx32,) = torch.autograd.grad(k1.pconv2d(xk, w, a, d), xk, g)
         xk16 = xb.clone().requires_grad_()
-        before = tc_entry["k1"].launches
+        before = ctx.tc["k1"].launches
         (dx16,) = torch.autograd.grad(k1.pconv2d(xk16, w, a, d), xk16, gb)
         torch.cuda.synchronize()
-        if tc_entry["k1"].launches - before != 2:
+        if ctx.tc["k1"].launches - before != 2:
             fail(f"bf16 K1 forward and dx at {h}x{h} {ci}->{co} did not both "
                  "run on the tensor-core kernel")
-        # the launch the backward makes, on its operands
-        gs32 = g * d[:, None, None, :]
-        gs16 = gs32.bfloat16()
-        wft = k1.flip_t(w)
-        ones = torch.ones(BATCH, ci, device=dev)
         row = dict(
             h=h, ci=ci, co=co,
             rel_dw_f32=rel_err(dw32, dw_want),
@@ -1653,56 +1276,14 @@ def main():
             rel_dw_same=rel_err(dw16, dw_same),
             rel_da_same=rel_err(da16, da_same),
             rel_dx_f32=rel_err(dx32, dx_want),
-            rel_dx_bf16=rel_err(dx16, dx_want),
-            abs_f32=max(abs_err(dw32, dw_want), abs_err(da32, da_want)),
-            abs_bf16=max(abs_err(dw16, dw_want), abs_err(da16, da_want)),
-            abs_dx=max(abs_err(dx32, dx_want), abs_err(dx16, dx_want)),
-            ms_f32=time_ms(lambda: k1.adaptive_conv_bwd_w(x, g, w, a),
-                           torch),
-            plain_ms_f32=time_ms(
-                lambda: k1.adaptive_conv_bwd_w_plain(x, g, w, a), torch),
-            ms_bf16=time_ms(lambda: k1.adaptive_conv_bwd_w(xb, gb, w, a),
-                            torch),
-            simt_ms_bf16=time_ms(
-                lambda: k1.adaptive_conv_bwd_w_simt(xb, gb, w, a), torch),
-            simt_device_ms_bf16=device_ms(
-                lambda: k1.adaptive_conv_bwd_w_simt(xb, gb, w, a), torch,
-                k2_kernels(k1, "simt", xb, gb, w))[0],
-            plain_ms_bf16=time_ms(
-                lambda: k1.adaptive_conv_bwd_w_plain(xb, gb, w, a), torch),
-            dx_ms_bf16=time_ms(
-                lambda: k1.adaptive_conv_fwd(gs16, wft, a, ones), torch),
-            dx_simt_ms_bf16=time_ms(
-                lambda: k1.adaptive_conv_fwd_simt(gs16, wft, a, ones),
-                torch),
-            dx_plain_ms_bf16=time_ms(
-                lambda: k1.adaptive_conv_fwd_plain(gs16, wft, a, ones),
-                torch),
-        )
-        row["device_ms_bf16"], row["device_kernels_bf16"] = device_ms(
-            lambda: k1.adaptive_conv_bwd_w(xb, gb, w, a), torch,
-            k2_kernels(k1, "tc", xb, gb, w))
-        row["bound_ms"], row["bound_by"] = bound(
-            2.0 * BATCH * h * h * 9 * ci * co,
-            nbytes(xb, gb, w, a, dw16, da16))
-        k2_rows[(h, ci, co)] = row
+            rel_dx_bf16=rel_err(dx16, dx_want))
+        rows[(h, ci, co)] = row
         log(f"K2 b{BATCH} {h}x{h} {ci}->{co}: rel dW/da f32 "
             f"{row['rel_dw_f32']:.2e}/{row['rel_da_f32']:.2e} bf16 "
             f"{row['rel_dw_bf16']:.2e}/{row['rel_da_bf16']:.2e} (same "
             f"inputs {row['rel_dw_same']:.2e}/{row['rel_da_same']:.2e}) | "
-            f"ms f32 {row['ms_f32']:.4f} (plain {row['plain_ms_f32']:.4f}) "
-            f"bf16 {row['ms_bf16']:.4f} (simt {row['simt_ms_bf16']:.4f}, "
-            f"plain {row['plain_ms_bf16']:.4f}, bound {row['bound_ms']:.4f} "
-            f"{row['bound_by']}; device time tc "
-            f"{ms_text(row['device_ms_bf16'])} simt "
-            f"{ms_text(row['simt_device_ms_bf16'])}; tc kernels "
-            + ", ".join(f"{k_} {v:.4f}"
-                        for k_, v in row["device_kernels_bf16"].items())
-            + ") | "
             f"K1-dx rel f32 {row['rel_dx_f32']:.2e} bf16 "
-            f"{row['rel_dx_bf16']:.2e} ms bf16 {row['dx_ms_bf16']:.4f} "
-            f"(simt {row['dx_simt_ms_bf16']:.4f}, plain "
-            f"{row['dx_plain_ms_bf16']:.4f})")
+            f"{row['rel_dx_bf16']:.2e}")
         if not (max(row["rel_dw_f32"], row["rel_da_f32"],
                     row["rel_dx_f32"]) <= K2_TOL_F32
                 and max(row["rel_dw_bf16"], row["rel_da_bf16"],
@@ -1710,11 +1291,11 @@ def main():
                 and max(row["rel_dw_same"],
                         row["rel_da_same"]) <= K2_TOL_SAME):
             fail(f"K2 / K1-as-dx disagrees at {row}")
-    report["k2"] = list(k2_rows.values())
+    ctx.report["k2"] = list(rows.values())
     # extra rows for the tensor-core route's edges: fp32 on the CUDA cores,
     # bf16 (fp32 and bf16 banks) on the route the rule names, each call
     # one launch per group of that route's banks
-    k2_extra = []
+    extra = []
     for b, h, w_, ci, co, n in K2_EXTRA:
         x = torch.randn(b, h, w_, ci, device=dev, generator=gen)
         g = torch.randn(b, h, w_, co, device=dev, generator=gen)
@@ -1722,51 +1303,35 @@ def main():
             2.0 / (9 * ci)) ** 0.5
         a = torch.softmax(torch.randn(b, n, device=dev, generator=gen), -1)
         want = k1.adaptive_conv_bwd_w_plain(x, g, w, a)
-        route = "tc" if k1.bwd_w_uses_tensor_cores(bf16, ci, co) else "simt"
+        route = "tc" if k1.bwd_w_uses_tensor_cores(BF16, ci, co) else "simt"
         per_call = {"tc": -(-n // k1.MAX_BANKS_TC),
                     "simt": -(-n // k1.MAX_BANKS)}
-        before = {r: e["k2"].launches for r, e in (("tc", tc_entry),
-                                                    ("simt", simt))}
         xb, gb = x.bfloat16(), g.bfloat16()
-        got32 = k1.adaptive_conv_bwd_w(x, g, w, a)
-        got16 = [k1.adaptive_conv_bwd_w(xb, gb, wb, a)
-                 for wb in (w, w.bfloat16())]
+        (got32, got16), ran = ctx.launches("k2", lambda: (
+            k1.adaptive_conv_bwd_w(x, g, w, a),
+            [k1.adaptive_conv_bwd_w(xb, gb, wb, a)
+             for wb in (w, w.bfloat16())]))
         torch.cuda.synchronize()
         same = [k1.adaptive_conv_bwd_w_plain(xb, gb, wb, a)
                 for wb in (w, w.bfloat16())]
-        ran = {r: e["k2"].launches - before[r] for r, e in (("tc", tc_entry),
-                                                            ("simt", simt))}
         expect = {r: (per_call["simt"] if r == "simt" else 0)
                   + (2 * per_call[route] if r == route else 0)
                   for r in ("tc", "simt")}
         row = dict(b=b, h=h, w=w_, ci=ci, co=co, n=n, route_bf16=route,
                    launches=ran, launches_expected=expect,
-                   rel_f32=max(rel_err(o, r_) for o, r_ in zip(got32, want)),
-                   rel_bf16=max(rel_err(o, r_) for got in got16
-                                for o, r_ in zip(got, want)),
-                   rel_same=max(rel_err(o, r_) for got, ref in zip(got16, same)
-                                for o, r_ in zip(got, ref)),
-                   abs=max(abs_err(o, r_) for got in (got32, *got16)
-                           for o, r_ in zip(got, want)))
-        if route == "tc" and n <= k1.MAX_BANKS_TC:
-            # each route's event time and host issue time per call
-            for r, entry in (("tc", k1.adaptive_conv_bwd_w_tc),
-                             ("simt", k1.adaptive_conv_bwd_w_simt)):
-                row[f"{r}_ms"] = time_ms(lambda: entry(xb, gb, w, a), torch)
-                row[f"{r}_host_ms"] = host_ms(lambda: entry(xb, gb, w, a),
-                                              torch)
-        k2_extra.append(row)
+                   rel_f32=max_rel(got32, want),
+                   rel_bf16=max(max_rel(got, want) for got in got16),
+                   rel_same=max(max_rel(got, ref)
+                                for got, ref in zip(got16, same)))
+        extra.append(row)
         log(f"K2 extra b{b} {h}x{w_} {ci}->{co} n={n}: rel f32 "
             f"{row['rel_f32']:.2e} bf16 ({route}) {row['rel_bf16']:.2e} "
-            f"(same inputs {row['rel_same']:.2e}), launches {ran}"
-            + (f", ms per call tc {row['tc_ms']:.4f} (host "
-               f"{row['tc_host_ms']:.4f}) simt {row['simt_ms']:.4f} (host "
-               f"{row['simt_host_ms']:.4f})" if "tc_ms" in row else ""))
+            f"(same inputs {row['rel_same']:.2e}), launches {ran}")
         if not (ran == expect and row["rel_f32"] <= K2_TOL_F32
                 and row["rel_bf16"] <= K2_TOL_BF16
                 and row["rel_same"] <= K2_TOL_SAME):
             fail(f"K2 extra row failed: {row}")
-    report["k2_extra"] = k2_extra
+    ctx.report["k2_extra"] = extra
     # more banks than one K2 launch takes: the wrapper's groups of 4 (CUDA
     # cores) and 2 (tensor cores)
     b, h, ci, co, n = K2_BANKS
@@ -1776,21 +1341,18 @@ def main():
         2.0 / (9 * ci)) ** 0.5
     a = torch.softmax(torch.randn(b, n, device=dev, generator=gen), -1)
     want = k1.adaptive_conv_bwd_w_plain(x, g, w, a)
-    before = (simt["k2"].launches, tc_entry["k2"].launches)
+    before = (ctx.simt["k2"].launches, ctx.tc["k2"].launches)
     xb, gb = x.bfloat16(), g.bfloat16()
     got32 = k1.adaptive_conv_bwd_w(x, g, w, a)
     got16 = k1.adaptive_conv_bwd_w(xb, gb, w, a)
     torch.cuda.synchronize()
     same = k1.adaptive_conv_bwd_w_plain(xb, gb, w, a)
     row = dict(b=b, h=h, ci=ci, co=co, n=n,
-               launches=(simt["k2"].launches - before[0],
-                         tc_entry["k2"].launches - before[1]),
-               rel_f32=max(rel_err(o, w_) for o, w_ in zip(got32, want)),
-               rel_bf16=max(rel_err(o, w_) for o, w_ in zip(got16, want)),
-               rel_same=max(rel_err(o, w_) for o, w_ in zip(got16, same)),
-               abs=max(abs_err(o, w_) for o, w_ in zip((*got32, *got16),
-                                                      want * 2)))
-    report["k2_banks"] = row
+               launches=(ctx.simt["k2"].launches - before[0],
+                         ctx.tc["k2"].launches - before[1]),
+               rel_f32=max_rel(got32, want), rel_bf16=max_rel(got16, want),
+               rel_same=max_rel(got16, same))
+    ctx.report["k2_banks"] = row
     log(f"K2 b{b} {h}x{h} {ci}->{co} n={n}: (CUDA-core, tensor-core) "
         f"launches {row['launches']} for an fp32 and a bf16 call, rel f32 "
         f"{row['rel_f32']:.2e} bf16 {row['rel_bf16']:.2e} (same inputs "
@@ -1801,14 +1363,15 @@ def main():
             and row["rel_bf16"] <= K2_TOL_BF16
             and row["rel_same"] <= K2_TOL_SAME):
         fail(f"K2 at {n} banks failed: {row}")
-    del x, g, w, a, want, got32, got16, same
 
-    phase_done("6")
 
-    # ---------------------------------------------------------------- 7
+def phase_7_k4_k5(ctx):
+    """K4 at phase 4's rows; K5 at the R1 rows, the ragged rows and the
+    wider heads' null rows, and at the d = 128 discriminator's R1 shapes."""
+    dev, gen = ctx.dev, ctx.gen
     k4_rows, k5_rows = [], []
-    for who, b, h, nq, nk, d, l2, null, dtype, timed in attn_rows(ATTN_PATH):
-        args = attn_operands(b, h, nq, nk, d, l2, null, dtype)
+    for who, b, h, nq, nk, d, l2, null, dtype in attn_rows(ATTN_PATH):
+        args = attn_operands(ctx, b, h, nq, nk, d, l2, null, dtype)
         q, k_pre, v, bias, nullk, nullv, null_bias, _ = args
         g = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
         out, lse = k3.flash_attention_fused_fwd(*args)
@@ -1816,38 +1379,19 @@ def main():
         want = so.flash_attention_fused_bwd_plain(*bargs)
         got = so.flash_attention_fused_bwd(*bargs)
         torch.cuda.synchronize()
-        pairs = [(a_, w_) for a_, w_ in zip(got, want) if w_ is not None]
         row = dict(
             who=who, b=b, heads=h, nq=nq, nk=nk, d=d, l2=l2, null=null,
             dtype=dtype_name(dtype),
             route="tc" if k3.uses_tensor_cores(dtype, d) else "simt",
-            rel=max(rel_err(a_, w_) for a_, w_ in pairs),
-            abs=max(abs_err(a_, w_) for a_, w_ in pairs))
-        if timed:
-            row["ms"] = time_ms(lambda: so.flash_attention_fused_bwd(*bargs),
-                                torch)
-            row["plain_ms"] = time_ms(
-                lambda: so.flash_attention_fused_bwd_plain(*bargs), torch)
-        if timed and dtype == bf16:
-            row["simt_ms"] = time_ms(
-                lambda: so.flash_attention_fused_bwd_simt(*bargs), torch)
-            _, row["library_ms"], row["library_note"] = sdpa_times(
-                torch, *sdpa_operands(torch, *args), g)
-            row["bound_ms"], row["bound_by"] = attn_bound(
-                5, b * h, nq, nk + null, d,
-                nbytes(*bargs[:-1], *(t for t in got if t is not None)))
+            rel=max_rel(got, want))
         k4_rows.append(row)
         log(f"K4 {who} b{b} H{h} nq{nq} nk{nk} d{d} l2={l2} null={null} "
-            f"{row['dtype']} ({row['route']}): rel {row['rel']:.2e}" + (
-                f" | ms {row['ms']:.4f} (plain {row['plain_ms']:.4f}" + (
-                    f", simt {row['simt_ms']:.4f}, SDPA backward "
-                    f"{row['library_ms']}, bound {row['bound_ms']:.4f}"
-                    if "simt_ms" in row else "") + ")" if timed else ""))
+            f"{row['dtype']} ({row['route']}): rel {row['rel']:.2e}")
         if not row["rel"] <= K4_TOL:
             fail(f"K4 disagrees at {row}")
-        del got, pairs
-        # K5 at the R1 shapes of the d_step (timed), at every ragged small
-        # row (null or not, dot or L2) and at the wider heads' rows
+        del got
+        # K5 at the R1 shapes of the d_step, at every ragged small row
+        # (null or not, dot or L2) and at the wider heads' rows
         r1_row = (who, b, nq, l2) in R1_ATTN
         if not (r1_row or who == "ragged"
                 or (null and who in ("d128", "d80"))):
@@ -1860,97 +1404,104 @@ def main():
         want5 = so.flash_attention_so_bwd2_plain(*args5)
         got5 = so.flash_attention_so_bwd2(*args5)
         torch.cuda.synchronize()
-        pairs = [(a_, w_) for a_, w_ in zip(got5, want5) if w_ is not None]
         row5 = dict(
             who=who, b=b, heads=h, nq=nq, nk=nk, d=d, l2=l2, null=null,
             dtype=dtype_name(dtype),
             route="tc" if so.so_uses_tensor_cores(dtype, d) else "simt",
-            rel=max(rel_err(a_, w_) for a_, w_ in pairs),
-            abs=max(abs_err(a_, w_) for a_, w_ in pairs))
-        if r1_row:
-            row5["ms"] = time_ms(lambda: so.flash_attention_so_bwd2(*args5),
-                                 torch)
-            row5["plain_ms"] = time_ms(
-                lambda: so.flash_attention_so_bwd2_plain(*args5), torch)
-            if dtype == bf16:
-                row5["simt_ms"] = time_ms(
-                    lambda: so.flash_attention_so_bwd2_simt(*args5), torch)
-            # the products the adjoint needs: S, dA, two for c_dS, G·C̃ᵀ,
-            # then two each for c_q, c_g, c_k and one for c_v
-            row5["bound_ms"], row5["bound_by"] = attn_bound(
-                12, b * h, nq, nk + 1, d,
-                nbytes(*args5[:-1], *(t for t in got5 if t is not None)))
+            rel=max_rel(got5, want5))
         k5_rows.append(row5)
         log(f"K5 {who} b{b} H{h} nq{nq} nk{nk} d{d} l2={l2} null={null} "
-            f"{row5['dtype']} ({row5['route']}): rel {row5['rel']:.2e}" + (
-                f" | ms {row5['ms']:.4f} (plain {row5['plain_ms']:.4f}, "
-                + (f"simt {row5['simt_ms']:.4f}, " if "simt_ms" in row5
-                   else "")
-                + f"bound {row5['bound_ms']:.4f})" if r1_row else ""))
+            f"{row5['dtype']} ({row5['route']}): rel {row5['rel']:.2e}")
         if not row5["rel"] <= K5_TOL:
             fail(f"K5 disagrees at {row5}")
-        del want5, got5, args5, cots, pairs, args, bargs, want, out, lse, g
+        del want5, got5, args5, cots, args, bargs, want, out, lse, g
         torch.cuda.empty_cache()
     # K5 at the R1 shapes of phase 17's d = 128 discriminator, bf16: on the
-    # tensor cores by the rule, timed beside its CUDA-core kernel
+    # tensor cores by the rule
     for who, b, h, n, l2 in R1_ATTN_D128:
         d = D128_DIM_HEAD
-        args = attn_operands(b, h, n, n, d, l2, True, bf16)
-        g = torch.randn(args[0].shape, device=dev, generator=gen).to(bf16)
+        args = attn_operands(ctx, b, h, n, n, d, l2, True, BF16)
+        g = torch.randn(args[0].shape, device=dev, generator=gen).to(BF16)
         out, lse = k3.flash_attention_fused_fwd(*args)
         bargs = (*args[:7], g, out, lse, h)
         cots = [None if w_ is None else torch.randn(
             w_.shape, device=dev, generator=gen).to(w_.dtype)
             for w_ in so.flash_attention_fused_bwd(*bargs)]
         args5 = (*bargs[:8], lse, *cots, h)
-        got5, route = launched_on(
+        got5, route = ctx.launched_on(
             "k5", lambda: so.flash_attention_so_bwd2(*args5))
         want5 = so.flash_attention_so_bwd2_plain(*args5)
         torch.cuda.synchronize()
-        pairs = [(a_, w_) for a_, w_ in zip(got5, want5) if w_ is not None]
         row5 = dict(
             who=who, b=b, heads=h, nq=n, nk=n, d=d, l2=l2, null=True,
-            dtype=dtype_name(bf16), route=route,
-            rel=max(rel_err(a_, w_) for a_, w_ in pairs),
-            abs=max(abs_err(a_, w_) for a_, w_ in pairs))
-        moved = nbytes(*args5[:-1], *(t for t in got5 if t is not None))
-        del got5, want5, pairs
-        torch.cuda.empty_cache()
-        row5["ms"] = time_ms(lambda: so.flash_attention_so_bwd2(*args5),
-                             torch)
-        row5["plain_ms"] = time_ms(
-            lambda: so.flash_attention_so_bwd2_plain(*args5), torch)
-        row5["simt_ms"] = time_ms(
-            lambda: so.flash_attention_so_bwd2_simt(*args5), torch)
-        row5["bound_ms"], row5["bound_by"] = attn_bound(12, b * h, n, n + 1,
-                                                        d, moved)
+            dtype=dtype_name(BF16), route=route, rel=max_rel(got5, want5))
         k5_rows.append(row5)
         log(f"K5 {who} b{b} H{h} n{n} d{d} l2={l2} null=True bf16 "
-            f"({route}): rel {row5['rel']:.2e} | ms {row5['ms']:.4f} "
-            f"(plain {row5['plain_ms']:.4f}, simt {row5['simt_ms']:.4f}, "
-            f"bound {row5['bound_ms']:.4f}) [{smi}]")
+            f"({route}): rel {row5['rel']:.2e} [{ctx.smi}]")
         if route != "tc" or not row5["rel"] <= K5_TOL:
             fail(f"K5 at the d = 128 R1 shapes: {row5}")
-        del args, g, out, lse, bargs, cots, args5
+        del args, g, out, lse, bargs, cots, args5, got5, want5
         torch.cuda.empty_cache()
-    report["k4"], report["k5"] = k4_rows, k5_rows
+    ctx.report["k4"], ctx.report["k5"] = k4_rows, k5_rows
 
-    phase_done("7")
 
-    # ---------------------------------------------------------------- 8
-    def hv_route(kname, dtype, d):
-        """The route the rule of K6a/K6b (K3/K4's) or K7a/K7b names."""
-        rule = (k3.uses_tensor_cores if kname in ("k6a", "k6b")
-                else k7.hv_uses_tensor_cores)
-        return "tc" if rule(dtype, d) else "simt"
+def hv_operands(ctx, b, h, nq, nk, d, l2, masked, dtype):
+    """Prepared operands of K6a-K7b as the surrogate φ gives them:
+    (q, k̂, v, bias), their tangents (tq, t̂k, tv, tbias), and the
+    cotangents g (of out) and gt (of tout).  On φ's path k = q with the
+    null token first, and the null token has no tangent."""
+    dev = ctx.dev
 
-    hv_rows = []
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=ctx.gen)
+
+    q, tq = rnd(b, h, nq, d), rnd(b, h, nq, d)
+    if not masked:  # shared q/k, the null token as key 0
+        # q (= its keys) drawn with std (64 / d)^(1/4), so that the L2
+        # logits spread as at d = 64 (−2√d·std² off the diagonal): at
+        # N(0, 1) and d = 128 the softmax over φ's 1025 keys is one-hot to
+        # 5e-7 and every cotangent through ĝT and ĝS is a difference at
+        # fp32 rounding, so no fp32 arithmetic can be held to a tolerance
+        # at such operands
+        q = q * (64 / d) ** 0.25
+        k = torch.cat((rnd(b, h, 1, d), q), 2)
+        tk = torch.cat((torch.zeros(b, h, 1, d, device=dev), tq), 2)
+        v = rnd(b, h, nk, d)
+        tv = torch.cat((torch.zeros(b, h, 1, d, device=dev),
+                        rnd(b, h, nk - 1, d)), 2)
+        mask = None
+    else:
+        k, v, tk, tv = (rnd(b, h, nk, d) for _ in range(4))
+        mask = torch.rand(b, nk, device=dev, generator=ctx.gen) > 0.3
+        mask[:, 0] = True
+        if masked == "all":  # sample 0: every key masked
+            mask[0] = False
+    q, k, v, tq, tk, tv = (x.to(dtype) for x in (q, k, v, tq, tk, tv))
+    scale = d ** -0.5
+    prepped = k6.prep_split(q, k, v, mask, l2, scale)
+    tq_, tk_pre, tbias = k7.prep_tangents(q, k, tq, tk, mask, l2, scale)
+    tvf = tv.reshape(b * h, nk, d).contiguous()
+    g, gt = (rnd(b * h, nq, d).to(dtype) for _ in range(2))
+    return prepped, (tq_, tk_pre, tvf, tbias), g, gt
+
+
+def hv_route(kname, dtype, d):
+    """The route the rule of K6a/K6b (K3/K4's) or K7a/K7b names."""
+    rule = (k3.uses_tensor_cores if kname in ("k6a", "k6b")
+            else k7.hv_uses_tensor_cores)
+    return "tc" if rule(dtype, d) else "simt"
+
+
+def phase_8_k6_k7(ctx):
+    """K6a-K7b at φ's shapes and the small masked rows, each call on the
+    route its rule names; then with one sample's keys all masked."""
+    rows = []
     for who, b, h, nq, nk, d, l2, masked in HV_PATH:
-        for dtype in ((torch.bfloat16,) if who in HV_BF16_ONLY
-                      else (torch.float32, torch.bfloat16)):
+        for dtype in ((BF16,) if who in HV_BF16_ONLY
+                      else (torch.float32, BF16)):
             tol = K67_TOL_F32 if dtype == torch.float32 else K67_TOL_BF16
-            operands, tang, g, gt = hv_operands(
-                torch, gen, b, h, nq, nk, d, l2, masked, dtype, dev)
+            operands, tang, g, gt = hv_operands(ctx, b, h, nq, nk, d, l2,
+                                                masked, dtype)
             go = g if masked else None  # φ puts no cotangent on out
             out, lse = k6.flash_attention_fwd_plain(*operands)
             lse7 = k7.flash_attention_hv_jvp_plain(*operands, *tang)[2]
@@ -1969,140 +1520,41 @@ def main():
                         lambda: k7.flash_attention_hv_bwd_plain(
                             *operands, *tang, lse7, go, gt)),
             }
-            simt_calls = {
-                "k6a": lambda: k6.flash_attention_fwd_simt(*operands),
-                "k6b": lambda: k6.flash_attention_bwd_simt(*operands, g,
-                                                           out, lse),
-                "k7a": lambda: k7.flash_attention_hv_jvp_simt(*operands,
-                                                              *tang),
-                "k7b": lambda: k7.flash_attention_hv_bwd_simt(
-                    *operands, *tang, lse7, go, gt)}
             row = dict(who=who, bh=b * h, nq=nq, nk=nk, d=d, l2=l2,
-                       masked=masked, dtype=str(dtype).split(".")[-1],
+                       masked=masked, dtype=dtype_name(dtype),
                        route_k6=hv_route("k6a", dtype, d),
                        route_k7=hv_route("k7a", dtype, d))
-            phi_bf16 = who.startswith("phi") and dtype == torch.bfloat16
-            if phi_bf16:
-                # products per call: K6a S, P·V; K6b S, dA, dq, dk, dv; K7a
-                # S, two for T, P·V, P·tV, (P⊙T)·V; K7b (no cotangent on
-                # out) S, two for T, two for the pieces, eight for the
-                # cotangents of q, tq, k, tk, v, tv
-                # (bytes: the outputs of K6b and K7b are the size of their
-                # operands, each row's out the size of g, lse 4 b·h·nq)
-                ob, tb, rb = nbytes(*operands), nbytes(*tang), nbytes(g)
-                lb = 4 * b * h * nq
-                for kname, products, moved in (
-                        ("k6a", 2, ob + rb + lb),
-                        ("k6b", 5, 2 * ob + 2 * rb + lb),
-                        ("k7a", 6, ob + tb + 2 * rb + lb),
-                        ("k7b", 13, 2 * (ob + tb) + rb + lb)):
-                    row[kname + "_bound"] = attn_bound(products, b * h, nq,
-                                                       nk, d, moved)
-                qh, kh, vh = (t[:, None] for t in operands[:3])
-                mask = operands[3][:, None, None, :].to(dtype)
-                fwd_ms, bwd_ms, note = sdpa_times(torch, qh, kh, vh, mask, g)
-                row["k6a_library"], row["k6b_library"] = fwd_ms, bwd_ms
-                row["library_note"] = note
             for kname, (kernel, plain) in checks.items():
-                got, route = launched_on(kname, kernel)
+                got, route = ctx.launched_on(kname, kernel)
                 named = row["route_" + kname[:2]]
                 if route != named:
                     fail(f"{kname.upper()} at {row} ran on {route}, the "
                          f"rule names {named}")
                 want = plain()
                 torch.cuda.synchronize()
-                pairs = list(zip(got, want))
-                row[kname] = dict(
-                    rel=max(rel_err(a_, w_) for a_, w_ in pairs),
-                    abs=max(abs_err(a_, w_) for a_, w_ in pairs))
-                del got, want, pairs
+                row[kname] = max_rel(got, want)
+                del got, want
                 torch.cuda.empty_cache()
-                row[kname]["ms"] = time_ms(kernel, torch)
-                row[kname]["plain_ms"] = time_ms(plain, torch)
-                if phi_bf16:
-                    row[kname]["simt_ms"] = time_ms(simt_calls[kname], torch)
-                torch.cuda.empty_cache()
-                if not row[kname]["rel"] <= tol:
+                if not row[kname] <= tol:
                     fail(f"{kname.upper()} disagrees at {row}")
-            hv_rows.append(row)
+            rows.append(row)
             log(f"K6a-K7b {who} bh{b * h} nq{nq} nk{nk} d{d} l2={l2} "
                 f"{row['dtype']} (tol {tol}; K6 on {row['route_k6']}, K7 on "
                 f"{row['route_k7']}): "
-                + "; ".join(
-                    f"{k_} rel {row[k_]['rel']:.2e} ms {row[k_]['ms']:.4f} "
-                    + (f"(simt {row[k_]['simt_ms']:.4f}, " if "simt_ms"
-                       in row[k_] else "(")
-                    + f"plain {row[k_]['plain_ms']:.4f})" for k_ in checks)
-                + (f"; SDPA {row['k6a_library']} / backward "
-                   f"{row['k6b_library']}; bounds K6a-K7b "
-                   + " / ".join(f"{row[k_ + '_bound'][0]:.4f}"
-                                for k_ in checks) + f" [{smi}]" if phi_bf16
-                   else ""))
-            del operands, tang, g, gt, go, out, lse, lse7, checks, simt_calls
+                + "; ".join(f"{k_} rel {row[k_]:.2e}" for k_ in checks))
+            del operands, tang, g, gt, go, out, lse, lse7, checks
             torch.cuda.empty_cache()
-    report["k6_k7"] = hv_rows
-
-    # φ's d = 128 pairs at N(0, 1) q: K7a/K7b on the tensor cores and on
-    # the CUDA cores (bf16) and the fp32 plain version, each against the
-    # plain version in float64 on the same bf16 operands, per row of b·h
-    # chunks (the float64 (n, n) maps of a whole pair do not fit beside the
-    # rest).  Reported, not gated: a witness of how far fp32 arithmetic can
-    # get at these operands, for either route
-    def plain_as(fn, args, dt, rows=16):
-        outs = [fn(*(a_[i:i + rows].to(dt) if a_ is not None else None
-                     for a_ in args))
-                for i in range(0, args[0].shape[0], rows)]
-        return [torch.cat(parts) for parts in zip(*outs)]
-
-    unit_rows = []
-    for who, b, h, nq, nk, d in HV_UNIT_Q:
-        operands, tang, g, gt = hv_operands(torch, gen, b, h, nq, nk, d,
-                                            True, False, bf16, dev,
-                                            unit_q=True)
-        lse7 = k7.flash_attention_hv_jvp_plain(*operands, *tang)[2]
-        args = {"k7a": (*operands, *tang),
-                "k7b": (*operands, *tang, lse7, None, gt)}
-        entries = {"k7a": (k7.flash_attention_hv_jvp_tc,
-                           k7.flash_attention_hv_jvp_simt,
-                           k7.flash_attention_hv_jvp_plain),
-                   "k7b": (k7.flash_attention_hv_bwd_tc,
-                           k7.flash_attention_hv_bwd_simt,
-                           k7.flash_attention_hv_bwd_plain)}
-        row = dict(who=who, bh=b * h, nq=nq, nk=nk, d=d)
-        for kname, (tc_fn, simt_fn, plain_fn) in entries.items():
-            a_ = args[kname]
-            want = plain_as(plain_fn, a_, torch.float64)
-            got = {"tc": tc_fn(*a_), "simt": simt_fn(*a_),
-                   "plain_fp32": plain_as(plain_fn, a_, torch.float32)}
-            row[kname] = {
-                r: max(rel_err(x, w) for x, w in zip(res, want))
-                for r, res in got.items()}
-            del want, got
-            torch.cuda.empty_cache()
-        unit_rows.append(row)
-        log(f"K7a/K7b {who} bh{b * h} nq{nq} nk{nk} d{d} bf16 operands, "
-            "max-rel from the float64 plain version (not gated): "
-            + "; ".join(f"{k_} " + ", ".join(f"{r} {v:.2e}"
-                                             for r, v in row[k_].items())
-                        for k_ in entries) + f" [{smi}]")
-        del operands, tang, g, gt, lse7, args
-        torch.cuda.empty_cache()
-    report["k7_unit_q"] = unit_rows
+    ctx.report["k6_k7"] = rows
 
     # K6a-K7b where one sample has every key masked, on each route that
     # takes the dtype: finite, and the plain version's numbers (lse exactly
     # NEG_INF on the all-masked rows, from K6a and from K7a)
-    def rel_abs(got, want):
-        pairs = list(zip(got, want))
-        return dict(rel=max(rel_err(a_, w_) for a_, w_ in pairs),
-                    abs=max(abs_err(a_, w_) for a_, w_ in pairs))
-
-    k6_masked = []
+    masked_rows = []
     for who, b, h, nq, nk, d, l2, masked in K6_ALL_MASKED:
-        for dtype in (torch.float32, bf16):
+        for dtype in (torch.float32, BF16):
             tol = K67_TOL_F32 if dtype == torch.float32 else K67_TOL_BF16
-            operands, tang, g, gt = hv_operands(torch, gen, b, h, nq, nk, d,
-                                                l2, masked, dtype, dev)
+            operands, tang, g, gt = hv_operands(ctx, b, h, nq, nk, d, l2,
+                                                masked, dtype)
             dead = (operands[3] == k6.NEG_INF).all(-1)
             if not dead.any() or dead.all():
                 fail(f"the all-masked K6 row has {int(dead.sum())} dead "
@@ -2123,7 +1575,7 @@ def main():
                 if not ran:
                     continue
                 row = dict(who=who, bh=b * h, nq=nq, nk=nk, d=d,
-                           dtype=str(dtype).split(".")[-1], route=r,
+                           dtype=dtype_name(dtype), route=r,
                            dead_rows=int(dead.sum()), finite=True,
                            lse_dead_exact=True)
                 for (k_, mod, fwd, bwd, fwd_args, bwd_args, want_f,
@@ -2138,232 +1590,266 @@ def main():
                                          for x in (*got_f, *got_b))
                     row["lse_dead_exact"] &= bool(
                         (got_l[dead] == want_l[dead]).all())
-                    row[k_ + "a"] = rel_abs((*got_f[:-1], got_l[~dead]),
+                    row[k_ + "a"] = max_rel((*got_f[:-1], got_l[~dead]),
                                             (*want_f[:-1], want_l[~dead]))
-                    row[k_ + "b"] = rel_abs(got_b, want_b)
+                    row[k_ + "b"] = max_rel(got_b, want_b)
                     del got_f, got_b
-                k6_masked.append(row)
+                masked_rows.append(row)
                 names = [k_ + x for k_ in ran for x in "ab"]
                 log(f"K6a-K7b {who} bh{b * h} nq{nq} nk{nk} d{d} "
                     f"{row['dtype']} ({r}, {row['dead_rows']} all-masked "
                     f"rows): finite {row['finite']}, lse NEG_INF there "
                     f"{row['lse_dead_exact']},"
-                    + "".join(f" rel {n_.upper()} {row[n_]['rel']:.2e}"
+                    + "".join(f" rel {n_.upper()} {row[n_]:.2e}"
                               for n_ in names) + f" (tol {tol})")
                 if not (row["finite"] and row["lse_dead_exact"]
-                        and max(row[n_]["rel"] for n_ in names) <= tol):
+                        and max(row[n_] for n_ in names) <= tol):
                     fail(f"K6a-K7b with all-masked rows failed: {row}")
             del operands, tang, g, gt, out, lse, jvp, kernels_
             torch.cuda.empty_cache()
-    report["k6_all_masked"] = k6_masked
+    ctx.report["k6_all_masked"] = masked_rows
 
-    # ------------------------------------------------------------- 9, 10
+
+# ------------------------------------ phases 9-12, 17: the quickstart pair
+
+def counted_iteration(ctx, gan, i, apply_gp, d_batch, g_batch, seeds):
+    """Iteration ``i``: a d_step on ``d_batch`` (R1 if ``apply_gp``) and a
+    g_step on ``g_batch`` (the batch, or its size where G draws its
+    latents alone), seeded ``seeds[0] + i`` and ``seeds[1] + i``.  Returns
+    per step its kind, R1 form, losses and K1-K7b launches."""
+    steps = []
+    for kind, batch, seed in (("d", d_batch, seeds[0]),
+                              ("g", g_batch, seeds[1])):
+        before = ctx.read_counts()
+        if kind == "d":
+            m = gan.train_discriminator_step(
+                batch, apply_gradient_penalty=apply_gp,
+                calc_multiscale_loss=True, seed=seed + i)
+        else:
+            m = gan.train_generator_step(batch, calc_multiscale_loss=True,
+                                         seed=seed + i)
+        after = ctx.read_counts()
+        steps.append(dict(
+            kind=kind, r1=apply_gp, fwd_over_rev=gan.builder.gp_fwd_over_rev,
+            losses={k: float(v) for k, v in m.items()},
+            launches={k: after[k] - before[k] for k in after}))
+    return steps
+
+
+def phase_9_10_training(ctx, fwd_over_rev):
+    """ITERATIONS iterations of the quickstart pair, R1 on every
+    R1_EVERY-th in the form ``fwd_over_rev`` names: finite losses, each
+    step's launches those the path implies, all on the tensor cores."""
+    label = ("forward-over-reverse R1" if fwd_over_rev
+             else "reverse-over-reverse R1")
     data = MockImageDataset(QUICKSTART["image_size"], length=8 * BATCH,
                             seed=0)
-    batches = [torch.from_numpy(b_).to(dev)
+    batches = [torch.from_numpy(b_).to(ctx.dev)
                for b_ in data.get_dataloader(BATCH)]
-
-    def drive_training(label, fwd_over_rev):
-        """Warm-up, then ITERATIONS iterations with counted launches;
-        returns (steps, launches over the run, timing, the gan)."""
-        t0 = time.perf_counter()
-        gan = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D,
-                      amp=True, device="cuda", seed=0,
-                      gp_fwd_over_rev=fwd_over_rev)
-        n_g = sum(p.numel() for p in gan.G.parameters())
-        n_d = sum(p.numel() for p in gan.D.parameters())
-        log(f"G+D ({label}): {n_g / 1e6:.2f}M + {n_d / 1e6:.2f}M params, "
-            f"built in {time.perf_counter() - t0:.2f} s")
-        n_d_attn = sum(s.core.attn is not None for s in gan.D.stages)
-        n_g_attn = sum(s.self_attn is not None for s in gan.G.stages)
-        exp_d, exp_d_r1, exp_d_for, exp_g = expected_step_launches(
-            len(convs), n_g_attn, n_d_attn)
-        if fwd_over_rev:
-            exp_d_r1 = exp_d_for
-
-        def iteration(i, apply_gp, record=None):
-            real = batches[i % len(batches)]
-            steps = []
-            for kind in ("d", "g"):
-                before = read_counts()
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                if kind == "d":
-                    m = gan.train_discriminator_step(
-                        real, apply_gradient_penalty=apply_gp,
-                        calc_multiscale_loss=True, seed=1000 + i)
-                else:
-                    m = gan.train_generator_step(
-                        BATCH, calc_multiscale_loss=True, seed=2000 + i)
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t) * 1e3
-                after = read_counts()
-                steps.append(dict(
-                    kind=kind, r1=apply_gp, ms=ms,
-                    losses={k: float(v) for k, v in m.items()},
-                    launches={k: after[k] - before[k] for k in after}))
-            if record is not None:
-                record.extend(steps)
-            return steps
-
-        iteration(0, True)  # warm-up: allocator, cuDNN plans, both variants
-        iteration(1, False)
-
-        reset_counts()
-        steps = []
-        for i in range(ITERATIONS):
-            iteration(i, i % R1_EVERY == 0, steps)
-        launches = read_counts()
-        if any(simt_counts().values()):
-            fail(f"bf16 calls of the {label} path reached the CUDA-core "
-                 f"kernels: {simt_counts()}")
-        for s in steps:
-            want = exp_g if s["kind"] == "g" else (exp_d_r1 if s["r1"]
-                                                   else exp_d)
-            log(f"train ({label}) {s['kind']}_step r1={s['r1']}: "
-                f"{s['ms']:.3f} ms, launches {s['launches']}, losses "
-                + ", ".join(f"{k} {v:.4g}" for k, v in s["losses"].items()))
-            if not all(np.isfinite(v) for v in s["losses"].values()):
-                fail(f"non-finite losses in {s}")
-            if s["launches"] != want:
-                fail(f"{s['kind']}_step (r1={s['r1']}, {label}) launched "
-                     f"{s['launches']}, the path implies {want}")
-        log(f"training path ({label}): {ITERATIONS} iterations, launches "
-            f"{launches}")
-        used = [k for k in KERNEL_NAMES
-                if any(row[k] for row in (exp_d, exp_d_r1, exp_g))]
-        if any(launches[k] == 0 for k in used):
-            fail(f"a kernel of the {label} path was never launched: "
-                 f"{launches}")
-
-        d_plain = [s["ms"] for s in steps if s["kind"] == "d"
-                   and not s["r1"]]
-        d_r1 = [s["ms"] for s in steps if s["kind"] == "d" and s["r1"]]
-        g_ms = [s["ms"] for s in steps if s["kind"] == "g"]
-        cadence_ms = sum(s["ms"] for s in steps[2 * R1_EVERY:4 * R1_EVERY])
-        timing = dict(
-            d_step_ms=statistics.median(d_plain),
-            d_step_r1_ms=statistics.median(d_r1),
-            g_step_ms=statistics.median(g_ms),
-            cadence_ms=cadence_ms,
-            images_per_s=R1_EVERY * BATCH / (cadence_ms / 1e3),
-        )
-        log(f"train ({label}) b{BATCH} bf16: d_step "
-            f"{timing['d_step_ms']:.3f} ms (median of {len(d_plain)}), "
-            f"d_step+R1 {timing['d_step_r1_ms']:.3f} ms (median of "
-            f"{len(d_r1)}), g_step {timing['g_step_ms']:.3f} ms (median of "
-            f"{len(g_ms)}); iterations 4-7 (one R1) "
-            f"{timing['cadence_ms']:.3f} ms -> "
-            f"{timing['images_per_s']:.2f} images/s [{smi}]")
-        if profile:
-            suffix = "_for" if fwd_over_rev else ""
-            if not fwd_over_rev:
-                profiled("train_iter", lambda: iteration(1, False))
-            profiled(f"train_iter_r1{suffix}", lambda: iteration(0, True))
-        del gan
-        torch.cuda.empty_cache()
-        return steps, launches, timing
-
-    phase_done("8")
-    steps, train_launches, timing = drive_training("reverse-over-reverse R1",
-                                                   False)
-    report["train_steps"], report["train_timing"] = steps, timing
-    phase_done("9")
-    steps, for_launches, for_timing = drive_training(
-        "forward-over-reverse R1", True)
-    report["train_steps_fwd_over_rev"] = steps
-    report["train_timing_fwd_over_rev"] = for_timing
-    log(f"d_step+R1 b{BATCH} bf16: forward-over-reverse "
-        f"{for_timing['d_step_r1_ms']:.3f} ms, reverse-over-reverse "
-        f"{timing['d_step_r1_ms']:.3f} ms [{smi}]")
-    del batches
+    gan = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D,
+                  amp=True, device=ctx.dev.type, seed=0,
+                  gp_fwd_over_rev=fwd_over_rev)
+    exp_d, exp_d_r1, exp_d_for, exp_g = expected_step_launches(
+        len(path_convs(QUICKSTART)), *attention_counts(gan))
+    if fwd_over_rev:
+        exp_d_r1 = exp_d_for
+    ctx.reset_counts()
+    steps = []
+    for i in range(ITERATIONS):
+        steps += counted_iteration(ctx, gan, i, i % R1_EVERY == 0,
+                                   batches[i % len(batches)], BATCH,
+                                   (1000, 2000))
+    launches = ctx.read_counts()
+    if any(ctx.simt_counts().values()):
+        fail(f"bf16 calls of the {label} path reached the CUDA-core "
+             f"kernels: {ctx.simt_counts()}")
+    for s in steps:
+        want = exp_g if s["kind"] == "g" else (exp_d_r1 if s["r1"]
+                                               else exp_d)
+        log(f"train ({label}) {s['kind']}_step r1={s['r1']}: launches "
+            f"{s['launches']}, losses "
+            + ", ".join(f"{k} {v:.4g}" for k, v in s["losses"].items()))
+        if not all(np.isfinite(v) for v in s["losses"].values()):
+            fail(f"non-finite losses in {s}")
+        if s["launches"] != want:
+            fail(f"{s['kind']}_step (r1={s['r1']}, {label}) launched "
+                 f"{s['launches']}, the path implies {want}")
+    log(f"training path ({label}): {ITERATIONS} iterations, launches "
+        f"{launches}")
+    used = [k for k in KERNEL_NAMES
+            if any(row[k] for row in (exp_d, exp_d_r1, exp_g))]
+    if any(launches[k] == 0 for k in used):
+        fail(f"a kernel of the {label} path was never launched: "
+             f"{launches}")
+    ctx.report["train_steps_fwd_over_rev" if fwd_over_rev
+               else "train_steps"] = steps
+    del gan, batches
     torch.cuda.empty_cache()
 
-    phase_done("10")
 
-    # --------------------------------------------------------------- 11
-    # fp32 steps through the kernels against the same steps on the plain
-    # path, each from the same fresh state; then bf16 steps through the
-    # tensor-core K3/K4, K1/K5, K2, K6a/K6b and K7a/K7b against the CUDA-core
-    # ones, each route also held to its distance from the fp32 plain step
-    # phase 12(d)'s resume under torch.use_deterministic_algorithms runs
-    # beside this phase, which times nothing: a child process that sets
-    # CUBLAS_WORKSPACE_CONFIG before CUDA starts; every op of the step has
-    # a backward without float atomics, so the continued and the resumed
-    # trainers must be bitwise equal
-    t_det = time.perf_counter()
-    det_child = subprocess.Popen(
+def quickstart_reals(ctx):
+    """The first BATCH images of ``MockImageDataset(256, seed=0)``."""
+    data = MockImageDataset(QUICKSTART["image_size"], length=8 * BATCH,
+                            seed=0)
+    return torch.from_numpy(np.stack([data[i] for i in range(BATCH)])).to(
+        ctx.dev)
+
+
+def with_grads(model, metrics):
+    """(a step's losses as floats, a copy of each of `model`'s
+    gradients)."""
+    return ({k: float(v) for k, v in metrics.items()},
+            {n_: p.grad.detach().clone()
+             for n_, p in model.named_parameters()})
+
+
+def fp32_step(ctx, real, kind, plain, fwd_over_rev=False, amp=False,
+              d_cfg=None):
+    """A d_step with R1 (``kind`` "d") or a g_step of the quickstart G and
+    ``d_cfg`` (the quickstart D) from the fresh state of seed 0, under
+    ``plain_reference()`` if ``plain``: (losses, G's or D's gradients)."""
+    g32 = GigaGAN(generator=QUICKSTART, discriminator=d_cfg or QUICKSTART_D,
+                  amp=amp, device=ctx.dev.type, seed=0,
+                  gp_fwd_over_rev=fwd_over_rev)
+    with (plain_reference() if plain else contextlib.nullcontext()):
+        if kind == "d":
+            m = g32.train_discriminator_step(
+                real, apply_gradient_penalty=True,
+                calc_multiscale_loss=True, seed=7)
+            model = g32.D
+        else:
+            m = g32.train_generator_step(
+                BATCH, calc_multiscale_loss=True, seed=7)
+            model = g32.G
+    res = with_grads(model, m)
+    del g32, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def compare(label, got, want, loss_keys=None, tol=STEP_TOL_F32,
+            stable=None):
+    """Losses and every gradient leaf, max-rel, all held to `tol` or,
+    given `stable` (an fp32 comparison of the same step), the leaves
+    ``informative`` names (moved by at most STABLE_F32 there, G's Noise
+    weights and the style network's unresolved leaves excepted); the
+    others are logged by name."""
+    (l_got, g_got), (l_want, g_want) = got, want
+    loss_keys = loss_keys or list(l_want)
+    loss_rel = max(abs(l_got[k] - l_want[k]) / (abs(l_want[k]) + 1e-6)
+                   for k in loss_keys)
+    grad_rel = {n_: rel_err(g_got[n_], g_want[n_]) for n_ in g_want}
+    gated = grad_rel
+    if stable is not None:
+        gated = {n_: r for n_, r in grad_rel.items()
+                 if informative(n_, stable["grad_rel"][n_])}
+        loose = {n_: (r, stable["grad_rel"][n_])
+                 for n_, r in grad_rel.items() if n_ not in gated}
+        log(f"{label}: {len(loose)} leaves not gated, moved by more than "
+            f"{STABLE_F32} in fp32 or unresolved at bf16 (leaf: rel here, "
+            "rel in fp32): "
+            + ", ".join(f"{n_}: {a:.2e}, {b:.2e}"
+                        for n_, (a, b) in loose.items()))
+    worst = max(gated, key=gated.get)
+    top = sorted(gated, key=gated.get)[-5:]
+    log(f"{label}: largest gated leaves: "
+        + ", ".join(f"{n_} {gated[n_]:.2e}" for n_ in reversed(top)))
+    out = dict(losses_got=l_got, losses_want=l_want, loss_rel=loss_rel,
+               grad_rel_max=gated[worst], worst=worst, grad_rel=grad_rel)
+    log(f"{label}: losses rel {loss_rel:.2e} "
+        f"({', '.join(loss_keys)}), gradients max rel "
+        f"{gated[worst]:.2e} ({worst}) over {len(gated)} leaves "
+        f"(tol {tol})")
+    if not (loss_rel <= tol and gated[worst] <= tol):
+        fail(f"{label} disagrees: {out}")
+    return out
+
+
+def bf16_step(ctx, real, kind, route, keys, d_cfg=None):
+    """A bf16 step of `kind` ("d", "g", or "d_fwd_over_rev": the d_step
+    with R1 taken forward-over-reverse) with the kernels `keys` on
+    `route`; the step's launches stay counted."""
+    ctx.reset_counts()
+    with (ctx.simt_kernels(keys) if route == "simt"
+          else contextlib.nullcontext()):
+        res = fp32_step(ctx, real, kind[0], False,
+                        fwd_over_rev=kind != kind[0], amp=True, d_cfg=d_cfg)
+    tc = {k_: ctx.tc[k_].launches for k_ in keys}
+    sc = {k_: ctx.simt[k_].launches for k_ in keys}
+    # K5 runs only in the d_step's R1 double backward, K2 only in the
+    # g_step (G's backward)
+    ran = [k_ for k_ in keys if k_ != ("k2" if kind[0] == "d" else "k5")]
+    used, unused = (tc, sc) if route == "tc" else (sc, tc)
+    if not all(used[k_] for k_ in ran) or any(unused.values()):
+        fail(f"bf16 {kind}_step on the {route} route launched tensor-core "
+             f"{tc} and CUDA-core {sc} kernels")
+    return res
+
+
+def from_plain(kind, res, plain, stable):
+    """(max-rel, leaf) of a bf16 step's gated leaves from the fp32 plain
+    step: the bf16 noise floor that the route comparison sits on."""
+    want = plain[kind][1]
+    rel = {n_: rel_err(res[1][n_], want[n_]) for n_ in want
+           if informative(n_, stable[kind]["grad_rel"][n_])}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def start_deterministic_child():
+    """Phase 12(d)'s resume under ``torch.use_deterministic_algorithms``,
+    in a child process that sets CUBLAS_WORKSPACE_CONFIG before CUDA
+    starts; it runs beside phase 11.  Every op of the step has a backward
+    without float atomics, so the continued and the resumed trainers must
+    be bitwise equal."""
+    child = subprocess.Popen(
         [sys.executable, str(pathlib.Path(__file__).resolve()),
          "--deterministic-resume"],
         env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    atexit.register(lambda: det_child.poll() is None and det_child.kill())
-    real = torch.from_numpy(np.stack([data[i] for i in range(BATCH)])).to(dev)
+    atexit.register(lambda: child.poll() is None and child.kill())
+    return child
 
-    def fp32_step(kind, plain, fwd_over_rev=False, amp=False,
-                  d_cfg=QUICKSTART_D):
-        g32 = GigaGAN(generator=QUICKSTART, discriminator=d_cfg,
-                      amp=amp, device="cuda", seed=0,
-                      gp_fwd_over_rev=fwd_over_rev)
-        with (plain_reference() if plain else contextlib.nullcontext()):
-            if kind == "d":
-                m = g32.train_discriminator_step(
-                    real, apply_gradient_penalty=True,
-                    calc_multiscale_loss=True, seed=7)
-                model = g32.D
-            else:
-                m = g32.train_generator_step(
-                    BATCH, calc_multiscale_loss=True, seed=7)
-                model = g32.G
-        losses_ = {k: float(v) for k, v in m.items()}
-        grads = {n_: p.grad.detach().clone()
-                 for n_, p in model.named_parameters()}
-        del g32, model
-        torch.cuda.empty_cache()
-        return losses_, grads
 
-    def compare(label, got, want, loss_keys=None, tol=STEP_TOL_F32,
-                stable=None):
-        """Losses and every gradient leaf, max-rel, all held to `tol` (None:
-        only reported) or, given `stable` (an fp32 comparison of the same
-        step), the leaves ``informative`` names (moved by at most
-        STABLE_F32 there, G's Noise weights and the style network's
-        unresolved leaves excepted); the others are reported by name."""
-        (l_got, g_got), (l_want, g_want) = got, want
-        loss_keys = loss_keys or list(l_want)
-        loss_rel = max(abs(l_got[k] - l_want[k]) / (abs(l_want[k]) + 1e-6)
-                       for k in loss_keys)
-        grad_rel = {n_: rel_err(g_got[n_], g_want[n_]) for n_ in g_want}
-        gated = grad_rel
-        if stable is not None:
-            gated = {n_: r for n_, r in grad_rel.items()
-                     if informative(n_, stable["grad_rel"][n_])}
-            loose = {n_: (r, stable["grad_rel"][n_])
-                     for n_, r in grad_rel.items() if n_ not in gated}
-            log(f"{label}: {len(loose)} leaves not gated, moved by more than "
-                f"{STABLE_F32} in fp32 or unresolved at bf16 (leaf: rel here, "
-                "rel in fp32): "
-                + ", ".join(f"{n_}: {a:.2e}, {b:.2e}"
-                            for n_, (a, b) in loose.items()))
-        worst = max(gated, key=gated.get)
-        top = sorted(gated, key=gated.get)[-5:]
-        log(f"{label}: largest gated leaves: "
-            + ", ".join(f"{n_} {gated[n_]:.2e}" for n_ in reversed(top)))
-        out = dict(losses_got=l_got, losses_want=l_want, loss_rel=loss_rel,
-                   grad_rel_max=gated[worst], worst=worst, grad_rel=grad_rel)
-        log(f"{label}: losses rel {loss_rel:.2e} "
-            f"({', '.join(loss_keys)}), gradients max rel "
-            f"{gated[worst]:.2e} ({worst}) over {len(gated)} leaves "
-            + (f"(tol {tol})" if tol is not None else "(not gated)"))
-        if tol is not None and not (loss_rel <= tol
-                                    and gated[worst] <= tol):
-            fail(f"{label} disagrees: {out}")
-        return out
+def collect_deterministic_child(ctx, child):
+    """The child's ``DETERMINISTIC`` result; fails where it differs or the
+    mode refused an op."""
+    try:
+        out, err = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    lines = [ln_ for ln_ in out.splitlines()
+             if ln_.startswith("DETERMINISTIC ")]
+    det = json.loads(lines[-1][len("DETERMINISTIC "):]) if lines else None
+    ctx.report["deterministic_resume"] = dict(result=det,
+                                              rc=child.returncode)
+    log(f"deterministic resume (child process beside phase 11, rc "
+        f"{child.returncode}): {det}")
+    if child.returncode != 0 or not det or not det["ok"]:
+        log(out[-3000:])
+        log(err[-3000:])
+        fail("the deterministic resume is not bitwise equal, or the mode "
+             f"refused an op: {det}")
+    return det
 
-    plain_step = {kind: fp32_step(kind, True) for kind in ("d", "g")}
-    plain_step["d_fwd_over_rev"] = fp32_step("d", True, True)
-    d_ror, d_for = fp32_step("d", False), fp32_step("d", False, True)
-    report["step_vs_plain_f32"] = step_rel = {}
+
+def phase_11_steps(ctx):
+    """fp32 steps through the kernels against the same steps on the plain
+    path, each from the same fresh state; then bf16 steps through the
+    tensor-core K3/K4, K1/K5, K2, K6a/K6b and K7a/K7b against the CUDA-core
+    ones, each route also held to its distance from the fp32 plain step.
+    Phase 12(d)'s deterministic child runs beside it; returns its
+    result, which phase 17 reads."""
+    child = start_deterministic_child()
+    real = quickstart_reals(ctx)
+    plain_step = {kind: fp32_step(ctx, real, kind, True)
+                  for kind in ("d", "g")}
+    plain_step["d_fwd_over_rev"] = fp32_step(ctx, real, "d", True, True)
+    d_ror = fp32_step(ctx, real, "d", False)
+    d_for = fp32_step(ctx, real, "d", False, True)
+    ctx.report["step_vs_plain_f32"] = step_rel = {}
     step_rel["d"] = compare("fp32 d_step +R1 kernels vs plain path", d_ror,
                             plain_step["d"])
     step_rel["d_fwd_over_rev"] = compare(
@@ -2374,36 +1860,8 @@ def main():
         "kernels", d_for, d_ror, loss_keys=["gradient_penalty"])
     del d_ror, d_for
     step_rel["g"] = compare("fp32 g_step kernels vs plain path",
-                            fp32_step("g", False), plain_step["g"])
-
-    def bf16_step(kind, route, keys, d_cfg=QUICKSTART_D):
-        """A bf16 step of `kind` ("d", "g", or "d_fwd_over_rev": the d_step
-        with R1 taken forward-over-reverse) with the kernels `keys` on
-        `route`; the step's launches stay counted."""
-        reset_counts()
-        with (simt_kernels(keys) if route == "simt"
-              else contextlib.nullcontext()):
-            res = fp32_step(kind[0], False, fwd_over_rev=kind != kind[0],
-                            amp=True, d_cfg=d_cfg)
-        tc = {k_: tc_entry[k_].launches for k_ in keys}
-        sc = {k_: simt[k_].launches for k_ in keys}
-        # K5 runs only in the d_step's R1 double backward, K2 only in the
-        # g_step (G's backward)
-        ran = [k_ for k_ in keys if k_ != ("k2" if kind[0] == "d" else "k5")]
-        used, unused = (tc, sc) if route == "tc" else (sc, tc)
-        if not all(used[k_] for k_ in ran) or any(unused.values()):
-            fail(f"bf16 {kind}_step on the {route} route launched tensor-core "
-                 f"{tc} and CUDA-core {sc} kernels")
-        return res
-
-    def from_plain(kind, res, plain=plain_step, stable=step_rel):
-        """(max-rel, leaf) of a bf16 step's gated leaves from the fp32 plain
-        step: the bf16 noise floor that the route comparison sits on."""
-        want = plain[kind][1]
-        rel = {n_: rel_err(res[1][n_], want[n_]) for n_ in want
-               if informative(n_, stable[kind]["grad_rel"][n_])}
-        worst = max(rel, key=rel.get)
-        return rel[worst], worst
+                            fp32_step(ctx, real, "g", False),
+                            plain_step["g"])
 
     for_r1 = (("d_fwd_over_rev", "d_step +R1 forward-over-reverse"),)
     for keys, kinds in (
@@ -2414,14 +1872,16 @@ def main():
             (("k7a", "k7b"), for_r1)):
         names = "/".join(k_.upper() for k_ in keys)
         for kind, label in kinds:
-            runs = {r: bf16_step(kind, r, keys) for r in ("tc", "simt")}
+            runs = {r: bf16_step(ctx, real, kind, r, keys)
+                    for r in ("tc", "simt")}
             key = f"{kind}_bf16_tc_vs_simt_{'_'.join(keys)}"
             step_rel[key] = compare(
                 f"bf16 {label}, tensor-core vs CUDA-core {names}",
                 runs["tc"], runs["simt"], tol=STEP_TOL_BF16,
                 stable=step_rel[kind])
             step_rel[key]["from_fp32_plain"] = far = {
-                r: from_plain(kind, res) for r, res in runs.items()}
+                r: from_plain(kind, res, plain_step, step_rel)
+                for r, res in runs.items()}
             ratio = far["tc"][0] / far["simt"][0]
             step_rel[key]["from_fp32_plain_ratio"] = ratio
             log(f"bf16 {label}, each {names} route vs the fp32 plain step: "
@@ -2433,78 +1893,59 @@ def main():
                      f"{ratio:.3f}x as far from the fp32 plain step as the "
                      f"CUDA-core one")
             del runs
+    return collect_deterministic_child(ctx, child)
 
-    try:
-        det_out, det_err = det_child.communicate(timeout=600)
-    finally:
-        if det_child.poll() is None:
-            det_child.kill()
-            det_child.wait()
-    lines = [ln_ for ln_ in det_out.splitlines()
-             if ln_.startswith("DETERMINISTIC ")]
-    det = json.loads(lines[-1][len("DETERMINISTIC "):]) if lines else None
-    det_report = dict(result=det, rc=det_child.returncode,
-                      s=time.perf_counter() - t_det)
-    log(f"deterministic resume (child process beside phase 11, rc "
-        f"{det_child.returncode}, {det_report['s']:.1f} s): {det}")
-    if det_child.returncode != 0 or not det or not det["ok"]:
-        log(det_out[-3000:])
-        log(det_err[-3000:])
-        fail("the deterministic resume is not bitwise equal, or the mode "
-             f"refused an op: {det}")
-    phase_done("11")
 
-    # --------------------------------------------------------------- 17
-    # the quickstart G beside the d = 128 discriminator (4 heads of 128),
-    # bf16: one d_step+R1 in each form and one g_step from the fresh state,
-    # every K1-K7b launch on the tensor cores and the counts the path
-    # implies; each R1 form on the tensor-core K5 (reverse-over-reverse) or
-    # K7a/K7b (forward-over-reverse) against the CUDA-core ones patched in,
-    # both held to their distance from the fp32 plain step as phase 11
-    # holds them.  The bitwise repeat of both R1 forms ran in phase 12(d)'s
-    # deterministic child beside phase 11.
-    t_phase = time.perf_counter()
-    d128 = report["d128"] = dict(bitwise=det.get("d128_differs"),
-                                 bitwise_launches=det.get("d128_launches"))
+def phase_17_d128(ctx, det):
+    """The quickstart G beside the d = 128 discriminator (4 heads of 128),
+    bf16: one d_step+R1 in each form and one g_step from the fresh state,
+    every K1-K7b launch on the tensor cores and the counts the path
+    implies; each R1 form on the tensor-core K5 (reverse-over-reverse) or
+    K7a/K7b (forward-over-reverse) against the CUDA-core ones patched in,
+    both held to their distance from the fp32 plain step as phase 11
+    holds them.  The bitwise repeat of both R1 forms ran in phase 12(d)'s
+    deterministic child (``det``) beside phase 11."""
+    d128 = ctx.report["d128"] = dict(
+        bitwise=det.get("d128_differs"),
+        bitwise_launches=det.get("d128_launches"))
     log(f"d = 128 D: two d_step+R1 from one state and one seed, D's "
         f"gradients bitwise equal in each form (deterministic child): "
         f"differing leaves {det.get('d128_differs')}")
+    real = quickstart_reals(ctx)
     probe = GigaGAN(generator=QUICKSTART, discriminator=QUICKSTART_D128,
-                    amp=True, device="cuda", seed=0)
-    exp128 = expected_step_launches(
-        len(convs), sum(s_.self_attn is not None for s_ in probe.G.stages),
-        sum(s_.core.attn is not None for s_ in probe.D.stages))
+                    amp=True, device=ctx.dev.type, seed=0)
+    exp128 = expected_step_launches(len(path_convs(QUICKSTART)),
+                                    *attention_counts(probe))
     del probe
-    d128_launches = {k_: 0 for k_ in KERNEL_NAMES}
     plain128, stable128 = {}, {}
     for kind, label, keys, want in (
             ("d", "d_step +R1", ("k5",), exp128[1]),
             ("d_fwd_over_rev", "d_step +R1 forward-over-reverse",
              ("k7a", "k7b"), exp128[2])):
         fwd = kind != "d"
-        plain128[kind] = fp32_step("d", True, fwd, d_cfg=QUICKSTART_D128)
+        plain128[kind] = fp32_step(ctx, real, "d", True, fwd,
+                                   d_cfg=QUICKSTART_D128)
         stable128[kind] = compare(
             f"d = 128 D: fp32 {label} kernels vs plain path",
-            fp32_step("d", False, fwd, d_cfg=QUICKSTART_D128),
+            fp32_step(ctx, real, "d", False, fwd, d_cfg=QUICKSTART_D128),
             plain128[kind])
         runs, counts = {}, {}
         for r in ("tc", "simt"):
-            runs[r] = bf16_step(kind, r, keys, d_cfg=QUICKSTART_D128)
-            counts[r] = read_counts()
+            runs[r] = bf16_step(ctx, real, kind, r, keys,
+                                d_cfg=QUICKSTART_D128)
+            counts[r] = ctx.read_counts()
             # every launch but those of `keys` on the CUDA-core route is
             # on the tensor cores, in the counts the path implies
             if counts[r] != want or any(
-                    simt[k_].launches for k_ in KERNEL_NAMES
+                    ctx.simt[k_].launches for k_ in KERNEL_NAMES
                     if r == "tc" or k_ not in keys):
                 fail(f"d = 128 D: bf16 {label} on the {r} route launched "
-                     f"{counts[r]} (CUDA-core {simt_counts()}), the path "
-                     f"implies {want}")
+                     f"{counts[r]} (CUDA-core {ctx.simt_counts()}), the "
+                     f"path implies {want}")
         if not all(np.isfinite(v) for res in runs.values()
                    for v in res[0].values()):
             fail(f"d = 128 D: non-finite losses in the bf16 {label}: "
                  f"{[res[0] for res in runs.values()]}")
-        for k_ in KERNEL_NAMES:
-            d128_launches[k_] += counts["tc"][k_]
         names = "/".join(k_.upper() for k_ in keys)
         row = compare(f"d = 128 D: bf16 {label}, tensor-core vs CUDA-core "
                       f"{names}", runs["tc"], runs["simt"],
@@ -2527,97 +1968,86 @@ def main():
         del runs
         torch.cuda.empty_cache()
     del plain128, stable128
-    reset_counts()
-    g_losses, _ = fp32_step("g", False, amp=True, d_cfg=QUICKSTART_D128)
-    g_counts = read_counts()
-    if any(simt_counts().values()) or g_counts != exp128[3] or not all(
+    ctx.reset_counts()
+    g_losses, _ = fp32_step(ctx, real, "g", False, amp=True,
+                            d_cfg=QUICKSTART_D128)
+    g_counts = ctx.read_counts()
+    if any(ctx.simt_counts().values()) or g_counts != exp128[3] or not all(
             np.isfinite(v) for v in g_losses.values()):
         fail(f"d = 128 D: bf16 g_step losses {g_losses}, launches "
              f"{g_counts} (the path implies {exp128[3]}, all on the tensor "
              "cores)")
-    for k_ in KERNEL_NAMES:
-        d128_launches[k_] += g_counts[k_]
     d128["g_step_losses"] = g_losses
 
-    d128["launches"] = d128_launches
-    d128["seconds"] = time.perf_counter() - t_phase
-    log(f"phase 17 (the d = 128 discriminator): {d128['seconds']:.1f} s; "
-        f"launches {d128_launches}")
 
-    # --------------------------------------------------------------- 12
-    # the rest of the trainer at the quickstart's full width: gradient
-    # accumulation, the chunked R1, recomputation, and train() with its
-    # log record, sample grids, save and load
-    t_phase = time.perf_counter()
-    trainer_report = report["trainer"] = {}
+def quickstart(ctx, **kw):
+    """A quickstart pair of seed 0 unless ``kw`` names one; D takes
+    ``remat_stages``."""
+    d_cfg = dict(QUICKSTART_D, remat_stages=kw.pop("remat_stages", False))
+    kw.setdefault("seed", 0)
+    return GigaGAN(generator=QUICKSTART, discriminator=d_cfg,
+                   device=ctx.dev.type, **kw)
+
+
+def counted(ctx, fn):
+    """(fn(), the launches of K1-K7b it made)."""
+    ctx.reset_counts()
+    res = fn()
+    return res, ctx.read_counts()
+
+
+def phase_12_trainer(ctx):
+    """The rest of the trainer at the quickstart's full width: gradient
+    accumulation, the chunked R1, recomputation and their peaks, and
+    train() with its log record, sample grids, save and load."""
+    report = ctx.report["trainer"] = {}
     shapes = SyntheticShapesDataset(QUICKSTART["image_size"],
                                     length=MEM_BATCH, seed=7)
     pool = torch.from_numpy(np.stack([shapes[i] for i in range(MEM_BATCH)])
-                            ).to(dev)
-
-    def quickstart(**kw):
-        d_cfg = dict(QUICKSTART_D, remat_stages=kw.pop("remat_stages", False))
-        kw.setdefault("seed", 0)
-        return GigaGAN(generator=QUICKSTART, discriminator=d_cfg,
-                       device="cuda", **kw)
-
-    def counted(fn):
-        """(fn(), launches of K1-K7b, host ms around it, synchronised)."""
-        reset_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, read_counts(), (time.perf_counter() - t) * 1e3
-
-    def with_grads(model, metrics):
-        return ({k: float(v) for k, v in metrics.items()},
-                {n_: p.grad.detach().clone()
-                 for n_, p in model.named_parameters()})
+                            ).to(ctx.dev)
+    n_convs = len(path_convs(QUICKSTART))
 
     # (a) accumulation: 4 iterations of 2 microbatches of 4, R1 on one
-    gan = quickstart(amp=True)
-    n_g_attn = sum(st.self_attn is not None for st in gan.G.stages)
-    n_d_attn = sum(st.core.attn is not None for st in gan.D.stages)
-    exp_d, exp_d_r1, _, exp_g = expected_step_launches(
-        len(convs), n_g_attn, n_d_attn, accum=ACCUM)
+    gan = quickstart(ctx, amp=True)
+    n_attn = attention_counts(gan)
+    exp_d, exp_d_r1, _, exp_g = expected_step_launches(n_convs, *n_attn,
+                                                       accum=ACCUM)
     mb = BATCH // ACCUM
     accum_steps = []
-    reset_counts()
     for i in range(4):
         apply_gp = i == 2
         for kind in ("d", "g"):
             if kind == "d":
-                m, got, ms = counted(lambda: gan.train_discriminator_step(
+                m, got = counted(ctx, lambda: gan.train_discriminator_step(
                     pool[:BATCH].reshape(ACCUM, mb, *pool.shape[1:]),
                     grad_accum_every=ACCUM, apply_gradient_penalty=apply_gp,
                     calc_multiscale_loss=True, seed=3000 + i))
                 want = exp_d_r1 if apply_gp else exp_d
             else:
-                m, got, ms = counted(lambda: gan.train_generator_step(
+                m, got = counted(ctx, lambda: gan.train_generator_step(
                     mb, grad_accum_every=ACCUM, calc_multiscale_loss=True,
                     seed=4000 + i))
                 want = exp_g
-            row = dict(kind=kind, r1=apply_gp, ms=ms, launches=got,
+            row = dict(kind=kind, r1=apply_gp, launches=got,
                        losses={k: float(v) for k, v in m.items()})
             accum_steps.append(row)
             log(f"accumulation {ACCUM}x{mb} {kind}_step r1={apply_gp}: "
-                f"{ms:.3f} ms, launches {got}, losses "
+                f"launches {got}, losses "
                 + ", ".join(f"{k} {v:.4g}" for k, v in row["losses"].items()))
             if not all(np.isfinite(v) for v in row["losses"].values()):
                 fail(f"non-finite losses with accumulation: {row}")
             if got != want:
                 fail(f"{kind}_step with accumulation (r1={apply_gp}) launched "
                      f"{got}, the path implies {want}")
-            if any(simt_counts().values()):
+            if any(ctx.simt_counts().values()):
                 fail(f"bf16 calls with accumulation reached the CUDA-core "
-                     f"kernels: {simt_counts()}")
-    trainer_report["accumulation_steps"] = accum_steps
+                     f"kernels: {ctx.simt_counts()}")
+    report["accumulation_steps"] = accum_steps
     del gan
     torch.cuda.empty_cache()
 
     def accum_step(plain):
-        g32 = quickstart()
+        g32 = quickstart(ctx)
         with (plain_reference() if plain else contextlib.nullcontext()):
             m = g32.train_discriminator_step(
                 pool[:BATCH], grad_accum_every=ACCUM,
@@ -2628,17 +2058,17 @@ def main():
         torch.cuda.empty_cache()
         return res
 
-    trainer_report["accum_vs_plain_f32"] = compare(
+    report["accum_vs_plain_f32"] = compare(
         f"fp32 d_step +R1 with accumulation {ACCUM}x{mb}, kernels vs plain "
         "path", accum_step(False), accum_step(True))
 
     # (b) the chunked R1 against the unchunked one: the penalty runs on the
     # un-augmented pipeline, equal to the unchunked penalty of an unflipped
     # step
-    def r1_step(amp=False, batch=BATCH, **kw):
-        g_ = quickstart(amp=amp, **kw)
+    def r1_step(**kw):
+        g_ = quickstart(ctx, amp=False, **kw)
         m = g_.train_discriminator_step(
-            pool[:batch], apply_gradient_penalty=True,
+            pool[:BATCH], apply_gradient_penalty=True,
             calc_multiscale_loss=True, seed=7,
             draws=StepDraws(fake_flip=False, real_flip=False))
         res = with_grads(g_.D, m)
@@ -2646,7 +2076,7 @@ def main():
         torch.cuda.empty_cache()
         return res
 
-    trainer_report["chunk_vs_unchunked_f32"] = compare(
+    report["chunk_vs_unchunked_f32"] = compare(
         f"fp32 d_step +R1 gp_chunk={CHUNK} vs unchunked, b={BATCH}",
         r1_step(gp_chunk=CHUNK), r1_step(),
         loss_keys=["gradient_penalty"])
@@ -2657,7 +2087,7 @@ def main():
     for kind in ("d", "g"):
         runs = []
         for kw in ({}, dict(remat=True, remat_stages=True)):
-            g_ = quickstart(**kw)
+            g_ = quickstart(ctx, **kw)
             if kind == "d":
                 m = g_.train_discriminator_step(
                     pool[:BATCH], apply_gradient_penalty=True,
@@ -2668,16 +2098,22 @@ def main():
             runs.append(with_grads(g_.D if kind == "d" else g_.G, m))
             del g_
             torch.cuda.empty_cache()
-        trainer_report[f"remat_vs_none_f32_{kind}"] = compare(
+        report[f"remat_vs_none_f32_{kind}"] = compare(
             f"fp32 {kind}_step{' +R1' if kind == 'd' else ''} remat + "
             "remat_stages vs none, same seed", runs[1], runs[0],
             tol=REMAT_TOL)
         del runs
 
-    # peak memory and ms of a bf16 step at microbatch MEM_BATCH: R1
-    # unchunked, chunked, recomputed; and the g_step with and without
-    # recomputation
-    mem_rows = []
+    report["memory"] = trainer_peaks(ctx, pool, n_convs, n_attn)
+    trainer_resume(ctx, shapes, pool, report)
+
+
+def trainer_peaks(ctx, pool, n_convs, n_attn):
+    """Phase 12(c)'s bf16 steps at microbatch MEM_BATCH: R1 unchunked,
+    chunked, recomputed, and the g_step with and without recomputation,
+    each with its launches and the peak device memory of three steps
+    after a first one; the chunked R1's peak must be the lower."""
+    rows = []
     for kind, label, kw in (
             ("d", "R1", {}),
             ("d", f"R1 gp_chunk={MEM_CHUNK}", dict(gp_chunk=MEM_CHUNK)),
@@ -2687,9 +2123,9 @@ def main():
             ("g", "g_step", {}),
             ("g", "g_step remat + remat_stages",
              dict(remat=True, remat_stages=True))):
-        g_ = quickstart(amp=True, **kw)
+        g_ = quickstart(ctx, amp=True, **kw)
         want = expected_step_launches(
-            len(convs), n_g_attn, n_d_attn,
+            n_convs, *n_attn,
             chunks=MEM_BATCH // kw.get("gp_chunk", MEM_BATCH)
             if "gp_chunk" in kw else 0,
             remat=kw.get("remat", False),
@@ -2705,69 +2141,60 @@ def main():
                                            calc_multiscale_loss=True,
                                            seed=20 + i)
 
-        step(0)  # warm-up: allocator, cuDNN plans
+        step(0)  # the optimizer's state exists before the peak is read
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        times, launches = [], None
         for i in range(1, 4):
-            m, launches, ms = counted(lambda: step(i))
-            times.append(ms)
+            m, launches = counted(ctx, lambda: step(i))
         row = dict(kind=kind, label=label, batch=MEM_BATCH,
-                   ms=statistics.median(times), ms_all=times,
                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                   base_gib=base / 2 ** 30, launches=launches,
-                   expected=want,
+                   launches=launches, expected=want,
                    losses={k: float(v) for k, v in m.items()})
-        mem_rows.append(row)
+        rows.append(row)
         log(f"memory b{MEM_BATCH} bf16 {kind}_step {label}: peak "
-            f"{row['peak_gib']:.3f} GiB (held before the step "
-            f"{row['base_gib']:.3f}), {row['ms']:.3f} ms (median of 3: "
-            + ", ".join(f"{t_:.3f}" for t_ in times)
-            + f"), launches {launches} [{smi}]")
+            f"{row['peak_gib']:.3f} GiB, launches {launches} [{ctx.smi}]")
         del g_, m
         gc.collect()
         torch.cuda.empty_cache()
         if launches != want:
             fail(f"b{MEM_BATCH} {kind}_step {label} launched {launches}, "
                  f"the path implies {want}")
-        if any(simt_counts().values()):
+        if any(ctx.simt_counts().values()):
             fail(f"bf16 calls of {label} reached the CUDA-core kernels: "
-                 f"{simt_counts()}")
+                 f"{ctx.simt_counts()}")
         if not all(np.isfinite(v) for v in row["losses"].values()):
             fail(f"non-finite losses: {row}")
-    trainer_report["memory"] = mem_rows
-    peak = {r["label"]: r["peak_gib"] for r in mem_rows}
+    peak = {r["label"]: r["peak_gib"] for r in rows}
     if not peak[f"R1 gp_chunk={MEM_CHUNK}"] < peak["R1"]:
         fail(f"the chunked R1's peak is not lower than the unchunked one's: "
              f"{peak}")
+    return rows
 
-    # (d) train() with its log record, then save, load into a fresh
-    # trainer, and one more iteration of each from the restored RNG
+
+def trainer_resume(ctx, shapes, pool, report):
+    """Phase 12(d): train() with its log record, then save, load into two
+    fresh trainers, and one more iteration of each from the restored
+    RNG."""
     models_dir = REPO / "gigagan-models" / "chip_smoke"
     samples_dir = OUT_DIR / "samples"
     records = []
-    gan = quickstart(amp=True, log_steps_every=8, log_hook=records.append,
-                     num_samples=9, model_folder=str(models_dir),
+    gan = quickstart(ctx, amp=True, log_steps_every=8,
+                     log_hook=records.append, num_samples=9,
+                     model_folder=str(models_dir),
                      results_folder=str(samples_dir))
     gan.set_dataloader(shapes.get_dataloader(BATCH))
-    reset_counts()
-    _, train_launches_24, train_ms = counted(lambda: gan.train(24))
-    if any(train_launches_24[k] == 0 for k in ("k1", "k2", "k3", "k4", "k5")):
+    _, launches = counted(ctx, lambda: gan.train(24))
+    if any(launches[k] == 0 for k in ("k1", "k2", "k3", "k4", "k5")):
         fail(f"a kernel of the train() path was never launched: "
-             f"{train_launches_24}")
-    if any(simt_counts().values()):
+             f"{launches}")
+    if any(ctx.simt_counts().values()):
         fail(f"bf16 calls of train() reached the CUDA-core kernels: "
-             f"{simt_counts()}")
+             f"{ctx.simt_counts()}")
     pngs = sorted(p_.name for p_ in samples_dir.glob("*.png"))
     keys = ["step", "G", "MSG", "VG", "D", "MSD", "VD", "GP", "SSL", "CL",
             "MAL", "ms_per_step", "images_per_sec"]
-    trainer_report["train"] = dict(records=records, pngs=pngs,
-                                   launches=train_launches_24,
-                                   wall_ms=train_ms)
-    for r_ in records:
-        log(f"train() record: {r_} [{smi}]")
+    report["train"] = dict(records=records, pngs=pngs, launches=launches)
     if [r_["step"] for r_ in records] != [1, 8, 16, 24] or any(
             list(r_) != keys for r_ in records):
         fail(f"train() log records: {records}")
@@ -2776,16 +2203,13 @@ def main():
     if pngs != ["ema-sample-0.png", "sample-0.png"]:
         fail(f"save_sample wrote {pngs}")
     ckpt = models_dir / "resume.ckpt"
-    t = time.perf_counter()
     gan.save(ckpt)
-    save_s = time.perf_counter() - t
     copies = []
     for _ in range(2):  # the second copy measures the step's own noise
-        other = quickstart(amp=True, seed=1, model_folder=str(models_dir),
+        other = quickstart(ctx, amp=True, seed=1,
+                           model_folder=str(models_dir),
                            results_folder=str(samples_dir))
-        t = time.perf_counter()
         other.load(ckpt)
-        load_s = time.perf_counter() - t
         copies.append(other)
     state_equal = all(
         all(torch.equal(a_, b_) for a_, b_ in zip(
@@ -2810,15 +2234,12 @@ def main():
 
     resumed, floor = max_diff(gan, copies[0]), max_diff(copies[0], copies[1])
     lr = gan.g_opt.param_groups[0]["lr"]
-    trainer_report["resume"] = dict(
-        state_equal=state_equal, max_diff_after_step=resumed,
-        max_diff_between_loaded=floor, lr=lr, save_s=save_s, load_s=load_s,
-        ckpt_gib=ckpt.stat().st_size / 2 ** 30)
+    report["resume"] = dict(state_equal=state_equal,
+                            max_diff_after_step=resumed,
+                            max_diff_between_loaded=floor, lr=lr)
     log(f"resume: state equal after load {state_equal}; after one more "
         f"iteration max |continued - resumed| {resumed:.3e}, between two "
-        f"resumed copies {floor:.3e} (lr {lr}); checkpoint "
-        f"{trainer_report['resume']['ckpt_gib']:.3f} GiB, save "
-        f"{save_s:.2f} s, load {load_s:.2f} s")
+        f"resumed copies {floor:.3e} (lr {lr})")
     del gan, copies, other
     shutil.rmtree(models_dir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2833,215 +2254,272 @@ def main():
     if not resumed <= max(3.0 * floor, 1e-2 * lr):
         fail(f"a resumed iteration departs by {resumed:.3e}, more than 3 "
              f"times the floor {floor:.3e} of two resumed copies")
-    trainer_report["deterministic_resume"] = det_report
-    log(f"phase 12 (the rest of the trainer): "
-        f"{time.perf_counter() - t_phase:.1f} s")
 
-    # --------------------------------------------------------------- 13
-    # the text-conditioned recipe at full width: CLIP, the text encoders,
-    # cross-attention, the conditional D, the vision-aided D, the
-    # matching-aware and contrastive losses
-    t_phase = time.perf_counter()
-    t2i = report["t2i"] = {}
-    t0 = time.perf_counter()
-    clip = OpenClipAdapter(seed=0, device="cuda")
+
+# --------------------------- phases 13-14: text-to-image and the upsampler
+
+@contextlib.contextmanager
+def recording_conv_calls():
+    """Every K1 and K2 call inside, by the shapes and dtypes of its
+    operands: ``{(kernel, (shape, dtype), ...): calls}``.  The
+    dispatchers, which the kernels' autograd Functions look up in their
+    module, are wrapped for the window."""
+    calls = {}
+    dispatch = {"k1": k1.adaptive_conv_fwd, "k2": k1.adaptive_conv_bwd_w}
+
+    def seen(kname):
+        def call(*operands):
+            key = (kname, *((tuple(t_.shape), t_.dtype) for t_ in operands))
+            calls[key] = calls.get(key, 0) + 1
+            return dispatch[kname](*operands)
+        return call
+
+    k1.adaptive_conv_fwd, k1.adaptive_conv_bwd_w = seen("k1"), seen("k2")
+    try:
+        yield calls
+    finally:
+        k1.adaptive_conv_fwd = dispatch["k1"]
+        k1.adaptive_conv_bwd_w = dispatch["k2"]
+
+
+def check_conv_call(ctx, key, n_calls, where):
+    """One distinct K1 or K2 call of a path (its operands' shapes and
+    dtypes, as recorded at the dispatcher) on fresh operands: as the path
+    made it and in fp32, each on the route the rule names, against the
+    plain version."""
+    kname, (xs, xdt), *rest = key
+    rows_, h, w_, ci = xs
+    if kname == "k1":
+        (ws, wdt), (_, adt), (_, ddt) = rest
+    else:
+        (_, gdt), (ws, wdt), (_, adt) = rest
+    banks, co = ws[0], ws[-1]
+    xm, w, a, d = conv_operands(ctx, rows_, h, w_, ci, co, banks)
+    if kname == "k1":
+        operands = (xm.to(xdt), w.to(wdt), a.to(adt), d.to(ddt))
+        want = k1.adaptive_conv_fwd_plain(xm, w, a, d)
+        got, route = ctx.route_of("k1", lambda: k1.adaptive_conv_fwd(
+            *operands))
+        got32, route32 = ctx.route_of("k1", lambda: k1.adaptive_conv_fwd(
+            xm, w, a, d))
+        rel, rel32 = rel_err(got, want), rel_err(got32, want)
+        same, rule = None, k1.conv_uses_tensor_cores
+        tol = K1_TOL_BF16 if xdt == BF16 else K1_TOL_F32
+        tol32 = K1_TOL_F32
+    else:
+        g = torch.randn(rows_, h, w_, co, device=ctx.dev, generator=ctx.gen)
+        operands = (xm.to(xdt), g.to(gdt), w.to(wdt), a.to(adt))
+        want = k1.adaptive_conv_bwd_w_plain(xm, g, w, a)
+        got, route = ctx.route_of("k2", lambda: k1.adaptive_conv_bwd_w(
+            *operands))
+        got32, route32 = ctx.route_of("k2", lambda: k1.adaptive_conv_bwd_w(
+            xm, g, w, a))
+        rel = max(map(rel_err, got, want))
+        rel32 = max(map(rel_err, got32, want))
+        same = (max(map(rel_err, got, k1.adaptive_conv_bwd_w_plain(
+            *operands))) if xdt == BF16 else None)
+        rule = k1.bwd_w_uses_tensor_cores
+        tol = K2_TOL_BF16 if xdt == BF16 else K2_TOL_F32
+        tol32 = K2_TOL_F32
+    routes = (route, route32)
+    want_routes = tuple("tc" if rule(dt_, ci, co) else "simt"
+                        for dt_ in (xdt, torch.float32))
+    entry = dict(kernel=kname, rows=rows_, h=h, w=w_, ci=ci, co=co,
+                 banks=banks, dtype=dtype_name(xdt), calls=n_calls,
+                 routes=routes, rel=rel, rel_f32=rel32, rel_same=same)
+    if routes != want_routes:
+        fail(f"{kname} at a {where} shape ran on {routes}; the rule "
+             f"names {want_routes}: {entry}")
+    if not (rel <= tol and rel32 <= tol32
+            and (same is None or same <= K2_TOL_SAME)):
+        fail(f"{kname} disagrees with its plain version at a {where} "
+             f"shape: {entry}")
+    return entry
+
+
+def check_conv_calls(ctx, calls, where):
+    """``check_conv_call`` at every recorded call of the ``where`` path;
+    returns the entries."""
+    held = []
+    for key, n_calls in sorted(calls.items(), key=lambda kv: (
+            kv[0][0], -kv[0][1][0][1], kv[0][1][0][0], str(kv[0]))):
+        held.append(check_conv_call(ctx, key, n_calls, where))
+        torch.cuda.empty_cache()
+    worst = {k_: max((e_ for e_ in held if e_["kernel"] == k_),
+                     key=lambda e_: e_["rel"]) for k_ in ("k1", "k2")}
+    log(f"K1/K2 held at every call of the {where} path: "
+        f"{len(held)} distinct shapes and dtypes "
+        f"({sum(e_['calls'] for e_ in held)} calls), each on the route "
+        f"its rule names; "
+        + ", ".join(
+            f"worst {k_.upper()} rel {e_['rel']:.2e} (b{e_['rows']} "
+            f"{e_['h']}x{e_['w']} {e_['ci']}->{e_['co']} x{e_['banks']} "
+            f"{e_['dtype']})" for k_, e_ in worst.items())
+        + f"; fp32 at most {max(e_['rel_f32'] for e_ in held):.2e}, "
+        f"bf16 K2 on its own inputs at most "
+        f"{max(e_['rel_same'] or 0.0 for e_ in held):.2e}")
+    return held
+
+
+def attend_f64(q, k, v, *, mask=None, l2_dist=False, scale=None):
+    """The plain ``attend``'s algebra (|q|² dropped, |k|² and the key
+    mask in one bias row) in float64, rounded back to q's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    out_dtype = q.dtype
+    q, k, v = q.double(), k.double(), v.double()
+    sim = torch.einsum("bhid,bhjd->bhij",
+                       q * (2.0 * scale if l2_dist else scale), k)
+    if l2_dist:
+        sim = sim - scale * (k * k).sum(-1)[..., None, :]
+    if mask is not None:
+        sim = sim + torch.where(mask, 0.0, ops_attention.NEG_INF)[
+            :, None, None, :].double()
+    e = torch.exp(sim - sim.amax(-1, keepdim=True).detach())
+    out = torch.einsum("bhij,bhjd->bhid", e, v) / e.sum(-1, keepdim=True)
+    return out.to(out_dtype)
+
+
+@contextlib.contextmanager
+def float64_attention():
+    """Every plain attention (``attend``, and ``attend_fused``'s plain
+    branch through it) in float64."""
+    base = ops.attend
+    ops.attend = ops_attention.attend = attend_f64
+    try:
+        yield
+    finally:
+        ops.attend = ops_attention.attend = base
+
+
+def step_grads(gan, kind, batch, r1=True, plain=False, f64_attention=False):
+    """An fp32 d_step (R1 if ``r1``) or g_step of a fresh trainer, under
+    ``plain_reference()`` if ``plain`` and with float64 attention if
+    ``f64_attention``: (losses, {"<module>.<leaf>": gradient}) over D and
+    the vision-aided D, or G (zeros for a leaf the step left without
+    one)."""
+    with (plain_reference() if plain else contextlib.nullcontext()), \
+            (float64_attention() if f64_attention
+             else contextlib.nullcontext()):
+        if kind == "d":
+            m = gan.train_discriminator_step(
+                batch, apply_gradient_penalty=r1, calc_multiscale_loss=True,
+                seed=7)
+            models = (("D", gan.D), ("VD", gan.VD))
+        else:
+            m = gan.train_generator_step(batch, calc_multiscale_loss=True,
+                                         seed=7)
+            models = (("G", gan.G),)
+    return ({k: float(v) for k, v in m.items()},
+            {f"{name_}.{n_}": (p.grad if p.grad is not None else
+                               torch.zeros_like(p)).detach().clone()
+             for name_, mod in models if mod is not None
+             for n_, p in mod.named_parameters()})
+
+
+def phase_13_t2i(ctx):
+    """The text-conditioned recipe at full width: CLIP, the text encoders,
+    cross-attention, the conditional D, the vision-aided D, the
+    matching-aware and contrastive losses."""
+    t2i = ctx.report["t2i"] = {}
+    clip = OpenClipAdapter(seed=0, device=ctx.dev.type)
 
     def t2i_gan(**kw):
         kw.setdefault("seed", 0)
         return GigaGAN(generator=T2I_G, discriminator=T2I_D,
                        vision_aided_discriminator=T2I_VD, clip=clip,
-                       allow_mock_clip=True, device="cuda", **kw)
+                       allow_mock_clip=True, device=ctx.dev.type, **kw)
 
     gan = t2i_gan(amp=True)
-    sizes = {name: sum(p.numel() for p in mod.parameters()) / 1e6
-             for name, mod in (("G", gan.G), ("D", gan.D), ("VD", gan.VD),
-                               ("CLIP", clip.model))}
-    n_g = len(convs)
-    n_ga = sum(st.self_attn is not None for st in gan.G.stages)
-    n_da = sum(st.core.attn is not None for st in gan.D.stages)
-    n_p = sum(isinstance(m, AdaptiveConv) for st in gan.D.stages
-              if st.predictor is not None for m in st.predictor.modules())
-    n_v = sum(isinstance(m, AdaptiveConv) for m in gan.VD.modules())
+    n_g = len(path_convs(T2I_G))
+    n_ga, n_da = attention_counts(gan)
+    n_p, n_v = t2i_structure(gan)
     n_x = sum(st.cross_attn is not None for st in gan.G.stages)
-    t2i.update(params_m=sizes, structure=dict(
-        g_convs=n_g, g_attn=n_ga, g_cross_attn=n_x, d_attn=n_da,
-        predictor_convs=n_p, vd_convs=n_v))
-    log(f"text-to-image G+D+VD (+ frozen CLIP): "
-        + ", ".join(f"{k} {v:.2f}M" for k, v in sizes.items())
-        + f" params; built in {time.perf_counter() - t0:.2f} s; "
-        f"{n_x} cross-attention blocks, {n_p} predictor and {n_v} VD "
-        "adaptive convs")
+    t2i["structure"] = dict(g_convs=n_g, g_attn=n_ga, g_cross_attn=n_x,
+                            d_attn=n_da, predictor_convs=n_p, vd_convs=n_v)
+    log(f"text-to-image G+D+VD (+ frozen CLIP): {n_x} cross-attention "
+        f"blocks, {n_p} predictor and {n_v} VD adaptive convs")
     exp_d, exp_d_r1, exp_d_for, exp_g = expected_t2i_launches(
         n_g, n_ga, n_da, n_p, n_v)
     text_data = MockTextImageDataset(T2I_G["image_size"],
                                      length=8 * BATCH, seed=0)
     text_iter = cycle(text_data.get_dataloader(BATCH))
-    t2i_batches = []
+    batches = []
     for i in range(4):  # each batch's captions embedded once, as train()
         b_ = gan._collect_batch(text_iter, 1)
-        b_["real_images"] = torch.from_numpy(b_["real_images"]).to(dev)
+        b_["real_images"] = torch.from_numpy(b_["real_images"]).to(ctx.dev)
         # distinct captions: the matching-aware rows and the contrastive
         # pool then pair each image with another text
         b_["text_embeds"], b_["text_encodings"] = (
             t_[None] for t_ in clip.embed_texts(
                 (T2I_CAPTIONS[i:] + T2I_CAPTIONS[:i])[:BATCH]))
-        t2i_batches.append(b_)
+        batches.append(b_)
 
-    def t2i_iteration(i, apply_gp, record=None):
-        steps_ = []
-        for kind in ("d", "g"):
-            batch_ = t2i_batches[(2 * i + (kind == "g")) % len(t2i_batches)]
-            before = read_counts()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            t = time.perf_counter()
-            if kind == "d":
-                m = gan.train_discriminator_step(
-                    batch_, apply_gradient_penalty=apply_gp,
-                    calc_multiscale_loss=True, seed=5000 + i)
-            else:
-                m = gan.train_generator_step(
-                    batch_, calc_multiscale_loss=True, seed=6000 + i)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t) * 1e3
-            after = read_counts()
-            steps_.append(dict(
-                kind=kind, r1=apply_gp, ms=ms,
-                fwd_over_rev=gan.builder.gp_fwd_over_rev,
-                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                base_gib=base / 2 ** 30,
-                losses={k: float(v) for k, v in m.items()},
-                launches={k: after[k] - before[k] for k in after}))
-        if record is not None:
-            record.extend(steps_)
-        return steps_
+    # every K1 and K2 call of the path's run and of its sampling is held
+    # against its plain version below
+    with recording_conv_calls() as calls:
+        ctx.reset_counts()
+        steps = []
+        for i in range(ITERATIONS + 2):  # the last 2 forward-over-reverse
+            gan.builder.gp_fwd_over_rev = i >= ITERATIONS
+            steps += counted_iteration(
+                ctx, gan, i, i >= ITERATIONS or i % R1_EVERY == 0,
+                batches[2 * i % len(batches)],
+                batches[(2 * i + 1) % len(batches)], (5000, 6000))
+        launches = ctx.read_counts()
+        gan.builder.gp_fwd_over_rev = False
+        if any(ctx.simt_counts().values()):
+            fail(f"bf16 calls of the text-to-image path reached the "
+                 f"CUDA-core kernels: {ctx.simt_counts()}")
+        nonzero = {"d": ["vision_aided_divergence", "matching_aware_loss"],
+                   "g": ["total_vd_divergence", "contrastive_loss"]}
+        for s_ in steps:
+            want = exp_g if s_["kind"] == "g" else (
+                exp_d if not s_["r1"] else exp_d_for if s_["fwd_over_rev"]
+                else exp_d_r1)
+            log(f"text-to-image {s_['kind']}_step r1={s_['r1']}"
+                f"{' (forward-over-reverse)' if s_['fwd_over_rev'] else ''}"
+                f": launches {s_['launches']}, losses "
+                + ", ".join(f"{k} {v:.4g}" for k, v in s_["losses"].items()))
+            if not all(np.isfinite(v) for v in s_["losses"].values()):
+                fail(f"non-finite losses in {s_}")
+            zero = [k for k in nonzero[s_["kind"]]
+                    + (["gradient_penalty"] if s_["r1"] and s_["kind"] == "d"
+                       else [])
+                    if s_["losses"][k] == 0.0]
+            if zero:
+                fail(f"text-to-image {s_['kind']}_step: {zero} are zero")
+            if s_["launches"] != want:
+                fail(f"text-to-image {s_['kind']}_step (r1={s_['r1']}) "
+                     f"launched {s_['launches']}, the path implies {want}")
+        if any(n_ == 0 for n_ in launches.values()):
+            fail(f"a kernel of the text-to-image path was never launched: "
+                 f"{launches}")
+        log(f"text-to-image path: {ITERATIONS} iterations (R1 on 0 and 4) "
+            f"and 2 forward-over-reverse R1 iterations, launches {launches}")
+        t2i["steps"], t2i["launches"] = steps, launches
 
-    t2i_iteration(0, True)  # warm-up: allocator, cuDNN plans, both variants
-    t2i_iteration(1, False)
-    # every K1 and K2 call of the path's run and of its sampling, by the
-    # shapes and dtypes of its operands (the dispatchers, which the
-    # kernels' autograd Functions look up in their module, are wrapped):
-    # each distinct call is held against its plain version below
-    path_calls = {}
-    k1_dispatch, k2_dispatch = k1.adaptive_conv_fwd, k1.adaptive_conv_bwd_w
-
-    def seen(kname, dispatch):
-        def call(*operands):
-            key = (kname, *((tuple(t_.shape), t_.dtype) for t_ in operands))
-            path_calls[key] = path_calls.get(key, 0) + 1
-            return dispatch(*operands)
-        return call
-
-    k1.adaptive_conv_fwd = seen("k1", k1_dispatch)
-    k1.adaptive_conv_bwd_w = seen("k2", k2_dispatch)
-    reset_counts()
-    t2i_steps = []
-    for i in range(ITERATIONS):
-        t2i_iteration(i, i % R1_EVERY == 0, t2i_steps)
-    gan.builder.gp_fwd_over_rev = True
-    for i in range(2):
-        t2i_iteration(ITERATIONS + i, True, t2i_steps)
-    t2i_launches = read_counts()
-    gan.builder.gp_fwd_over_rev = False
-    if any(simt_counts().values()):
-        fail(f"bf16 calls of the text-to-image path reached the CUDA-core "
-             f"kernels: {simt_counts()}")
-    nonzero = {"d": ["vision_aided_divergence", "matching_aware_loss"],
-               "g": ["total_vd_divergence", "contrastive_loss"]}
-    for s_ in t2i_steps:
-        want = exp_g if s_["kind"] == "g" else (
-            exp_d if not s_["r1"] else exp_d_for if s_["fwd_over_rev"]
-            else exp_d_r1)
-        log(f"text-to-image {s_['kind']}_step r1={s_['r1']}"
-            f"{' (forward-over-reverse)' if s_['fwd_over_rev'] else ''}: "
-            f"{s_['ms']:.3f} ms, peak {s_['peak_gib']:.3f} GiB, launches "
-            f"{s_['launches']}, losses "
-            + ", ".join(f"{k} {v:.4g}" for k, v in s_["losses"].items()))
-        if not all(np.isfinite(v) for v in s_["losses"].values()):
-            fail(f"non-finite losses in {s_}")
-        zero = [k for k in nonzero[s_["kind"]]
-                + (["gradient_penalty"] if s_["r1"] and s_["kind"] == "d"
-                   else [])
-                if s_["losses"][k] == 0.0]
-        if zero:
-            fail(f"text-to-image {s_['kind']}_step: {zero} are zero")
-        if s_["launches"] != want:
-            fail(f"text-to-image {s_['kind']}_step (r1={s_['r1']}) launched "
-                 f"{s_['launches']}, the path implies {want}")
-    if any(n_ == 0 for n_ in t2i_launches.values()):
-        fail(f"a kernel of the text-to-image path was never launched: "
-             f"{t2i_launches}")
-    log(f"text-to-image path: {ITERATIONS} iterations (R1 on 0 and 4) and "
-        f"2 forward-over-reverse R1 iterations, launches {t2i_launches}")
-    ror = t2i_steps[:2 * ITERATIONS]
-    d_plain = [s_["ms"] for s_ in ror if s_["kind"] == "d" and not s_["r1"]]
-    d_r1 = [s_["ms"] for s_ in ror if s_["kind"] == "d" and s_["r1"]]
-    g_ms = [s_["ms"] for s_ in ror if s_["kind"] == "g"]
-    d_for = [s_["ms"] for s_ in t2i_steps[2 * ITERATIONS:]
-             if s_["kind"] == "d"]
-    cadence_ms = sum(s_["ms"] for s_ in ror[2 * R1_EVERY:4 * R1_EVERY])
-    peak = {key: max(s_["peak_gib"] for s_ in ror if sel(s_))
-            for key, sel in (
-                ("d_step_r1", lambda s_: s_["kind"] == "d" and s_["r1"]),
-                ("d_step", lambda s_: s_["kind"] == "d" and not s_["r1"]),
-                ("g_step", lambda s_: s_["kind"] == "g"))}
-    t2i["timing"] = dict(
-        d_step_ms=statistics.median(d_plain),
-        d_step_r1_ms=statistics.median(d_r1),
-        d_step_r1_fwd_over_rev_ms=d_for,
-        g_step_ms=statistics.median(g_ms), cadence_ms=cadence_ms,
-        images_per_s=R1_EVERY * BATCH / (cadence_ms / 1e3),
-        peak_gib=peak,
-        held_gib=min(s_["base_gib"] for s_ in ror))
-    t2i["steps"], t2i["launches"] = t2i_steps, t2i_launches
-    tm = t2i["timing"]
-    log(f"text-to-image b{BATCH} bf16: d_step {tm['d_step_ms']:.3f} ms "
-        f"(median of {len(d_plain)}), d_step+R1 {tm['d_step_r1_ms']:.3f} ms "
-        f"(median of {len(d_r1)}; forward-over-reverse "
-        + ", ".join(f"{v:.3f}" for v in d_for)
-        + f" ms), g_step {tm['g_step_ms']:.3f} ms (median of {len(g_ms)}); "
-        f"iterations 4-7 (one R1) {cadence_ms:.3f} ms -> "
-        f"{tm['images_per_s']:.2f} images/s; peak memory "
-        + ", ".join(f"{k} {v:.3f} GiB" for k, v in peak.items())
-        + f" (held before a step {tm['held_gib']:.3f} GiB) [{smi}]")
-    if profile:
-        profiled("t2i_iter", lambda: t2i_iteration(1, False))
-        profiled("t2i_iter_r1", lambda: t2i_iteration(0, True))
-
-    # sampling from captions, batch 1 and 8: K1 per G conv and K3 per G
-    # attention per forward issued from Python, two per batch size (the
-    # eager first call and the capture of its graph; later calls replay
-    # it); cross-attention and the text encoder run no kernel (77 keys: the
-    # plain attention)
-    gen_ms = {1: [], BATCH: []}
-    reset_counts()
-    for i in range(5):
-        for bs in (1, BATCH):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            img = gan.generate(texts=T2I_CAPTIONS[:bs], seed=i)
-            gen_ms[bs].append((time.perf_counter() - t) * 1e3)
-            size = T2I_G["image_size"]
-            if img.shape != (bs, size, size, 3) or not np.isfinite(
-                    img).all():
-                fail(f"text-to-image sampling gave {img.shape} / non-finite")
-    counts = read_counts()
-    per = {k: 0 for k in counts}
-    per.update(k1=4 * n_g, k3=4 * n_ga)
-    if counts != per:
-        fail(f"text-to-image sampling launched {counts}, the path implies "
-             f"{per}")
-    t2i["sampling"] = dict(
-        latency_ms_b1=statistics.median(gen_ms[1][2:]),
-        images_per_s_b8=BATCH / (statistics.median(gen_ms[BATCH][2:]) / 1e3),
-        ms=gen_ms, launches=counts)
-    log(f"text-to-image sampling: batch-1 latency "
-        f"{t2i['sampling']['latency_ms_b1']:.3f} ms, batch-{BATCH} "
-        f"{t2i['sampling']['images_per_s_b8']:.2f} images/s (medians of 3 "
-        f"replays after the eager call and the capture; caption embedding "
-        f"included) [{smi}]")
-    k1.adaptive_conv_fwd, k1.adaptive_conv_bwd_w = k1_dispatch, k2_dispatch
+        # sampling from captions, batch 1 and 8: K1 per G conv and K3 per
+        # G attention per forward issued from Python, two per batch size
+        # (the eager first call and the capture of its graph; later calls
+        # replay it); cross-attention and the text encoder run no kernel
+        # (77 keys: the plain attention)
+        ctx.reset_counts()
+        for i in range(5):
+            for bs in (1, BATCH):
+                img = gan.generate(texts=T2I_CAPTIONS[:bs], seed=i)
+                size = T2I_G["image_size"]
+                if img.shape != (bs, size, size, 3) or not np.isfinite(
+                        img).all():
+                    fail(f"text-to-image sampling gave {img.shape} / "
+                         "non-finite")
+        counts = ctx.read_counts()
+        per = {k: 0 for k in counts}
+        per.update(k1=4 * n_g, k3=4 * n_ga)
+        if counts != per:
+            fail(f"text-to-image sampling launched {counts}, the path "
+                 f"implies {per}")
+        t2i["sampling_launches"] = counts
     del gan
     gc.collect()
     torch.cuda.empty_cache()
@@ -3051,309 +2529,59 @@ def main():
     # forms) and g_step; D's and the VD's gradients, or G's.  The reference
     # is the plain path with its attention in float64: D's self-attention
     # shares q and k, so each to_q gradient is the sum of a q-side and a
-    # k-side term several times its size that cancel (measured below), and
-    # an fp32 attention leaves a part of that leaf in doubt, in the plain
-    # path as in the kernels.  Two fp32 paths would be held to the sum of
-    # their roundings; against float64 attention each is held to its own.
-    # The plain fp32 path's distance from it is the control
-    def attend_f64(q, k, v, *, mask=None, l2_dist=False, scale=None):
-        """The plain ``attend``'s algebra (|q|² dropped, |k|² and the key
-        mask in one bias row) in float64, rounded back to q's dtype."""
-        if scale is None:
-            scale = q.shape[-1] ** -0.5
-        out_dtype = q.dtype
-        q, k, v = q.double(), k.double(), v.double()
-        sim = torch.einsum("bhid,bhjd->bhij",
-                           q * (2.0 * scale if l2_dist else scale), k)
-        if l2_dist:
-            sim = sim - scale * (k * k).sum(-1)[..., None, :]
-        if mask is not None:
-            sim = sim + torch.where(mask, 0.0, ops_attention.NEG_INF)[
-                :, None, None, :].double()
-        e = torch.exp(sim - sim.amax(-1, keepdim=True).detach())
-        out = torch.einsum("bhij,bhjd->bhid", e, v) / e.sum(-1, keepdim=True)
-        return out.to(out_dtype)
-
-    @contextlib.contextmanager
-    def float64_attention():
-        """Every plain attention (``attend``, and ``attend_fused``'s plain
-        branch through it) in float64."""
-        base = ops.attend
-        ops.attend = ops_attention.attend = attend_f64
-        try:
-            yield
-        finally:
-            ops.attend = ops_attention.attend = base
-
-    def t2i_fp32_step(kind, plain, fwd_over_rev=False, r1=True,
-                      f64_attention=False):
-        g32 = t2i_gan(gp_fwd_over_rev=fwd_over_rev)
-        with (plain_reference() if plain else contextlib.nullcontext()), \
-                (float64_attention() if f64_attention
-                 else contextlib.nullcontext()):
-            if kind == "d":
-                m = g32.train_discriminator_step(
-                    t2i_batches[0], apply_gradient_penalty=r1,
-                    calc_multiscale_loss=True, seed=7)
-                models = (("D", g32.D), ("VD", g32.VD))
-            else:
-                m = g32.train_generator_step(t2i_batches[0],
-                                             calc_multiscale_loss=True,
-                                             seed=7)
-                models = (("G", g32.G),)
-        res = ({k: float(v) for k, v in m.items()},
-               {f"{name_}.{n_}": (p.grad if p.grad is not None else
-                                  torch.zeros_like(p)).detach().clone()
-                for name_, mod in models
-                for n_, p in mod.named_parameters()})
-        del g32
-        gc.collect()
-        torch.cuda.empty_cache()
-        return res
-
-    def shared_qk_terms():
-        """The plain fp32 d_step+R1's q-side and k-side terms of each
-        shared-q/k to_q gradient of D (k through a copy of the weight)."""
-        g32 = t2i_gan()
-        attns = {n_: m_ for n_, m_ in g32.D.named_modules()
-                 if isinstance(m_, SelfAttention) and not m_.dot_product}
-        for m_ in attns.values():
-            m_.k_weight = torch.nn.Parameter(m_.to_q.weight.detach().clone())
-        base = SelfAttention.forward
-
-        def split_forward(self, fmap):
-            if not hasattr(self, "k_weight"):
-                return base(self, fmap)
-            b_, h_, w_, _ = fmap.shape
-            inner = self.dim_head * self.heads
-            fmap = self.norm(fmap)
-            q, v = self.to_q(fmap), self.to_v(fmap)
-            k = torch.nn.functional.linear(fmap, self.k_weight)
-            q, k, v = (t_.reshape(b_, h_ * w_, inner) for t_ in (q, k, v))
-            out = ops.attend_fused(q, k, v, heads=self.heads,
-                                   null_kv=self.null_kv, l2_dist=True,
-                                   scale=self.dim_head ** -0.5)
-            return self.to_out(out.reshape(b_, h_, w_, inner))
-
-        SelfAttention.forward = split_forward
-        try:
-            with plain_reference():
-                g32.train_discriminator_step(
-                    t2i_batches[0], apply_gradient_penalty=True,
-                    calc_multiscale_loss=True, seed=7)
-        finally:
-            SelfAttention.forward = base
-        terms = {}
-        for n_, m_ in attns.items():
-            qg, kg = m_.to_q.weight.grad, m_.k_weight.grad
-            terms[f"D.{n_}.to_q.weight"] = dict(
-                norm_q_side=float(qg.norm()), norm_k_side=float(kg.norm()),
-                norm_sum=float((qg + kg).norm()),
-                max_q_side=float(qg.abs().max()),
-                max_k_side=float(kg.abs().max()),
-                max_sum=float((qg + kg).abs().max()))
-        del g32
-        gc.collect()
-        torch.cuda.empty_cache()
-        return terms
-
-    t2i["shared_qk_terms"] = shared_qk_terms()
-    for n_, r_ in t2i["shared_qk_terms"].items():
-        log(f"fp32 d_step+R1 (plain), {n_} = q-side + k-side: norms "
-            f"{r_['norm_q_side']:.4e} + {r_['norm_k_side']:.4e} -> "
-            f"{r_['norm_sum']:.4e}, largest elements {r_['max_q_side']:.4e}"
-            f", {r_['max_k_side']:.4e} -> {r_['max_sum']:.4e}")
+    # k-side term several times its size that cancel, and an fp32
+    # attention leaves a part of that leaf in doubt, in the plain path as
+    # in the kernels.  Two fp32 paths would be held to the sum of their
+    # roundings; against float64 attention each is held to its own
     t2i["fp32_vs_plain"] = {}
     for kind, label, fwd_over_rev, r1 in (
             ("d", "d_step (matching rows folded)", False, False),
             ("d", "d_step +R1", False, True),
             ("d", "d_step +R1 forward-over-reverse", True, True),
             ("g", "g_step", False, False)):
-        ref = t2i_fp32_step(kind, True, fwd_over_rev, r1, True)
-        kernels = t2i_fp32_step(kind, False, fwd_over_rev, r1)
-        plain32 = t2i_fp32_step(kind, True, fwd_over_rev, r1)
-        t2i["fp32_vs_plain"][label] = dict(
-            control=compare(
-                f"text-to-image fp32 {label}, plain path vs plain with "
-                "float64 attention (control)", plain32, ref, tol=None),
-            kernels_vs_plain=compare(
-                f"text-to-image fp32 {label}, kernels vs plain path",
-                kernels, plain32, tol=None),
-            kernels=compare(
-                f"text-to-image fp32 {label}, kernels vs plain path with "
-                "float64 attention", kernels, ref))
-        del ref, kernels, plain32
+        runs = []
+        for plain in (True, False):
+            g32 = t2i_gan(gp_fwd_over_rev=fwd_over_rev)
+            runs.append(step_grads(g32, kind, batches[0], r1, plain=plain,
+                                   f64_attention=plain))
+            del g32
+            gc.collect()
+            torch.cuda.empty_cache()
+        t2i["fp32_vs_plain"][label] = compare(
+            f"text-to-image fp32 {label}, kernels vs plain path with "
+            "float64 attention", runs[1], runs[0])
+        del runs
 
     # K1 and K2 at every shape and dtype the path gave them (the run and the
     # sampling above), against their plain versions on fresh operands of
     # those shapes: the call as the path made it, on the route the rule
-    # names, and in fp32 on its route.  The calls the generator does not
-    # make (it runs on the batch, or on 1 image when sampling) are timed
-    # too: the VD's on 7x7 maps, and the predictors' on images x groups
-    # rows (64/h groups at h², as the multiscale expansion gives them),
-    # with b images in the g_step, 2b in the main and the matching call of
-    # a d_step+R1, 4b in a d_step with the matching rows folded in
-
-    def route_of(kname, call):
-        """call() and the one route all its launches took (None if it
-        launched nothing or on both)."""
-        entries = (("tc", tc_entry), ("simt", simt))
-        before = {r: e[kname].launches for r, e in entries}
-        res = call()
-        ran = [r for r, e in entries if e[kname].launches > before[r]]
-        return res, (ran[0] if len(ran) == 1 else None)
-
-    def check_conv_call(key, n_calls, where):
-        """One distinct K1 or K2 call of a path (its operands' shapes and
-        dtypes, as recorded at the dispatcher) on fresh operands: as the
-        path made it and in fp32, each on the route the rule names, against
-        the plain version.  Returns (entry, operands, outputs, plain
-        function, kernel function)."""
-        kname, (xs, xdt), *rest = key
-        rows_, h, w_, ci = xs
-        if kname == "k1":
-            (ws, wdt), (_, adt), (_, ddt) = rest
-        else:
-            (_, gdt), (ws, wdt), (_, adt) = rest
-        banks, co = ws[0], ws[-1]
-        xm, w, a, d = conv_operands(rows_, h, w_, ci, co, banks)
-        if kname == "k1":
-            operands = (xm.to(xdt), w.to(wdt), a.to(adt), d.to(ddt))
-            want = k1.adaptive_conv_fwd_plain(xm, w, a, d)
-            got, route = route_of("k1", lambda: k1.adaptive_conv_fwd(
-                *operands))
-            got32, route32 = route_of("k1", lambda: k1.adaptive_conv_fwd(
-                xm, w, a, d))
-            rel, rel32 = rel_err(got, want), rel_err(got32, want)
-            err = max(abs_err(got, want), abs_err(got32, want))
-            same, rule = None, k1.conv_uses_tensor_cores
-            tol = K1_TOL_BF16 if xdt == bf16 else K1_TOL_F32
-            tol32, out = K1_TOL_F32, (got,)
-            plain_fn, kernel_fn = (k1.adaptive_conv_fwd_plain,
-                                   k1.adaptive_conv_fwd)
-        else:
-            g = torch.randn(rows_, h, w_, co, device=dev, generator=gen)
-            operands = (xm.to(xdt), g.to(gdt), w.to(wdt), a.to(adt))
-            want = k1.adaptive_conv_bwd_w_plain(xm, g, w, a)
-            got, route = route_of("k2", lambda: k1.adaptive_conv_bwd_w(
-                *operands))
-            got32, route32 = route_of("k2", lambda: k1.adaptive_conv_bwd_w(
-                xm, g, w, a))
-            rel = max(map(rel_err, got, want))
-            rel32 = max(map(rel_err, got32, want))
-            err = max(*map(abs_err, got, want), *map(abs_err, got32, want))
-            same = (max(map(rel_err, got, k1.adaptive_conv_bwd_w_plain(
-                *operands))) if xdt == bf16 else None)
-            rule = k1.bwd_w_uses_tensor_cores
-            tol = K2_TOL_BF16 if xdt == bf16 else K2_TOL_F32
-            tol32, out = K2_TOL_F32, got
-            plain_fn, kernel_fn = (k1.adaptive_conv_bwd_w_plain,
-                                   k1.adaptive_conv_bwd_w)
-        routes = (route, route32)
-        want_routes = tuple("tc" if rule(dt_, ci, co) else "simt"
-                            for dt_ in (xdt, torch.float32))
-        entry = dict(kernel=kname, rows=rows_, h=h, w=w_, ci=ci, co=co,
-                     banks=banks, dtype=str(xdt).split(".")[-1],
-                     calls=n_calls, routes=routes, rel=rel, rel_f32=rel32,
-                     rel_same=same, max_abs_err=err)
-        if routes != want_routes:
-            fail(f"{kname} at a {where} shape ran on {routes}; the rule "
-                 f"names {want_routes}: {entry}")
-        if not (rel <= tol and rel32 <= tol32
-                and (same is None or same <= K2_TOL_SAME)):
-            fail(f"{kname} disagrees with its plain version at a {where} "
-                 f"shape: {entry}")
-        del want, got32
-        return entry, operands, out, plain_fn, kernel_fn
-
-    def conv_key_order(kv):
-        return kv[0][0], -kv[0][1][0][1], kv[0][1][0][0], str(kv[0])
-
-    def log_held(held, where):
-        worst = {k_: max((e_ for e_ in held if e_["kernel"] == k_),
-                         key=lambda e_: e_["rel"]) for k_ in ("k1", "k2")}
-        log(f"K1/K2 held at every call of the {where}: "
-            f"{len(held)} distinct shapes and dtypes "
-            f"({sum(e_['calls'] for e_ in held)} calls), each on the route "
-            f"its rule names; "
-            + ", ".join(
-                f"worst {k_.upper()} rel {e_['rel']:.2e} (b{e_['rows']} "
-                f"{e_['h']}x{e_['w']} {e_['ci']}->{e_['co']} x{e_['banks']} "
-                f"{e_['dtype']})" for k_, e_ in worst.items())
-            + f"; fp32 at most {max(e_['rel_f32'] for e_ in held):.2e}, "
-            f"bf16 K2 on its own inputs at most "
-            f"{max(e_['rel_same'] or 0.0 for e_ in held):.2e}")
-
-    t2i_conv_rows, held = [], []
-    for key, n_calls in sorted(path_calls.items(), key=conv_key_order):
-        entry, operands, out, plain_fn, kernel_fn = check_conv_call(
-            key, n_calls, "text-to-image")
-        held.append(entry)
-        kname, rows_, h, w_, ci, co, banks = (
-            entry[k_] for k_ in ("kernel", "rows", "h", "w", "ci", "co",
-                                 "banks"))
-        route, n_calls = entry["routes"][0], entry["calls"]
-        rel, rel32, same = entry["rel"], entry["rel_f32"], entry["rel_same"]
-        if (h == 7 or rows_ not in (1, BATCH)) and banks == 2 \
-                and entry["dtype"] == "bfloat16":
-            flops = 2.0 * rows_ * h * w_ * 9 * ci * co
-            entry.update(
-                who="VD" if h == 7 else "predictor",
-                images=rows_ if h == 7 else rows_ * h // 64,
-                ms=time_ms(lambda: kernel_fn(*operands), torch),
-                plain_ms=time_ms(lambda: plain_fn(*operands), torch),
-                bound=bound(flops, nbytes(*operands, *out)))
-            t2i_conv_rows.append(entry)
-            log(f"{kname} text-to-image {entry['who']} ({entry['images']} "
-                f"images) b{rows_} {h}x{w_} {ci}->{co} bf16 x{n_calls}: "
-                f"route {route}, rel {rel:.2e} (fp32 {rel32:.2e}"
-                + (f", same inputs {same:.2e}" if same is not None else "")
-                + f") | {entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f}, "
-                f"bound {entry['bound'][0]:.4f})")
-        del operands, out
-        torch.cuda.empty_cache()
-    log_held(held, "text-to-image path")
-    t2i["conv_calls"] = held
-    t2i["conv_rows"] = t2i_conv_rows
-    del t2i_batches, clip
+    # names, and in fp32 on its route
+    t2i["conv_calls"] = check_conv_calls(ctx, calls, "text-to-image")
+    del batches, clip
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 13 (the text-to-image path): "
-        f"{time.perf_counter() - t_phase:.1f} s")
 
-    # --------------------------------------------------------------- 14
-    # the UNet upsampler recipe of examples/train_upsampler.py at full
-    # width: its training iterations, sampling (and a 256 -> 1024
-    # request), fp32 steps against the plain path, a video forward, the
-    # fused attention chain past its grid limit, and K1-K4 at its shapes
-    t_phase = time.perf_counter()
-    up = report["upsampler"] = {}
-    from gigagan_tpu_torch.models.layers import init_parameters
-    from gigagan_tpu_torch.models.unet_upsampler import (
-        Attention2D,
-        UnetUpsampler,
-    )
+
+def phase_14_upsampler(ctx):
+    """The UNet upsampler recipe at full width: its training iterations,
+    sampling (and a 256 -> 1024 request), fp32 steps against the plain
+    path, a video forward, the fused attention chain past its grid limit,
+    and K1-K4 at its shapes."""
+    up = ctx.report["upsampler"] = {}
 
     def up_gan(**kw):
         kw.setdefault("seed", 0)
         return GigaGAN(generator=UPSAMPLER_G, discriminator=UPSAMPLER_D,
-                       train_upsampler=True, device="cuda", **kw)
+                       train_upsampler=True, device=ctx.dev.type, **kw)
 
-    t0 = time.perf_counter()
     gan = up_gan(amp=True)
-    sizes = {n_: sum(p.numel() for p in m_.parameters()) / 1e6
-             for n_, m_ in (("G", gan.G), ("D", gan.D))}
     n_g, n_ga = upsampler_structure(UPSAMPLER_G)
     n_da = sum(st.core.attn is not None for st in gan.D.stages)
     built = (sum(isinstance(m, AdaptiveConv) for m in gan.G.modules()),
              sum(isinstance(m, Attention2D) for m in gan.G.modules()))
-    up.update(params_m=sizes, structure=dict(g_convs=n_g, g_attn=n_ga,
-                                             d_attn=n_da))
-    log(f"upsampler G+D: " + ", ".join(f"{k} {v:.2f}M" for k, v in
-                                       sizes.items())
-        + f" params; built in {time.perf_counter() - t0:.2f} s; {n_g} "
-        f"adaptive convs and {n_ga} full attentions in G, {n_da} "
-        "attentions in D")
+    up["structure"] = dict(g_convs=n_g, g_attn=n_ga, d_attn=n_da)
+    log(f"upsampler G+D: {n_g} adaptive convs and {n_ga} full attentions "
+        f"in G, {n_da} attentions in D")
     if built != (n_g, n_ga):
         fail(f"the upsampler holds {built} adaptive convs and attentions, "
              f"its configuration implies {(n_g, n_ga)}")
@@ -3361,166 +2589,113 @@ def main():
         UPSAMPLER_G, n_da)
     size = UPSAMPLER_G["image_size"]
     data = MockImageDataset(size, length=4 * BATCH, seed=0)
-    up_pool = torch.from_numpy(np.stack(
-        [data[i] for i in range(4 * BATCH)])).to(dev)
+    pool = torch.from_numpy(np.stack(
+        [data[i] for i in range(4 * BATCH)])).to(ctx.dev)
 
-    def up_iteration(i, apply_gp, record=None):
-        steps_ = []
-        for kind in ("d", "g"):
-            j = (2 * i + (kind == "g")) % 4
-            batch_ = up_pool[j * BATCH:(j + 1) * BATCH]
-            before = read_counts()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            t = time.perf_counter()
-            if kind == "d":
-                m = gan.train_discriminator_step(
-                    batch_, apply_gradient_penalty=apply_gp,
-                    calc_multiscale_loss=True, seed=9000 + i)
-            else:
-                m = gan.train_generator_step(
-                    batch_, calc_multiscale_loss=True, seed=9500 + i)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t) * 1e3
-            after = read_counts()
-            steps_.append(dict(
-                kind=kind, r1=apply_gp, ms=ms,
-                fwd_over_rev=gan.builder.gp_fwd_over_rev,
-                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                base_gib=base / 2 ** 30,
-                losses={k: float(v) for k, v in m.items()},
-                launches={k: after[k] - before[k] for k in after}))
-        if record is not None:
-            record.extend(steps_)
-        return steps_
+    def quarter(j):
+        return pool[j % 4 * BATCH:(j % 4 + 1) * BATCH]
 
-    up_iteration(0, True)  # warm-up: allocator, cuDNN plans
-    up_iteration(1, False)
-    path_calls = {}
-    k1.adaptive_conv_fwd = seen("k1", k1_dispatch)
-    k1.adaptive_conv_bwd_w = seen("k2", k2_dispatch)
-    reset_counts()
-    up_steps = []
-    for i in range(ITERATIONS):
-        up_iteration(i, i % R1_EVERY == 0, up_steps)
-    gan.builder.gp_fwd_over_rev = True
-    for i in range(2):
-        up_iteration(ITERATIONS + i, True, up_steps)
-    up_launches = read_counts()
-    gan.builder.gp_fwd_over_rev = False
-    if any(simt_counts().values()):
-        fail(f"bf16 calls of the upsampler path reached the CUDA-core "
-             f"kernels: {simt_counts()}")
-    for s_ in up_steps:
-        want = exp_g if s_["kind"] == "g" else (
-            exp_d if not s_["r1"] else exp_d_for if s_["fwd_over_rev"]
-            else exp_d_r1)
-        log(f"upsampler {s_['kind']}_step r1={s_['r1']}"
-            f"{' (forward-over-reverse)' if s_['fwd_over_rev'] else ''}: "
-            f"{s_['ms']:.3f} ms, peak {s_['peak_gib']:.3f} GiB, launches "
-            f"{s_['launches']}, losses "
-            + ", ".join(f"{k} {v:.4g}" for k, v in s_["losses"].items()))
-        if not all(np.isfinite(v) for v in s_["losses"].values()):
-            fail(f"non-finite losses in {s_}")
-        if s_["kind"] == "d" and s_["r1"] and \
-                s_["losses"]["gradient_penalty"] == 0.0:
-            fail(f"upsampler d_step: the R1 penalty is zero: {s_}")
-        if s_["launches"] != want:
-            fail(f"upsampler {s_['kind']}_step (r1={s_['r1']}) launched "
-                 f"{s_['launches']}, the path implies {want}")
-    if any(n_ == 0 for n_ in up_launches.values()):
-        fail(f"a kernel of the upsampler path was never launched: "
-             f"{up_launches}")
-    log(f"upsampler path: {ITERATIONS} iterations (R1 on 0 and 4) and 2 "
-        f"forward-over-reverse R1 iterations, launches {up_launches}")
-    ror = up_steps[:2 * ITERATIONS]
-    d_plain = [s_["ms"] for s_ in ror if s_["kind"] == "d" and not s_["r1"]]
-    d_r1 = [s_["ms"] for s_ in ror if s_["kind"] == "d" and s_["r1"]]
-    g_ms = [s_["ms"] for s_ in ror if s_["kind"] == "g"]
-    d_for = [s_["ms"] for s_ in up_steps[2 * ITERATIONS:]
-             if s_["kind"] == "d"]
-    cadence_ms = sum(s_["ms"] for s_ in ror[2 * R1_EVERY:4 * R1_EVERY])
-    peak = {key: max(s_["peak_gib"] for s_ in up_steps if sel(s_))
-            for key, sel in (
-                ("d_step_r1", lambda s_: s_["kind"] == "d" and s_["r1"]
-                 and not s_["fwd_over_rev"]),
-                ("d_step_r1_fwd_over_rev",
-                 lambda s_: s_["kind"] == "d" and s_["fwd_over_rev"]),
-                ("d_step", lambda s_: s_["kind"] == "d" and not s_["r1"]),
-                ("g_step", lambda s_: s_["kind"] == "g"))}
-    up["timing"] = tm = dict(
-        d_step_ms=statistics.median(d_plain),
-        d_step_r1_ms=statistics.median(d_r1),
-        d_step_r1_fwd_over_rev_ms=d_for,
-        g_step_ms=statistics.median(g_ms), cadence_ms=cadence_ms,
-        images_per_s=R1_EVERY * BATCH / (cadence_ms / 1e3), peak_gib=peak,
-        held_gib=min(s_["base_gib"] for s_ in ror))
-    up["steps"], up["launches"] = up_steps, up_launches
-    log(f"upsampler b{BATCH} bf16: d_step {tm['d_step_ms']:.3f} ms "
-        f"(median of {len(d_plain)}), d_step+R1 {tm['d_step_r1_ms']:.3f} ms "
-        f"(median of {len(d_r1)}; forward-over-reverse "
-        + ", ".join(f"{v:.3f}" for v in d_for)
-        + f" ms), g_step {tm['g_step_ms']:.3f} ms (median of {len(g_ms)}); "
-        f"iterations 4-7 (one R1) {cadence_ms:.3f} ms -> "
-        f"{tm['images_per_s']:.2f} images/s; peak memory "
-        + ", ".join(f"{k} {v:.3f} GiB" for k, v in peak.items())
-        + f" (held before a step {tm['held_gib']:.3f} GiB) [{smi}]")
-    if profile:
-        profiled("upsampler_iter", lambda: up_iteration(1, False))
-        profiled("upsampler_iter_r1", lambda: up_iteration(0, True))
-
-    # sampling, batch 1 and 8: K1 per adaptive conv and K3 per attention of
-    # G per forward
-    lowres = ops.resize_image_to(up_pool[:BATCH], UPSAMPLER_G[
-        "input_image_size"], "nearest").cpu().numpy()
-    gen_ms = {1: [], BATCH: []}
-    reset_counts()
-    for i in range(4):
-        for bs in (1, BATCH):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            img = gan.generate(lowres[:bs], seed=i)
-            gen_ms[bs].append((time.perf_counter() - t) * 1e3)
-            if img.shape != (bs, size, size, 3) or not np.isfinite(
-                    img).all():
-                fail(f"upsampler sampling gave {img.shape} / non-finite")
-    counts = read_counts()
-    per = {k: 0 for k in counts}
-    per.update(k1=8 * n_g, k3=8 * n_ga)
-    if counts != per:
-        fail(f"upsampler sampling launched {counts}, the path implies {per}")
-    up["sampling"] = dict(
-        latency_ms_b1=statistics.median(gen_ms[1][1:]),
-        images_per_s_b8=BATCH / (statistics.median(gen_ms[BATCH][1:]) / 1e3),
-        ms=gen_ms, launches=counts)
-    log(f"upsampler sampling 64 -> 256: batch-1 latency "
-        f"{up['sampling']['latency_ms_b1']:.3f} ms, batch-{BATCH} "
-        f"{up['sampling']['images_per_s_b8']:.2f} images/s (medians of 3 "
-        f"after one warm-up) [{smi}]")
+    with recording_conv_calls() as calls:
+        ctx.reset_counts()
+        steps = []
+        for i in range(ITERATIONS + 2):  # the last 2 forward-over-reverse
+            gan.builder.gp_fwd_over_rev = i >= ITERATIONS
+            steps += counted_iteration(
+                ctx, gan, i, i >= ITERATIONS or i % R1_EVERY == 0,
+                quarter(2 * i), quarter(2 * i + 1), (9000, 9500))
+        launches = ctx.read_counts()
+        gan.builder.gp_fwd_over_rev = False
+        if any(ctx.simt_counts().values()):
+            fail(f"bf16 calls of the upsampler path reached the CUDA-core "
+                 f"kernels: {ctx.simt_counts()}")
+        for s_ in steps:
+            want = exp_g if s_["kind"] == "g" else (
+                exp_d if not s_["r1"] else exp_d_for if s_["fwd_over_rev"]
+                else exp_d_r1)
+            log(f"upsampler {s_['kind']}_step r1={s_['r1']}"
+                f"{' (forward-over-reverse)' if s_['fwd_over_rev'] else ''}"
+                f": launches {s_['launches']}, losses "
+                + ", ".join(f"{k} {v:.4g}" for k, v in s_["losses"].items()))
+            if not all(np.isfinite(v) for v in s_["losses"].values()):
+                fail(f"non-finite losses in {s_}")
+            if s_["kind"] == "d" and s_["r1"] and \
+                    s_["losses"]["gradient_penalty"] == 0.0:
+                fail(f"upsampler d_step: the R1 penalty is zero: {s_}")
+            if s_["launches"] != want:
+                fail(f"upsampler {s_['kind']}_step (r1={s_['r1']}) launched "
+                     f"{s_['launches']}, the path implies {want}")
+        if any(n_ == 0 for n_ in launches.values()):
+            fail(f"a kernel of the upsampler path was never launched: "
+                 f"{launches}")
+        log(f"upsampler path: {ITERATIONS} iterations (R1 on 0 and 4) and "
+            f"2 forward-over-reverse R1 iterations, launches {launches}")
+        up["steps"], up["launches"] = steps, launches
+        upsampler_sampling(ctx, gan, pool, n_g, n_ga)
     del gan
     gc.collect()
     torch.cuda.empty_cache()
 
-    # a 256 -> 1024 request with the same widths: K1 on 1024² maps, K3 at
-    # 16384 tokens
+    # fp32 steps through the kernels against the plain path with float64
+    # attention (phase 13's reference), from one fresh state: d_step+R1 in
+    # both forms and g_step
+    up["fp32_vs_plain"] = {}
+    for kind, label, fwd_over_rev in (
+            ("d", "d_step +R1", False),
+            ("d", "d_step +R1 forward-over-reverse", True),
+            ("g", "g_step", False)):
+        runs = []
+        for plain in (True, False):
+            g32 = up_gan(gp_fwd_over_rev=fwd_over_rev)
+            runs.append(step_grads(g32, kind, pool[:UP_FP32_BATCH],
+                                   plain=plain, f64_attention=plain))
+            del g32
+            gc.collect()
+            torch.cuda.empty_cache()
+        up["fp32_vs_plain"][label] = compare(
+            f"upsampler fp32 b{UP_FP32_BATCH} {label}, kernels vs plain "
+            "path with float64 attention", runs[1], runs[0])
+        del runs
+    del pool
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    up["video"] = upsampler_video(ctx)
+    up["split"] = attention_past_grid_limit(ctx)
+    # K1 and K2 at every shape and dtype of the run, the sampling and the
+    # 1024 request, against their plain versions
+    up["conv_calls"] = check_conv_calls(ctx, calls, "upsampler")
+    up["attention"] = upsampler_attention(ctx)
+
+
+def upsampler_sampling(ctx, gan, pool, n_g, n_ga):
+    """generate(lowres) at batch 1 and 8, K1 per adaptive conv and K3 per
+    attention of G per forward, and a batch-1 256 -> 1024 request with the
+    same widths (K1 on 1024² maps, K3 at 16384 tokens)."""
+    size = UPSAMPLER_G["image_size"]
+    lowres = ops.resize_image_to(pool[:BATCH], UPSAMPLER_G[
+        "input_image_size"], "nearest").cpu().numpy()
+    ctx.reset_counts()
+    for i in range(4):
+        for bs in (1, BATCH):
+            img = gan.generate(lowres[:bs], seed=i)
+            if img.shape != (bs, size, size, 3) or not np.isfinite(
+                    img).all():
+                fail(f"upsampler sampling gave {img.shape} / non-finite")
+    counts = ctx.read_counts()
+    per = {k: 0 for k in counts}
+    per.update(k1=8 * n_g, k3=8 * n_ga)
+    if counts != per:
+        fail(f"upsampler sampling launched {counts}, the path implies {per}")
+    ctx.report["upsampler"]["sampling_launches"] = counts
+
     big = GigaGAN(generator=UPSAMPLER_1K, train_upsampler=True, amp=True,
-                  device="cuda", seed=0)
+                  device=ctx.dev.type, seed=0)
     lowres_1k = np.random.default_rng(0).random(
         (1, 256, 256, 3)).astype(np.float32)
-    big.generate(lowres_1k, seed=0)  # warm-up
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    reset_counts()
-    big_ms = []
+    ctx.reset_counts()
     for i in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         img = big.generate(lowres_1k, seed=1 + i)
-        big_ms.append((time.perf_counter() - t) * 1e3)
-    counts = read_counts()
+    counts = ctx.read_counts()
     if img.shape != (1, 1024, 1024, 3) or not np.isfinite(img).all():
         fail(f"the 256 -> 1024 request gave {img.shape} / non-finite")
     per = {k: 0 for k in counts}
@@ -3528,73 +2703,17 @@ def main():
     if counts != per:
         fail(f"the 256 -> 1024 request launched {counts}, the path implies "
              f"{per}")
-    up["sampling_1k"] = dict(
-        latency_ms=statistics.median(big_ms), ms=big_ms,
-        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-        held_gib=base / 2 ** 30, launches=counts)
-    log(f"upsampler 256 -> 1024, batch 1: latency "
-        f"{up['sampling_1k']['latency_ms']:.3f} ms (median of 3: "
-        + ", ".join(f"{v:.3f}" for v in big_ms)
-        + f"), peak {up['sampling_1k']['peak_gib']:.3f} GiB (held "
-        f"{up['sampling_1k']['held_gib']:.3f}) [{smi}]")
-    k1.adaptive_conv_fwd, k1.adaptive_conv_bwd_w = k1_dispatch, k2_dispatch
+    ctx.report["upsampler"]["sampling_1k_launches"] = counts
     del big
     gc.collect()
     torch.cuda.empty_cache()
 
-    # fp32 steps through the kernels against the plain path with float64
-    # attention (phase 13's reference; the plain fp32 path is the
-    # control), from one fresh state: d_step+R1 in both forms and g_step
-    def up_fp32_step(kind, plain, fwd_over_rev=False, f64_attention=False):
-        g32 = up_gan(gp_fwd_over_rev=fwd_over_rev)
-        batch_ = up_pool[:UP_FP32_BATCH]
-        with (plain_reference() if plain else contextlib.nullcontext()), \
-                (float64_attention() if f64_attention
-                 else contextlib.nullcontext()):
-            if kind == "d":
-                m = g32.train_discriminator_step(
-                    batch_, apply_gradient_penalty=True,
-                    calc_multiscale_loss=True, seed=7)
-                models = (("D", g32.D),)
-            else:
-                m = g32.train_generator_step(batch_,
-                                             calc_multiscale_loss=True,
-                                             seed=7)
-                models = (("G", g32.G),)
-        res = ({k: float(v) for k, v in m.items()},
-               {f"{name_}.{n_}": (p.grad if p.grad is not None else
-                                  torch.zeros_like(p)).detach().clone()
-                for name_, mod in models
-                for n_, p in mod.named_parameters()})
-        del g32
-        gc.collect()
-        torch.cuda.empty_cache()
-        return res
 
-    up["fp32_vs_plain"] = {}
-    for kind, label, fwd_over_rev in (
-            ("d", "d_step +R1", False),
-            ("d", "d_step +R1 forward-over-reverse", True),
-            ("g", "g_step", False)):
-        ref = up_fp32_step(kind, True, fwd_over_rev, True)
-        kernels = up_fp32_step(kind, False, fwd_over_rev)
-        plain32 = up_fp32_step(kind, True, fwd_over_rev)
-        up["fp32_vs_plain"][label] = dict(
-            control=compare(
-                f"upsampler fp32 b{UP_FP32_BATCH} {label}, plain path vs "
-                "plain with float64 attention (control)", plain32, ref,
-                tol=None),
-            kernels_vs_plain=compare(
-                f"upsampler fp32 b{UP_FP32_BATCH} {label}, kernels vs plain "
-                "path", kernels, plain32, tol=None),
-            kernels=compare(
-                f"upsampler fp32 b{UP_FP32_BATCH} {label}, kernels vs plain "
-                "path with float64 attention", kernels, ref))
-        del ref, kernels, plain32
-
-    # the video net, fp32, one clip: every K3 launch of the forward takes
-    # at most MAX_BATCH rows, and the last up stage's temporal attention
-    # (256² rows) splits
+def upsampler_video(ctx):
+    """The video net, fp32, one clip, against the plain path: every K3
+    launch of the forward takes at most MAX_BATCH rows, and the last up
+    stage's temporal attention (256² rows) splits."""
+    dev = ctx.dev
     k3_batches = []
     k3_entries = {r: getattr(k3, f"flash_attention_fused_fwd_{r}")
                   for r in ("tc", "simt")}
@@ -3617,19 +2736,12 @@ def main():
                          device=dev, generator=vgen)
     for r_, e_ in k3_entries.items():
         setattr(k3, f"flash_attention_fused_fwd_{r_}", k3_batch_of(e_))
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
     try:
         with torch.no_grad():
             got = vid(clip_in, noise=vnoise)
-        torch.cuda.synchronize()
-        video_ms = (time.perf_counter() - t) * 1e3
     finally:
         for r_, e_ in k3_entries.items():
             setattr(k3, f"flash_attention_fused_fwd_{r_}", e_)
-    video_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with torch.no_grad(), plain_reference():
         want = vid(clip_in, noise=vnoise)
     # frames double at every up stage and halve at every down stage that
@@ -3638,18 +2750,16 @@ def main():
     pools = stages - int(np.log2(UPSAMPLER_VIDEO["image_size"] // inp))
     frames = VIDEO_FRAMES * 2 ** stages // 2 ** pools
     rel = rel_err(got, want)
-    up["video"] = dict(shape=list(got.shape), rel=rel, ms=video_ms,
-                       peak_gib=video_peak,
-                       k3_batches=sorted(set(k3_batches)),
-                       k3_launches=len(k3_batches))
+    video = dict(shape=list(got.shape), rel=rel,
+                 k3_batches=sorted(set(k3_batches)),
+                 k3_launches=len(k3_batches))
     log(f"upsampler video fp32, {VIDEO_FRAMES} frames {inp}² -> "
         f"{tuple(got.shape)}: kernels vs plain path rel {rel:.2e} (tol "
-        f"{VIDEO_TOL}), {video_ms:.1f} ms, peak {video_peak:.3f} GiB, "
-        f"{len(k3_batches)} K3 launches, batches "
-        f"{sorted(set(k3_batches))} [{smi}]")
+        f"{VIDEO_TOL}), {len(k3_batches)} K3 launches, batches "
+        f"{sorted(set(k3_batches))}")
     if tuple(got.shape) != (1, frames, 256, 256, 3) or not bool(
             torch.isfinite(got).all()) or not rel <= VIDEO_TOL:
-        fail(f"the video forward disagrees: {up['video']}")
+        fail(f"the video forward disagrees: {video}")
     if max(k3_batches, default=0) > k3.MAX_BATCH or \
             k3.MAX_BATCH not in k3_batches:
         fail(f"the video forward's K3 launches took batches "
@@ -3658,32 +2768,36 @@ def main():
     del vid, got, want, clip_in
     gc.collect()
     torch.cuda.empty_cache()
+    return video
 
-    # K3, K4 and K5 past the grid limit: a batch of 65536 + 8 at the video
-    # temporal attention's size (16 tokens), with and without the null
-    # token, fp32 and bf16; each call must run as two launches
-    split_rows = []
+
+def attention_past_grid_limit(ctx):
+    """K3, K4 and K5 past the grid limit: a batch of 65536 + 8 at the
+    video temporal attention's size (16 tokens), with and without the null
+    token, fp32 and bf16; each call must run as two launches."""
+    rows = []
     for null in (False, True):
-        for dtype in (torch.float32, bf16):
-            args = attn_operands(SPLIT_ROWS, HEADS, 16, 16, DIM_HEAD, null,
-                                 null, dtype)
+        for dtype in (torch.float32, BF16):
+            args = attn_operands(ctx, SPLIT_ROWS, HEADS, 16, 16, DIM_HEAD,
+                                 null, null, dtype)
             q, k_pre, v, bias, nullk, nullv, null_bias, _ = args
             route = "tc" if k3.uses_tensor_cores(dtype, DIM_HEAD) else "simt"
             route5 = ("tc" if so.so_uses_tensor_cores(dtype, DIM_HEAD)
                       else "simt")
-            entries = {k_: (tc_entry if r_ == "tc" else simt)[k_]
+            entries = {k_: (ctx.tc if r_ == "tc" else ctx.simt)[k_]
                        for k_, r_ in (("k3", route), ("k4", route),
                                       ("k5", route5))}
             before = {k_: e_.launches for k_, e_ in entries.items()}
             out, lse = k3.flash_attention_fused_fwd(*args)
             o_want, l_want = k3.flash_attention_fused_fwd_plain(*args)
-            g = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
+            g = torch.randn(q.shape, device=ctx.dev,
+                            generator=ctx.gen).to(dtype)
             bargs = (q, k_pre, v, bias, nullk, nullv, null_bias, g, out,
                      lse, HEADS)
             got4 = so.flash_attention_fused_bwd(*bargs)
             want4 = so.flash_attention_fused_bwd_plain(*bargs)
             cots = [None if w_ is None else torch.randn(
-                w_.shape, device=dev, generator=gen).to(w_.dtype)
+                w_.shape, device=ctx.dev, generator=ctx.gen).to(w_.dtype)
                 for w_ in want4]
             args5 = (*bargs[:8], lse, *cots, HEADS)
             got5 = so.flash_attention_so_bwd2(*args5)
@@ -3694,11 +2808,8 @@ def main():
                 b=SPLIT_ROWS, n=16, null=null, dtype=dtype_name(dtype),
                 route=route, route_k5=route5, launches=ran,
                 rel_k3=max(rel_err(out, o_want), rel_err(lse, l_want)),
-                rel_k4=max(rel_err(a_, w_) for a_, w_ in zip(got4, want4)
-                           if w_ is not None),
-                rel_k5=max(rel_err(a_, w_) for a_, w_ in zip(got5, want5)
-                           if w_ is not None))
-            split_rows.append(row)
+                rel_k4=max_rel(got4, want4), rel_k5=max_rel(got5, want5))
+            rows.append(row)
             log(f"K3-K5 at b{SPLIT_ROWS} n16 null={null} {row['dtype']} "
                 f"({route}, K5 {route5}): launches {ran}, rel K3 "
                 f"{row['rel_k3']:.2e} K4 {row['rel_k4']:.2e} K5 "
@@ -3710,203 +2821,142 @@ def main():
             del args, bargs, args5, out, lse, o_want, l_want, got4, want4
             del got5, want5, cots, q, k_pre, v, g
             torch.cuda.empty_cache()
-    up["split"] = split_rows
+    return rows
 
-    # K1 and K2 at every shape and dtype of the run, the sampling and the
-    # 1024 request, against their plain versions; the bf16 shapes timed
-    # beside the plain version and (K1) cuDNN's grouped conv
-    up_conv_rows, held = [], []
-    for key, n_calls in sorted(path_calls.items(), key=conv_key_order):
-        entry, operands, out, plain_fn, kernel_fn = check_conv_call(
-            key, n_calls, "upsampler")
-        held.append(entry)
-        if entry["dtype"] == "bfloat16" and entry["banks"] == 2:
-            rows_, h, w_, ci, co = (entry[k_] for k_ in (
-                "rows", "h", "w", "ci", "co"))
-            flops = 2.0 * rows_ * h * w_ * 9 * ci * co
-            entry.update(
-                ms=time_ms(lambda: kernel_fn(*operands), torch),
-                plain_ms=time_ms(lambda: plain_fn(*operands), torch),
-                bound=bound(flops, nbytes(*operands, *out)))
-            if entry["kernel"] == "k1":
-                xb, w, a, d = operands
-                wg = torch.einsum("bn,nijcd,bd->bdcij", a, w.float(),
-                                  d).reshape(rows_ * co, ci, 3, 3).to(bf16)
-                xg = xb.permute(0, 3, 1, 2).reshape(1, rows_ * ci, h, w_)
-                entry["library_ms"] = time_ms(
-                    lambda: torch.nn.functional.conv2d(
-                        xg, wg, padding=1, groups=rows_), torch)
-                del wg, xg
-            up_conv_rows.append(entry)
-            log(f"{entry['kernel']} upsampler b{rows_} {h}x{w_} {ci}->{co} "
-                f"bf16 x{entry['calls']}: route {entry['routes'][0]}, rel "
-                f"{entry['rel']:.2e} | {entry['ms']:.4f} ms (plain "
-                f"{entry['plain_ms']:.4f}"
-                + (f", cuDNN grouped conv {entry['library_ms']:.4f}"
-                   if "library_ms" in entry else "")
-                + f", bound {entry['bound'][0]:.4f}) [{smi}]")
-        del operands, out
-        torch.cuda.empty_cache()
-    log_held(held, "upsampler path")
-    up["conv_calls"], up["conv_rows"] = held, up_conv_rows
 
-    # K3 and K4 at G's three attention shapes (8 heads of 64, dot product,
-    # no null token; 5 layers at 1024, 256, 64, 256 and 1024 tokens), and
-    # K3 at the 1024 request's 16384 tokens, beside SDPA
-    up_attn_rows = []
+def upsampler_attention(ctx):
+    """K3 and K4 at G's three attention shapes (8 heads of 64, dot
+    product, no null token; 5 layers at 1024, 256, 64, 256 and 1024
+    tokens), and K3 at the 1024 request's 16384 tokens."""
+    rows = []
     for b, n in ((BATCH, 1024), (BATCH, 256), (BATCH, 64), (1, 16384)):
-        args = attn_operands(b, HEADS, n, n, DIM_HEAD, False, False, bf16)
-        q = args[0]
+        args = attn_operands(ctx, b, HEADS, n, n, DIM_HEAD, False, False,
+                             BF16)
         o_want, l_want = k3.flash_attention_fused_fwd_plain(*args)
         out, lse = k3.flash_attention_fused_fwd(*args)
         row = dict(b=b, n=n, rel_k3=max(rel_err(out, o_want),
-                                        rel_err(lse, l_want)),
-                   k3_ms=time_ms(lambda: k3.flash_attention_fused_fwd(
-                       *args), torch),
-                   k3_plain_ms=time_ms(
-                       lambda: k3.flash_attention_fused_fwd_plain(*args),
-                       torch),
-                   k3_bound=attn_bound(2, b * HEADS, n, n, DIM_HEAD,
-                                       nbytes(*args[:-1], out, lse)))
-        sd = sdpa_operands(torch, *args)
+                                        rel_err(lse, l_want)))
         del o_want, l_want
         if n <= 1024:
-            g = torch.randn(q.shape, device=dev, generator=gen).to(bf16)
+            g = torch.randn(args[0].shape, device=ctx.dev,
+                            generator=ctx.gen).to(BF16)
             bargs = (*args[:7], g, out, lse, HEADS)
             want4 = so.flash_attention_fused_bwd_plain(*bargs)
             got4 = so.flash_attention_fused_bwd(*bargs)
-            row.update(
-                rel_k4=max(rel_err(a_, w_) for a_, w_ in zip(got4, want4)
-                           if w_ is not None),
-                k4_ms=time_ms(lambda: so.flash_attention_fused_bwd(*bargs),
-                              torch),
-                k4_plain_ms=time_ms(
-                    lambda: so.flash_attention_fused_bwd_plain(*bargs),
-                    torch),
-                k4_bound=attn_bound(5, b * HEADS, n, n, DIM_HEAD, nbytes(
-                    *bargs[:-1], *(t_ for t_ in got4 if t_ is not None))))
-            row["sdpa_ms"], row["sdpa_bwd_ms"], row["sdpa_note"] = \
-                sdpa_times(torch, *sd, g)
+            row["rel_k4"] = max_rel(got4, want4)
             del g, bargs, want4, got4
-        else:
-            row["sdpa_ms"], _, row["sdpa_note"] = sdpa_times(torch, *sd)
-        up_attn_rows.append(row)
+        rows.append(row)
         log(f"K3/K4 upsampler G b{b} H{HEADS} n{n} d{DIM_HEAD} bf16: rel K3 "
             f"{row['rel_k3']:.2e}"
-            + (f" K4 {row['rel_k4']:.2e}" if "rel_k4" in row else "")
-            + f" | K3 {row['k3_ms']:.4f} ms (plain {row['k3_plain_ms']:.4f}"
-            f", SDPA {row['sdpa_ms']}, bound {row['k3_bound'][0]:.4f})"
-            + (f", K4 {row['k4_ms']:.4f} ms (plain "
-               f"{row['k4_plain_ms']:.4f}, SDPA backward "
-               f"{row['sdpa_bwd_ms']}, bound {row['k4_bound'][0]:.4f})"
-               if "k4_ms" in row else "") + f" [{smi}]")
+            + (f" K4 {row['rel_k4']:.2e}" if "rel_k4" in row else ""))
         if not (row["rel_k3"] <= K3_TOL
                 and row.get("rel_k4", 0.0) <= K4_TOL):
             fail(f"K3/K4 disagree at an upsampler shape: {row}")
-        del args, out, lse, sd, q
+        del args, out, lse
         torch.cuda.empty_cache()
-    up["attention"] = up_attn_rows
-    del up_pool
-    gc.collect()
-    torch.cuda.empty_cache()
-    up["seconds"] = time.perf_counter() - t_phase
-    log(f"phase 14 (the upsampler path): {up['seconds']:.1f} s")
+    return rows
 
-    # --------------------------------------------------------------- 16
-    # the outer surface: the command line, JAX-written model folders, and
-    # data parallel on the one card
-    t_phase = time.perf_counter()
-    from gigagan_tpu_torch import cli as port_cli
-    from gigagan_tpu_torch.utils.png import decode_png, encode_png
 
-    # checkpoints (1.14 GiB each) and the trainers' sample grids go to the
-    # gitignored gigagan-models/ and are deleted after their checks
+# ------------------------------------------------ phase 16: outer surface
+
+def run_cli(cli_dir, surface, label, *args):
+    """One command of the CLI in a child process: (stdout, launches)."""
+    counts_path = cli_dir / f"{label}.launches.json"
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--cli-child",
+         str(counts_path), *args], cwd=REPO, capture_output=True,
+        text=True, timeout=CLI_TIMEOUT_S)
+    (cli_dir / f"{label}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"CLI {label} ({' '.join(args)}) exited "
+             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    counts = json.loads(counts_path.read_text())
+    surface["cli"][label] = dict(args=list(args), launches=counts)
+    log(f"CLI {label}: launches "
+        + ", ".join(f"{k} {v['tc']}/{v['simt']}" for k, v in counts.items()
+                    if v["tc"] or v["simt"]) + " (tc/simt)")
+    return proc.stdout, counts
+
+
+def launched_on_tc(label, counts, kernels):
+    missing = [k_ for k_ in kernels if not counts[k_]["tc"]]
+    if missing or any(v["simt"] for v in counts.values()):
+        fail(f"CLI {label}: kernels {missing} not launched on the "
+             f"tensor cores, or a bf16 launch on the CUDA cores: "
+             f"{counts}")
+
+
+def png_of(path, shape):
+    """A PNG's pixels, of ``shape`` (an early grid may be one colour:
+    the quickstart G's first outputs clip to white)."""
+    img = decode_png(pathlib.Path(path).read_bytes())
+    if img.shape != shape:
+        fail(f"{path}: shape {img.shape} (want {shape})")
+    return img
+
+
+def finite_checkpoint(path, steps):
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    bad = [f"{m_}.{n_}" for m_ in ("G", "G_ema", "D")
+           for n_, v in saved[m_].items()
+           if v.is_floating_point() and not torch.isfinite(v).all()]
+    if saved["steps"] != steps or bad:
+        fail(f"{path}: steps {saved['steps']} (want {steps}), "
+             f"non-finite {bad[:3]}")
+
+
+def grid(n, s):
+    """The shape of an n x n grid of s x s images with 2-pixel borders."""
+    return (n * s + (n + 1) * 2, n * s + (n + 1) * 2, 3)
+
+
+def phase_16_surface(ctx):
+    """The outer surface: the command line, JAX-written model folders, and
+    data parallel on the one card.  Checkpoints (1.14 GiB each) and the
+    trainers' sample grids go to the gitignored gigagan-models/ and are
+    deleted after their checks."""
     cli_dir = OUT_DIR / "cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    cli_dir.mkdir(parents=True)
+    surface = ctx.report["surface"] = {"cli": {}}
+    cli_commands(cli_dir, surface)
+    jax_folders(ctx, cli_dir, surface)
+    surface["dp"] = data_parallel(ctx, cli_dir)
+
+
+def cli_commands(cli_dir, surface):
+    """Phase 16(a): the command line at the quickstart's full width."""
     cli_models = REPO / "gigagan-models" / "chip_smoke_cli"
     up_models = REPO / "gigagan-models" / "chip_smoke_cli_upsampler"
     grids = REPO / "gigagan-models" / "chip_smoke_cli_results"
-    for d_ in (cli_dir, cli_models, up_models, grids):
+    for d_ in (cli_models, up_models, grids):
         shutil.rmtree(d_, ignore_errors=True)
-    cli_dir.mkdir(parents=True)
-    surface = {"cli": {}, "gpu": smi}
-
-    def run_cli(label, *args):
-        """One command of the CLI in a child process: (stdout, launches)."""
-        counts_path = cli_dir / f"{label}.launches.json"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, str(REPO / "chip_smoke.py"), "--cli-child",
-             str(counts_path), *args], cwd=REPO, capture_output=True,
-            text=True, timeout=CLI_TIMEOUT_S)
-        seconds = time.perf_counter() - t0
-        (cli_dir / f"{label}.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            fail(f"CLI {label} ({' '.join(args)}) exited "
-                 f"{proc.returncode}: {proc.stderr[-3000:]}")
-        child = json.loads(counts_path.read_text())
-        counts = child["launches"]
-        surface["cli"][label] = dict(
-            args=list(args), seconds=seconds, launches=counts,
-            torch_cuda_s=child["torch_cuda_s"], command_s=child["command_s"])
-        log(f"CLI {label}: {seconds:.1f} s (torch and CUDA "
-            f"{child['torch_cuda_s']:.1f}, the command "
-            f"{child['command_s']:.1f}), launches "
-            + ", ".join(f"{k} {v['tc']}/{v['simt']}"
-                        for k, v in counts.items()
-                        if v["tc"] or v["simt"]) + f" (tc/simt) [{smi}]")
-        return proc.stdout, counts
-
-    def launched_on_tc(label, counts, kernels):
-        missing = [k_ for k_ in kernels if not counts[k_]["tc"]]
-        if missing or any(v["simt"] for v in counts.values()):
-            fail(f"CLI {label}: kernels {missing} not launched on the "
-                 f"tensor cores, or a bf16 launch on the CUDA cores: "
-                 f"{counts}")
-
-    def png_of(path, shape):
-        """A PNG's pixels, of ``shape`` (an early grid may be one colour:
-        the quickstart G's first outputs clip to white)."""
-        img = decode_png(pathlib.Path(path).read_bytes())
-        if img.shape != shape:
-            fail(f"{path}: shape {img.shape} (want {shape})")
-        return img
-
-    def finite_checkpoint(path, steps):
-        saved = torch.load(path, map_location="cpu", weights_only=True)
-        bad = [f"{m_}.{n_}" for m_ in ("G", "G_ema", "D")
-               for n_, v in saved[m_].items()
-               if v.is_floating_point() and not torch.isfinite(v).all()]
-        if saved["steps"] != steps or bad:
-            fail(f"{path}: steps {saved['steps']} (want {steps}), "
-                 f"non-finite {bad[:3]}")
-
-    grid = lambda n, s: (n * s + (n + 1) * 2, n * s + (n + 1) * 2, 3)  # noqa
-
-    # (a) the command line at the quickstart's full width
     common = ["--mock-data", "--batch-size", str(BATCH), "--models",
               str(cli_models)]
-    _, counts = run_cli("train", "train", *common, "--steps", "8",
-                        "--save-every", "4", "--results",
+    _, counts = run_cli(cli_dir, surface, "train", "train", *common,
+                        "--steps", "8", "--save-every", "4", "--results",
                         str(grids / "train"))
     launched_on_tc("train", counts, ("k1", "k2", "k3", "k4", "k5"))
     for m_ in range(3):  # saved after iterations 1, 4 and 8
         png_of(grids / "train" / f"ema-sample-{m_}.png", grid(5, 256))
     finite_checkpoint(cli_models / "model-2.ckpt", 9)
-    out_, counts = run_cli("train_resume", "train", *common, "--resume",
-                           "--steps", "2", "--save-every", "2", "--results",
+    out_, counts = run_cli(cli_dir, surface, "train_resume", "train",
+                           *common, "--resume", "--steps", "2",
+                           "--save-every", "2", "--results",
                            str(grids / "resume"))
     if f"resuming from {cli_models / 'model-2.ckpt'}" not in out_:
         fail(f"train --resume did not resume from model-2.ckpt: {out_}")
     launched_on_tc("train_resume", counts, ("k1", "k2", "k3", "k4"))
     finite_checkpoint(cli_models / "model-5.ckpt", 11)
-    _, counts = run_cli("generate", "generate", "--models", str(cli_models),
-                        "--num", "16", "--seed", "0", "--out",
-                        str(cli_dir / "samples.png"))
+    _, counts = run_cli(cli_dir, surface, "generate", "generate", "--models",
+                        str(cli_models), "--num", "16", "--seed", "0",
+                        "--out", str(cli_dir / "samples.png"))
     launched_on_tc("generate", counts, ("k1", "k3"))
     png_of(cli_dir / "samples.png", grid(4, 256))
-    _, counts = run_cli("evaluate", "evaluate", "--models", str(cli_models),
-                        "--mock-data", "--num", "64", "--batch", "8",
-                        "--out", str(cli_dir / "evaluate.json"))
+    _, counts = run_cli(cli_dir, surface, "evaluate", "evaluate", "--models",
+                        str(cli_models), "--mock-data", "--num", "64",
+                        "--batch", "8", "--out",
+                        str(cli_dir / "evaluate.json"))
     launched_on_tc("evaluate", counts, ("k1", "k3"))
     rec = json.loads((cli_dir / "evaluate.json").read_text())
     if not (rec["clip_is_real"] is False and rec["mock_reasons"]
@@ -3915,52 +2965,46 @@ def main():
             and rec["steps_trained"] == 11):
         fail(f"evaluate: {rec}")
     surface["evaluate"] = rec
-    _, counts = run_cli("train_upsampler", "train-upsampler", "--mock-data",
-                        "--steps", "4", "--batch-size", "4", "--models",
-                        str(up_models), "--results",
-                        str(grids / "upsampler"))
+    _, counts = run_cli(cli_dir, surface, "train_upsampler",
+                        "train-upsampler", "--mock-data", "--steps", "4",
+                        "--batch-size", "4", "--models", str(up_models),
+                        "--results", str(grids / "upsampler"))
     launched_on_tc("train_upsampler", counts,
                    ("k1", "k2", "k3", "k4", "k5"))
     finite_checkpoint(up_models / "model-0.ckpt", 2)
     low = (MockImageDataset(64, seed=0)[0] * 255).astype(np.uint8)
     (cli_dir / "low64.png").write_bytes(encode_png(low))
-    _, counts = run_cli("upsample", "upsample", "--models", str(up_models),
-                        "--input", str(cli_dir / "low64.png"), "--seed",
-                        "0", "--out", str(cli_dir / "upsampled256.png"))
+    _, counts = run_cli(cli_dir, surface, "upsample", "upsample", "--models",
+                        str(up_models), "--input", str(cli_dir / "low64.png"),
+                        "--seed", "0", "--out",
+                        str(cli_dir / "upsampled256.png"))
     launched_on_tc("upsample", counts, ("k1", "k3"))
     png_of(cli_dir / "upsampled256.png", (256, 256, 3))
     for d_ in (cli_models, up_models, grids):
         shutil.rmtree(d_, ignore_errors=True)
 
-    # (b) the model folders the JAX package wrote: its CLI's (a flax
-    # msgpack checkpoint) and the same state saved by its trainer with
-    # checkpoint_backend="orbax" (a directory: OCDBT, zarr v2, zstd)
-    from gigagan_tpu_torch.ops.kernels import build as kernel_build
-    from gigagan_tpu_torch.train import jax_checkpoint
 
+def jax_folders(ctx, cli_dir, surface):
+    """Phase 16(b): the model folders the JAX package wrote: its CLI's (a
+    flax msgpack checkpoint) and the same state saved by its trainer with
+    checkpoint_backend="orbax" (a directory: OCDBT, zarr v2, zstd)."""
     fixture = REPO / "tests" / "torch_fixtures"
     outs = fixture / "jax_outputs"
-    latents = torch.from_numpy(np.load(outs / "latents.npy")).to(dev)
-    noises = [torch.from_numpy(np.load(p_)).to(dev)
+    latents = torch.from_numpy(np.load(outs / "latents.npy")).to(ctx.dev)
+    noises = [torch.from_numpy(np.load(p_)).to(ctx.dev)
               for p_ in sorted(outs.glob("noise_*.npy"))]
-    t0 = time.perf_counter()
-    kernel_build.load("zstd_decode")  # the host decoder, built with cc
-    zstd_build_s = time.perf_counter() - t0
-    loaded, import_s = {}, {}
+    loaded = {}
     for label, folder_name in (("jax_folder", "jax_model"),
                                ("jax_orbax_folder", "jax_model_orbax")):
         folder = cli_dir / folder_name
         shutil.copytree(fixture / folder_name, folder)
         samples = cli_dir / f"{folder_name}_samples.png"
-        _, counts = run_cli(f"generate_{label}", "generate", "--models",
-                            str(folder), "--num", "4", "--seed", "0",
-                            "--out", str(samples))
+        run_cli(cli_dir, surface, f"generate_{label}", "generate",
+                "--models", str(folder), "--num", "4", "--seed", "0",
+                "--out", str(samples))
         png_of(samples, grid(2, 16))
-        jgan, jckpt = port_cli._load_model_folder(folder, "cuda")
-        t0 = time.perf_counter()
-        jax_checkpoint.read_checkpoint(jckpt)
-        import_s[label] = time.perf_counter() - t0
-        reset_counts()
+        jgan, jckpt = port_cli._load_model_folder(folder, ctx.dev.type)
+        ctx.reset_counts()
         jax_rows = {}
         with torch.no_grad():
             for key, module in (("g", jgan.G), ("g_ema", jgan.G_ema)):
@@ -3968,14 +3012,13 @@ def main():
                 jax_rows[key] = rel_err(got, torch.from_numpy(
                     np.load(outs / f"{key}.npy")))
         torch.cuda.synchronize()
-        jax_counts = read_counts()
+        jax_counts = ctx.read_counts()
         surface[label] = dict(checkpoint=jckpt.name, steps=jgan.steps,
-                              rel=jax_rows, launches=jax_counts,
-                              import_s=import_s[label])
-        log(f"JAX-written folder {folder_name}/{jckpt.name} (steps {jgan.steps}), "
-            f"fp32 through the kernels: rel G {jax_rows['g']:.2e}, G_ema "
-            f"{jax_rows['g_ema']:.2e} (limit {JAX_FOLDER_TOL}); launches "
-            f"{jax_counts}")
+                              rel=jax_rows, launches=jax_counts)
+        log(f"JAX-written folder {folder_name}/{jckpt.name} (steps "
+            f"{jgan.steps}), fp32 through the kernels: rel G "
+            f"{jax_rows['g']:.2e}, G_ema {jax_rows['g_ema']:.2e} (limit "
+            f"{JAX_FOLDER_TOL}); launches {jax_counts}")
         if not (max(jax_rows.values()) <= JAX_FOLDER_TOL
                 and jax_counts["k1"] and jax_counts["k3"]):
             fail(f"the JAX-written folder {folder_name}: {surface[label]}")
@@ -3989,79 +3032,67 @@ def main():
             or unequal:
         fail(f"the orbax folder's G and G_ema differ from the msgpack "
              f"folder's: {unequal[:5]}")
-    surface["jax_orbax_folder"]["zstd_build_s"] = zstd_build_s
-    log(f"JAX checkpoint import on the host: orbax "
-        f"{import_s['jax_orbax_folder']:.3f} s, msgpack "
-        f"{import_s['jax_folder']:.3f} s (zstd decoder built in "
-        f"{zstd_build_s:.2f} s); G and G_ema of the two folders bitwise "
-        f"equal ({len(loaded['jax_folder'])} tensors)")
-    del loaded
+    log(f"JAX checkpoints: G and G_ema of the two folders bitwise equal "
+        f"({len(loaded['jax_folder'])} tensors)")
 
-    # (c) data parallel on the one card: the 1-process fp32 reference at
-    # the whole batch, a repeat of it (the card's run-to-run spread), and
-    # the ranks' own arithmetic, the batch split DP_WORLD ways, taken in
-    # this one process
+
+def run_ranks(cli_dir, dp_dir, world, backend, modes, label):
+    """``world`` ranks of ``dp_child`` on the card over ``backend``; rank
+    0's result."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    specs = [dict(rank=r_, world=world, port=port, backend=backend,
+                  modes=modes, out=str(cli_dir / f"dp_{label}.json"),
+                  fp32_out=str(dp_dir / f"{label}_fp32.pt"))
+             for r_ in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--dp-child",
+         json.dumps(spec)], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for spec in specs]
+    logs = []
+    try:
+        for r_, proc in enumerate(procs):
+            logs.append(proc.communicate(timeout=CLI_TIMEOUT_S)[0])
+            (cli_dir / f"dp_{label}_rank{r_}.log").write_text(logs[-1])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    bad = [r_ for r_, proc in enumerate(procs) if proc.returncode]
+    if bad:
+        fail(f"data-parallel {label}: ranks {bad} failed: "
+             f"{logs[bad[0]][-3000:]}")
+    return json.loads((cli_dir / f"dp_{label}.json").read_text())
+
+
+def data_parallel(ctx, cli_dir):
+    """Phase 16(c): data parallel on the one card, against the 1-process
+    fp32 reference at the whole batch and the ranks' own arithmetic, the
+    batch split DP_WORLD ways, taken in this one process."""
     pool8 = np.stack([MockImageDataset(256, length=BATCH, seed=0)[i]
                       for i in range(BATCH)])
     want_d, want_dg, want_g, want_gg = fp32_steps(
-        GigaGAN, QUICKSTART, QUICKSTART_D, pool8, "cuda")
-    _, again_dg, _, again_gg = fp32_steps(
-        GigaGAN, QUICKSTART, QUICKSTART_D, pool8, "cuda")
+        QUICKSTART, QUICKSTART_D, pool8, ctx.dev.type)
     _, split_dg, _, split_gg = fp32_steps(
-        GigaGAN, QUICKSTART, QUICKSTART_D, pool8, "cuda", shards=DP_WORLD)
+        QUICKSTART, QUICKSTART_D, pool8, ctx.dev.type, shards=DP_WORLD)
     want_grads = {f"{mod}.{n_}": g_ for mod, grads in (("D", want_dg),
                                                       ("G", want_gg))
                   for n_, g_ in grads.items()}
     split_grads = {f"D.{n_}": g_ for n_, g_ in split_dg.items()}
     split_grads.update({f"G.{n_}": g_ for n_, g_ in split_gg.items()})
-    spread = {n_: rel_err(g_, want_grads[n_]) for n_, g_ in (
-        [(f"D.{k_}", v) for k_, v in again_dg.items()]
-        + [(f"G.{k_}", v) for k_, v in again_gg.items()])}
     split_vs_one = {n_: rel_err(split_grads[n_], w_)
                     for n_, w_ in want_grads.items()}
-    del again_dg, again_gg, split_dg, split_gg, want_dg, want_gg
+    del split_dg, split_gg, want_dg, want_gg
     gc.collect()
     torch.cuda.empty_cache()
-
-    def free_port():
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            return sock.getsockname()[1]
 
     dp_dir = REPO / "gigagan-models" / "chip_smoke_dp"
     shutil.rmtree(dp_dir, ignore_errors=True)
     dp_dir.mkdir(parents=True)
-
-    def run_ranks(world, backend, modes, label):
-        port = free_port()
-        specs = [dict(rank=r_, world=world, port=port, backend=backend,
-                      modes=modes, out=str(cli_dir / f"dp_{label}.json"),
-                      fp32_out=str(dp_dir / f"{label}_fp32.pt"))
-                 for r_ in range(world)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(REPO / "chip_smoke.py"), "--dp-child",
-             json.dumps(spec)], cwd=REPO, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for spec in specs]
-        logs = []
-        try:
-            for r_, proc in enumerate(procs):
-                logs.append(proc.communicate(timeout=CLI_TIMEOUT_S)[0])
-                (cli_dir / f"dp_{label}_rank{r_}.log").write_text(logs[-1])
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        bad = [r_ for r_, proc in enumerate(procs) if proc.returncode]
-        if bad:
-            fail(f"data-parallel {label}: ranks {bad} failed: "
-                 f"{logs[bad[0]][-3000:]}")
-        result = json.loads((cli_dir / f"dp_{label}.json").read_text())
-        result["seconds"] = time.perf_counter() - t0
-        return result
-
-    dp2 = run_ranks(DP_WORLD, "gloo", ["fp32", "bf16"], "gloo2")
+    dp2 = run_ranks(cli_dir, dp_dir, DP_WORLD, "gloo", ["fp32", "bf16"],
+                    "gloo2")
     got = torch.load(dp_dir / "gloo2_fp32.pt", weights_only=True)
     loss_rel = {f"{s_}_{k_}": abs(got[s_][k_] - float(v)) / max(
         abs(float(v)), 1e-6)
@@ -4081,14 +3112,10 @@ def main():
                         vs_split=vs_split[n_])
                for n_ in vs_one
                if vs_one[n_] > limit[n_] or vs_split[n_] > DP_SPLIT_TOL}
-    past = {n_: (vs_one[n_], split_vs_one[n_]) for n_ in vs_one
-            if vs_one[n_] > DP_GRAD_TOL}
-    dists = dict(vs_one=vs_one, vs_split=vs_split, spread=spread,
-                 split_vs_one=split_vs_one)
+    dists = dict(vs_one=vs_one, vs_split=vs_split, split_vs_one=split_vs_one)
     worst = {key: max(d_, key=d_.get) for key, d_ in dists.items()}
     dp = dict(loss_rel=loss_rel,
               worst={key: (n_, dists[key][n_]) for key, n_ in worst.items()},
-              past_grad_tol=past,
               gloo2={k_: v for k_, v in dp2.items() if k_ != "losses"},
               gloo2_losses=dp2["losses"])
     log(f"data parallel fp32, 2 ranks x {BATCH // DP_WORLD} vs 1 process x "
@@ -4101,27 +3128,21 @@ def main():
         f"{DP_GRAD_TOL}, or the split's own distance + {DP_SPLIT_TOL}, at "
         f"most {DP_GRAD_CAP}); the split in one process vs one process "
         f"{split_vs_one[worst['split_vs_one']]:.2e} at "
-        f"{worst['split_vs_one']}; a repeated 1-process step "
-        f"{spread[worst['spread']]:.2e} at {worst['spread']}; {len(past)} "
-        f"leaves past {DP_GRAD_TOL}: "
-        + (", ".join(f"{n_} {v[0]:.2e} (split {v[1]:.2e})"
-                     for n_, v in past.items()) or "none"))
+        f"{worst['split_vs_one']}")
     if max(loss_rel.values()) > DP_LOSS_TOL or failing:
         fail(f"data-parallel fp32 disagrees: {failing}, {loss_rel}")
     del got, got_grads, want_grads, split_grads
-    dp1 = run_ranks(1, "nccl", ["bf16"], "nccl1")
+    dp1 = run_ranks(cli_dir, dp_dir, 1, "nccl", ["bf16"], "nccl1")
     dp["nccl1"] = dp1
     for label, res in (("gloo2", dp2), ("nccl1", dp1)):
         counts = res["launches_bf16"]
         finite = all(math.isfinite(v) for row in res["losses"]
                      for v in row.values())
-        log(f"data parallel bf16 {label}: {DP_ITERATIONS} iterations, ms "
-            + ", ".join(f"{v:.1f}" for v in res["ms_per_iteration"])
-            + f", peak {res['peak_gib']:.2f} GiB, unequal steps "
-            f"{res['unequal']}, launches "
+        log(f"data parallel bf16 {label}: {DP_ITERATIONS} iterations, "
+            f"unequal steps {res['unequal']}, launches "
             + ", ".join(f"{k_} {v['tc']}/{v['simt']}"
                         for k_, v in counts.items() if v["tc"] or v["simt"])
-            + f" (tc/simt) [{smi}]")
+            + " (tc/simt)")
         if (not finite or res["unequal"]
                 or any(v["simt"] for v in counts.values())
                 or not all(counts[k_]["tc"] for k_ in
@@ -4132,179 +3153,48 @@ def main():
     if not all(fp32_counts[k_]["simt"] for k_ in ("k1", "k2", "k3", "k4",
                                                    "k5")):
         fail(f"data parallel fp32 launches: {fp32_counts}")
-    dp["ms_median_non_r1"] = {
-        label: statistics.median(res["ms_per_iteration"][1:])
-        for label, res in (("gloo2", dp2), ("nccl1", dp1))}
-    log(f"data parallel ms per non-R1 iteration: 2 ranks sharing the card "
-        f"(gloo) {dp['ms_median_non_r1']['gloo2']:.1f}, 1 process (NCCL, "
-        f"world 1) {dp['ms_median_non_r1']['nccl1']:.1f} [{smi}]")
     shutil.rmtree(dp_dir, ignore_errors=True)
-    surface["dp"] = dp
-    cli_launches = {k_: sum(row["launches"][k_]["tc"]
-                            + row["launches"][k_]["simt"]
-                            for row in surface["cli"].values())
-                    for k_ in KERNEL_NAMES}
-    dp_launches = {k_: sum(v[k_]["tc"] + v[k_]["simt"] for v in (
-        dp2["launches_fp32"], dp2["launches_bf16"], dp1["launches_bf16"]))
-        for k_ in KERNEL_NAMES}
-    surface["seconds"] = time.perf_counter() - t_phase
-    report["surface"] = surface
-    log(f"phase 16 (the command line, JAX-written folders, data "
-        f"parallel): {surface['seconds']:.1f} s")
-    phase_mark[0] = time.perf_counter()
+    return dp
 
-    # --------------------------------------------------------------- 15
-    mult = {}
-    for _, h, ci, co in convs:
-        mult[(h, ci, co)] = mult.get((h, ci, co), 0) + 1
 
-    def total(rows, key):
-        """Σ over (weight, row) of row[key]; None if a row has none."""
-        vals = [r.get(key) for _, r in rows]
-        if any(v is None for v in vals):
-            return None
-        return sum(w * v for (w, _), v in zip(rows, vals))
-
-    def timing(rows, suffix=""):
-        """ms, plain_ms, library_ms, bound_ms, bound_by over weighted rows
-        (bound_by: what bounds the row of the largest bound)."""
-        top = max(rows, key=lambda wr: wr[0] * wr[1]["bound_ms"])[1]
-        return dict(ms=total(rows, "ms" + suffix),
-                    plain_ms=total(rows, "plain_ms" + suffix),
-                    library_ms=total(rows, "library_ms" + suffix),
-                    bound_ms=total(rows, "bound_ms"),
-                    bound_by=top["bound_by"])
-
-    conv_rows = [(mult[s_], r) for s_, r in k1_rows.items()]
-    k2_weighted = [(mult[s_], r) for s_, r in k2_rows.items()]
-    d_step = {kn: [(1, r) for r in rows if r["who"] == "D d_step"
-                   and r["dtype"] == "bfloat16"]
-              for kn, rows in (("k3", k3_rows), ("k4", k4_rows))}
-    r1_bf16 = [(1, r) for r in k5_rows if r["dtype"] == "bfloat16"
-               and "ms" in r and r["who"] == "D d_step"]
-    r1_d128 = [(1, r) for r in k5_rows if r["who"] == "D128 d_step"]
-    # K1-K5: bf16 on the tensor-core kernels, the CUDA-core
-    # kernels (fp32, other channel counts or head dims) beside them
-    kernels = [
-        dict(name="adaptive_conv_fwd", route="cuda",
-             source="gigagan_tpu_torch/csrc/adaptive_conv_fwd_tc.cu",
-             replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:86",
-             launches=t2i_launches["k1"],
-             launches_unconditional=train_launches["k1"],
-             launches_upsampler=up_launches["k1"],
-             launches_cli=cli_launches["k1"], launches_dp=dp_launches["k1"],
-             max_abs_err=max([max(r["abs_f32"], r["abs_bf16"])
-                              for r in k1_rows.values()]
-                             + [r["abs"] for r in k1_extra]),
-             **timing(conv_rows, "_bf16"),
-             simt_source="gigagan_tpu_torch/csrc/adaptive_conv_fwd.cu",
-             simt_ms=total(conv_rows, "simt_ms_bf16")),
-        dict(name="adaptive_conv_bwd_w", route="cuda",
-             source="gigagan_tpu_torch/csrc/adaptive_conv_bwd_w_tc.cu",
-             replaces="gigagan_tpu/ops/pallas/adaptive_conv.py:269",
-             launches=t2i_launches["k2"],
-             launches_unconditional=train_launches["k2"],
-             launches_upsampler=up_launches["k2"],
-             launches_cli=cli_launches["k2"], launches_dp=dp_launches["k2"],
-             max_abs_err=max([max(r["abs_f32"], r["abs_bf16"])
-                              for r in k2_rows.values()]
-                             + [r["abs"] for r in k2_extra]
-                             + [report["k2_banks"]["abs"]]),
-             **timing(k2_weighted, "_bf16"),
-             simt_source="gigagan_tpu_torch/csrc/adaptive_conv_bwd_w.cu",
-             simt_ms=total(k2_weighted, "simt_ms_bf16"),
-             device_ms=total(k2_weighted, "device_ms_bf16"),
-             simt_device_ms=total(k2_weighted, "simt_device_ms_bf16")),
-        dict(name="flash_attention_fused_fwd", route="cuda",
-             source="gigagan_tpu_torch/csrc/flash_attention_fused_fwd_tc.cu",
-             replaces="gigagan_tpu/ops/pallas/flash_attention_fused.py:95",
-             launches=t2i_launches["k3"],
-             launches_unconditional=train_launches["k3"],
-             launches_upsampler=up_launches["k3"],
-             launches_cli=cli_launches["k3"], launches_dp=dp_launches["k3"],
-             max_abs_err=max(max(r["abs_out"], r["abs_lse"])
-                             for r in k3_rows),
-             **timing(d_step["k3"]),
-             simt_source="gigagan_tpu_torch/csrc/flash_attention_fused_fwd.cu",
-             simt_ms=total(d_step["k3"], "simt_ms")),
-        dict(name="flash_attention_fused_bwd", route="cuda",
-             source="gigagan_tpu_torch/csrc/flash_attention_fused_bwd_tc.cu",
-             replaces="gigagan_tpu/ops/pallas/flash_attention_so.py:191",
-             launches=t2i_launches["k4"],
-             launches_unconditional=train_launches["k4"],
-             launches_upsampler=up_launches["k4"],
-             launches_cli=cli_launches["k4"], launches_dp=dp_launches["k4"],
-             max_abs_err=max(r["abs"] for r in k4_rows),
-             **timing(d_step["k4"]),
-             simt_source="gigagan_tpu_torch/csrc/flash_attention_fused_bwd.cu",
-             simt_ms=total(d_step["k4"], "simt_ms")),
-        dict(name="flash_attention_so_bwd2", route="cuda",
-             source="gigagan_tpu_torch/csrc/flash_attention_so_bwd2_tc.cu",
-             replaces="gigagan_tpu/ops/pallas/flash_attention_so.py:297",
-             launches=t2i_launches["k5"],
-             launches_unconditional=train_launches["k5"],
-             launches_upsampler=up_launches["k5"],
-             launches_cli=cli_launches["k5"], launches_dp=dp_launches["k5"],
-             max_abs_err=max(r["abs"] for r in k5_rows),
-             **timing(r1_bf16),
-             simt_source="gigagan_tpu_torch/csrc/flash_attention_so_bwd2.cu",
-             simt_ms=total(r1_bf16, "simt_ms"),
-             d128=dict(timing(r1_d128), simt_ms=total(r1_d128, "simt_ms"))),
-    ]
-    # K6a-K7b: launches from the forward-over-reverse run, times summed
-    # over φ's two attentions in bf16, on the tensor-core kernels (K6a/K6b
-    # on K3's/K4's), their CUDA-core kernels beside them
-    phi_bf16 = [r for r in hv_rows if r["who"] == "phi"
-                and r["dtype"] == "bfloat16"]
-    phi_d128 = [r for r in hv_rows if r["who"] == "phi d128"]
-    for key, name_, source, replaces in (
-        ("k6a", "flash_attention_fwd", "flash_attention_fused_fwd_tc",
-         "flash_attention.py:118"),
-        ("k6b", "flash_attention_bwd", "flash_attention_fused_bwd_tc",
-         "flash_attention.py:143"),
-        ("k7a", "flash_attention_hv_jvp", "flash_attention_hv_jvp_tc",
-         "flash_attention_hv.py:76"),
-        ("k7b", "flash_attention_hv_bwd", "flash_attention_hv_bwd_tc",
-         "flash_attention_hv.py:110"),
-    ):
-        rows, rows128 = (
-            [(1, dict(r[key], library_ms=r.get(f"{key}_library"),
-                      bound_ms=r[f"{key}_bound"][0],
-                      bound_by=r[f"{key}_bound"][1])) for r in phi_rows]
-            for phi_rows in (phi_bf16, phi_d128))
-        kernels.append(dict(
-            name=name_, route="cuda",
-            source=f"gigagan_tpu_torch/csrc/{source}.cu",
-            replaces=f"gigagan_tpu/ops/pallas/{replaces}",
-            launches=t2i_launches[key],
-            launches_unconditional=for_launches[key],
-            launches_upsampler=up_launches[key],
-            launches_cli=cli_launches[key], launches_dp=dp_launches[key],
-            max_abs_err=max([r[key]["abs"] for r in hv_rows]
-                            + [r[key]["abs"] for r in k6_masked
-                               if key in r]),
-            **timing(rows),
-            simt_source=f"gigagan_tpu_torch/csrc/{name_}.cu",
-            simt_ms=total(rows, "simt_ms"),
-            d128=dict(timing(rows128), simt_ms=total(rows128, "simt_ms"))))
-    # launches_d128: phase 17's bf16 steps on the tensor-core route (a
-    # d_step+R1 in each form and a g_step of the d = 128 discriminator)
-    for entry, key in zip(kernels, KERNEL_NAMES):
-        entry["launches_d128"] = d128["launches"][key]
-    # launches: the text-to-image path's run (phase 13: 8 iterations, R1
-    # reverse-over-reverse on two, then 2 forward-over-reverse R1
-    # iterations); launches_unconditional: phase 9's (K1-K5) or phase 10's
-    # (K6a-K7b) 8 iterations of the quickstart pair; launches_upsampler:
-    # phase 14's run of the upsampler recipe (as phase 13's);
-    # launches_cli / launches_dp: phase 16's command-line children and its
-    # data-parallel ranks (both routes); d128: the times at the d = 128
-    # discriminator's R1 shapes (phase 7, φ's pair in phase 8)
-    phase_done("15")
-    report["kernels"] = kernels
-    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    print(json.dumps({"kernels": kernels}), flush=True)
+def main():
+    ctx = phase_1_card()
+    ctx.phase_done("1")
+    phase_2_build(ctx)
+    ctx.phase_done("2")
+    k1_shapes = phase_3_k1(ctx)
+    ctx.phase_done("3")
+    phase_4_k3(ctx)
+    ctx.phase_done("4")
+    phase_5_sampling(ctx, k1_shapes)
+    ctx.phase_done("5")
+    phase_18_sample_graph(ctx)
+    ctx.phase_done("18")
+    phase_6_k2(ctx)
+    ctx.phase_done("6")
+    phase_7_k4_k5(ctx)
+    ctx.phase_done("7")
+    phase_8_k6_k7(ctx)
+    ctx.phase_done("8")
+    phase_9_10_training(ctx, fwd_over_rev=False)
+    ctx.phase_done("9")
+    phase_9_10_training(ctx, fwd_over_rev=True)
+    ctx.phase_done("10")
+    det = phase_11_steps(ctx)
+    ctx.phase_done("11")
+    phase_17_d128(ctx, det)
+    ctx.phase_done("17")
+    phase_12_trainer(ctx)
+    ctx.phase_done("12")
+    phase_13_t2i(ctx)
+    ctx.phase_done("13")
+    phase_14_upsampler(ctx)
+    ctx.phase_done("14")
+    phase_16_surface(ctx)
+    ctx.phase_done("16")
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(ctx.report, indent=1))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -29,11 +29,6 @@ def plain_reference():
         _PLAIN.reset(token)
 
 
-def use_kernels(t) -> bool:
-    """True where the ops route a tensor to the CUDA kernels."""
-    return t.is_cuda and not _PLAIN.get()
-
-
 def use_fused() -> bool:
     """True where the ops go through the kernels' autograd Functions (the
     kernel on a CUDA tensor, its plain version on a CPU tensor)."""

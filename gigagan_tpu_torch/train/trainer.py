@@ -15,7 +15,7 @@ and sampling.
 ``fused_dg_step=True`` gives the G step the D step's batch, as JAX's fused
 D+G program does, so the numbers are JAX's; the steps still run as two
 sequences of kernel launches here (capturing them as CUDA graphs is what
-remains of ROADMAP.md Queue 2, item B).  ``generate`` on the card replays
+remains of ROADMAP.md Queue 4, item 2).  ``generate`` on the card replays
 G's forward as a CUDA graph captured for the request's shapes
 (``train/sample_graph.py``), the upsampler's excepted.
 

@@ -190,14 +190,14 @@ def test_port_imports_no_jax(path):
                                   "orbax", "tensorstore", "zstandard",
                                   "xxhash")]
     assert not bad, f"{path}: imports {bad}"
-    # no library attention in the package: the yardsticks of the attention
-    # kernels (one scaled_dot_product_attention call each) live in
-    # chip_smoke.py only
+    # no library attention in the package or in chip_smoke.py, which holds
+    # the kernels to their plain versions only; chip_smoke.py may name
+    # torch.backends.cudnn, to turn TF32 off
     text = path.read_text()
-    words = ["torch.compile"]
+    words = ["torch.compile", "scaled_dot_product_attention", "sdpa_kernel",
+             "sdp_kernel", "cudnn_attention"]
     if PORT in path.parents:
-        words += ["scaled_dot_product_attention", "sdpa_kernel",
-                  "sdp_kernel", "torch.backends.cudnn", "cudnn_attention"]
+        words.append("torch.backends.cudnn")
     for word in words:
         assert word not in text, f"{path} uses {word}"
 

@@ -278,12 +278,7 @@ from gigagan_tpu.ops.pallas.flash_attention_so import (  # noqa: E402
     flash_bwd_so as jax_flash_bwd_so,
 )
 
-from gigagan_tpu_torch.ops import attention as attention_mod  # noqa: E402
 from gigagan_tpu_torch.ops.kernels import plain_reference  # noqa: E402
-
-# the package re-exports the function under the module's name
-adaptive_conv_mod = importlib.import_module(
-    "gigagan_tpu_torch.ops.adaptive_conv")
 from gigagan_tpu_torch.ops.kernels import (  # noqa: E402
     flash_attention as k6,
     flash_attention_hv as k7,
@@ -925,11 +920,6 @@ def _standin(plain):
 def test_gradients_survive_kernel_outputs(monkeypatch):
     # the ops take their kernel path as on the card, with every launch
     # replaced by a stand-in whose output has no autograd history
-    for mod in (adaptive_conv_mod, attention_mod):
-        monkeypatch.setattr(mod, "use_kernels", lambda t_: True,
-                            raising=False)
-    monkeypatch.setattr(adaptive_conv_mod, "adaptive_conv_fwd",
-                        _standin(k1.adaptive_conv_fwd_plain), raising=False)
     monkeypatch.setattr(k1, "adaptive_conv_fwd",
                         _standin(k1.adaptive_conv_fwd_plain))
     monkeypatch.setattr(k1, "adaptive_conv_bwd_w",
