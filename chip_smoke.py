@@ -35,16 +35,20 @@ Phases:
    three times each: the first call of each runs G eagerly, the second
    captures G's forward as a CUDA graph and replays it, the third replays
    it (``train/sample_graph.py``); the kernels' launch counts, which
-   Python counts and a replay does not, must show 15 K1 and 2 K3 launches
-   for each of the two forwards issued from Python per batch size, and
-   both graphs must be held; one fp32 forward through the kernels is held
-   against the plain path on the card;
-18. (after phase 5) the sampler's CUDA graph: the card's tests of
-    ``tests/test_torch_sample_graph.py`` (marked ``cuda``) in a child
-    pytest: replayed ``generate`` bitwise equal to G's eager forward for
-    the quickstart G and a small text-conditioned G at batch 1 and 4 over
-    3 seeds, replays after an in-place weight update and after ``load``
-    following the new weights, and a capture under
+   Python counts and a replay does not, must show 15 K1, 15 demodulation
+   and 2 K3 launches for each of the two forwards issued from Python per
+   batch size, and both graphs must be held; one fp32 forward through the
+   kernels is held against the plain path on the card;
+18. (after phase 5) the sampler's CUDA graph and the demodulation kernel:
+    the card's tests of ``tests/test_torch_sample_graph.py`` and
+    ``tests/test_torch_demod.py`` (marked ``cuda``) in a child pytest: the
+    demodulation kernel at every demodulated conv shape of the quickstart,
+    text-to-image and upsampler G and at ragged ones, batch 1, 8 and 32,
+    repeating bitwise, replayed in a graph bitwise, and on all 15 convs of
+    an eager ``generate``; replayed ``generate`` bitwise equal to G's eager
+    forward for the quickstart G and a small text-conditioned G at batch 1
+    and 4 over 3 seeds, replays after an in-place weight update and after
+    ``load`` following the new weights, and a capture under
     ``torch.cuda.set_sync_debug_mode("error")``;
 6. hold K2 (weight gradient; fp32 on the CUDA-core kernel, bf16 on the
    tensor-core one, every bf16 launch checked to land there) and K1 as the
@@ -226,6 +230,7 @@ from gigagan_tpu_torch.models.unet_upsampler import Attention2D, UnetUpsampler
 from gigagan_tpu_torch.ops import attention as ops_attention
 from gigagan_tpu_torch.ops.kernels import adaptive_conv as k1
 from gigagan_tpu_torch.ops.kernels import build, plain_reference
+from gigagan_tpu_torch.ops.kernels import demod as kdemod
 from gigagan_tpu_torch.ops.kernels import flash_attention as k6
 from gigagan_tpu_torch.ops.kernels import flash_attention_fused as k3
 from gigagan_tpu_torch.ops.kernels import flash_attention_hv as k7
@@ -403,7 +408,8 @@ ITERATIONS, R1_EVERY = 8, 4
 # without recomputation differ only by the order of the backward's atomic
 # sums (the recomputed forward is the same arithmetic on the same draws)
 ACCUM, CHUNK, MEM_BATCH, MEM_CHUNK, REMAT_TOL = 2, 4, 16, 8, 1e-4
-KERNEL_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6a", "k6b", "k7a", "k7b")
+KERNEL_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6a", "k6b", "k7a", "k7b",
+                "demod")
 # phase 16: the JAX-written model folders' G outputs (fp32 conv tolerance);
 # the data-parallel fp32 step's losses against one process (relative), and
 # its gradients relative to each leaf's max |want|: against the ranks' own
@@ -481,15 +487,16 @@ def t2i_structure(gan):
 def expected_step_launches(n_convs, n_g_attn, n_d_attn, accum=1, chunks=0,
                            remat=False, remat_stages=False):
     """Launches per step the training path implies.  d_step: G forward
-    without gradient (K1 per conv, K3 per G attention), D's attention
+    without gradient (K1 per conv, K3 per G attention, the demodulation
+    kernel per conv: every G conv is demodulated), D's attention
     forward (K3) and backward (K4); with R1, K4 once more for the penalty's
     input gradient, and then either K5 in the double backward
     (reverse-over-reverse) or, forward-over-reverse, per D attention in
     the surrogate φ: K6a (its forward on split heads), K7a (its jvp), and
     in the backward K7b (through the tangent) and K6b (through the primal,
     which later layers' tangents read).  g_step: G forward and backward (K1
-    forward and as dx, K2 per conv), G's and D's attention forward and
-    backward.
+    forward and as dx, K2 per conv; the demodulation on the differentiable
+    chain), G's and D's attention forward and backward.
 
     ``accum``: each microbatch launches the step's kernels.  ``chunks``:
     the R1 penalty over that many chunks: the d_step's own D call without
@@ -504,9 +511,9 @@ def expected_step_launches(n_convs, n_g_attn, n_d_attn, accum=1, chunks=0,
     of the loss that takes the input gradient).  Forward-over-reverse is
     counted without recomputation."""
     r, s = int(remat), int(remat_stages)
-    none = dict(k5=0, k6a=0, k6b=0, k7a=0, k7b=0)
+    none = dict(k5=0, k6a=0, k6b=0, k7a=0, k7b=0, demod=0)
     d = dict(none, k1=n_convs, k2=0, k3=n_g_attn + (1 + r + s) * n_d_attn,
-             k4=n_d_attn)
+             k4=n_d_attn, demod=n_convs)
     if chunks:
         d_r1 = dict(d, k3=d["k3"] + chunks * (1 + 2 * s) * n_d_attn,
                     k4=(1 + 2 * chunks) * n_d_attn, k5=chunks * n_d_attn)
@@ -545,10 +552,12 @@ def expected_t2i_launches(n_g, n_ga, n_da, n_p, n_v, accum=1):
     K1/K2), K6a, K7a, K7b, K6b per D attention.  g_step: G forward and
     backward (K1 2·n_g, K2 n_g), D's and the VD's forward and backward to
     G; with accumulation the contrastive pool's pass runs G's forward once
-    more per microbatch."""
-    none = dict(k5=0, k6a=0, k6b=0, k7a=0, k7b=0)
+    more per microbatch.  The demodulation kernel runs in G's forwards
+    without gradient alone (the d_step's fakes, the pool's pass): D's and
+    the VD's convs are differentiated in every step."""
+    none = dict(k5=0, k6a=0, k6b=0, k7a=0, k7b=0, demod=0)
     d = dict(none, k1=n_g + 2 * n_p + 4 * n_v, k2=n_p + 2 * n_v,
-             k3=n_ga + n_da, k4=n_da)
+             k3=n_ga + n_da, k4=n_da, demod=n_g)
     d_r1 = dict(d, k1=n_g + 4 * n_p + 6 * n_v, k2=3 * n_p + 4 * n_v,
                 k3=n_ga + 2 * n_da, k4=3 * n_da, k5=n_da)
     d_for = dict(d, k1=n_g + 3 * n_p + 6 * n_v, k2=2 * n_p + 4 * n_v,
@@ -557,7 +566,7 @@ def expected_t2i_launches(n_g, n_ga, n_da, n_p, n_v, accum=1):
     pool = int(accum > 1)
     g = dict(none, k1=(2 + pool) * n_g + 2 * n_p + 2 * n_v,
              k2=n_g + n_p + n_v, k3=(1 + pool) * n_ga + n_da,
-             k4=n_ga + n_da)
+             k4=n_ga + n_da, demod=pool * n_g)
     return tuple({k: v * accum for k, v in row.items()}
                  for row in (d, d_r1, d_for, g))
 
@@ -599,32 +608,56 @@ ENTRY_HOME = {"k1": (k1, "adaptive_conv_fwd"),
               "k7b": (k7, "flash_attention_hv_bwd")}
 
 
+# kernels with one implementation, fp32 on the CUDA cores whatever the
+# model's dtype (so outside the bf16-on-the-tensor-cores checks): the entry
+# that counts its launches
+ONE_ROUTE = {"demod": kdemod.demod_scale_cuda}
+
+
 def kernel_entries():
-    """{kernel: (tensor-core entry, CUDA-core entry)}: each entry counts its
-    own launches (``.launches``)."""
+    """{kernel: (tensor-core entry, CUDA-core entry)} of the kernels with
+    two routes: each entry counts its own launches (``.launches``)."""
     return {k: (getattr(mod, f"{base}_tc"), getattr(mod, f"{base}_simt"))
             for k, (mod, base) in ENTRY_HOME.items()}
 
 
 def launch_counts(reset=False):
-    """This process's launches per kernel and route; ``reset`` zeroes
-    them after reading."""
+    """This process's launches per kernel and route (``cuda`` for the
+    kernels of ONE_ROUTE); ``reset`` zeroes them after reading."""
     out = {}
     for k, (tc, simt) in kernel_entries().items():
         out[k] = {"tc": tc.launches, "simt": simt.launches}
         if reset:
             tc.launches = simt.launches = 0
+    for k, entry in ONE_ROUTE.items():
+        out[k] = {"cuda": entry.launches}
+        if reset:
+            entry.launches = 0
     return out
+
+
+def routes_line(counts):
+    """``launch_counts()`` as one log line: tc/simt launches, or the one
+    route's."""
+    return ", ".join(f"{k} " + "/".join(str(n_) for n_ in v.values())
+                     for k, v in counts.items() if any(v.values())) + \
+        " (tc/simt)"
+
+
+def on_cuda_cores(counts):
+    """The kernels of ``launch_counts()`` with launches on their CUDA-core
+    route."""
+    return [k for k, v in counts.items() if v.get("simt")]
 
 
 class Ctx:
     """What the phases share: the device ``dev`` (``dev.type`` is what the
     trainers are built on), the seeded generator ``gen`` of the kernel
     phases' random operands, the nvidia-smi line, the report written to
-    ``chiprun_out/chip_smoke.json``, and the launch counters of K1-K7b:
-    every kernel counts the launches of both implementations, and the
-    CUDA-core ones alone are read as well, to show that no bf16 call
-    reached them."""
+    ``chiprun_out/chip_smoke.json``, and the launch counters of K1-K7b and
+    the demodulation kernel: every kernel counts the launches of its
+    implementations, and K1-K7b's CUDA-core ones alone are read as well,
+    to show that no bf16 call reached them."""
 
     def __init__(self, dev, smi):
         self.dev, self.smi = dev, smi
@@ -643,12 +676,10 @@ class Ctx:
         log(f"phase {label}: {seconds:.1f} s")
 
     def reset_counts(self):
-        for k_ in KERNEL_NAMES:
-            self.tc[k_].launches = self.simt[k_].launches = 0
+        launch_counts(reset=True)
 
     def read_counts(self):
-        return {k_: self.tc[k_].launches + self.simt[k_].launches
-                for k_ in KERNEL_NAMES}
+        return {k_: sum(v.values()) for k_, v in launch_counts().items()}
 
     def simt_counts(self):
         return {k_: fn.launches for k_, fn in self.simt.items()}
@@ -1173,14 +1204,16 @@ def phase_5_sampling(ctx, k1_shapes):
         if img.shape != (bs, size, size, 3) or not np.isfinite(img).all():
             fail(f"request {i} gave {img.shape} / non-finite values")
     counts = ctx.read_counts()
-    launches = {"k1": counts["k1"], "k3": counts["k3"]}
+    launches = {k: counts[k] for k in ("k1", "k3", "demod")}
     for hk in hooks:
         hk.remove()
     log(f"sampling path: {len(requests)} requests, launches {counts}")
     # per batch size, the eager first call and the capture issue G's
-    # forward from Python; the third call replays the graph
+    # forward from Python; the third call replays the graph.  Every G conv
+    # is demodulated, on the kernel: G's forward needs no gradient
     per_forward = {"k1": len(path_convs(QUICKSTART)),
-                   "k3": len(SELF_ATTN_RES)}
+                   "k3": len(SELF_ATTN_RES),
+                   "demod": len(path_convs(QUICKSTART))}
     issued = 2 * len(set(requests))
     if launches != {k: n * issued for k, n in per_forward.items()}:
         fail(f"launch counts {launches}")
@@ -1188,7 +1221,7 @@ def phase_5_sampling(ctx, k1_shapes):
             if isinstance(e, sample_graph.Captured)]
     if len(held) != len(set(requests)):
         fail(f"{len(held)} graphs held for batch sizes {set(requests)}")
-    if any(n for k, n in counts.items() if k not in ("k1", "k3")):
+    if any(n for k, n in counts.items() if k not in per_forward):
         fail(f"backward kernels launched while sampling: {counts}")
     if ctx.simt_counts()["k1"] or ctx.simt_counts()["k3"]:
         fail(f"bf16 sampling reached the CUDA-core K1/K3: "
@@ -1212,11 +1245,13 @@ def phase_5_sampling(ctx, k1_shapes):
 
 
 def phase_18_sample_graph(ctx):
-    """The sampler's CUDA graph: the card's tests of
-    tests/test_torch_sample_graph.py in a child pytest."""
+    """The sampler's CUDA graph and the demodulation kernel: the card's
+    tests of tests/test_torch_sample_graph.py and tests/test_torch_demod.py
+    in a child pytest."""
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p",
-         "no:cacheprovider", "-m", "cuda", "tests/test_torch_sample_graph.py"],
+         "no:cacheprovider", "-m", "cuda", "tests/test_torch_sample_graph.py",
+         "tests/test_torch_demod.py"],
         cwd=REPO, capture_output=True, text=True, timeout=900)
     (OUT_DIR / "sample_graph_tests.log").write_text(proc.stdout + proc.stderr)
     summary = (proc.stdout.strip().splitlines() or [""])[-1]
@@ -1937,7 +1972,7 @@ def phase_17_d128(ctx, det):
             # every launch but those of `keys` on the CUDA-core route is
             # on the tensor cores, in the counts the path implies
             if counts[r] != want or any(
-                    ctx.simt[k_].launches for k_ in KERNEL_NAMES
+                    ctx.simt[k_].launches for k_ in ctx.simt
                     if r == "tc" or k_ not in keys):
                 fail(f"d = 128 D: bf16 {label} on the {r} route launched "
                      f"{counts[r]} (CUDA-core {ctx.simt_counts()}), the "
@@ -2499,11 +2534,11 @@ def phase_13_t2i(ctx):
             f"and 2 forward-over-reverse R1 iterations, launches {launches}")
         t2i["steps"], t2i["launches"] = steps, launches
 
-        # sampling from captions, batch 1 and 8: K1 per G conv and K3 per
-        # G attention per forward issued from Python, two per batch size
-        # (the eager first call and the capture of its graph; later calls
-        # replay it); cross-attention and the text encoder run no kernel
-        # (77 keys: the plain attention)
+        # sampling from captions, batch 1 and 8: K1 and the demodulation
+        # per G conv and K3 per G attention per forward issued from Python,
+        # two per batch size (the eager first call and the capture of its
+        # graph; later calls replay it); cross-attention and the text
+        # encoder run no kernel (77 keys: the plain attention)
         ctx.reset_counts()
         for i in range(5):
             for bs in (1, BATCH):
@@ -2515,7 +2550,7 @@ def phase_13_t2i(ctx):
                          "non-finite")
         counts = ctx.read_counts()
         per = {k: 0 for k in counts}
-        per.update(k1=4 * n_g, k3=4 * n_ga)
+        per.update(k1=4 * n_g, k3=4 * n_ga, demod=4 * n_g)
         if counts != per:
             fail(f"text-to-image sampling launched {counts}, the path "
                  f"implies {per}")
@@ -2668,9 +2703,10 @@ def phase_14_upsampler(ctx):
 
 
 def upsampler_sampling(ctx, gan, pool, n_g, n_ga):
-    """generate(lowres) at batch 1 and 8, K1 per adaptive conv and K3 per
-    attention of G per forward, and a batch-1 256 -> 1024 request with the
-    same widths (K1 on 1024² maps, K3 at 16384 tokens)."""
+    """generate(lowres) at batch 1 and 8, K1 and the demodulation per
+    adaptive conv and K3 per attention of G per forward (eager: the
+    upsampler's forward is not graphed), and a batch-1 256 -> 1024 request
+    with the same widths (K1 on 1024² maps, K3 at 16384 tokens)."""
     size = UPSAMPLER_G["image_size"]
     lowres = ops.resize_image_to(pool[:BATCH], UPSAMPLER_G[
         "input_image_size"], "nearest").cpu().numpy()
@@ -2683,7 +2719,7 @@ def upsampler_sampling(ctx, gan, pool, n_g, n_ga):
                 fail(f"upsampler sampling gave {img.shape} / non-finite")
     counts = ctx.read_counts()
     per = {k: 0 for k in counts}
-    per.update(k1=8 * n_g, k3=8 * n_ga)
+    per.update(k1=8 * n_g, k3=8 * n_ga, demod=8 * n_g)
     if counts != per:
         fail(f"upsampler sampling launched {counts}, the path implies {per}")
     ctx.report["upsampler"]["sampling_launches"] = counts
@@ -2699,7 +2735,7 @@ def upsampler_sampling(ctx, gan, pool, n_g, n_ga):
     if img.shape != (1, 1024, 1024, 3) or not np.isfinite(img).all():
         fail(f"the 256 -> 1024 request gave {img.shape} / non-finite")
     per = {k: 0 for k in counts}
-    per.update(k1=3 * n_g, k3=3 * n_ga)
+    per.update(k1=3 * n_g, k3=3 * n_ga, demod=3 * n_g)
     if counts != per:
         fail(f"the 256 -> 1024 request launched {counts}, the path implies "
              f"{per}")
@@ -2872,15 +2908,13 @@ def run_cli(cli_dir, surface, label, *args):
              f"{proc.returncode}: {proc.stderr[-3000:]}")
     counts = json.loads(counts_path.read_text())
     surface["cli"][label] = dict(args=list(args), launches=counts)
-    log(f"CLI {label}: launches "
-        + ", ".join(f"{k} {v['tc']}/{v['simt']}" for k, v in counts.items()
-                    if v["tc"] or v["simt"]) + " (tc/simt)")
+    log(f"CLI {label}: launches {routes_line(counts)}")
     return proc.stdout, counts
 
 
 def launched_on_tc(label, counts, kernels):
     missing = [k_ for k_ in kernels if not counts[k_]["tc"]]
-    if missing or any(v["simt"] for v in counts.values()):
+    if missing or on_cuda_cores(counts):
         fail(f"CLI {label}: kernels {missing} not launched on the "
              f"tensor cores, or a bf16 launch on the CUDA cores: "
              f"{counts}")
@@ -3140,11 +3174,8 @@ def data_parallel(ctx, cli_dir):
                      for v in row.values())
         log(f"data parallel bf16 {label}: {DP_ITERATIONS} iterations, "
             f"unequal steps {res['unequal']}, launches "
-            + ", ".join(f"{k_} {v['tc']}/{v['simt']}"
-                        for k_, v in counts.items() if v["tc"] or v["simt"])
-            + " (tc/simt)")
-        if (not finite or res["unequal"]
-                or any(v["simt"] for v in counts.values())
+            f"{routes_line(counts)}")
+        if (not finite or res["unequal"] or on_cuda_cores(counts)
                 or not all(counts[k_]["tc"] for k_ in
                            ("k1", "k2", "k3", "k4", "k5"))):
             fail(f"data parallel bf16 {label}: finite {finite}, unequal "

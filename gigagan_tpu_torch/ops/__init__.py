@@ -4,7 +4,6 @@ from gigagan_tpu_torch.ops.adaptive_conv import (
     adaptive_conv_reference,
     demod_scale,
     expand_batch,
-    kernel_gram,
 )
 from gigagan_tpu_torch.ops.attention import (
     attend,
@@ -12,6 +11,7 @@ from gigagan_tpu_torch.ops.attention import (
     linear_attend,
     linear_attend_fused,
 )
+from gigagan_tpu_torch.ops.kernels.demod import kernel_gram
 from gigagan_tpu_torch.ops.resample import (
     blur_2d,
     blur_3d,

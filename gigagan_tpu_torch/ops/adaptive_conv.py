@@ -10,7 +10,9 @@ device memory:
    ``conv(x, Σₙ aₙ Wₙ) == Σₙ aₙ conv(x, Wₙ)``;
 3. demodulation is a per-sample output-channel scale from the kernel-bank
    Gram matrix ``G[n,m,i,o] = Σ_k Wₙ[k,i,o]·Wₘ[k,i,o]``:
-   ``d²[b,o] = Σ_{n,m} a[b,n]·a[b,m] · Σᵢ G[n,m,i,o]·(1+mod[b,i])²``.
+   ``d²[b,o] = Σ_{n,m} a[b,n]·a[b,m] · Σᵢ G[n,m,i,o]·(1+mod[b,i])²``:
+   an einsum chain where autograd may differentiate it, else one kernel
+   (``ops/kernels/demod.py``, ``demod_route``) that keeps G in registers.
 
 Every 2-D 3x3 stride-1 conv goes through ``pconv2d``
 (``ops/kernels/adaptive_conv.py``): kernel K1, which mixes the banks per
@@ -35,8 +37,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from gigagan_tpu_torch.ops.kernels import demod as kdemod
 from gigagan_tpu_torch.ops.kernels import use_fused
 from gigagan_tpu_torch.ops.kernels.adaptive_conv import pconv2d
+from gigagan_tpu_torch.ops.kernels.demod import demod_chain
 from gigagan_tpu_torch.ops.kernels.flash_attention_hv import hv_mode
 from gigagan_tpu_torch.utils import exists
 
@@ -51,28 +55,27 @@ def expand_batch(t, batch: int):
     return torch.repeat_interleave(t, s, dim=0)
 
 
-def kernel_gram(weights):
-    """Gram matrix of the kernel banks over their spatial taps:
-    (n, *k_spatial, i, o) → (n, n, i, o)."""
-    n = weights.shape[0]
-    flat = weights.reshape(n, -1, weights.shape[-2], weights.shape[-1])
-    return torch.einsum("nkio,mkio->nmio", flat, flat)
+def demod_route(device, *operands) -> str:
+    """Where ``demod_scale`` sends a call: ``"autograd"`` (the
+    differentiable einsum chain) where a gradient may be asked of it:
+    grad mode on and an operand that requires one, or inside the
+    forward-over-reverse R1 surrogate, whose jvp differentiates every op;
+    and under ``plain_reference()``.  Otherwise ``demod_scale_fwd``'s
+    route: ``"plain"`` on a CPU device, ``"kernel"`` on a CUDA one.  Reads
+    only the grad mode and the operands (None passes)."""
+    if not use_fused() or hv_mode() or (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in operands)):
+        return "autograd"
+    return "plain" if torch.device(device).type == "cpu" else "kernel"
 
 
 def demod_scale(weights, scale_in, attn=None, eps: float = 1e-8):
-    """Per-sample output-channel demodulation scale (b, o) in fp32."""
-    n = weights.shape[0]
-    b = scale_in.shape[0]
-    gram = kernel_gram(weights.float())  # (n, n, i, o)
-    s2 = scale_in * scale_in  # (b, i)
-    if n > 1:
-        gram_flat = gram.reshape(n * n, *gram.shape[2:])
-        t = torch.einsum("pio,bi->bpo", gram_flat, s2)
-        pair = torch.einsum("bn,bm->bnm", attn, attn).reshape(b, n * n)
-        d_sq = torch.einsum("bp,bpo->bo", pair, t)
-    else:
-        d_sq = torch.einsum("io,bi->bo", gram[0, 0], s2)
-    return torch.rsqrt(torch.clamp(d_sq, min=eps))
+    """Per-sample output-channel demodulation scale (b, o) in fp32: the
+    einsum chain where autograd may differentiate it, else the kernel (its
+    plain version on a CPU tensor)."""
+    if demod_route(weights.device, weights, scale_in, attn) == "autograd":
+        return demod_chain(weights, scale_in, attn, eps)
+    return kdemod.demod_scale_fwd(weights, scale_in, attn, eps)
 
 
 def _conv(x, w, *, stride: int, dilation: int):

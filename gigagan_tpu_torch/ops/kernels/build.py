@@ -80,6 +80,7 @@ KERNELS = (
     "flash_attention_hv_jvp_tc",
     "flash_attention_hv_bwd",
     "flash_attention_hv_bwd_tc",
+    "demod_scale",
 )
 
 

@@ -8,7 +8,9 @@ chunked R1, ``remat`` and D's ``remat_stages``),
 the kernel entries launch nothing (their ``.launches`` stay 0), but the
 autograd Functions call the same dispatchers, which take the plain
 versions there; each dispatcher is wrapped here, at the name the Functions
-call it by, with a counter.  At these sizes every dispatch is one launch
+call it by, with a counter (the demodulation's, ``demod_scale_fwd``, at
+the name ``ops.demod_scale`` calls it by: every call that needs no
+gradient).  At these sizes every dispatch is one launch
 on the card (two banks, batches far below the grid limits), and every D
 attention is flash-sized (at least 256 queries and 128 keys), so that the
 forward-over-reverse R1 reaches K6a-K7b as at full width."""
@@ -26,6 +28,7 @@ from gigagan_tpu_torch.models import clip as tclip  # noqa: E402
 from gigagan_tpu_torch.models.layers import AdaptiveConv  # noqa: E402
 from gigagan_tpu_torch.models.unet_upsampler import Attention2D  # noqa: E402
 from gigagan_tpu_torch.ops.kernels import adaptive_conv as k1  # noqa: E402
+from gigagan_tpu_torch.ops.kernels import demod as kdemod  # noqa: E402
 from gigagan_tpu_torch.ops.kernels import flash_attention_hv as k7  # noqa
 from gigagan_tpu_torch.ops.kernels import flash_attention_so as so  # noqa
 
@@ -44,7 +47,8 @@ DISPATCHERS = {"k1": (k1, "adaptive_conv_fwd"),
                "k6a": (k7, "flash_attention_fwd"),
                "k6b": (k7, "flash_attention_bwd"),
                "k7a": (k7, "flash_attention_hv_jvp"),
-               "k7b": (k7, "flash_attention_hv_bwd")}
+               "k7b": (k7, "flash_attention_hv_bwd"),
+               "demod": (kdemod, "demod_scale_fwd")}
 
 BATCH = 2
 # the quickstart's structure at 32px: G's 9 adaptive convs and one
@@ -225,3 +229,23 @@ def test_expected_upsampler_launches(counted):
     assert launches(counted, d_step(True)) == exp[2]
     assert launches(counted, lambda: gan.train_generator_step(
         batch, calc_multiscale_loss=True, seed=2)) == exp[3]
+
+
+@pytest.mark.parametrize("net", ["quickstart", "upsampler"])
+def test_generate_launches(net, counted):
+    """An eager ``generate`` (the CPU never captures a graph): K1 and the
+    demodulation once per G conv, no backward kernel."""
+    if net == "quickstart":
+        gan = GigaGAN(generator=G_CFG, device="cpu", seed=0)
+        n_convs = len(chip_smoke.path_convs(G_CFG))
+        got = launches(counted, lambda: gan.generate(batch_size=BATCH,
+                                                     seed=3))
+    else:
+        gan = GigaGAN(generator=UP_G, discriminator=D_CFG,
+                      train_upsampler=True, device="cpu", seed=0)
+        n_convs = chip_smoke.upsampler_structure(UP_G)[0]
+        got = launches(counted, lambda: gan.generate(
+            reals(BATCH, UP_G["input_image_size"]), seed=3))
+    assert got["k1"] == got["demod"] == n_convs
+    assert not any(got[k] for k in ("k2", "k4", "k5", "k6a", "k6b", "k7a",
+                                    "k7b"))
