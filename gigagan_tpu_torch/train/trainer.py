@@ -586,8 +586,10 @@ class GigaGAN:
                         "the upsampler needs lowres_image")
                     latent_gen = torch.Generator(
                         device=self.device).manual_seed(seeds[1])
-                    out = g(torch.as_tensor(lowres_image, device=self.device),
-                            **inputs, latent_generator=latent_gen)
+                    with span("gigagan.sync.lowres_to_device"):
+                        lowres = torch.as_tensor(lowres_image,
+                                                 device=self.device)
+                    out = g(lowres, **inputs, latent_generator=latent_gen)
                 else:
                     out = sample_graph.forward(g, key, self.device,
                                                batch_size, seeds, inputs)

@@ -54,6 +54,7 @@ SPANS = (
     "gigagan.sync.clip_normalize",
     "gigagan.sync.clip_logit_scale",
     "gigagan.sync.readback",
+    "gigagan.sync.lowres_to_device",
 )
 
 _NO_SPAN = contextlib.nullcontext()
