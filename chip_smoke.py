@@ -18,7 +18,9 @@ Phases:
    process per source, all at once, and check in their SASS that the
    tensor-core K1, K2, K3, K4, K5, K7a and K7b run ``HGMMA`` (``wgmma``) fed
    by ``UTMALDG`` (TMA), for K5, K7a and K7b in every kernel, those built
-   for head dim 128 among them;
+   for head dim 128 among them, and the linear attention ``HMMA``
+   (``mma.sync``) fed by ``LDSM`` and ``LDGSTS`` (``ldmatrix``,
+   ``cp.async``);
 3. hold kernel K1 (adaptive conv) against its plain PyTorch version at
    every 3x3 conv shape of the 256px generator, batch 8: fp32 (TF32 off) on
    the CUDA-core kernel, bf16 with fp32 and with bf16 banks on the
@@ -39,9 +41,13 @@ Phases:
    and 2 K3 launches for each of the two forwards issued from Python per
    batch size, and both graphs must be held; one fp32 forward through the
    kernels is held against the plain path on the card;
-18. (after phase 5) the sampler's CUDA graph and the demodulation kernel:
-    the card's tests of ``tests/test_torch_sample_graph.py`` and
-    ``tests/test_torch_demod.py`` (marked ``cuda``) in a child pytest: the
+18. (after phase 5) the sampler's CUDA graph, the demodulation and the
+    linear-attention kernels: the card's tests of
+    ``tests/test_torch_sample_graph.py``, ``tests/test_torch_demod.py`` and
+    ``tests/test_torch_linear_attention.py`` (marked ``cuda``) in a child
+    pytest: the linear-attention kernel at every linear-attention shape of
+    the upsampler configurations, ragged, repeating bitwise, replayed in a
+    graph bitwise and on every call of an eager ``generate``; the
     demodulation kernel at every demodulated conv shape of the quickstart,
     text-to-image and upsampler G and at ragged ones, batch 1, 8 and 32,
     repeating bitwise, replayed in a graph bitwise, and on all 15 convs of
@@ -154,17 +160,23 @@ Phases:
     G's rgbs at 128; batch 8, bf16, ``MockImageDataset(256, seed=0)``): 8
     iterations with R1 on 0 and 4, then 2 with R1 forward-over-reverse,
     every loss finite and every step's K1-K7b launch counts those
-    ``expected_upsampler_launches`` derives from the configuration, every
-    bf16 launch on the tensor cores; ``generate(lowres)`` at batch 1 and 8
-    (46 K1 and 5 K3 per image) and a batch-1 256 -> 1024 request with the
-    same widths (launch counts); fp32 d_steps with R1 in both forms and a
-    g_step against ``plain_reference()`` with float64 attention (0.02); a
+    ``expected_upsampler_launches`` derives from the configuration (the
+    linear-attention kernel once per linear attention in each d_step's
+    fakes, never in a g_step), every bf16 launch on the tensor cores;
+    ``generate(lowres)`` at batch 1 and 8 (46 K1, 5 K3 and 6
+    linear-attention calls per forward) and a batch-1 256 -> 1024 request
+    with the same widths (launch counts); fp32 d_steps with R1 in both
+    forms and a g_step against ``plain_reference()`` with float64
+    attention (0.02); a
     video forward (4 frames, fp32, four stages) against the plain path,
     its 65536-row temporal attention split at K3's grid limit; K3, K4 and
     K5 at a batch of 65536 + 8 against their plain versions, two launches
     each; K1 and K2 at every shape and dtype of the run and the sampling
     against their plain versions; K3/K4 at G's attention shapes and K3 at
-    the 1024 request's 16384 tokens;
+    the 1024 request's 16384 tokens; the linear-attention kernel at the
+    1024 request's six calls (65,536-1,048,576 tokens) against a float64
+    evaluation, at most LINATTN_FROM_F64_RATIO times as far as the plain
+    bf16 form;
 16. the outer surface at the quickstart's full width: (a) the command
     line, each command the package's ``__main__`` (what ``python -m
     gigagan_tpu_torch`` runs) in a child process that reports its kernel
@@ -226,7 +238,11 @@ from gigagan_tpu_torch.data import (
     cycle,
 )
 from gigagan_tpu_torch.models.layers import AdaptiveConv, init_parameters
-from gigagan_tpu_torch.models.unet_upsampler import Attention2D, UnetUpsampler
+from gigagan_tpu_torch.models.unet_upsampler import (
+    Attention2D,
+    LinearAttention2D,
+    UnetUpsampler,
+)
 from gigagan_tpu_torch.ops import attention as ops_attention
 from gigagan_tpu_torch.ops.kernels import adaptive_conv as k1
 from gigagan_tpu_torch.ops.kernels import build, plain_reference
@@ -235,6 +251,7 @@ from gigagan_tpu_torch.ops.kernels import flash_attention as k6
 from gigagan_tpu_torch.ops.kernels import flash_attention_fused as k3
 from gigagan_tpu_torch.ops.kernels import flash_attention_hv as k7
 from gigagan_tpu_torch.ops.kernels import flash_attention_so as so
+from gigagan_tpu_torch.ops.kernels import linear_attention as klinattn
 from gigagan_tpu_torch.parallel import dist
 from gigagan_tpu_torch.train import sample_graph
 from gigagan_tpu_torch.train.steps import StepDraws
@@ -409,7 +426,13 @@ ITERATIONS, R1_EVERY = 8, 4
 # sums (the recomputed forward is the same arithmetic on the same draws)
 ACCUM, CHUNK, MEM_BATCH, MEM_CHUNK, REMAT_TOL = 2, 4, 16, 8, 1e-4
 KERNEL_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6a", "k6b", "k7a", "k7b",
-                "demod")
+                "demod", "linattn")
+# the linear-attention kernel's distance from a float64 evaluation on the
+# same bf16 operands may be at most this many times the plain bf16 form's:
+# both round the normalised q, the context and out to bf16 (the kernel
+# exp(k − m) where the plain form rounds exp(k − m) / s, the same relative
+# rounding) and sum in another order
+LINATTN_FROM_F64_RATIO = 1.25
 # phase 16: the JAX-written model folders' G outputs (fp32 conv tolerance);
 # the data-parallel fp32 step's losses against one process (relative), and
 # its gradients relative to each leaf's max |want|: against the ranks' own
@@ -511,7 +534,7 @@ def expected_step_launches(n_convs, n_g_attn, n_d_attn, accum=1, chunks=0,
     of the loss that takes the input gradient).  Forward-over-reverse is
     counted without recomputation."""
     r, s = int(remat), int(remat_stages)
-    none = dict(k5=0, k6a=0, k6b=0, k7a=0, k7b=0, demod=0)
+    none = dict(k5=0, k6a=0, k6b=0, k7a=0, k7b=0, demod=0, linattn=0)
     d = dict(none, k1=n_convs, k2=0, k3=n_g_attn + (1 + r + s) * n_d_attn,
              k4=n_d_attn, demod=n_convs)
     if chunks:
@@ -555,7 +578,7 @@ def expected_t2i_launches(n_g, n_ga, n_da, n_p, n_v, accum=1):
     more per microbatch.  The demodulation kernel runs in G's forwards
     without gradient alone (the d_step's fakes, the pool's pass): D's and
     the VD's convs are differentiated in every step."""
-    none = dict(k5=0, k6a=0, k6b=0, k7a=0, k7b=0, demod=0)
+    none = dict(k5=0, k6a=0, k6b=0, k7a=0, k7b=0, demod=0, linattn=0)
     d = dict(none, k1=n_g + 2 * n_p + 4 * n_v, k2=n_p + 2 * n_v,
              k3=n_ga + n_da, k4=n_da, demod=n_g)
     d_r1 = dict(d, k1=n_g + 4 * n_p + 6 * n_v, k2=3 * n_p + 4 * n_v,
@@ -585,14 +608,29 @@ def upsampler_structure(cfg):
     return 2 * (4 * len(mults) + 3), n_attn
 
 
+def upsampler_linear_attentions(cfg):
+    """The linear-attention layers of a UnetUpsampler config's image
+    forward: those of the down and up stages not marked in
+    ``full_attn``."""
+    mults = cfg.get("dim_mults", (1, 2, 4, 8, 16))
+    full = cfg.get("full_attn", (False, False, False, True, True))
+    depths = cfg.get("attn_depths", (1,) * len(mults))
+    return 2 * sum(d_ for f_, d_ in zip(full, depths) if not f_)
+
+
 def expected_upsampler_launches(cfg, n_d_attn):
     """Launches per step of the upsampler's training path: the
     quickstart's structure (``expected_step_launches``) for the adaptive
     convs and full attentions ``upsampler_structure`` counts in G (K1 per
     conv in the d_step's no-grad forward; forward, dx and K2 in the
-    g_step; K3/K4 per attention, no null token) and D's ``n_d_attn``."""
+    g_step; K3/K4 per attention, no null token) and D's ``n_d_attn``; the
+    linear-attention kernel once per linear attention of G in the d_step's
+    no-grad forward (the g_step differentiates them: the plain form)."""
     n_convs, n_g_attn = upsampler_structure(cfg)
-    return expected_step_launches(n_convs, n_g_attn, n_d_attn)
+    n_linear = upsampler_linear_attentions(cfg)
+    d, d_r1, d_for, g = expected_step_launches(n_convs, n_g_attn, n_d_attn)
+    return tuple(dict(row, linattn=n_linear)
+                 for row in (d, d_r1, d_for)) + (g,)
 
 
 # where each kernel's entries live, as module attributes ``<base>_tc`` and
@@ -608,10 +646,12 @@ ENTRY_HOME = {"k1": (k1, "adaptive_conv_fwd"),
               "k7b": (k7, "flash_attention_hv_bwd")}
 
 
-# kernels with one implementation, fp32 on the CUDA cores whatever the
-# model's dtype (so outside the bf16-on-the-tensor-cores checks): the entry
-# that counts its launches
-ONE_ROUTE = {"demod": kdemod.demod_scale_cuda}
+# kernels with one implementation (so outside the checks of the tensor-core
+# and CUDA-core routes): the demodulation, fp32 on the CUDA cores whatever
+# the model's dtype, and the linear attention, bf16 alone: the entry that
+# counts its launches
+ONE_ROUTE = {"demod": kdemod.demod_scale_cuda,
+             "linattn": klinattn.linear_attend_cuda}
 
 
 def kernel_entries():
@@ -654,10 +694,10 @@ class Ctx:
     """What the phases share: the device ``dev`` (``dev.type`` is what the
     trainers are built on), the seeded generator ``gen`` of the kernel
     phases' random operands, the nvidia-smi line, the report written to
-    ``chiprun_out/chip_smoke.json``, and the launch counters of K1-K7b and
-    the demodulation kernel: every kernel counts the launches of its
-    implementations, and K1-K7b's CUDA-core ones alone are read as well,
-    to show that no bf16 call reached them."""
+    ``chiprun_out/chip_smoke.json``, and the launch counters of K1-K7b, the
+    demodulation and the linear-attention kernels: every kernel counts the
+    launches of its implementations, and K1-K7b's CUDA-core ones alone are
+    read as well, to show that no bf16 call reached them."""
 
     def __init__(self, dev, smi):
         self.dev, self.smi = dev, smi
@@ -1043,6 +1083,18 @@ def phase_2_build(ctx):
         log(f"  sass {kname}: {found}")
         if not all(found.values()):
             fail(f"{kname} lacks tensor-core products or TMA loads: {found}")
+    # the linear attention's products on the tensor cores by mma.sync
+    # (HMMA), fed by ldmatrix (LDSM) from cp.async (LDGSTS) rings
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(built["linear_attention"][0])],
+        capture_output=True, text=True, check=True).stdout
+    found = {op: len(re.findall(rf"\b{op}\b", sass))
+             for op in ("HMMA", "LDSM", "LDGSTS")}
+    ctx.report["sass"]["linear_attention"] = found
+    log(f"  sass linear_attention: {found}")
+    if not all(found.values()):
+        fail(f"linear_attention lacks tensor-core products or its "
+             f"asynchronous loads: {found}")
     # K5's, K7a's and K7b's kernels one by one: each instantiation, those
     # at d = 128 (template argument 2) among them, holds both
     for kname in tc_libs[4:]:
@@ -1245,13 +1297,14 @@ def phase_5_sampling(ctx, k1_shapes):
 
 
 def phase_18_sample_graph(ctx):
-    """The sampler's CUDA graph and the demodulation kernel: the card's
-    tests of tests/test_torch_sample_graph.py and tests/test_torch_demod.py
-    in a child pytest."""
+    """The sampler's CUDA graph, the demodulation and the linear-attention
+    kernels: the card's tests of tests/test_torch_sample_graph.py,
+    tests/test_torch_demod.py and tests/test_torch_linear_attention.py in
+    a child pytest."""
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p",
          "no:cacheprovider", "-m", "cuda", "tests/test_torch_sample_graph.py",
-         "tests/test_torch_demod.py"],
+         "tests/test_torch_demod.py", "tests/test_torch_linear_attention.py"],
         cwd=REPO, capture_output=True, text=True, timeout=900)
     (OUT_DIR / "sample_graph_tests.log").write_text(proc.stdout + proc.stderr)
     summary = (proc.stdout.strip().splitlines() or [""])[-1]
@@ -2527,7 +2580,9 @@ def phase_13_t2i(ctx):
             if s_["launches"] != want:
                 fail(f"text-to-image {s_['kind']}_step (r1={s_['r1']}) "
                      f"launched {s_['launches']}, the path implies {want}")
-        if any(n_ == 0 for n_ in launches.values()):
+        used = [k for k in KERNEL_NAMES
+                if any(row[k] for row in (exp_d, exp_d_r1, exp_d_for, exp_g))]
+        if any(launches[k] == 0 for k in used):
             fail(f"a kernel of the text-to-image path was never launched: "
                  f"{launches}")
         log(f"text-to-image path: {ITERATIONS} iterations (R1 on 0 and 4) "
@@ -2601,7 +2656,7 @@ def phase_14_upsampler(ctx):
     """The UNet upsampler recipe at full width: its training iterations,
     sampling (and a 256 -> 1024 request), fp32 steps against the plain
     path, a video forward, the fused attention chain past its grid limit,
-    and K1-K4 at its shapes."""
+    K1-K4 at its shapes and the linear-attention kernel at the request's."""
     up = ctx.report["upsampler"] = {}
 
     def up_gan(**kw):
@@ -2611,15 +2666,18 @@ def phase_14_upsampler(ctx):
 
     gan = up_gan(amp=True)
     n_g, n_ga = upsampler_structure(UPSAMPLER_G)
+    n_la = upsampler_linear_attentions(UPSAMPLER_G)
     n_da = sum(st.core.attn is not None for st in gan.D.stages)
     built = (sum(isinstance(m, AdaptiveConv) for m in gan.G.modules()),
-             sum(isinstance(m, Attention2D) for m in gan.G.modules()))
-    up["structure"] = dict(g_convs=n_g, g_attn=n_ga, d_attn=n_da)
-    log(f"upsampler G+D: {n_g} adaptive convs and {n_ga} full attentions "
-        f"in G, {n_da} attentions in D")
-    if built != (n_g, n_ga):
-        fail(f"the upsampler holds {built} adaptive convs and attentions, "
-             f"its configuration implies {(n_g, n_ga)}")
+             sum(isinstance(m, Attention2D) for m in gan.G.modules()),
+             sum(isinstance(m, LinearAttention2D) for m in gan.G.modules()))
+    up["structure"] = dict(g_convs=n_g, g_attn=n_ga, g_linear_attn=n_la,
+                           d_attn=n_da)
+    log(f"upsampler G+D: {n_g} adaptive convs, {n_ga} full and {n_la} "
+        f"linear attentions in G, {n_da} attentions in D")
+    if built != (n_g, n_ga, n_la):
+        fail(f"the upsampler holds {built} adaptive convs, full and linear "
+             f"attentions, its configuration implies {(n_g, n_ga, n_la)}")
     exp_d, exp_d_r1, exp_d_for, exp_g = expected_upsampler_launches(
         UPSAMPLER_G, n_da)
     size = UPSAMPLER_G["image_size"]
@@ -2665,7 +2723,7 @@ def phase_14_upsampler(ctx):
         log(f"upsampler path: {ITERATIONS} iterations (R1 on 0 and 4) and "
             f"2 forward-over-reverse R1 iterations, launches {launches}")
         up["steps"], up["launches"] = steps, launches
-        upsampler_sampling(ctx, gan, pool, n_g, n_ga)
+        upsampler_sampling(ctx, gan, pool, n_g, n_ga, n_la)
     del gan
     gc.collect()
     torch.cuda.empty_cache()
@@ -2700,13 +2758,16 @@ def phase_14_upsampler(ctx):
     # 1024 request, against their plain versions
     up["conv_calls"] = check_conv_calls(ctx, calls, "upsampler")
     up["attention"] = upsampler_attention(ctx)
+    up["linear_attention"] = upsampler_linear_attention(ctx)
 
 
-def upsampler_sampling(ctx, gan, pool, n_g, n_ga):
+def upsampler_sampling(ctx, gan, pool, n_g, n_ga, n_la):
     """generate(lowres) at batch 1 and 8, K1 and the demodulation per
-    adaptive conv and K3 per attention of G per forward (eager: the
-    upsampler's forward is not graphed), and a batch-1 256 -> 1024 request
-    with the same widths (K1 on 1024² maps, K3 at 16384 tokens)."""
+    adaptive conv, K3 per attention and the linear-attention kernel per
+    linear attention of G per forward (eager: the upsampler's forward is
+    not graphed; every bf16 linear attention without gradient on the
+    kernel), and a batch-1 256 -> 1024 request with the same widths (K1 on
+    1024² maps, K3 at 16384 tokens, linear attention over 1M tokens)."""
     size = UPSAMPLER_G["image_size"]
     lowres = ops.resize_image_to(pool[:BATCH], UPSAMPLER_G[
         "input_image_size"], "nearest").cpu().numpy()
@@ -2719,7 +2780,7 @@ def upsampler_sampling(ctx, gan, pool, n_g, n_ga):
                 fail(f"upsampler sampling gave {img.shape} / non-finite")
     counts = ctx.read_counts()
     per = {k: 0 for k in counts}
-    per.update(k1=8 * n_g, k3=8 * n_ga, demod=8 * n_g)
+    per.update(k1=8 * n_g, k3=8 * n_ga, demod=8 * n_g, linattn=8 * n_la)
     if counts != per:
         fail(f"upsampler sampling launched {counts}, the path implies {per}")
     ctx.report["upsampler"]["sampling_launches"] = counts
@@ -2735,7 +2796,7 @@ def upsampler_sampling(ctx, gan, pool, n_g, n_ga):
     if img.shape != (1, 1024, 1024, 3) or not np.isfinite(img).all():
         fail(f"the 256 -> 1024 request gave {img.shape} / non-finite")
     per = {k: 0 for k in counts}
-    per.update(k1=3 * n_g, k3=3 * n_ga, demod=3 * n_g)
+    per.update(k1=3 * n_g, k3=3 * n_ga, demod=3 * n_g, linattn=3 * n_la)
     if counts != per:
         fail(f"the 256 -> 1024 request launched {counts}, the path implies "
              f"{per}")
@@ -2889,6 +2950,45 @@ def upsampler_attention(ctx):
                 and row.get("rel_k4", 0.0) <= K4_TOL):
             fail(f"K3/K4 disagree at an upsampler shape: {row}")
         del args, out, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def upsampler_linear_attention(ctx):
+    """The linear-attention kernel at the 1024 request's six calls (8
+    heads of 64, batch 1: three at 256², then 256², 512² and 1024²), on
+    the ``to_qkv`` chunk views: its distance from a float64 evaluation on
+    the same bf16 operands against the plain bf16 form's
+    (LINATTN_FROM_F64_RATIO), two calls bitwise equal."""
+    rows = []
+    hd = HEADS * DIM_HEAD
+    for n in [256 ** 2] * 4 + [512 ** 2, 1024 ** 2]:
+        qkv = torch.randn(1, n, 3 * hd, device=ctx.dev,
+                          generator=ctx.gen).to(BF16)
+        q, k, v = qkv.chunk(3, dim=-1)
+        before = klinattn.linear_attend_cuda.launches
+        got = ops.linear_attend_fused(q, k, v, heads=HEADS)
+        again = ops.linear_attend_fused(q, k, v, heads=HEADS)
+        launched = klinattn.linear_attend_cuda.launches - before
+        plain = klinattn.linear_attend_plain(q, k, v, heads=HEADS)
+        qd, kd, vd = (t.double().reshape(1, n, HEADS, DIM_HEAD)
+                      for t in (q, k, v))
+        context = torch.einsum("bnhd,bnhe->bhde", torch.softmax(kd, 1), vd)
+        want = torch.einsum("bnhd,bhde->bnhe",
+                            torch.softmax(qd, -1) * DIM_HEAD ** -0.5,
+                            context).reshape(1, n, hd)
+        del qd, kd, vd
+        gaps = [float((t.double() - want).norm() / want.norm())
+                for t in (got, plain)]
+        row = dict(n=n, kernel=gaps[0], plain=gaps[1], launches=launched,
+                   repeats=bool(torch.equal(got, again)))
+        rows.append(row)
+        log(f"linear attention b1 H{HEADS} n{n} bf16: kernel {gaps[0]:.3e}, "
+            f"plain {gaps[1]:.3e} from float64")
+        if launched != 2 or not row["repeats"] or not (
+                gaps[0] <= LINATTN_FROM_F64_RATIO * gaps[1]):
+            fail(f"the linear-attention kernel disagrees: {row}")
+        del qkv, q, k, v, got, again, plain, want, context
         torch.cuda.empty_cache()
     return rows
 

@@ -14,7 +14,8 @@ gigagan_tpu/models/unet_upsampler.py with the same config keys).
   through a video-capable net skips its temporal blocks' four slots;
 - full or linear attention per stage (``Attention2D`` through
   ``ops.attend_fused``, so K3 → K4 → K5 on the card; ``LinearAttention2D``
-  through the plain ``ops.linear_attend_fused``), optional cross-attention
+  through ``ops.linear_attend_fused``: the linear-attention kernel on the
+  card where no gradient is asked, else plain), optional cross-attention
   to the text tokens;
 - up path: pixel-shuffle upsample (ICNR kept: unlike the base generator,
   the upsampler has no re-init after it), rgb blur-upsample, two skip
@@ -183,7 +184,9 @@ class ResnetBlock(nn.Module):
 
 
 class LinearAttention2D(nn.Module):
-    """Linear attention on feature maps (plain PyTorch on every device)."""
+    """Linear attention on feature maps through ``ops.linear_attend_fused``
+    (the kernel for a call on the card that needs no gradient, else plain
+    PyTorch)."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
                  dtype=torch.float32):

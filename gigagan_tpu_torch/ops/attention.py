@@ -27,15 +27,19 @@ package:
 
 ``plain_reference()`` takes the plain math everywhere.
 
-The upsampler's linear attention (``linear_attend``,
-``linear_attend_fused``) is plain PyTorch on every device, as it is XLA,
-not Pallas, in JAX.
+The upsampler's linear attention is XLA, not Pallas, in JAX.
+``linear_attend`` is plain PyTorch on every device; ``linear_attend_fused``
+runs its plain form (``ops/kernels/linear_attention.py``) wherever
+autograd may differentiate a call, and otherwise the kernel
+``csrc/linear_attention.cu`` (``linear_attend_route``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from gigagan_tpu_torch.ops.adaptive_conv import demod_route
+from gigagan_tpu_torch.ops.kernels import linear_attention as klinattn
 from gigagan_tpu_torch.ops.kernels import use_fused
 from gigagan_tpu_torch.ops.kernels.flash_attention_hv import (
     flash_attend_hv,
@@ -108,15 +112,6 @@ def attend_fused(q, k, v, *, heads: int, null_kv=None, l2_dist: bool = False,
     return out.permute(0, 2, 1, 3).reshape(b, nq, heads * d)
 
 
-def _softmax_over(x, dim: int):
-    """fp32 softmax of x along ``dim``, from plain reductions: torch's
-    softmax along an axis that is not the last runs a kernel that takes
-    seconds at a million tokens.  The row max is a constant (it cancels)."""
-    x = x.float()
-    e = torch.exp(x - x.amax(dim=dim, keepdim=True).detach())
-    return e / e.sum(dim=dim, keepdim=True)
-
-
 def linear_attend(q, k, v, *, scale=None):
     """Linear attention (the upsampler's LinearAttention2D): q, k, v (b, h,
     n, d); q softmaxes over d, k over n, so the d×d context keeps the cost
@@ -125,28 +120,36 @@ def linear_attend(q, k, v, *, scale=None):
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qf = torch.softmax(q.float(), dim=-1) * scale
-    kf = _softmax_over(k, -2)
+    kf = klinattn.softmax_over(k, -2)
     context = torch.einsum("bhnd,bhne->bhde", kf.to(v.dtype), v)
     out = torch.einsum("bhde,bhnd->bhne", context.to(q.dtype),
                        qf.to(q.dtype))
     return out.to(q.dtype)
 
 
+def linear_attend_route(device, q, k, v, heads: int) -> str:
+    """Where ``linear_attend_fused`` sends a call: ``"autograd"`` (the plain
+    form, which autograd differentiates) where ``demod_route`` says so
+    (grad mode on and an operand that requires a gradient, the
+    forward-over-reverse surrogate, ``plain_reference()``) and on a CUDA
+    device where the kernel does not take the dtype or head dim; else
+    ``"plain"`` on a CPU device, ``"kernel"`` on a CUDA one.  Reads only the
+    grad mode, the operands and the head count."""
+    route = demod_route(device, q, k, v)
+    if route == "kernel" and not klinattn.kernel_takes(
+            q.dtype, q.shape[-1] // heads):
+        return "autograd"
+    return route
+
+
 def linear_attend_fused(q, k, v, *, heads: int, scale=None):
     """``linear_attend`` in the network's fused-heads layout: q, k, v (b, n,
-    H·d) → (b, n, H·d), each head a slice of the last dimension (a (b, n,
-    H, d) view), with no (b, H, n, d) copy."""
-    b, n, hd = q.shape
-    assert hd % heads == 0, (hd, heads)
-    d = hd // heads
+    H·d) → (b, n, H·d), each head a slice of the last dimension: the plain
+    form where autograd may differentiate the call, else the kernel (the
+    plain form on a CPU tensor)."""
     if scale is None:
-        scale = d ** -0.5
-    qf = torch.softmax(q.float().reshape(b, n, heads, d), dim=-1) * scale
-    kf = _softmax_over(k.reshape(b, n, heads, d), 1)
-    vh = v.reshape(b, n, heads, d)
-    # (b, n, H, d)ᵀ(b, n, H, e) → (b, H, d, e): contraction over n
-    context = torch.einsum("bnhd,bnhe->bhde", kf.to(v.dtype), vh)
-    # (b, n, H, d)·(b, H, d, e) → (b, n, H, e)
-    out = torch.einsum("bnhd,bhde->bnhe", qf.to(q.dtype),
-                       context.to(q.dtype))
-    return out.reshape(b, n, hd).to(q.dtype)
+        scale = (q.shape[-1] // heads) ** -0.5
+    if linear_attend_route(q.device, q, k, v, heads) == "autograd":
+        return klinattn.linear_attend_plain(q, k, v, heads=heads,
+                                            scale=scale)
+    return klinattn.linear_attend_fwd(q, k, v, heads=heads, scale=scale)

@@ -81,6 +81,7 @@ KERNELS = (
     "flash_attention_hv_bwd",
     "flash_attention_hv_bwd_tc",
     "demod_scale",
+    "linear_attention",
 )
 
 

@@ -9,11 +9,13 @@ the kernel entries launch nothing (their ``.launches`` stay 0), but the
 autograd Functions call the same dispatchers, which take the plain
 versions there; each dispatcher is wrapped here, at the name the Functions
 call it by, with a counter (the demodulation's, ``demod_scale_fwd``, at
-the name ``ops.demod_scale`` calls it by: every call that needs no
-gradient).  At these sizes every dispatch is one launch
-on the card (two banks, batches far below the grid limits), and every D
-attention is flash-sized (at least 256 queries and 128 keys), so that the
-forward-over-reverse R1 reaches K6a-K7b as at full width."""
+the name ``ops.demod_scale`` calls it by, and the linear attention's,
+``linear_attend_fwd``, at the name ``ops.linear_attend_fused`` calls it
+by: every call that needs no gradient).  At these sizes every dispatch
+is one launch on the card (two banks, batches far below the grid
+limits), and every D attention is flash-sized (at least 256 queries and
+128 keys), so that the forward-over-reverse R1 reaches K6a-K7b as at full
+width."""
 
 import importlib.util
 import pathlib
@@ -26,11 +28,15 @@ torch = pytest.importorskip("torch")
 from gigagan_tpu_torch import GigaGAN  # noqa: E402
 from gigagan_tpu_torch.models import clip as tclip  # noqa: E402
 from gigagan_tpu_torch.models.layers import AdaptiveConv  # noqa: E402
-from gigagan_tpu_torch.models.unet_upsampler import Attention2D  # noqa: E402
+from gigagan_tpu_torch.models.unet_upsampler import (  # noqa: E402
+    Attention2D,
+    LinearAttention2D,
+)
 from gigagan_tpu_torch.ops.kernels import adaptive_conv as k1  # noqa: E402
 from gigagan_tpu_torch.ops.kernels import demod as kdemod  # noqa: E402
 from gigagan_tpu_torch.ops.kernels import flash_attention_hv as k7  # noqa
 from gigagan_tpu_torch.ops.kernels import flash_attention_so as so  # noqa
+from gigagan_tpu_torch.ops.kernels import linear_attention as kla  # noqa
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -48,7 +54,8 @@ DISPATCHERS = {"k1": (k1, "adaptive_conv_fwd"),
                "k6b": (k7, "flash_attention_bwd"),
                "k7a": (k7, "flash_attention_hv_jvp"),
                "k7b": (k7, "flash_attention_hv_bwd"),
-               "demod": (kdemod, "demod_scale_fwd")}
+               "demod": (kdemod, "demod_scale_fwd"),
+               "linattn": (kla, "linear_attend_fwd")}
 
 BATCH = 2
 # the quickstart's structure at 32px: G's 9 adaptive convs and one
@@ -95,9 +102,10 @@ def counted(monkeypatch):
     """{kernel: calls of its dispatcher} while the test runs."""
     calls = dict.fromkeys(chip_smoke.KERNEL_NAMES, 0)
     for kname, (mod, name) in DISPATCHERS.items():
-        def call(*operands, _kname=kname, _dispatch=getattr(mod, name)):
+        def call(*operands, _kname=kname, _dispatch=getattr(mod, name),
+                 **options):
             calls[_kname] += 1
-            return _dispatch(*operands)
+            return _dispatch(*operands, **options)
         monkeypatch.setattr(mod, name, call)
     return calls
 
@@ -215,6 +223,8 @@ def test_expected_upsampler_launches(counted):
     assert chip_smoke.upsampler_structure(UP_G) == (
         sum(isinstance(m, AdaptiveConv) for m in gan.G.modules()),
         sum(isinstance(m, Attention2D) for m in gan.G.modules()))
+    assert chip_smoke.upsampler_linear_attentions(UP_G) == sum(
+        isinstance(m, LinearAttention2D) for m in gan.G.modules())
     exp = chip_smoke.expected_upsampler_launches(UP_G, d_attention(gan))
     batch = reals(BATCH)
 
@@ -234,18 +244,24 @@ def test_expected_upsampler_launches(counted):
 @pytest.mark.parametrize("net", ["quickstart", "upsampler"])
 def test_generate_launches(net, counted):
     """An eager ``generate`` (the CPU never captures a graph): K1 and the
-    demodulation once per G conv, no backward kernel."""
+    demodulation once per G conv, the linear-attention kernel once per
+    linear attention (none in the quickstart), no backward kernel."""
     if net == "quickstart":
         gan = GigaGAN(generator=G_CFG, device="cpu", seed=0)
         n_convs = len(chip_smoke.path_convs(G_CFG))
+        n_linear = 0
         got = launches(counted, lambda: gan.generate(batch_size=BATCH,
                                                      seed=3))
     else:
         gan = GigaGAN(generator=UP_G, discriminator=D_CFG,
                       train_upsampler=True, device="cpu", seed=0)
         n_convs = chip_smoke.upsampler_structure(UP_G)[0]
+        n_linear = chip_smoke.upsampler_linear_attentions(UP_G)
+        assert n_linear == sum(isinstance(m, LinearAttention2D)
+                               for m in gan.G_ema.modules()) > 0
         got = launches(counted, lambda: gan.generate(
             reals(BATCH, UP_G["input_image_size"]), seed=3))
     assert got["k1"] == got["demod"] == n_convs
+    assert got["linattn"] == n_linear
     assert not any(got[k] for k in ("k2", "k4", "k5", "k6a", "k6b", "k7a",
                                     "k7b"))

@@ -298,7 +298,8 @@ def test_the_cell_resolves():
     layer = {m["name"] for m in cell.per_layer}
     assert layer == {"launches.sample", "mfu.sample", "device_idle.sample",
                      "step_idle.sample", "syncs.sample",
-                     "graph_share.sample", "demod_launches.sample", *NEW}
+                     "graph_share.sample", "demod_launches.sample",
+                     "linattn_launches.sample", *NEW}
     for m in cell.per_layer:
         assert callable(harness.reader(m["name"]).read)
         if m["name"] in NEW:
